@@ -13,7 +13,9 @@ each of which exits non-zero when it fails:
 2. build: ``nvcc`` builds the kernels of
    ``spotlight_tpu_torch/ops/kernels/csrc`` (for ``sm_90a``).
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
-   card, on seeded inputs at D=64 over N=200,000 items, bit for bit; the
+   card, on seeded inputs at D=64 over N=200,000 items, bit for bit (the
+   mixture kernels: M=4, B=2,048 for K4 and B=256 for K1 and K2, counts
+   and ids exactly, scores within 2 ulp, the largest gap printed); the
    median time of each, the plain version's, one PyTorch call's where one
    computes the same function, and the card's bound for the work.
 4. slice: the implicit-MF serving path at full width: 50,000 users x
@@ -26,6 +28,19 @@ each of which exits non-zero when it fails:
 5. profile: a warm call of each metric on the host clock, then where the
    device time of one more call goes, by kernel, and the host's
    preprocessing time.
+6. sequences: the mixture-of-tastes serving path at full width, the
+   repo's ``mixture_catalog_eval_200k`` (``scripts/bench_suite.py``):
+   M=4, D=64, 200,000 items, 2,048 test sequences of length 50;
+   ``predict``, ``sequence_mrr_score`` with and without
+   ``exclude_preceding`` and ``sequence_precision_recall_score`` at k=10,
+   with the launch counters zeroed just before and read just after; the
+   mixture K1 and K2 once more at the main path's batch of 2,048 on its
+   own operands, against their plain versions in 256-sequence slices; on
+   the first 256 sequences the streaming path against the materialize
+   path, each rank that differs printed and held to the exact rank of the
+   plain catalogue pass; then a duplicated-row tie check (every rank
+   k + 0.5), and where the device time of one more ``sequence_mrr_score``
+   goes.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -47,6 +62,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 FP32_OPS_PER_S = 67e12
 HBM_BYTES_PER_S = 3.35e12
 
+#: Where the kernel checks put their operands (the card).
+DEVICE = 'cuda'
 D = 64
 NUM_USERS = 50_000
 NUM_ITEMS = 200_000
@@ -60,6 +77,21 @@ CHECK_USERS = 2_048
 MAIN_TOPK_K = 34
 KERNEL_REPS = 20
 PLAIN_REPS = 5
+
+#: The sequence slice: mixture_catalog_eval_200k.
+MIXTURES = 4
+SEQ_ROWS = 4_096
+SEQ_LENGTH = 50
+SEQ_EVAL = 2_048
+SEQ_CHECK = 256
+SEQ_K = 10
+#: Users of a plain mixture pass: it holds several (N, B) float32
+#: temporaries, 205 MB each at B=256, so larger batches run in slices.
+MIX_BATCH = 256
+#: Largest gap between the materialize path's scores and the plain
+#: catalogue pass's, relative to the row's largest score: float32
+#: rounding of other summation orders, far above it a wrong score.
+SCORE_RTOL = 1e-5
 
 
 def log(**fields):
@@ -89,6 +121,15 @@ def bound(ops, nbytes):
     return (t_ops, 'operations') if t_ops >= t_bytes else (t_bytes, 'bytes')
 
 
+def ulp_gap(torch, a, b):
+    """Largest distance in units in the last place between two float32
+    tensors of finite values (0 when they are bit-equal)."""
+    def ordered(x):
+        bits = x.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(bits < 0, -(bits & 0x7fffffff), bits)
+    return int((ordered(a) - ordered(b)).abs().max()) if a.numel() else 0
+
+
 def card_line():
     out = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
@@ -100,7 +141,7 @@ def card_line():
 # -- phase 3: kernels against their plain versions ---------------------------
 
 def kernel_inputs(torch, batch, generator):
-    dev = 'cuda'
+    dev = DEVICE
     users = torch.randn(batch, D, generator=generator, device=dev) / D ** .5
     items = torch.randn(NUM_ITEMS, D, generator=generator,
                         device=dev) / D ** .5
@@ -225,6 +266,132 @@ def check_topk_kernel(torch, card, generator):
         del users, items, bias, scores, ids, p_scores, p_ids
         torch.cuda.empty_cache()
     return main
+
+
+def mixture_ops(batch, num_items, mixtures=MIXTURES):
+    """float32 operations of mixture scores for batch x num_items pairs:
+    2M dots of D multiplies and adds, then the combine (M - 1 maxima, M
+    subtractions, M expf counted as one operation each, M - 1 adds to the
+    denominator, M multiplies and M - 1 adds, a division and the bias)."""
+    return batch * num_items * (2 * 2 * mixtures * D + 6 * mixtures)
+
+
+def mixture_entry(torch, card, name, src, replaces, shape, fn, plain_fn,
+                  ops, nbytes, gap, err, ms=None):
+    """A mixture kernel's case: its median time over KERNEL_REPS launches
+    (or ``ms``, for K3, which has no launch of its own), its plain
+    version's, the bound; printed, and returned as a kernel-table entry."""
+    bound_ms, bound_by = bound(ops, nbytes)
+    out = dict(
+        name=name, route='cuda',
+        source='spotlight_tpu_torch/ops/kernels/csrc/' + src,
+        replaces=replaces, shape=shape, max_abs_err=err, max_ulp=gap,
+        ms=median_ms(torch, fn, KERNEL_REPS) if ms is None else ms,
+        plain_ms=median_ms(torch, plain_fn, PLAIN_REPS),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    log(kernel_case=out, card=card)
+    return out
+
+
+def check_mixture_kernels(torch, card, generator):
+    """K4 at the main path's widths (B=2048 with T=1, the targets, and
+    T=49, the ``exclude_preceding`` prefixes), and K1 and K2 with mixture
+    scoring at B=256 (T=1 and k=10, and the k=59 of a P@10 fetch over 49
+    excluded ids).  Counts and ids must be equal, scores within 2 ulp.
+    Returns K4's kernel-table entry; those of K1, K2 and K3 with mixture
+    scoring come from the main path's operands (check_sequence_kernels)."""
+    from spotlight_tpu_torch.ops.kernels import ranking, topk
+
+    width = 2 * MIXTURES * D
+
+    def operands(batch):
+        users, items, bias = kernel_inputs(torch, batch, generator)
+        users = torch.randn(batch, width, generator=generator,
+                            device=DEVICE) / D ** .5
+        return users, items, bias
+
+    def entry(*args):
+        return mixture_entry(torch, card, *args)
+
+    entries = {}
+    users, items, bias = operands(2048)
+    for width_t in (1, 49):
+        ids = torch.randint(1, NUM_ITEMS, (2048, width_t),
+                            generator=generator, device=DEVICE)
+        got = ranking.matched_candidate_scores(users, items, bias, ids,
+                                               MIXTURES)
+        want = ranking.matched_candidate_scores_plain(users, items, bias,
+                                                      ids, MIXTURES)
+        gap = ulp_gap(torch, got, want)
+        if gap > 2:
+            raise AssertionError('matched_candidate_scores is {} ulp from '
+                                 'its plain version'.format(gap))
+        pairs = 2048 * width_t
+        case = entry(
+            'matched_candidate_scores', 'ranking.cu',
+            'spotlight_tpu/ops/kernels/ranking.py:527',
+            'B=2048 N={} D={} M={} T={}'.format(NUM_ITEMS, D, MIXTURES,
+                                                width_t),
+            lambda: ranking.matched_candidate_scores(users, items, bias,
+                                                     ids, MIXTURES),
+            lambda: ranking.matched_candidate_scores_plain(
+                users, items, bias, ids, MIXTURES),
+            mixture_ops(pairs, 1),
+            4 * 2048 * width + pairs * (4 * D + 12), gap,
+            float((got - want).abs().max()))
+        if width_t == 1:
+            entries['matched_candidate_scores'] = case
+    del users, items, bias
+
+    users, items, bias = operands(MIX_BATCH)
+    ids = torch.randint(1, NUM_ITEMS, (MIX_BATCH, 1), generator=generator,
+                        device=DEVICE)
+    ts = ranking.matched_candidate_scores(users, items, bias, ids, MIXTURES)
+    ts_plain = ranking.matched_candidate_scores_plain(users, items, bias,
+                                                      ids, MIXTURES)
+    weights = ranking.rank_weights(users, items, bias, ts, MIXTURES)
+    plain = ranking.rank_weights_plain(users, items, bias, ts_plain,
+                                       MIXTURES)
+    if not torch.equal(weights, plain):
+        raise AssertionError('mixture rank_weights differs from its plain '
+                             'version: {} of {} weights'.format(
+                                 int((weights != plain).sum()),
+                                 weights.numel()))
+    if not bool((weights >= 0.5).all()):
+        raise AssertionError('a mixture target lost its self-tie')
+    shape = 'B={} N={} D={} M={}'.format(MIX_BATCH, NUM_ITEMS, D, MIXTURES)
+    scoring = mixture_ops(MIX_BATCH, NUM_ITEMS)
+    table_bytes = 4 * NUM_ITEMS * (D + 1) + 4 * MIX_BATCH * width
+    entry('rank_weights (mixture)', 'ranking.cu',
+          'spotlight_tpu/ops/kernels/ranking.py:107', shape + ' T=1',
+          lambda: ranking.rank_weights(users, items, bias, ts, MIXTURES),
+          lambda: ranking.rank_weights_plain(users, items, bias, ts_plain,
+                                             MIXTURES),
+          scoring + 2 * MIX_BATCH * NUM_ITEMS, table_bytes + 8 * MIX_BATCH,
+          0, 0.0)
+
+    for k in (SEQ_K, 59):
+        scores, top = topk.streaming_topk(users, items, bias, k, MIXTURES)
+        p_scores, p_top = topk.streaming_topk_plain(users, items, bias, k,
+                                                    MIXTURES)
+        gap = ulp_gap(torch, scores, p_scores)
+        if not torch.equal(top, p_top) or gap > 2:
+            raise AssertionError(
+                'mixture streaming_topk differs from its plain version at '
+                'k={}: {} ids, {} ulp'.format(k, int((top != p_top).sum()),
+                                              gap))
+        entry('streaming_topk (mixture)', 'topk.cu',
+              'spotlight_tpu/ops/kernels/topk.py:62',
+              shape + ' k={}'.format(k),
+              lambda: topk.streaming_topk(users, items, bias, k, MIXTURES),
+              lambda: topk.streaming_topk_plain(users, items, bias, k,
+                                                MIXTURES),
+              scoring + MIX_BATCH * NUM_ITEMS,
+              table_bytes + 8 * MIX_BATCH * k, gap,
+              float((scores - p_scores).abs().max()))
+    del users, items, bias, ts, ts_plain, weights, plain
+    torch.cuda.empty_cache()
+    return entries
 
 
 # -- phase 4: the slice at full width ----------------------------------------
@@ -389,6 +556,304 @@ def run_slice(torch, card):
     return launches, model, test, train, heavy
 
 
+# -- phase 6: the sequence slice at full width -------------------------------
+
+def sequence_counters():
+    from spotlight_tpu_torch.ops.kernels import ranking, topk
+
+    return {'rank_weights (mixture)': ranking.MIXTURE_RANK_WEIGHTS_LAUNCHES,
+            'streaming_topk (mixture)':
+                topk.MIXTURE_STREAMING_TOPK_LAUNCHES,
+            'matched_candidate_scores': ranking.CANDIDATE_SCORES_LAUNCHES}
+
+
+def sequence_model():
+    """The untrained mixture model of mixture_catalog_eval_200k, seeded
+    (its item biases are zero), and the sequences."""
+    from spotlight_tpu_torch.data import SequenceInteractions
+    from spotlight_tpu_torch.sequence import ImplicitSequenceModel
+
+    sequences = np.random.RandomState(42).randint(
+        1, NUM_ITEMS, (SEQ_ROWS, SEQ_LENGTH)).astype(np.int32)
+    model = ImplicitSequenceModel(loss='bpr', representation='mixture',
+                                  embedding_dim=D,
+                                  random_state=np.random.RandomState(0))
+    model._initialize(SequenceInteractions(sequences, num_items=NUM_ITEMS))
+    return model, sequences
+
+
+def run_sequence_slice(torch, card):
+    """Returns (launch counts of the main path, model, test set)."""
+    from spotlight_tpu_torch import evaluation
+    from spotlight_tpu_torch.data import SequenceInteractions
+    from spotlight_tpu_torch.evaluation import (
+        sequence_mrr_score, sequence_precision_recall_score)
+    from spotlight_tpu_torch.ops.kernels import ranking, topk
+
+    model, sequences = sequence_model()
+    if model._net.num_mixtures != MIXTURES:
+        raise AssertionError('the mixture model has {} tastes'.format(
+            model._net.num_mixtures))
+    test = SequenceInteractions(sequences[:SEQ_EVAL], num_items=NUM_ITEMS)
+
+    # The main path, with the launch counters zeroed just before it.
+    torch.cuda.synchronize()
+    ranking.MIXTURE_RANK_WEIGHTS_LAUNCHES = 0
+    ranking.CANDIDATE_SCORES_LAUNCHES = 0
+    topk.MIXTURE_STREAMING_TOPK_LAUNCHES = 0
+    seconds = {}
+    start = time.perf_counter()
+    scores = model.predict(sequences[0])
+    seconds['predict'] = time.perf_counter() - start
+    start = time.perf_counter()
+    mrr = sequence_mrr_score(model, test)
+    seconds['sequence_mrr_score'] = time.perf_counter() - start
+    start = time.perf_counter()
+    mrr_ex = sequence_mrr_score(model, test, exclude_preceding=True)
+    seconds['sequence_mrr_score exclude_preceding'] = (time.perf_counter()
+                                                       - start)
+    start = time.perf_counter()
+    precision, recall = sequence_precision_recall_score(model, test,
+                                                        k=SEQ_K)
+    seconds['sequence_precision_recall_score'] = (time.perf_counter()
+                                                  - start)
+    launches = sequence_counters()
+    log(sequence_path_launches=launches)
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError('{} never launched on the sequence path'
+                                 .format(name))
+
+    # predict against the plain K3 scores of the same representation.
+    final, items, bias, mixtures = model._rank_factors_sequences(
+        sequences[:1])
+    want = ranking.plain_mixture_scores(final, items, bias, mixtures)[:, 0]
+    if scores.shape != (NUM_ITEMS,) or not np.all(np.isfinite(scores)):
+        raise AssertionError('predict: bad output {}'.format(scores.shape))
+    np.testing.assert_allclose(scores, want.cpu().numpy(), rtol=1e-5,
+                               atol=1e-6)
+    for name, values in (('sequence_mrr_score', mrr),
+                         ('sequence_mrr_score exclude_preceding', mrr_ex)):
+        if values.shape != (SEQ_EVAL,) or not (
+                np.all(values > 0) and np.all(values <= 1)):
+            raise AssertionError('{}: bad output'.format(name))
+    for name, values in (('precision', precision), ('recall', recall)):
+        if values.shape != (SEQ_EVAL,) or not (
+                np.all(values >= 0) and np.all(values <= 1)):
+            raise AssertionError('{}: bad output'.format(name))
+
+    calls = {
+        'sequence_mrr_score': lambda: sequence_mrr_score(model, test),
+        'sequence_mrr_score exclude_preceding': lambda: sequence_mrr_score(
+            model, test, exclude_preceding=True),
+        'sequence_precision_recall_score':
+            lambda: sequence_precision_recall_score(model, test, k=SEQ_K)}
+    for name, call in calls.items():
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        call()
+        warm_s = time.perf_counter() - start
+        first_s = seconds[name]
+        log(sequence_slice=name, sequences=SEQ_EVAL, first_s=first_s,
+            warm_s=warm_s, sequences_per_s=SEQ_EVAL / warm_s,
+            g_item_scores_per_s=SEQ_EVAL * NUM_ITEMS / warm_s / 1e9,
+            card=card)
+    log(sequence_slice='predict', seconds=seconds['predict'],
+        mean_mrr=float(mrr.mean()), mean_mrr_exclude=float(mrr_ex.mean()),
+        mean_precision=float(precision.mean()), card=card)
+
+    # Streaming against materialize on the first sequences.  The two sum
+    # in other orders, so a rank may differ at a near tie: each rank that
+    # differs is printed, with two witnesses.  Every streaming rank must be
+    # the exact average-tie rank of the plain catalogue pass (bit-equal to
+    # the kernels), and the materialize path's scores must lie within
+    # SCORE_RTOL of the plain pass's, so an item the two paths order
+    # differently against a target lies within that gap of it.
+    sub = SequenceInteractions(sequences[:SEQ_CHECK], num_items=NUM_ITEMS)
+    prefixes = sub.sequences[:, :-1]
+    targets = torch.as_tensor(sub.sequences[:, -1:].astype(np.int64),
+                              device=DEVICE)
+    reprs, items, bias, mixtures = model._rank_factors_sequences(prefixes)
+    exact = ranking.plain_mixture_scores(reprs, items, bias,
+                                         mixtures).T.contiguous()
+    full = model._score_catalog_sequences(prefixes)
+    scale = exact.abs().amax(dim=1, keepdim=True)
+    drift = float(((full - exact).abs() / scale).max())
+    if drift > SCORE_RTOL:
+        raise AssertionError('the materialize path\'s scores are {} (of the '
+                             'row\'s largest) from the plain pass\'s'
+                             .format(drift))
+    everywhere = torch.ones_like(targets, dtype=torch.bool)
+    prefix_ids = torch.as_tensor(prefixes.astype(np.int64), device=DEVICE)
+    for exclude in (False, True):
+        streamed = sequence_mrr_score(model, sub, exclude_preceding=exclude)
+        materialized = sequence_mrr_score(model, sub, streaming=False,
+                                          exclude_preceding=exclude)
+        witness, seen = exact, full
+        if exclude:
+            witness = evaluation._mask_scores(exact, prefix_ids)
+            seen = evaluation._mask_scores(full, prefix_ids)
+        exact_rr = evaluation._reciprocal_ranks(witness, targets,
+                                                everywhere).cpu().numpy()
+        np.testing.assert_allclose(streamed, exact_rr, rtol=1e-6, atol=0)
+        differ = np.flatnonzero(np.abs(streamed - materialized)
+                                > 1e-6 * materialized)
+        ties = []
+        for b in differ.tolist():
+            own = witness[b] - witness[b, targets[b, 0]]
+            mat = seen[b] - seen[b, targets[b, 0]]
+            flipped = torch.sign(own) != torch.sign(mat)
+            ties.append(dict(
+                sequence=b, streamed_rank=float(1 / streamed[b]),
+                materialized_rank=float(1 / materialized[b]),
+                items_ordered_apart=int(flipped.sum()),
+                widest_gap_of_scale=float(own[flipped].abs().max()
+                                          / scale[b, 0])))
+        log(check='sequence streaming vs materialize',
+            exclude_preceding=exclude, sequences=SEQ_CHECK,
+            streaming_equals_exact_rank=True, score_drift_of_scale=drift,
+            ranks_apart=len(ties), near_ties=ties)
+    p_s, r_s = sequence_precision_recall_score(model, sub, k=SEQ_K)
+    p_m, r_m = sequence_precision_recall_score(model, sub, k=SEQ_K,
+                                               streaming=False)
+    log(check='sequence P@10 streaming == materialize', sequences=SEQ_CHECK,
+        precision_apart=np.flatnonzero(p_s != p_m).tolist())
+    np.testing.assert_array_equal(p_s, p_m)
+    np.testing.assert_array_equal(r_s, r_m)
+    return launches, model, test
+
+
+def sliced(fn, *rows):
+    """``fn`` over MIX_BATCH-row slices of the row operands, in order."""
+    return [fn(*(r[start:start + MIX_BATCH] for r in rows))
+            for start in range(0, rows[0].shape[0], MIX_BATCH)]
+
+
+def check_sequence_kernels(torch, card, model, test):
+    """K1 and K2 with mixture scoring, once each on the main path's own
+    operands at its batch of 2,048 sequences (the prefixes of
+    ``sequence_mrr_score`` and of ``sequence_precision_recall_score`` at
+    k=10), so the launch grid is the one the main path ran; their plain
+    versions in MIX_BATCH-sequence slices.  Counts and ids must be equal,
+    scores within 2 ulp.  K3, which has no launch of its own, is held by
+    K4's target scores and K2's top-k scores against the plain catalogue
+    pass.  Returns the kernel-table entries of K1, K2 and K3 with mixture
+    scoring."""
+    from spotlight_tpu_torch.ops.kernels import ranking, topk
+
+    reprs, items, bias, mixtures = model._rank_factors_sequences(
+        test.sequences[:, :-1])
+    targets = torch.as_tensor(test.sequences[:, -1:].astype(np.int64),
+                              device=DEVICE)
+    batch = reprs.shape[0]
+    shape = 'B={} N={} D={} M={}'.format(batch, NUM_ITEMS, D, mixtures)
+    scoring = mixture_ops(batch, NUM_ITEMS, mixtures)
+    table_bytes = 4 * NUM_ITEMS * (D + 1) + 4 * reprs.numel()
+
+    def catalogue_at(users, ids):
+        return torch.gather(ranking.plain_mixture_scores(
+            users, items, bias, mixtures).T, 1, ids.long())
+
+    ts = ranking.matched_candidate_scores(reprs, items, bias, targets,
+                                          mixtures)
+    k3_gap = ulp_gap(torch, ts, torch.cat(sliced(catalogue_at, reprs,
+                                                 targets)))
+    weights = ranking.rank_weights(reprs, items, bias, ts, mixtures)
+    plain = torch.cat(sliced(
+        lambda u, t: ranking.rank_weights_plain(u, items, bias, t,
+                                                mixtures), reprs, ts))
+    if not torch.equal(weights, plain) or k3_gap > 2:
+        raise AssertionError(
+            'mixture rank_weights at B={} differs from its plain version: '
+            '{} weights, K4 {} ulp from the catalogue pass'.format(
+                batch, int((weights != plain).sum()), k3_gap))
+    if not bool((weights >= 0.5).all()):
+        raise AssertionError('a mixture target lost its self-tie')
+    k1m = mixture_entry(
+        torch, card, 'rank_weights (mixture)', 'ranking.cu',
+        'spotlight_tpu/ops/kernels/ranking.py:107', shape + ' T=1',
+        lambda: ranking.rank_weights(reprs, items, bias, ts, mixtures),
+        lambda: sliced(lambda u, t: ranking.rank_weights_plain(
+            u, items, bias, t, mixtures), reprs, ts),
+        scoring + 2 * batch * NUM_ITEMS, table_bytes + 8 * batch, 0, 0.0)
+
+    reprs_k = model._rank_factors_sequences(test.sequences[:, :-SEQ_K])[0]
+    scores, top = topk.streaming_topk(reprs_k, items, bias, SEQ_K, mixtures)
+    pairs = sliced(lambda u: topk.streaming_topk_plain(u, items, bias, SEQ_K,
+                                                       mixtures), reprs_k)
+    p_scores = torch.cat([p[0] for p in pairs])
+    p_top = torch.cat([p[1] for p in pairs])
+    # The plain top-k scores are the plain catalogue pass's.
+    gap = ulp_gap(torch, scores, p_scores)
+    if not torch.equal(top, p_top) or gap > 2:
+        raise AssertionError(
+            'mixture streaming_topk at B={} k={} differs from its plain '
+            'version: {} ids, {} ulp'.format(batch, SEQ_K,
+                                             int((top != p_top).sum()), gap))
+    k2m = mixture_entry(
+        torch, card, 'streaming_topk (mixture)', 'topk.cu',
+        'spotlight_tpu/ops/kernels/topk.py:62', shape + ' k={}'.format(SEQ_K),
+        lambda: topk.streaming_topk(reprs_k, items, bias, SEQ_K, mixtures),
+        lambda: sliced(lambda u: topk.streaming_topk_plain(
+            u, items, bias, SEQ_K, mixtures), reprs_k),
+        scoring + batch * NUM_ITEMS, table_bytes + 8 * batch * SEQ_K, gap,
+        float((scores - p_scores).abs().max()))
+
+    # K3 runs inside K1, K2 and K4 and has no launch of its own: its time
+    # is the T=1 rank pass's, whose work it is.
+    k3 = mixture_entry(
+        torch, card, 'mixture_score', 'common.cuh',
+        'spotlight_tpu/ops/kernels/ranking.py:78', shape, None,
+        lambda: sliced(lambda u: ranking.plain_mixture_scores(
+            u, items, bias, mixtures), reprs),
+        scoring, table_bytes + 4 * batch * NUM_ITEMS, max(k3_gap, gap), 0.0,
+        ms=k1m['ms'])
+    torch.cuda.empty_cache()
+    return {'rank_weights (mixture)': k1m, 'streaming_topk (mixture)': k2m,
+            'mixture_score': k3}
+
+
+def check_duplicated_row_tie(torch, card, model, test):
+    """Item 6 becomes a copy of item 5's fused row and 5 the target of
+    every sequence: each streaming rank must equal the exact average-tie
+    rank that the plain catalogue pass (bit-equal to the kernels) gives,
+    with items 5 and 6 in one tie.  That rank is k + 0.5 unless a third
+    item's score happens to equal the pair's exactly, which 200,000
+    float32 scores make likely for a few of 256 sequences; those are
+    counted and printed."""
+    from spotlight_tpu_torch.data import SequenceInteractions
+    from spotlight_tpu_torch.evaluation import sequence_mrr_score
+    from spotlight_tpu_torch.ops.kernels import ranking
+
+    saved = {name: value.clone()
+             for name, value in model._net.state_dict().items()}
+    state = {name: value.clone() for name, value in saved.items()}
+    table = state['item_embeddings.weight']
+    table[6] = table[5]
+    model._load_params(state)
+    doctored = test.sequences[:SEQ_CHECK].copy()
+    doctored[:, -1] = 5
+    mrr = sequence_mrr_score(model, SequenceInteractions(
+        doctored, num_items=NUM_ITEMS))
+    reprs, items, bias, mixtures = model._rank_factors_sequences(
+        doctored[:, :-1])
+    scores = ranking.plain_mixture_scores(reprs, items, bias, mixtures)
+    target = scores[5]
+    if not torch.equal(scores[6], target):
+        raise AssertionError('the duplicated row scored apart')
+    greater = (scores > target).sum(dim=0).double()
+    equal = (scores == target).sum(dim=0).double()
+    want = (greater + (equal + 1) * 0.5).cpu().numpy()
+    model._load_params(saved)
+    np.testing.assert_allclose(1.0 / mrr.astype(np.float64), want,
+                               rtol=1e-6, atol=0)
+    extra = np.flatnonzero(equal.cpu().numpy() > 2)
+    log(check='duplicated row ties', sequences=SEQ_CHECK,
+        ranks_k_plus_half=int(np.sum(want % 1 == 0.5)),
+        extra_exact_ties=[(int(b), int(equal[b]), float(want[b]))
+                          for b in extra], card=card)
+
+
 # -- phase 5: where the time goes --------------------------------------------
 
 def profile_metrics(torch, card, model, test, train, heavy):
@@ -396,8 +861,6 @@ def profile_metrics(torch, card, model, test, train, heavy):
     are cached by now), then one call under the profiler for the device
     time by kernel.  Also the host's share: the CSR conversion and row
     padding that precede the first batch."""
-    from torch.profiler import ProfilerActivity, profile
-
     from spotlight_tpu_torch import evaluation
 
     start = time.perf_counter()
@@ -419,25 +882,34 @@ def profile_metrics(torch, card, model, test, train, heavy):
             users_per_s=EVAL_USERS / warm_s,
             g_item_ranks_per_s=EVAL_USERS * NUM_ITEMS / warm_s / 1e9,
             card=card)
+        profile_call(torch, card, metric, call)
 
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            start = time.perf_counter()
-            call()
-            wall_ms = (time.perf_counter() - start) * 1e3
-        by_kernel = {}
-        for event in prof.key_averages():
-            device_us = getattr(event, 'self_device_time_total', None)
-            if device_us is None:
-                device_us = getattr(event, 'self_cuda_time_total', 0)
-            if device_us > 0:
-                by_kernel[event.key[:80]] = device_us / 1e3
-        busy_ms = sum(by_kernel.values())
-        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
-        log(profile=metric, wall_ms=wall_ms, device_busy_ms=busy_ms,
-            device_idle_share=(1 - busy_ms / wall_ms) if busy_ms else None,
-            top_kernels_ms=dict(top), card=card)
+
+def profile_call(torch, card, name, call):
+    """Device time by kernel, and the idle share, of one call of ``call``
+    under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        call()
+        wall_ms = (time.perf_counter() - start) * 1e3
+    by_kernel = {}
+    for event in prof.key_averages():
+        device_us = getattr(event, 'self_device_time_total', None)
+        if device_us is None:
+            device_us = getattr(event, 'self_cuda_time_total', 0)
+        # An aten:: operator row repeats the device time of the kernels it
+        # launched, which have rows of their own.
+        if device_us > 0 and not event.key.startswith('aten::'):
+            by_kernel[event.key[:80]] = device_us / 1e3
+    busy_ms = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    log(profile=name, wall_ms=wall_ms, device_busy_ms=busy_ms,
+        device_idle_share=(1 - busy_ms / wall_ms) if busy_ms else None,
+        top_kernels_ms=dict(top), card=card)
 
 
 def main():
@@ -446,6 +918,7 @@ def main():
     if not torch.cuda.is_available():
         sys.exit('chip_smoke: no CUDA device is available')
     sys.path.insert(0, ROOT)
+    from spotlight_tpu_torch.evaluation import sequence_mrr_score
     from spotlight_tpu_torch.ops.kernels import _build
 
     card = card_line()
@@ -466,12 +939,26 @@ def main():
     generator.manual_seed(0)
     entries = check_rank_kernels(torch, card, generator)
     entries['streaming_topk'] = check_topk_kernel(torch, card, generator)
+    entries.update(check_mixture_kernels(torch, card, generator))
 
     launches, model, test, train, heavy = run_slice(torch, card)
     profile_metrics(torch, card, model, test, train, heavy)
+    del model, test, train, heavy
+    torch.cuda.empty_cache()
+
+    seq_launches, seq_model, seq_test = run_sequence_slice(torch, card)
+    launches.update(seq_launches)
+    entries.update(check_sequence_kernels(torch, card, seq_model, seq_test))
+    # K3 runs inside K1, K2 and K4 with mixture scoring.
+    launches['mixture_score'] = sum(seq_launches.values())
+    check_duplicated_row_tie(torch, card, seq_model, seq_test)
+    profile_call(torch, card, 'sequence_mrr_score',
+                 lambda: sequence_mrr_score(seq_model, seq_test))
 
     kernels = []
-    for name in ('rank_weights', 'matched_target_scores', 'streaming_topk'):
+    for name in ('rank_weights', 'matched_target_scores', 'streaming_topk',
+                 'rank_weights (mixture)', 'streaming_topk (mixture)',
+                 'mixture_score', 'matched_candidate_scores'):
         entry = dict(entries[name])
         entry['launches'] = launches[name]
         kernels.append(entry)

@@ -4,10 +4,12 @@ The port runs on an NVIDIA H100: plain tensor code is PyTorch, and every
 kernel the JAX package wrote in Pallas for the TPU becomes a kernel written
 by hand for Hopper (``ops/kernels/csrc``).  It mirrors the JAX package's
 module paths and is held against it; it never imports JAX or the JAX
-package.  Ported so far: the implicit matrix-factorisation serving and
-evaluation path (``Interactions``, ``BilinearNet``,
+package.  Ported so far: the serving and evaluation paths of implicit
+matrix factorisation (``Interactions``, ``BilinearNet``,
 ``ImplicitFactorizationModel.predict``, ``mrr_score`` and
-``precision_recall_score``).
+``precision_recall_score``) and of LSTM and mixture-of-tastes sequence
+models (``SequenceInteractions``, ``ImplicitSequenceModel.predict``,
+``sequence_mrr_score`` and ``sequence_precision_recall_score``).
 """
 
 __version__ = '0.1.0'
@@ -20,7 +22,9 @@ def __getattr__(name):
     homes = {
         'ImplicitFactorizationModel': 'spotlight_tpu_torch.factorization',
         'BilinearNet': 'spotlight_tpu_torch.factorization',
+        'ImplicitSequenceModel': 'spotlight_tpu_torch.sequence',
         'Interactions': 'spotlight_tpu_torch.data',
+        'SequenceInteractions': 'spotlight_tpu_torch.data',
     }
     if name in homes:
         return getattr(import_module(homes[name]), name)

@@ -1,15 +1,18 @@
 """Ranking evaluation metrics.
 
-Counterpart of ``spotlight_tpu/evaluation.py`` for ``mrr_score`` and
-``precision_recall_score``.  Users are processed in device batches:
+Counterpart of ``spotlight_tpu/evaluation.py`` for ``mrr_score``,
+``precision_recall_score``, ``sequence_mrr_score`` and
+``sequence_precision_recall_score``.  Users (or sequences) are processed in
+device batches:
 
 - the streaming path (the default, on every device) never materialises the
   (batch, num_items) score matrix: MRR counts ranks with
   :func:`~spotlight_tpu_torch.ops.kernels.ranking.rank_weights` and
   precision@k takes an over-fetched top-k from
-  :func:`~spotlight_tpu_torch.ops.kernels.topk.streaming_topk`.  On CUDA
-  tensors they launch the hand-written kernels; on CPU tensors their plain
-  PyTorch versions run;
+  :func:`~spotlight_tpu_torch.ops.kernels.topk.streaming_topk`, with dot
+  scoring or, for mixture-of-tastes sequence models, mixture scoring.  On
+  CUDA tensors they launch the hand-written kernels; on CPU tensors their
+  plain PyTorch versions run;
 - the materialize path (``streaming=False``) scores the batch against the
   catalogue with one matrix product, masks train items to -FLOAT_MAX and
   ranks by sorting, reproducing ``scipy.stats.rankdata``'s average ranks.
@@ -24,8 +27,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from spotlight_tpu_torch.ops.kernels.ranking import (matched_target_scores,
-                                                     rank_weights)
+from spotlight_tpu_torch.ops.kernels.ranking import (
+    matched_candidate_scores, matched_target_scores, rank_weights)
 from spotlight_tpu_torch.ops.kernels.topk import streaming_topk
 
 FLOAT_MAX = np.finfo(np.float32).max
@@ -133,23 +136,34 @@ def _mean_reciprocal(ranks, target_mask):
     return rr.sum(dim=1) / denom
 
 
+def _matched_scores(reprs, item_matrix, item_bias, ids, mixture):
+    """Scores of given item ids, bit-equal to the catalogue scores the
+    streaming kernels compare (dot or mixture scoring)."""
+    if mixture is None:
+        return matched_target_scores(reprs, item_matrix, item_bias, ids)
+    return matched_candidate_scores(reprs, item_matrix, item_bias, ids,
+                                    mixture)
+
+
 def _streaming_ranks_device(reprs, item_matrix, item_bias, targets,
-                            target_mask, train_rows):
+                            target_mask, train_rows, mixture=None):
     """Per-batch streaming MRR: matched target scores, the rank kernel,
-    then the train correction, all on the batch's device."""
+    then the train correction, all on the batch's device.  ``mixture`` is
+    the number of mixture components (None: dot scoring)."""
     num_items = item_matrix.shape[0]
     safe_targets = targets.clamp(0, num_items - 1)
     # The target scores bit-match the kernel's tile scores, so each
     # target's comparison with itself is an exact tie (weight 0.5).
-    target_scores = matched_target_scores(reprs, item_matrix, item_bias,
-                                          safe_targets)
-    weights = rank_weights(reprs, item_matrix, item_bias, target_scores)
+    target_scores = _matched_scores(reprs, item_matrix, item_bias,
+                                    safe_targets, mixture)
+    weights = rank_weights(reprs, item_matrix, item_bias, target_scores,
+                           mixture)
 
     if train_rows is not None:
         valid_train = train_rows >= 0
         safe_train = train_rows.clamp(0, num_items - 1)
-        train_scores = matched_target_scores(reprs, item_matrix, item_bias,
-                                             safe_train)
+        train_scores = _matched_scores(reprs, item_matrix, item_bias,
+                                       safe_train, mixture)
         ranks = _ranks_with_train_correction(
             weights, num_items, safe_targets, target_scores, valid_train,
             safe_train, train_scores)
@@ -158,20 +172,26 @@ def _streaming_ranks_device(reprs, item_matrix, item_bias, targets,
     return _mean_reciprocal(ranks, target_mask)
 
 
-def _rank_factors(model, user_batch):
-    factors_fn = getattr(model, '_rank_factors_users', None)
-    return None if factors_fn is None else factors_fn(user_batch)
+def _rank_factors(model, kind, inputs):
+    """``(reprs, item_matrix, item_bias, mixture)`` from the model's
+    ``_rank_factors_users`` (kind 'users', inputs user ids) or
+    ``_rank_factors_sequences`` (kind 'sequences', inputs prefixes), or
+    None when the model exposes no factors.  ``mixture`` is None for dot
+    scoring."""
+    factors_fn = getattr(model, '_rank_factors_' + kind, None)
+    return None if factors_fn is None else factors_fn(inputs)
 
 
-def _streaming_ranks(model, users, targets, target_mask, train_rows=None):
-    """Per-user mean reciprocal ranks through the rank kernel, or None when
-    the model exposes no dot-product factors."""
-    factors = _rank_factors(model, users)
+def _streaming_ranks(model, kind, inputs, targets, target_mask,
+                     train_rows=None):
+    """Per-row mean reciprocal ranks through the rank kernel, or None when
+    the model exposes no factors."""
+    factors = _rank_factors(model, kind, inputs)
     if factors is None:
         return None
-    reprs, item_matrix, item_bias = factors
+    reprs, item_matrix, item_bias, mixture = factors
     return _streaming_ranks_device(reprs, item_matrix, item_bias, targets,
-                                   target_mask, train_rows)
+                                   target_mask, train_rows, mixture)
 
 
 def _mask_scores(scores, mask_indices):
@@ -219,33 +239,34 @@ def _precision_recall_from_scores(scores, targets, target_mask, k_values):
 
 
 def _streaming_topk_device(reprs, item_matrix, item_bias, train_rows, k_max,
-                           fetch):
+                           fetch, mixture=None):
     """Per-batch top-k through the top-k kernel, then train compaction."""
-    _, top_ids = streaming_topk(reprs, item_matrix, item_bias, fetch)
+    _, top_ids = streaming_topk(reprs, item_matrix, item_bias, fetch,
+                                mixture)
     if train_rows is None:
         return top_ids
     return _compact_train_mask(top_ids, train_rows, k_max)
 
 
-def _streaming_topk_hits(model, users, k_max, train_rows=None):
+def _streaming_topk_hits(model, kind, inputs, k_max, train_rows=None):
     """(B, k_max) top unmasked item ids, or None when the model exposes no
-    dot-product factors.
+    factors.
 
     Train masking over-fetches: the kernel returns the top
     ``k_max + train width`` (a user has at most ``train width`` of their
     train items in any window), masked ids are compacted out and the first
     ``k_max`` survivors kept.
     """
-    factors = _rank_factors(model, users)
+    factors = _rank_factors(model, kind, inputs)
     if factors is None:
         return None
-    reprs, item_matrix, item_bias = factors
+    reprs, item_matrix, item_bias, mixture = factors
     num_items = item_matrix.shape[0]
     fetch = k_max if train_rows is None else k_max + train_rows.shape[1]
     # A fetch of the whole catalogue already holds every unmasked item.
     fetch = min(fetch, num_items)
     return _streaming_topk_device(reprs, item_matrix, item_bias, train_rows,
-                                  k_max, fetch)
+                                  k_max, fetch, mixture)
 
 
 def _score_user_batch(model, user_batch, device):
@@ -259,10 +280,11 @@ def _score_user_batch(model, user_batch, device):
         dtype=torch.float32, device=device)
 
 
-def _resolve_batch_size(batch_size, streaming, model):
+def _resolve_batch_size(batch_size, streaming, model, kind='users'):
     if batch_size is not None:
         return batch_size
-    if streaming and getattr(model, '_rank_factors_users', None) is not None:
+    if streaming and getattr(model, '_rank_factors_' + kind,
+                             None) is not None:
         return STREAMING_BATCH
     return MATERIALIZE_BATCH
 
@@ -326,7 +348,8 @@ def mrr_score(model, test, train=None, batch_size=None, streaming=True):
     for u, t, tr in _batches(users, targets, train_rows, batch_size,
                              device):
         if streaming:
-            rr = _streaming_ranks(model, u, t, t >= 0, train_rows=tr)
+            rr = _streaming_ranks(model, 'users', u, t, t >= 0,
+                                  train_rows=tr)
             if rr is not None:
                 mrrs.append(rr)
                 continue
@@ -377,7 +400,7 @@ def precision_recall_score(model, test, train=None, k=10, batch_size=None,
     for u, t, tr in _batches(users, targets, train_rows, batch_size,
                              device):
         if streaming:
-            top_ids = _streaming_topk_hits(model, u, max(k_values),
+            top_ids = _streaming_topk_hits(model, 'users', u, max(k_values),
                                            train_rows=tr)
             if top_ids is not None:
                 p, r = _precision_recall_from_topk(top_ids, t, t >= 0,
@@ -397,7 +420,156 @@ def precision_recall_score(model, test, train=None, k=10, batch_size=None,
         precision, recall = torch.stack(
             [torch.cat(precisions), torch.cat(recalls)]).cpu().numpy()
     else:
-        precision = recall = np.empty((0, len(k_values)))
+        # One column whatever k, as the JAX package returns.
+        precision = recall = np.empty((0, 1))
     if scalar_k:
         return precision[:, 0], recall[:, 0]
+    return precision, recall
+
+
+def _dedup_rows(matrix, pad_value=-1):
+    """Per-row unique values (sorted ascending), right-padded with
+    ``pad_value`` to the widest row's count.  (The JAX package rounds the
+    width up to a power of two to bound its compiled shapes; the results
+    do not depend on the width.)"""
+    if matrix.shape[0] == 0:
+        return np.full((0, 1), pad_value, dtype=matrix.dtype)
+    sorted_m = np.sort(matrix, axis=1)
+    first = np.ones_like(sorted_m, dtype=bool)
+    first[:, 1:] = sorted_m[:, 1:] != sorted_m[:, :-1]
+    width = max(int(first.sum(axis=1).max()), 1)
+    out = np.full((matrix.shape[0], width), pad_value, dtype=matrix.dtype)
+    dest = np.cumsum(first, axis=1) - 1
+    rows = np.broadcast_to(np.arange(matrix.shape[0])[:, None], matrix.shape)
+    out[rows[first], dest[first]] = sorted_m[first]
+    return out
+
+
+def _sequence_final_scores(model, prefixes, exclude_preceding, device):
+    """(B, num_items) next-item scores for a batch of sequence prefixes,
+    through the model's catalogue scorer, else through per-sequence
+    ``predict``; items of the prefix masked to -FLOAT_MAX on request."""
+    fn = getattr(model, '_score_catalog_sequences', None)
+    if fn is not None:
+        scores = fn(prefixes)
+    else:
+        scores = torch.as_tensor(np.stack([model.predict(p)
+                                           for p in prefixes]),
+                                 dtype=torch.float32, device=device)
+    if exclude_preceding:
+        scores = _mask_scores(scores, torch.as_tensor(
+            prefixes.astype(np.int64), device=device))
+    return scores
+
+
+def _sequence_batches(prefixes, targets, exclude_preceding, batch_size,
+                      device):
+    """(prefixes, targets, masked rows) per batch: targets and the
+    deduplicated prefix rows (when ``exclude_preceding``) on ``device``."""
+    for prefix, t in zip(_batched(prefixes, batch_size),
+                         _batched(targets, batch_size)):
+        masked = (torch.as_tensor(_dedup_rows(prefix.astype(np.int64)),
+                                  device=device)
+                  if exclude_preceding else None)
+        yield prefix, torch.as_tensor(t.astype(np.int64),
+                                      device=device), masked
+
+
+@torch.no_grad()
+def sequence_mrr_score(model, test, exclude_preceding=False, batch_size=None,
+                       streaming=True):
+    """MRR of each sequence's last element given all preceding elements.
+
+    Parameters
+    ----------
+    model : fitted sequence model
+    test : :class:`~spotlight_tpu_torch.data.interactions.SequenceInteractions`
+    exclude_preceding : bool, optional
+        Push items already in the prefix below every other item.  Like the
+        JAX package, this also excludes the padding id 0.
+    batch_size : int, optional
+        Sequences per batch (default :data:`STREAMING_BATCH` when
+        streaming, else :data:`MATERIALIZE_BATCH`).
+    streaming : bool, optional
+        Rank with the streaming kernels (default) or, if False, by sorting
+        a materialised score matrix.
+
+    Returns
+    -------
+    np.ndarray of shape (num_sequences,)
+    """
+    batch_size = _resolve_batch_size(batch_size, streaming, model,
+                                     'sequences')
+    device = _model_device(model)
+
+    mrrs = []
+    for prefix, t, masked in _sequence_batches(
+            test.sequences[:, :-1], test.sequences[:, -1:],
+            exclude_preceding, batch_size, device):
+        target_mask = torch.ones_like(t, dtype=torch.bool)
+        if streaming:
+            rr = _streaming_ranks(model, 'sequences', prefix, t, target_mask,
+                                  train_rows=masked)
+            if rr is not None:
+                mrrs.append(rr)
+                continue
+            streaming = False  # the model exposes no factors
+        scores = _sequence_final_scores(model, prefix, exclude_preceding,
+                                        device)
+        mrrs.append(_reciprocal_ranks(scores, t, target_mask))
+
+    return torch.cat(mrrs).cpu().numpy() if mrrs else np.array([])
+
+
+@torch.no_grad()
+def sequence_precision_recall_score(model, test, k=10,
+                                    exclude_preceding=False,
+                                    batch_size=None, streaming=True):
+    """Precision@k = recall@k of each sequence's last ``k`` elements given
+    all preceding elements.
+
+    Parameters
+    ----------
+    model : fitted sequence model
+    test : :class:`~spotlight_tpu_torch.data.interactions.SequenceInteractions`
+    k : int
+    exclude_preceding : bool, optional
+        Exclude items already in the prefix (and the padding id 0) from the
+        top k.
+    batch_size : int, optional
+    streaming : bool, optional
+
+    Returns
+    -------
+    (precision, recall) : np.ndarrays of shape (num_sequences,)
+    """
+    batch_size = _resolve_batch_size(batch_size, streaming, model,
+                                     'sequences')
+    device = _model_device(model)
+
+    precisions, recalls = [], []
+    for prefix, t, masked in _sequence_batches(
+            test.sequences[:, :-k], test.sequences[:, -k:],
+            exclude_preceding, batch_size, device):
+        target_mask = torch.ones_like(t, dtype=torch.bool)
+        if streaming:
+            top_ids = _streaming_topk_hits(model, 'sequences', prefix, k,
+                                           train_rows=masked)
+            if top_ids is not None:
+                p, r = _precision_recall_from_topk(top_ids, t, target_mask,
+                                                   (k,))
+                precisions.append(p[:, 0])
+                recalls.append(r[:, 0])
+                continue
+            streaming = False  # the model exposes no factors
+        scores = _sequence_final_scores(model, prefix, exclude_preceding,
+                                        device)
+        p, r = _precision_recall_from_scores(scores, t, target_mask, (k,))
+        precisions.append(p[:, 0])
+        recalls.append(r[:, 0])
+
+    if not precisions:
+        return np.array([]), np.array([])
+    precision, recall = torch.stack(
+        [torch.cat(precisions), torch.cat(recalls)]).cpu().numpy()
     return precision, recall

@@ -121,8 +121,9 @@ class _FactorizationBase:
 
     @torch.no_grad()
     def _rank_factors_users(self, user_batch):
-        """(user_reprs, item_matrix, item_bias) for the streaming kernels,
-        or None when the representation is not a dot product.
+        """(user_reprs, item_matrix, item_bias, None) for the streaming
+        kernels (None: dot scoring, no mixture), or None when the
+        representation is not a dot product.
 
         The user bias is dropped (it cannot change a rank).  The dense item
         matrix is cached per parameter version, so a metric pays the
@@ -136,7 +137,7 @@ class _FactorizationBase:
                      bias.contiguous())
             self._item_factor_cache = cache
         reprs = self._net.user_factors(self._ids(user_batch))
-        return reprs.float().contiguous(), cache[1], cache[2]
+        return reprs.float().contiguous(), cache[1], cache[2], None
 
     @torch.no_grad()
     def _score_catalog(self, user_batch):

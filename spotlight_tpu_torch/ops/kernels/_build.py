@@ -35,16 +35,19 @@ _I = ctypes.c_int
 _SIGNATURES = {
     'ranking': {
         'spotlight_rank_weights': (_I, [_P, _P, _I, _P, _P, _P, _I, _I, _I,
-                                        _I, _I, _P]),
+                                        _I, _I, _I, _P]),
         'spotlight_matched_scores': (_I, [_P, _P, _I, _P, _P, _P, _I, _I, _I,
                                           _P]),
-        'spotlight_rank_max_targets': (_I, []),
-        'spotlight_rank_smem_bytes': (ctypes.c_size_t, [_I]),
+        'spotlight_candidate_scores': (_I, [_P, _P, _I, _P, _P, _P, _I, _I,
+                                            _I, _I, _P]),
+        'spotlight_rank_max_targets': (_I, [_I]),
+        'spotlight_rank_block_users': (_I, [_I]),
+        'spotlight_rank_smem_bytes': (ctypes.c_size_t, [_I, _I]),
     },
     'topk': {
         'spotlight_streaming_topk': (_I, [_P, _P, _I, _P, _P, _P, _I, _I, _I,
-                                          _I, _I, _I, _P, _P, _P, _P]),
-        'spotlight_topk_stage1_smem_bytes': (ctypes.c_size_t, [_I, _I]),
+                                          _I, _I, _I, _I, _P, _P, _P, _P]),
+        'spotlight_topk_stage1_smem_bytes': (ctypes.c_size_t, [_I, _I, _I]),
     },
 }
 

@@ -2,19 +2,23 @@
 //
 // The exact-tie contract.  The rank kernel counts a target's own score as a
 // tie with itself (weight 0.5) instead of excluding the target by id, so
-// the target score computed on its own (matched_scores) must equal, bit for
-// bit, the score the catalogue pass computes for the same (user, item)
-// pair.  Every score that is ever compared is therefore produced by ONE
-// function, score_block, in one fixed order:
+// the target score computed on its own (matched scores, candidate scores)
+// must equal, bit for bit, the score the catalogue pass computes for the
+// same (user, item) pair.  Every score that is ever compared is therefore
+// produced by ONE function in one fixed order: score_block for dot
+// products, mixture_score_block for mixture-of-tastes scoring.  Both build
+// on dot_block:
 //
-//     acc = 0; for d in 0..D-1: acc = acc + u[d] * float(i[d]); acc + bias
+//     acc = u[0] * float(i[0]); for d in 1..D-1: acc = acc + u[d] * float(i[d])
 //
 // with each product and each sum rounded on its own (__fmul_rn, __fadd_rn:
 // nvcc may not contract them into an FMA, which would round once).  The
-// PyTorch plain versions (ops/kernels/ranking.py) run the same order as
-// separate elementwise ops, so kernel and plain version agree bit for bit,
-// on the card and on the CPU.  bf16 items are upcast on load, which is
-// exact.
+// sum starts from the first product, not from +0.0, so a dot of -0.0
+// products stays -0.0 as the JAX package's one-term dot does; every other
+// value is the same either way.  The PyTorch plain versions
+// (ops/kernels/ranking.py) run the same order as separate elementwise ops,
+// so kernel and plain version agree bit for bit, on the card and on the
+// CPU.  bf16 items are upcast on load, which is exact.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -28,30 +32,41 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// Scores an RI x RU block of (item, user) pairs: out[r][c] is the score of
+// Dot products of an RI x RU block of (item, user) pairs: out[r][c] is
 // item r against user c.  item_at(r, d) and user_at(c, d) return float32
-// operands (from shared or global memory), bias_at(r) the item's bias.  The
-// loop order inside one element is the contract above, whatever RI and RU.
-template <int RI, int RU, class ItemAt, class UserAt, class BiasAt>
-__device__ __forceinline__ void score_block(float (&out)[RI][RU], int dim,
-                                            ItemAt item_at, UserAt user_at,
-                                            BiasAt bias_at) {
-#pragma unroll
-  for (int r = 0; r < RI; ++r)
-#pragma unroll
-    for (int c = 0; c < RU; ++c) out[r][c] = 0.0f;
-  for (int d = 0; d < dim; ++d) {
-    float iv[RI], uv[RU];
+// operands (from shared or global memory).  The order inside one element
+// is the contract above, whatever RI and RU.
+template <int RI, int RU, class ItemAt, class UserAt>
+__device__ __forceinline__ void dot_block(float (&out)[RI][RU], int dim,
+                                          ItemAt item_at, UserAt user_at) {
+  float iv[RI], uv[RU];
+  auto load = [&](int d) {
 #pragma unroll
     for (int r = 0; r < RI; ++r) iv[r] = item_at(r, d);
 #pragma unroll
     for (int c = 0; c < RU; ++c) uv[c] = user_at(c, d);
+  };
+  load(0);
+#pragma unroll
+  for (int r = 0; r < RI; ++r)
+#pragma unroll
+    for (int c = 0; c < RU; ++c) out[r][c] = __fmul_rn(uv[c], iv[r]);
+  for (int d = 1; d < dim; ++d) {
+    load(d);
 #pragma unroll
     for (int r = 0; r < RI; ++r)
 #pragma unroll
       for (int c = 0; c < RU; ++c)
         out[r][c] = __fadd_rn(out[r][c], __fmul_rn(uv[c], iv[r]));
   }
+}
+
+// Dot-product scores: dot_block plus the item's bias, bias_at(r).
+template <int RI, int RU, class ItemAt, class UserAt, class BiasAt>
+__device__ __forceinline__ void score_block(float (&out)[RI][RU], int dim,
+                                            ItemAt item_at, UserAt user_at,
+                                            BiasAt bias_at) {
+  dot_block<RI, RU>(out, dim, item_at, user_at);
 #pragma unroll
   for (int r = 0; r < RI; ++r) {
     const float b = bias_at(r);
@@ -59,6 +74,80 @@ __device__ __forceinline__ void score_block(float (&out)[RI][RU], int dim,
     for (int c = 0; c < RU; ++c) out[r][c] = __fadd_rn(out[r][c], b);
   }
 }
+
+// Mixture-of-tastes scores (replaces mixture_combine and
+// make_mixture_score_fn of spotlight_tpu/ops/kernels/ranking.py).  Each
+// user is 2M vectors of width D, user_at(c, k, d) reading component k:
+// tastes are k = 0..M-1, attentions k = M..2M-1.  For each (item, user)
+// pair, in this order:
+//
+//     a_m = dot(attention_m, item), t_m = dot(taste_m, item)   (dot_block)
+//     amax = a_0, then amax = fmaxf(amax, a_m) for m = 1..M-1
+//     w_m = expf(a_m - amax)
+//     denom = w_0, then denom = denom + w_m
+//     out = w_0 * t_0, then out = out + w_m * t_m
+//     score = out / denom + bias
+//
+// each operation rounded on its own; expf is the accurate libdevice
+// function (no --use_fast_math, no __expf).  M = mixtures is a run-time
+// value of at most MAXM: the per-pair weights live in registers, indexed
+// by unrolled constants.
+template <int RI, int RU, int MAXM, class ItemAt, class UserAt,
+          class BiasAt>
+__device__ __forceinline__ void mixture_score_block(
+    float (&out)[RI][RU], int mixtures, int dim, ItemAt item_at,
+    UserAt user_at, BiasAt bias_at) {
+  float w[MAXM][RI][RU];
+#pragma unroll
+  for (int m = 0; m < MAXM; ++m)
+    if (m < mixtures)
+      dot_block<RI, RU>(w[m], dim, item_at, [&](int c, int d) {
+        return user_at(c, mixtures + m, d);
+      });
+
+  float denom[RI][RU];
+#pragma unroll
+  for (int r = 0; r < RI; ++r)
+#pragma unroll
+    for (int c = 0; c < RU; ++c) {
+      float amax = w[0][r][c];
+#pragma unroll
+      for (int m = 1; m < MAXM; ++m)
+        if (m < mixtures) amax = fmaxf(amax, w[m][r][c]);
+#pragma unroll
+      for (int m = 0; m < MAXM; ++m)
+        if (m < mixtures) w[m][r][c] = expf(__fsub_rn(w[m][r][c], amax));
+      denom[r][c] = w[0][r][c];
+#pragma unroll
+      for (int m = 1; m < MAXM; ++m)
+        if (m < mixtures) denom[r][c] = __fadd_rn(denom[r][c], w[m][r][c]);
+    }
+
+#pragma unroll
+  for (int m = 0; m < MAXM; ++m) {
+    if (m >= mixtures) continue;
+    float taste[RI][RU];
+    dot_block<RI, RU>(taste, dim, item_at,
+                      [&](int c, int d) { return user_at(c, m, d); });
+#pragma unroll
+    for (int r = 0; r < RI; ++r)
+#pragma unroll
+      for (int c = 0; c < RU; ++c) {
+        const float term = __fmul_rn(w[m][r][c], taste[r][c]);
+        out[r][c] = m == 0 ? term : __fadd_rn(out[r][c], term);
+      }
+  }
+#pragma unroll
+  for (int r = 0; r < RI; ++r) {
+    const float b = bias_at(r);
+#pragma unroll
+    for (int c = 0; c < RU; ++c)
+      out[r][c] = __fadd_rn(__fdiv_rn(out[r][c], denom[r][c]), b);
+  }
+}
+
+// Widest mixture count a kernel takes: its per-pair weights are registers.
+constexpr int kMaxMixtures = 8;
 
 // Stages rows [row0, row0 + rows) of a row-major (n, dim) table into shared
 // memory transposed, as dst[d * stride + r] in float32 (zeros past n).  The

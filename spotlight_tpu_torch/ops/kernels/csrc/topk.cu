@@ -1,28 +1,33 @@
-// Streaming top-k over the catalogue (K2).
+// Streaming top-k over the catalogue (K2, dot and mixture scoring).
 //
 // Replaces: spotlight_tpu/ops/kernels/topk.py, _topk_kernel (the Pallas
-// kernel behind streaming_topk).
+// kernel behind streaming_topk, with the default dot score_fn and with
+// make_mixture_score_fn).
 //
 // What it computes: per user, the k best items in the order (score
 // descending, id ascending), the order of lax.top_k, without materialising
 // the (B, N) score matrix.  Items at or before a per-user resume key
 // (resume_score, resume_id) in that order are skipped, so the wrapper can
-// fetch a wide top-k in rounds.  Scores come from score_block (common.cuh),
-// so they are bit-identical to the plain PyTorch version's.
+// fetch a wide top-k in rounds.  Scores come from score_block or
+// mixture_score_block (common.cuh), so they are bit-identical to the plain
+// PyTorch version's, the sign of a zero included.
 //
 // What bounds it on an H100: the same float32 catalogue scoring as the rank
-// kernel (2 * B * N * D operations on the CUDA cores, no FMA contraction),
-// plus the selection, whose cost follows the number of top-k updates
-// (about k * ln(N / k) per user over a randomly ordered catalogue) rather
-// than N.
+// kernel (2 * B * N * D operations on the CUDA cores for dots, 2M times
+// that for mixtures, no FMA contraction), plus the selection, whose cost
+// follows the number of top-k updates (about k * ln(N / k) per user over a
+// randomly ordered catalogue) rather than N.
 //
 // What the design does about it: stage 1 runs one block per (32 users,
 // catalogue split).  The block scores 64-item tiles as the rank kernel does
-// and keeps, per user, a sorted list of KP (k rounded up to a power of two)
-// 64-bit keys in shared memory: the order-preserving bits of the score in
-// the high word (-0.0 made +0.0 first, since == treats them as a tie), and
-// the inverted id in the low word, so that one unsigned comparison is the
-// (score desc, id asc) order.  Only a score whose key beats the user's
+// (a mixture block holds its users' 2M vectors each: 67 KB at M = 4,
+// D = 64, beside 128 KB of keys at KP = 256) and keeps, per user, a sorted
+// list of KP (k rounded up to a power of two) 64-bit keys in shared memory:
+// the order-preserving bits of the score in the high word (-0.0 made +0.0
+// first, since == treats them as a tie), and in the low word the inverted
+// id shifted up by one over a bit that records a -0.0 score, so that one
+// unsigned comparison is the (score desc, id asc) order and the score comes
+// back with its sign.  Only a score whose key beats the user's
 // KP-th key as of the last merge is appended to a candidate buffer behind
 // the list.  A block-wide bitonic sort merges buffers and lists only when
 // some user's buffer could overflow on the next tile, and once at the end:
@@ -60,8 +65,20 @@ __device__ __forceinline__ float from_ordered(uint32_t o) {
   return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
 }
 
+// Ids are below 2^31, so the inverted id fits 31 bits; bit 0 marks -0.0.
+// Two keys of one score differ in their ids before that bit.
 __device__ __forceinline__ u64 make_key(float s, int id) {
-  return ((u64)ordered_bits(s) << 32) | (u64)(~(uint32_t)id);
+  const uint32_t negative_zero = s == 0.0f ? __float_as_uint(s) >> 31 : 0u;
+  const uint32_t low = ((~(uint32_t)id & 0x7fffffffu) << 1) | negative_zero;
+  return ((u64)ordered_bits(s) << 32) | (u64)low;
+}
+
+__device__ __forceinline__ float key_score(u64 key) {
+  return (key & 1u) ? -0.0f : from_ordered((uint32_t)(key >> 32));
+}
+
+__device__ __forceinline__ int key_id(u64 key) {
+  return (int)(~((uint32_t)key >> 1) & 0x7fffffffu);
 }
 
 // Bitonic sort, descending, of `groups` rows of `len` keys each (len a
@@ -101,10 +118,11 @@ __host__ __device__ constexpr int row_len() {
   return KP >= 256 ? 2 * KP : (4 * KP > 128 ? 4 * KP : 128);
 }
 
+// K is the user operand's width: D, or 2 * mixtures * D.
 template <int KP>
-size_t stage1_smem_bytes(int D) {
+size_t stage1_smem_bytes(int D, int K) {
   return sizeof(u64) * ((size_t)kUsers * row_len<KP>() + kUsers) +
-         sizeof(float) * ((size_t)D * kUS + (size_t)D * kIS + kItems * kUS +
+         sizeof(float) * ((size_t)K * kUS + (size_t)D * kIS + kItems * kUS +
                           kItems) +
          sizeof(int) * (kUsers + 1);
 }
@@ -131,20 +149,23 @@ __device__ __forceinline__ void merge_candidates(u64* keys, u64* thr,
   __syncthreads();
 }
 
-template <typename T, int KP>
+// MAXM = 0 scores dot products, MAXM > 0 mixtures of at most MAXM tastes.
+template <typename T, int KP, int MAXM>
 __global__ void __launch_bounds__(kThreads)
 topk_stage1(const float* __restrict__ users, const T* __restrict__ items,
             const float* __restrict__ bias,
             const float* __restrict__ resume_scores,
             const int* __restrict__ resume_ids, int B, int N, int D,
-            int tiles_per_split, int splits, u64* __restrict__ partial) {
+            int mixtures, int tiles_per_split, int splits,
+            u64* __restrict__ partial) {
   constexpr int kLen = row_len<KP>();
   constexpr int kBuf = kLen - KP;
+  const int K = MAXM == 0 ? D : 2 * mixtures * D;  // user operand width
   extern __shared__ u64 smem64[];
   u64* keys = smem64;                       // [kUsers][kLen]
   u64* thr = keys + kUsers * kLen;          // [kUsers] KP-th key at last merge
-  float* su = reinterpret_cast<float*>(thr + kUsers);  // [D][kUS]
-  float* si = su + D * kUS;                 // [D][kIS]
+  float* su = reinterpret_cast<float*>(thr + kUsers);  // [K][kUS]
+  float* si = su + K * kUS;                 // [D][kIS]
   float* ss = si + D * kIS;                 // [kItems][kUS]
   float* sb = ss + kItems * kUS;            // [kItems]
   int* cand = reinterpret_cast<int*>(sb + kItems);     // [kUsers]
@@ -158,7 +179,7 @@ topk_stage1(const float* __restrict__ users, const T* __restrict__ items,
     cand[e] = 0;
   }
   if (tid == 0) *full = 0;
-  stage_transposed(su, users, b0, kUsers, B, D, kUS);
+  stage_transposed(su, users, b0, kUsers, B, K, kUS);
 
   // Candidate ownership: one user, rows r0, r0 + 8, ... of each tile.
   const int cu = tid % kUsers;
@@ -184,11 +205,20 @@ topk_stage1(const float* __restrict__ users, const T* __restrict__ items,
     __syncthreads();
 
     float acc[4][2];
-    score_block<4, 2>(
-        acc, D,
-        [&](int r, int d) { return si[d * kIS + ti + 16 * r]; },
-        [&](int c, int d) { return su[d * kUS + tu + 16 * c]; },
-        [&](int r) { return sb[ti + 16 * r]; });
+    auto item_at = [&](int r, int d) { return si[d * kIS + ti + 16 * r]; };
+    auto bias_at = [&](int r) { return sb[ti + 16 * r]; };
+    if constexpr (MAXM == 0) {
+      score_block<4, 2>(
+          acc, D, item_at,
+          [&](int c, int d) { return su[d * kUS + tu + 16 * c]; }, bias_at);
+    } else {
+      mixture_score_block<4, 2, MAXM>(
+          acc, mixtures, D, item_at,
+          [&](int c, int k, int d) {
+            return su[(k * D + d) * kUS + tu + 16 * c];
+          },
+          bias_at);
+    }
 #pragma unroll
     for (int r = 0; r < 4; ++r)
 #pragma unroll
@@ -241,18 +271,19 @@ topk_stage2(const u64* __restrict__ partial, int n, int len, int k,
   bitonic_desc(sk, 1, len, [](int) { return false; });
   for (int j = threadIdx.x; j < k; j += blockDim.x) {
     const u64 key = sk[j];
-    out_scores[b * k + j] = from_ordered((uint32_t)(key >> 32));
-    out_ids[b * k + j] = (int)(~(uint32_t)key);
+    out_scores[b * k + j] = key_score(key);
+    out_ids[b * k + j] = key_id(key);
   }
 }
 
-template <typename T, int KP>
+template <typename T, int KP, int MAXM>
 int launch_topk(const float* users, const void* items, const float* bias,
                 const float* resume_scores, const int* resume_ids, int B,
-                int N, int D, int k, int splits, u64* partial,
+                int N, int D, int mixtures, int k, int splits, u64* partial,
                 float* out_scores, int* out_ids, cudaStream_t stream) {
-  const size_t smem1 = stage1_smem_bytes<KP>(D);
-  auto stage1 = topk_stage1<T, KP>;
+  const int K = MAXM == 0 ? D : 2 * mixtures * D;
+  const size_t smem1 = stage1_smem_bytes<KP>(D, K);
+  auto stage1 = topk_stage1<T, KP, MAXM>;
   cudaError_t err = cudaFuncSetAttribute(
       stage1, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
   if (err != cudaSuccess) return err;
@@ -262,7 +293,7 @@ int launch_topk(const float* users, const void* items, const float* bias,
   dim3 grid1((B + kUsers - 1) / kUsers, used);
   stage1<<<grid1, kThreads, smem1, stream>>>(
       users, static_cast<const T*>(items), bias, resume_scores, resume_ids, B,
-      N, D, per_split, used, partial);
+      N, D, mixtures, per_split, used, partial);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -279,69 +310,85 @@ int launch_topk(const float* users, const void* items, const float* bias,
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int MAXM>
 int dispatch_topk(int kp, const float* users, const void* items,
                   const float* bias, const float* rs, const int* ri, int B,
-                  int N, int D, int k, int splits, u64* partial, float* os,
-                  int* oi, cudaStream_t s) {
+                  int N, int D, int mixtures, int k, int splits, u64* partial,
+                  float* os, int* oi, cudaStream_t s) {
+#define SPOTLIGHT_TOPK(KP)                                                  \
+  case KP:                                                                  \
+    return launch_topk<T, KP, MAXM>(users, items, bias, rs, ri, B, N, D,    \
+                                    mixtures, k, splits, partial, os, oi, s)
   switch (kp) {
-    case 16:
-      return launch_topk<T, 16>(users, items, bias, rs, ri, B, N, D, k,
-                                splits, partial, os, oi, s);
-    case 32:
-      return launch_topk<T, 32>(users, items, bias, rs, ri, B, N, D, k,
-                                splits, partial, os, oi, s);
-    case 64:
-      return launch_topk<T, 64>(users, items, bias, rs, ri, B, N, D, k,
-                                splits, partial, os, oi, s);
-    case 128:
-      return launch_topk<T, 128>(users, items, bias, rs, ri, B, N, D, k,
-                                 splits, partial, os, oi, s);
-    case 256:
-      return launch_topk<T, 256>(users, items, bias, rs, ri, B, N, D, k,
-                                 splits, partial, os, oi, s);
+    SPOTLIGHT_TOPK(16);
+    SPOTLIGHT_TOPK(32);
+    SPOTLIGHT_TOPK(64);
+    SPOTLIGHT_TOPK(128);
+    SPOTLIGHT_TOPK(256);
     default:
       return cudaErrorInvalidValue;
   }
+#undef SPOTLIGHT_TOPK
+}
+
+template <typename T>
+int dispatch_mixtures(int kp, const float* users, const void* items,
+                      const float* bias, const float* rs, const int* ri,
+                      int B, int N, int D, int mixtures, int k, int splits,
+                      u64* partial, float* os, int* oi, cudaStream_t s) {
+  if (mixtures == 0)
+    return dispatch_topk<T, 0>(kp, users, items, bias, rs, ri, B, N, D,
+                               mixtures, k, splits, partial, os, oi, s);
+  if (mixtures <= 4)
+    return dispatch_topk<T, 4>(kp, users, items, bias, rs, ri, B, N, D,
+                               mixtures, k, splits, partial, os, oi, s);
+  return dispatch_topk<T, kMaxMixtures>(kp, users, items, bias, rs, ri, B,
+                                        N, D, mixtures, k, splits, partial,
+                                        os, oi, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-size_t spotlight_topk_stage1_smem_bytes(int kp, int D) {
+size_t spotlight_topk_stage1_smem_bytes(int kp, int D, int mixtures) {
+  const int K = mixtures > 0 ? 2 * mixtures * D : D;
   switch (kp) {
-    case 16: return stage1_smem_bytes<16>(D);
-    case 32: return stage1_smem_bytes<32>(D);
-    case 64: return stage1_smem_bytes<64>(D);
-    case 128: return stage1_smem_bytes<128>(D);
-    case 256: return stage1_smem_bytes<256>(D);
+    case 16: return stage1_smem_bytes<16>(D, K);
+    case 32: return stage1_smem_bytes<32>(D, K);
+    case 64: return stage1_smem_bytes<64>(D, K);
+    case 128: return stage1_smem_bytes<128>(D, K);
+    case 256: return stage1_smem_bytes<256>(D, K);
     default: return 0;
   }
 }
 
-// One top-k fetch: k <= kp, kp a power of two in [16, 256].  partial is
-// scratch of B * splits * kp 64-bit keys; splits * kp must round up to at
-// most 8192 keys (64 KB of stage-2 shared memory).  resume_scores and
-// resume_ids are (B,) or both null.  Returns a cudaError_t.
+// One top-k fetch: k <= kp, kp a power of two in [16, 256].  users are
+// (B, D) for mixtures = 0 (dot scoring), else (B, 2 * mixtures * D).
+// partial is scratch of B * splits * kp 64-bit keys; splits * kp must round
+// up to at most 8192 keys (64 KB of stage-2 shared memory).  resume_scores
+// and resume_ids are (B,) or both null.  Returns a cudaError_t.
 int spotlight_streaming_topk(const float* users, const void* items,
                              int items_bf16, const float* bias,
                              const float* resume_scores,
                              const int* resume_ids, int B, int N, int D,
-                             int k, int kp, int splits, void* partial,
-                             float* out_scores, int* out_ids, void* stream) {
+                             int mixtures, int k, int kp, int splits,
+                             void* partial, float* out_scores, int* out_ids,
+                             void* stream) {
   if (B <= 0 || N <= 0 || D <= 0 || k <= 0 || k > kp || k > N ||
-      splits <= 0 || (long long)splits * kp > 8192)
+      splits <= 0 || (long long)splits * kp > 8192 || mixtures < 0 ||
+      mixtures > kMaxMixtures)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   u64* p = static_cast<u64*>(partial);
   if (items_bf16)
-    return dispatch_topk<__nv_bfloat16>(kp, users, items, bias,
-                                        resume_scores, resume_ids, B, N, D,
-                                        k, splits, p, out_scores, out_ids, s);
-  return dispatch_topk<float>(kp, users, items, bias, resume_scores,
-                              resume_ids, B, N, D, k, splits, p, out_scores,
-                              out_ids, s);
+    return dispatch_mixtures<__nv_bfloat16>(kp, users, items, bias,
+                                            resume_scores, resume_ids, B, N,
+                                            D, mixtures, k, splits, p,
+                                            out_scores, out_ids, s);
+  return dispatch_mixtures<float>(kp, users, items, bias, resume_scores,
+                                  resume_ids, B, N, D, mixtures, k, splits,
+                                  p, out_scores, out_ids, s);
 }
 
 }  // extern "C"

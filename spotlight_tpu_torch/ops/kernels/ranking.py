@@ -1,17 +1,26 @@
-"""Streaming rank weights over the catalogue, and matched target scores.
+"""Streaming rank weights over the catalogue, matched target scores and
+matched candidate scores.
 
 Counterpart of ``spotlight_tpu/ops/kernels/ranking.py`` (``rank_weights``
-and ``matched_target_scores``).  On a CUDA tensor each function launches its
-hand-written kernel (``csrc/ranking.cu``); on a CPU tensor it runs its plain
-PyTorch version, which does the same arithmetic in the same order.  There is
-no other path: a kernel that fails to build or launch raises.
+with dot or mixture-of-tastes scoring, ``matched_target_scores``,
+``matched_candidate_scores`` and the mixture score function
+``make_mixture_score_fn`` / ``mixture_combine``).  On a CUDA tensor each
+function launches its hand-written kernel (``csrc/ranking.cu``); on a CPU
+tensor it runs its plain PyTorch version, which does the same arithmetic in
+the same order.  There is no other path: a kernel that fails to build or
+launch raises.
 
 The exact-tie contract (see ``csrc/common.cuh``): every score that is ever
-compared is ``acc = 0; acc = acc + u[d] * i[d] for d in order; acc + bias``,
-each product and sum rounded on its own.  :func:`plain_scores` and
-:func:`matched_target_scores_plain` spell that order out as separate
-elementwise ops (never ``matmul``, ``einsum`` or ``addcmul``, whose order
-depends on the shape), so kernel and plain version agree bit for bit.
+compared is a dot product ``acc = u[0] * i[0]; acc = acc + u[d] * i[d] for
+d in order`` plus the bias, or the mixture of such dots that
+:func:`plain_mixture_scores` spells out, each operation rounded on its own.
+The plain versions run that order as separate elementwise ops (never
+``matmul``, ``einsum``, ``addcmul`` or ``softmax``, whose order depends on
+the shape), so kernel and plain version agree bit for bit.
+
+Mixture scoring (``num_mixtures=M``) takes users as ``(B, 2 * M * D)``:
+each user's M taste vectors, then its M attention vectors, as
+``MixtureLSTMNet`` stacks them.
 """
 
 from __future__ import annotations
@@ -20,13 +29,18 @@ import torch
 
 from spotlight_tpu_torch.ops.kernels import _build
 
-#: Kernel launches made by :func:`rank_weights` and
-#: :func:`matched_target_scores` (one per C call).
+#: Kernel launches made by :func:`rank_weights` (dot and mixture scoring
+#: counted apart), :func:`matched_target_scores` and
+#: :func:`matched_candidate_scores` (one per C call).
 RANK_WEIGHTS_LAUNCHES = 0
+MIXTURE_RANK_WEIGHTS_LAUNCHES = 0
 MATCHED_SCORES_LAUNCHES = 0
+CANDIDATE_SCORES_LAUNCHES = 0
 
-# Users per K1 block and items per tile (csrc/ranking.cu).
-_RANK_USERS = 64
+#: Most mixture components the kernels take (``kMaxMixtures``, common.cuh).
+MAX_MIXTURES = 8
+
+# Items per tile (csrc/ranking.cu).
 _TILE_ITEMS = 64
 _MAX_SHARED = 232448       # bytes of shared memory one H100 block may use
 _BLOCKS_PER_SM = 4         # blocks in flight per SM the split count aims at
@@ -45,16 +59,26 @@ def on_cuda(*tensors):
     return device.type == 'cuda'
 
 
-def check_factors(user_reprs, item_matrix, item_bias):
+def user_width(dim, num_mixtures):
+    """Width of a user's row: ``D`` for dot scoring, ``2 * M * D`` for a
+    mixture of M tastes."""
+    return dim if num_mixtures is None else 2 * num_mixtures * dim
+
+
+def check_factors(user_reprs, item_matrix, item_bias, num_mixtures=None):
     """Validate the (users, items, bias) operands every kernel takes."""
     if user_reprs.dim() != 2 or user_reprs.dtype != torch.float32:
-        raise ValueError('user_reprs must be (B, D) float32')
+        raise ValueError('user_reprs must be (B, K) float32')
     if item_matrix.dim() != 2 or item_matrix.dtype not in (torch.float32,
                                                            torch.bfloat16):
         raise ValueError('item_matrix must be (N, D) float32 or bfloat16')
-    if item_matrix.shape[1] != user_reprs.shape[1]:
-        raise ValueError('user and item widths differ ({} vs {})'.format(
-            user_reprs.shape[1], item_matrix.shape[1]))
+    if num_mixtures is not None and not 1 <= num_mixtures <= MAX_MIXTURES:
+        raise ValueError('num_mixtures must lie in [1, {}] (got {})'.format(
+            MAX_MIXTURES, num_mixtures))
+    width = user_width(item_matrix.shape[1], num_mixtures)
+    if user_reprs.shape[1] != width:
+        raise ValueError('user rows are {} wide, the items need {}'.format(
+            user_reprs.shape[1], width))
     if item_bias.shape != (item_matrix.shape[0],) or (
             item_bias.dtype != torch.float32):
         raise ValueError('item_bias must be (N,) float32')
@@ -81,52 +105,112 @@ def stream_handle(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def plain_scores(user_reprs, item_matrix, item_bias):
+def _plain_dot(item_at, user_at, dim):
+    """``dot_block`` of common.cuh: the first product, then one product
+    added at a time, in order."""
+    acc = item_at(0) * user_at(0)
+    for d in range(1, dim):
+        acc = acc + item_at(d) * user_at(d)
+    return acc
+
+
+def _expf(x):
+    """``expf`` as the kernels take it.  On the card ``torch.exp`` is the
+    same libdevice ``expf``.  On the CPU, ``torch.exp`` of float32 gives a
+    value that depends on where the element sits in its tensor (SIMD body
+    or scalar tail), which would break the exact-tie contract between a
+    catalogue pass and the matched scores; exp in float64, rounded to
+    float32, gives every element the same value wherever it sits."""
+    if x.is_cuda:
+        return torch.exp(x)
+    return torch.exp(x.double()).float()
+
+
+def _plain_mixture(dot, num_mixtures, bias):
+    """``mixture_score_block`` of common.cuh over whole tensors: ``dot(k)``
+    returns the dot products of user component k (tastes first, then
+    attentions), in the shape of the result."""
+    weights = [dot(num_mixtures + m) for m in range(num_mixtures)]
+    amax = weights[0]
+    for attention in weights[1:]:
+        amax = torch.maximum(amax, attention)
+    weights = [_expf(attention - amax) for attention in weights]
+    denom = weights[0]
+    for weight in weights[1:]:
+        denom = denom + weight
+    out = weights[0] * dot(0)
+    for m in range(1, num_mixtures):
+        out = out + weights[m] * dot(m)
+    return out / denom + bias
+
+
+def plain_scores(user_reprs, item_matrix, item_bias, num_mixtures=None):
     """(N, B) item-major scores in the contract's order."""
+    if num_mixtures is not None:
+        return plain_mixture_scores(user_reprs, item_matrix, item_bias,
+                                    num_mixtures)
     items = item_matrix.float()
     users_t = user_reprs.T
-    acc = torch.zeros(items.shape[0], users_t.shape[1], dtype=torch.float32,
-                      device=items.device)
-    for d in range(items.shape[1]):
-        acc = acc + items[:, d, None] * users_t[d]
-    return acc + item_bias[:, None]
+    dot = _plain_dot(lambda d: items[:, d, None], lambda d: users_t[d],
+                     items.shape[1])
+    return dot + item_bias[:, None]
 
 
-def rank_weights(user_reprs, item_matrix, item_bias, target_scores):
+def plain_mixture_scores(user_reprs, item_matrix, item_bias, num_mixtures):
+    """(N, B) item-major mixture-of-tastes scores (K3), in the contract's
+    order.  ``user_reprs`` is (B, 2 * M * D): tastes, then attentions."""
+    items = item_matrix.float()
+    dim = items.shape[1]
+    users_t = user_reprs.T
+
+    def dot(k):
+        return _plain_dot(lambda d: items[:, d, None],
+                          lambda d: users_t[k * dim + d], dim)
+
+    return _plain_mixture(dot, num_mixtures, item_bias[:, None])
+
+
+def rank_weights(user_reprs, item_matrix, item_bias, target_scores,
+                 num_mixtures=None):
     """Combined streaming rank weights of target scores against the
     catalogue.
 
     ``weights[b, t] = count(score > ts) + 0.5 * count(score == ts)`` over
     ALL catalogue rows, the target itself included: the average-tie rank
     is ``weights + 0.5``.  ``target_scores`` must come from
-    :func:`matched_target_scores`, so that the target's comparison with
-    itself is an exact tie.
+    :func:`matched_target_scores` (dot scoring) or
+    :func:`matched_candidate_scores` (mixtures), so that the target's
+    comparison with itself is an exact tie.
 
     Parameters
     ----------
-    user_reprs : (B, D) float32
+    user_reprs : (B, D) float32, or (B, 2 * M * D) for mixtures
     item_matrix : (N, D) float32 or bfloat16
     item_bias : (N,) float32
     target_scores : (B, T) float32
+    num_mixtures : int, optional
+        M for mixture-of-tastes scoring; None scores dot products.
 
     Returns
     -------
     (B, T) float32 weights.
     """
-    check_factors(user_reprs, item_matrix, item_bias)
+    check_factors(user_reprs, item_matrix, item_bias, num_mixtures)
     if (target_scores.dim() != 2 or target_scores.dtype != torch.float32
             or target_scores.shape[0] != user_reprs.shape[0]):
         raise ValueError('target_scores must be (B, T) float32')
     if not on_cuda(user_reprs, item_matrix, item_bias, target_scores):
         return rank_weights_plain(user_reprs, item_matrix, item_bias,
-                                   target_scores)
+                                   target_scores, num_mixtures)
     return _rank_weights_cuda(user_reprs, item_matrix, item_bias,
-                              target_scores)
+                              target_scores, num_mixtures)
 
 
-def rank_weights_plain(user_reprs, item_matrix, item_bias, target_scores):
+def rank_weights_plain(user_reprs, item_matrix, item_bias, target_scores,
+                       num_mixtures=None):
     """Plain PyTorch version of :func:`rank_weights`, on any device."""
-    scores = plain_scores(user_reprs, item_matrix, item_bias)   # (N, B)
+    scores = plain_scores(user_reprs, item_matrix, item_bias,
+                          num_mixtures)                         # (N, B)
     batch, num_targets = target_scores.shape
     half_units = torch.zeros(batch, num_targets, dtype=torch.int64,
                              device=scores.device)
@@ -137,18 +221,21 @@ def rank_weights_plain(user_reprs, item_matrix, item_bias, target_scores):
     return half_units.float() * 0.5
 
 
-def _rank_weights_cuda(user_reprs, item_matrix, item_bias, target_scores):
-    global RANK_WEIGHTS_LAUNCHES
+def _rank_weights_cuda(user_reprs, item_matrix, item_bias, target_scores,
+                       num_mixtures=None):
+    global RANK_WEIGHTS_LAUNCHES, MIXTURE_RANK_WEIGHTS_LAUNCHES
     require_contiguous(user_reprs, item_matrix, item_bias)
     lib = _build.load('ranking')
-    batch, dim = user_reprs.shape
-    num_items = item_matrix.shape[0]
-    if lib.spotlight_rank_smem_bytes(dim) > _MAX_SHARED:
+    batch = user_reprs.shape[0]
+    num_items, dim = item_matrix.shape
+    mixtures = num_mixtures or 0
+    if lib.spotlight_rank_smem_bytes(dim, mixtures) > _MAX_SHARED:
         raise ValueError('embedding width {} exceeds the rank kernel\'s '
                          'shared memory'.format(dim))
     device = user_reprs.device
-    splits = catalogue_splits(-(-batch // _RANK_USERS), num_items, device)
-    chunk = lib.spotlight_rank_max_targets()
+    user_blocks = -(-batch // lib.spotlight_rank_block_users(mixtures))
+    splits = catalogue_splits(user_blocks, num_items, device)
+    chunk = lib.spotlight_rank_max_targets(mixtures)
     stream = stream_handle(device)
     parts = []
     for start in range(0, target_scores.shape[1], chunk):
@@ -158,12 +245,23 @@ def _rank_weights_cuda(user_reprs, item_matrix, item_bias, target_scores):
             user_reprs.data_ptr(), item_matrix.data_ptr(),
             int(item_matrix.dtype == torch.bfloat16), item_bias.data_ptr(),
             ts.data_ptr(), half_units.data_ptr(), batch, num_items, dim,
-            ts.shape[1], splits, stream)
+            ts.shape[1], mixtures, splits, stream)
         _build.check(status, 'rank_weights kernel')
-        RANK_WEIGHTS_LAUNCHES += 1
+        if mixtures:
+            MIXTURE_RANK_WEIGHTS_LAUNCHES += 1
+        else:
+            RANK_WEIGHTS_LAUNCHES += 1
         parts.append(half_units)
     half_units = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     return half_units.float() * 0.5
+
+
+def _check_ids(ids, user_reprs, item_matrix):
+    """Validate (B, T) integer ids; returns them clipped into [0, N)."""
+    if ids.dim() != 2 or ids.shape[0] != user_reprs.shape[0] or (
+            ids.dtype.is_floating_point):
+        raise ValueError('ids must be (B, T) integers')
+    return ids.clamp(0, item_matrix.shape[0] - 1)
 
 
 def matched_target_scores(user_reprs, item_matrix, item_bias, ids):
@@ -182,10 +280,7 @@ def matched_target_scores(user_reprs, item_matrix, item_bias, ids):
     (B, T) float32
     """
     check_factors(user_reprs, item_matrix, item_bias)
-    if ids.dim() != 2 or ids.shape[0] != user_reprs.shape[0] or (
-            ids.dtype.is_floating_point):
-        raise ValueError('ids must be (B, T) integers')
-    ids = ids.clamp(0, item_matrix.shape[0] - 1)
+    ids = _check_ids(ids, user_reprs, item_matrix)
     if not on_cuda(user_reprs, item_matrix, item_bias, ids):
         return matched_target_scores_plain(user_reprs, item_matrix,
                                             item_bias, ids)
@@ -197,10 +292,9 @@ def matched_target_scores_plain(user_reprs, item_matrix, item_bias, ids):
     """Plain PyTorch version of :func:`matched_target_scores` (``ids``
     already inside ``[0, N)``), on any device."""
     rows = item_matrix[ids].float()                    # (B, T, D)
-    acc = torch.zeros(ids.shape, dtype=torch.float32, device=ids.device)
-    for d in range(rows.shape[2]):
-        acc = acc + rows[:, :, d] * user_reprs[:, None, d]
-    return acc + item_bias[ids]
+    dot = _plain_dot(lambda d: rows[:, :, d], lambda d: user_reprs[:, None, d],
+                     rows.shape[2])
+    return dot + item_bias[ids]
 
 
 def _matched_target_scores_cuda(user_reprs, item_matrix, item_bias, ids):
@@ -219,4 +313,66 @@ def _matched_target_scores_cuda(user_reprs, item_matrix, item_bias, ids):
         user_reprs.shape[1], stream_handle(ids.device))
     _build.check(status, 'matched_target_scores kernel')
     MATCHED_SCORES_LAUNCHES += 1
+    return out
+
+
+def matched_candidate_scores(user_reprs, item_matrix, item_bias, ids,
+                             num_mixtures):
+    """Mixture-of-tastes scores of item ``ids[b, t]`` for user ``b`` (K4),
+    bit-identical to the scores :func:`rank_weights` and
+    :func:`~spotlight_tpu_torch.ops.kernels.topk.streaming_topk` compare
+    with the same ``num_mixtures`` (the exact-tie contract).
+
+    Parameters
+    ----------
+    user_reprs : (B, 2 * M * D) float32, tastes then attentions
+    item_matrix : (N, D) float32 or bfloat16
+    item_bias : (N,) float32
+    ids : (B, T) int; clipped into ``[0, N)``
+    num_mixtures : int, M
+
+    Returns
+    -------
+    (B, T) float32
+    """
+    check_factors(user_reprs, item_matrix, item_bias, num_mixtures)
+    ids = _check_ids(ids, user_reprs, item_matrix)
+    if not on_cuda(user_reprs, item_matrix, item_bias, ids):
+        return matched_candidate_scores_plain(user_reprs, item_matrix,
+                                              item_bias, ids, num_mixtures)
+    return _matched_candidate_scores_cuda(user_reprs, item_matrix,
+                                          item_bias, ids, num_mixtures)
+
+
+def matched_candidate_scores_plain(user_reprs, item_matrix, item_bias, ids,
+                                   num_mixtures):
+    """Plain PyTorch version of :func:`matched_candidate_scores` (``ids``
+    already inside ``[0, N)``), on any device."""
+    rows = item_matrix[ids].float()                    # (B, T, D)
+    dim = rows.shape[2]
+
+    def dot(k):
+        return _plain_dot(lambda d: rows[:, :, d],
+                          lambda d: user_reprs[:, None, k * dim + d], dim)
+
+    return _plain_mixture(dot, num_mixtures, item_bias[ids])
+
+
+def _matched_candidate_scores_cuda(user_reprs, item_matrix, item_bias, ids,
+                                   num_mixtures):
+    global CANDIDATE_SCORES_LAUNCHES
+    require_contiguous(user_reprs, item_matrix, item_bias)
+    lib = _build.load('ranking')
+    ids = ids.to(torch.int32).contiguous()
+    out = torch.empty(ids.shape, dtype=torch.float32, device=ids.device)
+    batch, num_targets = ids.shape
+    if batch * num_targets == 0:
+        return out
+    status = lib.spotlight_candidate_scores(
+        user_reprs.data_ptr(), item_matrix.data_ptr(),
+        int(item_matrix.dtype == torch.bfloat16), item_bias.data_ptr(),
+        ids.data_ptr(), out.data_ptr(), batch, num_targets,
+        item_matrix.shape[1], num_mixtures, stream_handle(ids.device))
+    _build.check(status, 'matched_candidate_scores kernel')
+    CANDIDATE_SCORES_LAUNCHES += 1
     return out

@@ -1,11 +1,12 @@
 """Exact streaming top-k over the catalogue.
 
-Counterpart of ``spotlight_tpu/ops/kernels/topk.py`` (``streaming_topk``).
-On a CUDA tensor one fetch launches the hand-written kernel
-(``csrc/topk.cu``); on a CPU tensor it runs the plain PyTorch version,
-which scores with the same arithmetic (``ranking.plain_scores``) and sorts.
-Both return the top ``k`` in (score descending, id ascending) order, the
-order of ``lax.top_k``.
+Counterpart of ``spotlight_tpu/ops/kernels/topk.py`` (``streaming_topk``,
+with dot or mixture-of-tastes scoring).  On a CUDA tensor one fetch
+launches the hand-written kernel (``csrc/topk.cu``); on a CPU tensor it runs
+the plain PyTorch version, which scores with the same arithmetic
+(``ranking.plain_scores``) and sorts.  Both return the top ``k`` in (score
+descending, id ascending) order, the order of ``lax.top_k``, and the raw
+scores: -0.0 and +0.0 tie in the order but keep their signs.
 
 Fetches wider than :data:`SINGLE_LAUNCH_K` run in rounds of that width:
 each round streams the catalogue once and selects the next items strictly
@@ -28,29 +29,33 @@ from spotlight_tpu_torch.ops.kernels.ranking import (
 #: KP = 512 would need 256 KB, beyond the 227 KB a block may use.
 SINGLE_LAUNCH_K = 256
 
-#: Kernel launches made by :func:`streaming_topk` (one per C call).
+#: Kernel launches made by :func:`streaming_topk` (one per C call), dot
+#: and mixture scoring counted apart.
 STREAMING_TOPK_LAUNCHES = 0
+MIXTURE_STREAMING_TOPK_LAUNCHES = 0
 
 _TOPK_USERS = 32           # users per stage-1 block (csrc/topk.cu)
 _MIN_KP = 16
 _STAGE2_KEYS = 8192        # stage 2 sorts at most this many keys per user
 
 
-def streaming_topk(user_reprs, item_matrix, item_bias, k):
+def streaming_topk(user_reprs, item_matrix, item_bias, k, num_mixtures=None):
     """Exact top-k catalogue items per user without materialising scores.
 
     Parameters
     ----------
-    user_reprs : (B, D) float32
+    user_reprs : (B, D) float32, or (B, 2 * M * D) for mixtures
     item_matrix : (N, D) float32 or bfloat16; item_bias : (N,) float32
     k : int, at most the catalogue size
+    num_mixtures : int, optional
+        M for mixture-of-tastes scoring; None scores dot products.
 
     Returns
     -------
     (scores, ids) : (B, k) float32 and (B, k) int32, score descending, ties
-        by ascending id.  A score of -0.0 is returned as +0.0.
+        by ascending id.
     """
-    check_factors(user_reprs, item_matrix, item_bias)
+    check_factors(user_reprs, item_matrix, item_bias, num_mixtures)
     num_items = item_matrix.shape[0]
     if k > num_items:
         raise ValueError('k ({}) exceeds the catalog size ({})'
@@ -58,7 +63,8 @@ def streaming_topk(user_reprs, item_matrix, item_bias, k):
     if k < 1:
         raise ValueError('k must be positive (got {})'.format(k))
     if k <= SINGLE_LAUNCH_K:
-        return _topk_call(user_reprs, item_matrix, item_bias, k)
+        return _topk_call(user_reprs, item_matrix, item_bias, k,
+                          num_mixtures)
 
     resume_score = resume_id = None
     score_parts, id_parts = [], []
@@ -66,7 +72,7 @@ def streaming_topk(user_reprs, item_matrix, item_bias, k):
     while remaining > 0:
         round_k = min(SINGLE_LAUNCH_K, remaining)
         scores, ids = _topk_call(user_reprs, item_matrix, item_bias, round_k,
-                                 resume_score, resume_id)
+                                 num_mixtures, resume_score, resume_id)
         score_parts.append(scores)
         id_parts.append(ids)
         resume_score = scores[:, -1].contiguous()
@@ -75,45 +81,49 @@ def streaming_topk(user_reprs, item_matrix, item_bias, k):
     return torch.cat(score_parts, dim=1), torch.cat(id_parts, dim=1)
 
 
-def _topk_call(user_reprs, item_matrix, item_bias, k, resume_score=None,
-               resume_id=None):
+def _topk_call(user_reprs, item_matrix, item_bias, k, num_mixtures=None,
+               resume_score=None, resume_id=None):
     """One fetch of at most SINGLE_LAUNCH_K, optionally resuming strictly
     after a per-user (score, id) key."""
     if on_cuda(user_reprs, item_matrix, item_bias):
         return _topk_cuda(user_reprs, item_matrix, item_bias, k,
-                          resume_score, resume_id)
+                          num_mixtures, resume_score, resume_id)
     return streaming_topk_plain(user_reprs, item_matrix, item_bias, k,
-                                resume_score, resume_id)
+                                num_mixtures, resume_score, resume_id)
 
 
 def streaming_topk_plain(user_reprs, item_matrix, item_bias, k,
-                         resume_score=None, resume_id=None):
+                         num_mixtures=None, resume_score=None,
+                         resume_id=None):
     """Plain PyTorch version of one fetch, on any device: any ``k`` up to
     the catalogue size in one sort, optionally after a (B,) resume key."""
-    scores = plain_scores(user_reprs, item_matrix, item_bias).T   # (B, N)
+    scores = plain_scores(user_reprs, item_matrix, item_bias,
+                          num_mixtures).T                       # (B, N)
     if resume_score is not None:
         ids = torch.arange(scores.shape[1], device=scores.device)
         rs, rid = resume_score[:, None], resume_id[:, None]
         taken = (scores > rs) | ((scores == rs) & (ids <= rid))
         scores = scores.masked_fill(taken, float('-inf'))
-    # A stable descending sort keeps equal scores in ascending id order.
+    # A stable descending sort keeps equal scores (-0.0 and +0.0 among
+    # them) in ascending id order.
     top, order = torch.sort(scores, dim=1, descending=True, stable=True)
-    top = top[:, :k]
-    top = torch.where(top == 0, torch.zeros_like(top), top)
-    return top, order[:, :k].to(torch.int32)
+    return top[:, :k], order[:, :k].to(torch.int32)
 
 
-def _topk_cuda(user_reprs, item_matrix, item_bias, k, resume_score=None,
-               resume_id=None):
-    global STREAMING_TOPK_LAUNCHES
+def _topk_cuda(user_reprs, item_matrix, item_bias, k, num_mixtures=None,
+               resume_score=None, resume_id=None):
+    global STREAMING_TOPK_LAUNCHES, MIXTURE_STREAMING_TOPK_LAUNCHES
     require_contiguous(user_reprs, item_matrix, item_bias)
     lib = _build.load('topk')
-    batch, dim = user_reprs.shape
-    num_items = item_matrix.shape[0]
+    batch = user_reprs.shape[0]
+    num_items, dim = item_matrix.shape
+    mixtures = num_mixtures or 0
     kp = max(_MIN_KP, 1 << (k - 1).bit_length())
-    if lib.spotlight_topk_stage1_smem_bytes(kp, dim) > _MAX_SHARED:
-        raise ValueError('top-{} at embedding width {} exceeds the top-k '
-                         'kernel\'s shared memory'.format(k, dim))
+    if lib.spotlight_topk_stage1_smem_bytes(kp, dim, mixtures) > _MAX_SHARED:
+        raise ValueError('top-{} at embedding width {}{} exceeds the top-k '
+                         'kernel\'s shared memory'.format(
+                             k, dim, ' with {} mixtures'.format(mixtures)
+                             if mixtures else ''))
     device = user_reprs.device
     splits = catalogue_splits(-(-batch // _TOPK_USERS), num_items, device,
                               cap=_STAGE2_KEYS // kp)
@@ -132,9 +142,12 @@ def _topk_cuda(user_reprs, item_matrix, item_bias, k, resume_score=None,
     status = lib.spotlight_streaming_topk(
         user_reprs.data_ptr(), item_matrix.data_ptr(),
         int(item_matrix.dtype == torch.bfloat16), item_bias.data_ptr(),
-        *resume_ptrs, batch, num_items, dim, k, kp, splits,
+        *resume_ptrs, batch, num_items, dim, mixtures, k, kp, splits,
         partial.data_ptr(), scores.data_ptr(), ids.data_ptr(),
         stream_handle(device))
     _build.check(status, 'streaming_topk kernel')
-    STREAMING_TOPK_LAUNCHES += 1
+    if mixtures:
+        MIXTURE_STREAMING_TOPK_LAUNCHES += 1
+    else:
+        STREAMING_TOPK_LAUNCHES += 1
     return scores, ids

@@ -1,0 +1,9 @@
+"""Sequence models: representations and the implicit sequence estimator."""
+
+from spotlight_tpu_torch.sequence.implicit import (  # noqa: F401
+    ImplicitSequenceModel,
+)
+from spotlight_tpu_torch.sequence.representations import (  # noqa: F401
+    LSTMNet,
+    MixtureLSTMNet,
+)

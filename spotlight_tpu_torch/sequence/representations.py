@@ -1,0 +1,199 @@
+"""Sequence representations: users as functions of their interaction history.
+
+Counterpart of ``spotlight_tpu/sequence/representations.py`` for
+:class:`LSTMNet` and :class:`MixtureLSTMNet` (``PoolNet`` and ``CNNNet``
+belong to a later slice of the port).
+
+Shared contract: ``user_representation(sequences)`` returns
+``(per_step, final)`` where ``per_step[:, t]`` encodes the items *before*
+position ``t`` and ``final`` the whole sequence.  The causal alignment
+left-pads the embedded sequence with one zero step and drops the last output
+step.  ``score(per_step, targets)`` scores target items at every step;
+``score_catalog(final)`` scores the final representation against the whole
+catalogue (the materialize evaluation path).
+
+As in the JAX package, activations are ``(batch, time, features)``, the item
+bias lives in column ``D`` of one fused float32 ``(num_items, D + 1)`` table
+whose padding row 0 reads as zeros, and the LSTM keeps JAX's ``(D, 4D)`` weight
+layout with gates in the order (i, f, g, o): one input-projection product for
+all steps, then a Python loop over ``h @ w_hh``.  (``nn.LSTM`` is not used:
+its layout is the transpose of JAX's, and cuDNN runs float32 RNNs in TF32 by
+default.)  Parameters are drawn on the CPU from the caller's
+``torch.Generator`` (torch's LSTM initialisation, U(-1/sqrt(D), 1/sqrt(D)))
+and then moved to ``device``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from spotlight_tpu_torch.ops.embeddings import PADDING_IDX, FusedBiasEmbedding
+
+
+def _uniform(shape, bound, generator):
+    return (torch.rand(shape, generator=generator) * 2 - 1) * bound
+
+
+class _ItemRepresentationBase(nn.Module):
+    """The fused item table and the scoring shared by the representations."""
+
+    def __init__(self, num_items, embedding_dim, generator, device):
+        super().__init__()
+        self.num_items = num_items
+        self.embedding_dim = embedding_dim
+        self.item_embeddings = FusedBiasEmbedding(
+            num_items, embedding_dim, padding_idx=PADDING_IDX,
+            generator=generator, device=device)
+
+    def _parameters_from(self, shapes, generator, device):
+        """A ``ParameterDict`` of U(-1/sqrt(D), 1/sqrt(D)) draws."""
+        bound = 1.0 / math.sqrt(self.embedding_dim)
+        return nn.ParameterDict({
+            name: nn.Parameter(_uniform(shape, bound, generator).to(device))
+            for name, shape in shapes.items()})
+
+    def _target_rows(self, targets):
+        """(vectors, bias) of target item ids in float32."""
+        rows = self.item_embeddings(targets)
+        return rows[..., :self.embedding_dim], rows[..., self.embedding_dim]
+
+    def _embed(self, sequences):
+        return self._target_rows(sequences)[0]
+
+    def user_representation(self, sequences):
+        """(per_step, final) representations; see the module docstring."""
+        return self._user_repr_from_emb(self._embed(sequences))
+
+    @staticmethod
+    def _causal_shift(emb):
+        """Left-pad the embedded sequence by one zero step: output step t
+        sees the items strictly before t."""
+        return torch.cat([torch.zeros_like(emb[:, :1]), emb], dim=1)
+
+    def score(self, user_representations, targets):
+        """(B, T) scores of target ids (B, T) against per-step
+        representations."""
+        vectors, bias = self._target_rows(targets)
+        return self._score_vectors(user_representations, vectors, bias)
+
+    def _score_vectors(self, user_representations, vectors, bias):
+        return (user_representations * vectors).sum(dim=-1) + bias
+
+    def _catalog_matrix(self):
+        """Dense ``(num_items, D)`` item matrix and ``(num_items,)`` bias:
+        the inputs of catalogue scoring and of the evaluation kernels."""
+        all_items = torch.arange(self.num_items,
+                                 device=self.item_embeddings.weight.device)
+        rows = self.item_embeddings(all_items)
+        return (rows[:, :self.embedding_dim].contiguous(),
+                rows[:, self.embedding_dim].contiguous())
+
+    def score_catalog(self, final_representations):
+        """(B, num_items) scores of final representations (B, D)."""
+        weight, bias = self._catalog_matrix()
+        scores = torch.matmul(final_representations, weight.T)
+        return scores + bias[None, :]
+
+
+class LSTMNet(_ItemRepresentationBase):
+    """A single-layer LSTM over the (shifted) embedded sequence; the hidden
+    state at each step is the user representation.
+
+    Parameters
+    ----------
+    num_items : int
+    embedding_dim : int, optional
+    sparse : bool
+        Accepted for API parity.
+    generator : torch.Generator, optional
+    device : str or torch.device
+    """
+
+    def __init__(self, num_items, embedding_dim=32, sparse=False,
+                 generator=None, device='cpu'):
+        super().__init__(num_items, embedding_dim, generator, device)
+        self.sparse = sparse
+        dim = embedding_dim
+        self.lstm = self._parameters_from(
+            {'w_ih': (dim, 4 * dim), 'w_hh': (dim, 4 * dim),
+             'b_ih': (4 * dim,), 'b_hh': (4 * dim,)}, generator, device)
+
+    def _run_lstm(self, inputs):
+        """inputs (B, T1, D) -> hidden states (B, T1, D)."""
+        lstm = self.lstm
+        dim = self.embedding_dim
+        x_proj = (torch.einsum('btd,dg->btg', inputs, lstm['w_ih'])
+                  + lstm['b_ih'] + lstm['b_hh'])
+        h = c = torch.zeros_like(x_proj[:, 0, :dim])
+        hidden = []
+        for step in range(x_proj.shape[1]):
+            gates = x_proj[:, step] + h @ lstm['w_hh']
+            i = torch.sigmoid(gates[:, :dim])
+            f = torch.sigmoid(gates[:, dim:2 * dim])
+            g = torch.tanh(gates[:, 2 * dim:3 * dim])
+            o = torch.sigmoid(gates[:, 3 * dim:])
+            c = f * c + i * g
+            h = o * torch.tanh(c)
+            hidden.append(h)
+        return torch.stack(hidden, dim=1)
+
+    def _user_repr_from_emb(self, emb):
+        hidden = self._run_lstm(self._causal_shift(emb))
+        return hidden[:, :-1], hidden[:, -1]
+
+
+class MixtureLSTMNet(LSTMNet):
+    """Mixture-of-tastes LSTM representation (Kula, "Mixture-of-tastes
+    Models", 2017).
+
+    The LSTM hidden state is projected (a per-step dense layer) to
+    ``num_mixtures`` taste vectors and then ``num_mixtures`` attention
+    vectors; a target item is scored against the softmax-weighted mixture
+    of tastes, weighted by the item's affinity to each attention vector.
+
+    Representation shapes: per-step ``(B, T, 2 * num_mixtures, D)``, final
+    ``(B, 2 * num_mixtures, D)``.
+    """
+
+    def __init__(self, num_items, embedding_dim=32, num_mixtures=4,
+                 sparse=False, generator=None, device='cpu'):
+        super().__init__(num_items, embedding_dim, sparse=sparse,
+                         generator=generator, device=device)
+        self.num_mixtures = num_mixtures
+        out_dim = embedding_dim * num_mixtures * 2
+        self.projection = self._parameters_from(
+            {'weight': (embedding_dim, out_dim), 'bias': (out_dim,)},
+            generator, device)
+
+    def _user_repr_from_emb(self, emb):
+        hidden = self._run_lstm(self._causal_shift(emb))     # (B, T+1, D)
+        projected = (torch.einsum('btd,do->bto', hidden,
+                                  self.projection['weight'])
+                     + self.projection['bias'])
+        batch, t1 = projected.shape[:2]
+        projected = projected.reshape(batch, t1, 2 * self.num_mixtures,
+                                      self.embedding_dim)
+        return projected[:, :-1], projected[:, -1]
+
+    def _score_vectors(self, user_representations, vectors, bias):
+        m = self.num_mixtures
+        components = user_representations[..., :m, :]       # (B, T, M, D)
+        mixture_vectors = user_representations[..., m:, :]  # (B, T, M, D)
+        attention = torch.einsum('btmd,btd->btm', mixture_vectors, vectors)
+        weights = torch.softmax(attention, dim=-1)
+        weighted = torch.einsum('btm,btmd->btd', weights, components)
+        return (weighted * vectors).sum(dim=-1) + bias
+
+    def score_catalog(self, final_representations):
+        """(B, num_items) scores of final representations (B, 2M, D)."""
+        m = self.num_mixtures
+        components = final_representations[:, :m, :]        # (B, M, D)
+        mixture_vectors = final_representations[:, m:, :]   # (B, M, D)
+        weight, bias = self._catalog_matrix()
+        taste_scores = torch.einsum('bmd,nd->bmn', components, weight)
+        attention = torch.einsum('bmd,nd->bmn', mixture_vectors, weight)
+        weights = torch.softmax(attention, dim=1)
+        return (weights * taste_scores).sum(dim=1) + bias[None, :]

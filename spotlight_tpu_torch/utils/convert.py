@@ -4,7 +4,10 @@ The JAX estimators keep their parameters as a tree of arrays.  Given that
 tree as numpy arrays (for example
 ``jax.tree_util.tree_map(np.asarray, model._params)``),
 :func:`params_from_jax` returns the port's ``state_dict`` for a
-:class:`~spotlight_tpu_torch.factorization.representations.BilinearNet`, so
+:class:`~spotlight_tpu_torch.factorization.representations.BilinearNet` or
+a sequence representation
+(:class:`~spotlight_tpu_torch.sequence.representations.LSTMNet`,
+:class:`~spotlight_tpu_torch.sequence.representations.MixtureLSTMNet`), so
 both packages can score with the same numbers.  Nothing here imports JAX.
 """
 
@@ -28,12 +31,17 @@ def params_from_jax(net, params_numpy):
 
     Parameters
     ----------
-    net : BilinearNet
+    net : BilinearNet, LSTMNet or MixtureLSTMNet
     params_numpy : dict
-        The fused layout's tree is ``{'user_embeddings': {'weight': (U, D+1)},
-        'item_embeddings': {'weight': (N, D+1)}}``; ``fused=False`` adds
-        ``'user_biases'`` and ``'item_biases'`` ``(., 1)`` tables beside
-        ``(., D)`` embedding tables.
+        A two-level tree whose leaves are named as the network's
+        parameters.  ``BilinearNet``'s fused layout is
+        ``{'user_embeddings': {'weight': (U, D+1)}, 'item_embeddings':
+        {'weight': (N, D+1)}}``; ``fused=False`` adds ``'user_biases'`` and
+        ``'item_biases'`` ``(., 1)`` tables beside ``(., D)`` embedding
+        tables.  ``LSTMNet``'s is ``{'item_embeddings': {'weight':
+        (N, D+1)}, 'lstm': {'w_ih': (D, 4D), 'w_hh': (D, 4D), 'b_ih':
+        (4D,), 'b_hh': (4D,)}}``; ``MixtureLSTMNet`` adds ``'projection':
+        {'weight': (D, 2MD), 'bias': (2MD,)}``.
 
     Returns
     -------

@@ -7,7 +7,12 @@ the JAX package, so it also runs where JAX is not installed::
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 Kernel and plain version share one score arithmetic (the exact-tie contract
-of ``csrc/common.cuh``), so every comparison is exact.
+of ``csrc/common.cuh``), so every comparison of dot scores, counts and ids is
+exact.  Mixture scores also go through ``expf``: the kernels' and
+``torch.exp``'s come from the CUDA math library and should agree bit for
+bit, but the two may be built from different CUDA versions, so mixture
+scores are held to within 2 ulp, and the counts and ids they decide
+exactly.
 """
 
 import numpy as np
@@ -15,9 +20,10 @@ import pytest
 import torch
 
 from spotlight_tpu_torch import evaluation
-from spotlight_tpu_torch.data import Interactions
+from spotlight_tpu_torch.data import Interactions, SequenceInteractions
 from spotlight_tpu_torch.factorization import ImplicitFactorizationModel
 from spotlight_tpu_torch.ops.kernels import ranking, topk
+from spotlight_tpu_torch.sequence import ImplicitSequenceModel
 from spotlight_tpu_torch.utils.convert import params_from_jax
 
 pytestmark = pytest.mark.cuda
@@ -31,8 +37,17 @@ def cuda():
     return torch.device('cuda')
 
 
+def _ulp_gap(a, b):
+    """Largest distance in units in the last place between two float32
+    tensors of finite values (0 when they are bit-equal)."""
+    def ordered(x):
+        bits = x.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(bits < 0, -(bits & 0x7fffffff), bits)
+    return int((ordered(a) - ordered(b)).abs().max()) if a.numel() else 0
+
+
 def _operands(seed, batch, num_items, dim, dyadic=False, copies=1,
-              item_dtype=torch.float32, device='cuda'):
+              item_dtype=torch.float32, device='cuda', mixtures=None):
     rs = np.random.RandomState(seed)
     if dyadic:
         def draw(*shape):
@@ -43,7 +58,7 @@ def _operands(seed, batch, num_items, dim, dyadic=False, copies=1,
     base = num_items // copies
     items = np.tile(draw(base, dim), (copies, 1))
     bias = np.tile(draw(base) / 8, copies)
-    users = draw(batch, dim)
+    users = draw(batch, ranking.user_width(dim, mixtures))
     return (torch.from_numpy(users).to(device),
             torch.from_numpy(items).to(device=device, dtype=item_dtype),
             torch.from_numpy(bias).to(device))
@@ -106,27 +121,123 @@ def test_topk_kernel_bf16_and_negative_zero(cuda):
     want = topk.streaming_topk_plain(users, items, bias, 50)
     assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
 
+    # A one-term dot of -0.0 plus a -0.0 bias is -0.0: it ties +0.0 in the
+    # order, and comes back with its sign.
     users = torch.tensor([[1.0], [-1.0]], device=cuda)
     items = torch.tensor([[0.0], [0.0], [1.0]], device=cuda)
-    scores, ids = topk.streaming_topk(users, items, torch.zeros(3,
-                                                                device=cuda),
-                                      3)
-    assert ids.tolist() == [[2, 0, 1], [0, 1, 2]]
-    assert not torch.signbit(scores[scores == 0]).any()
+    bias = torch.tensor([-0.0, 0.0, -0.0], device=cuda)
+    scores, ids = topk.streaming_topk(users, items, bias, 3)
+    want_scores, want_ids = topk.streaming_topk_plain(users, items, bias, 3)
+    assert ids.tolist() == want_ids.tolist() == [[2, 0, 1], [0, 1, 2]]
+    assert torch.equal(torch.signbit(scores), torch.signbit(want_scores))
+    # User 0: 1 + -0, 0 + -0... = +0; user 1: -0 + -0 = -0, -0 + 0 = +0.
+    assert torch.signbit(scores).tolist() == [[False, False, False],
+                                              [True, False, True]]
 
 
 def test_each_launch_counts_once(cuda):
     users, items, bias = _operands(2, 64, 1000, 32)
+    mix_users, _, _ = _operands(3, 64, 1000, 32, mixtures=2)
     ids = torch.zeros(64, 3, dtype=torch.int64, device=cuda)
-    before = (ranking.RANK_WEIGHTS_LAUNCHES, ranking.MATCHED_SCORES_LAUNCHES,
-              topk.STREAMING_TOPK_LAUNCHES)
+    counters = (
+        (ranking, 'RANK_WEIGHTS_LAUNCHES'),
+        (ranking, 'MATCHED_SCORES_LAUNCHES'),
+        (topk, 'STREAMING_TOPK_LAUNCHES'),
+        (ranking, 'MIXTURE_RANK_WEIGHTS_LAUNCHES'),
+        (ranking, 'CANDIDATE_SCORES_LAUNCHES'),
+        (topk, 'MIXTURE_STREAMING_TOPK_LAUNCHES'))
+    before = [getattr(module, name) for module, name in counters]
     ts = ranking.matched_target_scores(users, items, bias, ids)
     ranking.rank_weights(users, items, bias, ts)
     topk.streaming_topk(users, items, bias, 20)
     topk.streaming_topk(users, items, bias, topk.SINGLE_LAUNCH_K + 1)
-    assert (ranking.RANK_WEIGHTS_LAUNCHES - before[0],
-            ranking.MATCHED_SCORES_LAUNCHES - before[1],
-            topk.STREAMING_TOPK_LAUNCHES - before[2]) == (1, 1, 3)
+    ts = ranking.matched_candidate_scores(mix_users, items, bias, ids, 2)
+    ranking.rank_weights(mix_users, items, bias, ts, 2)
+    topk.streaming_topk(mix_users, items, bias, 20, 2)
+    after = [getattr(module, name) for module, name in counters]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 3, 1, 1, 1]
+
+
+@pytest.mark.parametrize('batch,num_items,dim,mixtures,width,dtype', [
+    (100, 5000, 64, 4, 1, torch.float32),
+    (70, 1000, 32, 2, 40, torch.float32),        # two target chunks
+    (33, 777, 16, 8, 3, torch.float32),          # ragged, widest mixture
+    (65, 900, 8, 3, 5, torch.bfloat16),
+])
+def test_mixture_rank_kernels_equal_plain_versions(cuda, batch, num_items,
+                                                   dim, mixtures, width,
+                                                   dtype):
+    users, items, bias = _operands(batch + width, batch, num_items, dim,
+                                   item_dtype=dtype, mixtures=mixtures)
+    users = users / dim ** .5
+    ids = torch.randint(0, num_items, (batch, width),
+                        generator=torch.Generator().manual_seed(1)).to(cuda)
+    ts = ranking.matched_candidate_scores(users, items, bias, ids, mixtures)
+    ts_plain = ranking.matched_candidate_scores_plain(users, items, bias,
+                                                      ids, mixtures)
+    assert _ulp_gap(ts, ts_plain) <= 2
+    weights = ranking.rank_weights(users, items, bias, ts, mixtures)
+    assert torch.equal(weights, ranking.rank_weights_plain(
+        users, items, bias, ts_plain, mixtures))
+    assert bool((weights >= 0.5).all())   # every target tied itself
+    catalogue = ranking.plain_mixture_scores(users, items, bias, mixtures)
+    assert _ulp_gap(ts_plain, torch.gather(catalogue.T, 1, ids)) == 0
+
+
+@pytest.mark.parametrize('k', [1, 10, 64, 256, 300])
+@pytest.mark.parametrize('mixtures', [2, 4])
+def test_mixture_topk_kernel_equals_plain_version(cuda, k, mixtures):
+    users, items, bias = _operands(k + mixtures, 70, 5000, 64,
+                                   mixtures=mixtures)
+    users = users / 8
+    got = topk.streaming_topk(users, items, bias, k, mixtures)
+    want = topk.streaming_topk_plain(users, items, bias, k, mixtures)
+    assert torch.equal(got[1], want[1]) and _ulp_gap(got[0], want[0]) <= 2
+
+
+def test_mixture_duplicated_row_ties_exactly(cuda):
+    """Item 6 is a copy of item 5, the target of every user: the kernels
+    see the two scores as an exact tie, so every rank is k + 0.5."""
+    users, items, bias = _operands(9, 300, 20000, 64, mixtures=4)
+    users = users / 8
+    items[6], bias[6] = items[5], bias[5]
+    ids = torch.full((300, 1), 5, dtype=torch.int64, device=cuda)
+    ts = ranking.matched_candidate_scores(users, items, bias, ids, 4)
+    ranks = ranking.rank_weights(users, items, bias, ts, 4) + 0.5
+    assert bool((ranks % 1 == 0.5).all())
+
+
+def test_mixture_sequence_metrics_on_the_card_equal_the_cpu(cuda):
+    rs = np.random.RandomState(3)
+    num_items, dim = 500, 16
+    sequences = rs.randint(1, num_items, (64, 12))
+    sequences[:5, :4] = 0
+    test = SequenceInteractions(sequences, num_items=num_items)
+    models = []
+    for device in ('cuda', 'cpu'):
+        model = ImplicitSequenceModel(representation='mixture',
+                                      embedding_dim=dim,
+                                      random_state=np.random.RandomState(0),
+                                      device=device)
+        model._initialize(test)
+        models.append(model)
+    on_card, on_cpu = models
+    state = {name: value.cpu() for name, value in
+             on_card._net.state_dict().items()}
+    on_cpu._load_params(state)
+    for exclude in (False, True):
+        np.testing.assert_allclose(
+            evaluation.sequence_mrr_score(on_card, test,
+                                          exclude_preceding=exclude),
+            evaluation.sequence_mrr_score(on_cpu, test,
+                                          exclude_preceding=exclude),
+            rtol=1e-6, atol=0)
+        for got, want in zip(
+                evaluation.sequence_precision_recall_score(
+                    on_card, test, k=3, exclude_preceding=exclude),
+                evaluation.sequence_precision_recall_score(
+                    on_cpu, test, k=3, exclude_preceding=exclude)):
+            np.testing.assert_array_equal(got, want)
 
 
 def test_cuda_operands_the_kernels_cannot_take_raise(cuda):

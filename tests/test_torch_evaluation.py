@@ -255,13 +255,18 @@ def test_streaming_mrr_uses_the_bit_matched_target_scores(monkeypatch):
 
 
 def test_empty_test_set_shapes():
-    """No test interactions: empty results, one column per k."""
-    _, port, _, _, _, ptest = _setup()
+    """No test interactions: empty results of the JAX package's shapes (one
+    column for vector k)."""
+    jax_model, port, train, _, _, ptest = _setup()
     empty = Interactions(np.array([], np.int64), np.array([], np.int64),
                          num_users=ptest.num_users, num_items=ptest.num_items)
-    assert evaluation.mrr_score(port, empty).shape == (0,)
-    precision, recall = evaluation.precision_recall_score(port, empty,
-                                                          k=[1, 2, 3])
-    assert precision.shape == recall.shape == (0, 3)
-    assert evaluation.precision_recall_score(port, empty, k=2)[0].shape == (
-        0,)
+    from spotlight_tpu.data.interactions import Interactions as JaxInter
+    jax_empty = JaxInter(np.array([], np.int64), np.array([], np.int64),
+                         num_users=train.num_users, num_items=train.num_items)
+    assert (evaluation.mrr_score(port, empty).shape
+            == jax_eval.mrr_score(jax_model, jax_empty).shape == (0,))
+    for k in ([1, 2, 3], 2):
+        got = evaluation.precision_recall_score(port, empty, k=k)
+        want = jax_eval.precision_recall_score(jax_model, jax_empty, k=k)
+        for got_part, want_part in zip(got, want):
+            assert got_part.shape == want_part.shape

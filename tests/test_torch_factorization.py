@@ -116,7 +116,9 @@ def test_factors_match_jax(fused):
 @torch.no_grad()
 def test_rank_factors_drop_user_bias_and_cache_items():
     _, port, _, _ = fitted_pair(True)
-    reprs, matrix, bias = port._rank_factors_users(np.array([0, 5]))
+    reprs, matrix, bias, mixtures = port._rank_factors_users(
+        np.array([0, 5]))
+    assert mixtures is None
     assert reprs.shape == (2, 16) and reprs.dtype == torch.float32
     again = port._rank_factors_users(np.array([1]))
     assert again[1] is matrix and again[2] is bias

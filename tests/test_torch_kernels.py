@@ -238,13 +238,20 @@ def test_streaming_topk_rounds_equal_one_sort():
 
 
 def test_streaming_topk_negative_zero_reads_as_zero():
-    """-0.0 and +0.0 tie; the result carries +0.0 (the kernel's keys do)."""
-    users = torch.tensor([[1.0], [-1.0]])
-    items = torch.tensor([[0.0], [0.0], [1.0]])
-    bias = torch.zeros(3)
-    scores, ids = topk.streaming_topk(users, items, bias, 3)
-    assert ids.tolist() == [[2, 0, 1], [0, 1, 2]]
-    assert not torch.signbit(scores[scores == 0]).any()
+    """A score of -0.0 comes back as -0.0, as JAX's streaming_topk returns
+    it: a one-term dot of -0.0 plus a -0.0 bias is -0.0 (user 1), of +0.0
+    plus -0.0 it is +0.0 (user 0).  Equal scores keep the lower id first."""
+    users = np.array([[1.0], [-1.0]], np.float32)
+    items = np.array([[0.0], [0.0], [1.0], [0.0]], np.float32)
+    bias = np.full(4, -0.0, np.float32)
+    want_s, want_i = _jax_topk(users, items, bias, 4)
+    got_s, got_i = _port_topk(users, items, bias, 4)
+    np.testing.assert_array_equal(got_i, want_i)
+    assert got_i.tolist() == [[2, 0, 1, 3], [0, 1, 3, 2]]
+    np.testing.assert_array_equal(got_s, want_s)
+    assert torch.equal(torch.signbit(torch.from_numpy(got_s)),
+                       torch.signbit(torch.from_numpy(want_s)))
+    assert torch.signbit(torch.from_numpy(got_s)).any()
 
 
 @pytest.mark.parametrize('bad', ['users_dtype', 'width', 'bias_shape',
