@@ -41,6 +41,29 @@ each of which exits non-zero when it fails:
    plain catalogue pass; then a duplicated-row tie check (every rank
    k + 0.5), and where the device time of one more ``sequence_mrr_score``
    goes.
+7. bloom sequences: the serving path of
+   ``examples/bloom_embeddings/performance.py``'s model at 1e6 items: an
+   untrained ``LSTMNet`` (D=64) with a ``BloomEmbedding`` item layer
+   (200,000 compressed rows, 4 hashes), 2,048 test sequences of length 50;
+   ``predict``, ``sequence_mrr_score`` with and without
+   ``exclude_preceding`` and ``sequence_precision_recall_score`` at k=10,
+   the launch counters of K1, K1c and K2 zeroed just before and read just
+   after; streaming against materialize on the first 256 sequences as in
+   phase 6.
+8. kernel entry points on the bloom model's operands, driven once with
+   their launch counters zeroed just before and read just after:
+   ``reciprocal_ranks_streaming`` (K1c, K5) on the metric's operands,
+   equal bit for bit to ``sequence_mrr_score``'s values; mixture K5 on
+   phase 6's model; ``multihot_gather_sum(mask_row_zero=True)`` (K7f) and
+   ``bloom_gather_sum`` (K6) over all 1e6 ids with their gradients (K7b,
+   K6's backward).  Then K5 against its plain version and the K1
+   identity, at the repo's K5 shape with four quarter-catalogue calls; the
+   lookups and their gradients bit for bit against their plain versions,
+   the backward in two launches and within 1e-5 of ``index_add_``, K7f
+   within 1e-6 of the layer's own lookup; each timed beside its plain
+   version and its ``embedding_bag`` yardstick; the lookup benchmark's
+   shapes and one bfloat16 table; where the device time of one bloom
+   ``sequence_mrr_score`` goes.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -88,6 +111,16 @@ SEQ_K = 10
 #: Users of a plain mixture pass: it holds several (N, B) float32
 #: temporaries, 205 MB each at B=256, so larger batches run in slices.
 MIX_BATCH = 256
+#: The bloom slice: examples/bloom_embeddings/performance.py's model,
+#: LSTMNet with a BloomEmbedding item layer (ratio 0.2, 4 hashes), at the
+#: third of its catalogue sizes.
+BLOOM_ITEMS = 1_000_000
+BLOOM_RATIO = 0.2
+BLOOM_HASHES = 4
+BLOOM_ROWS = int(BLOOM_RATIO * BLOOM_ITEMS)
+#: scripts/bloom_kernel_bench.py's lookup shapes.
+LOOKUP_BATCH = 8_192
+LOOKUP_ROWS = (4_096, 65_536, 262_144)
 #: Largest gap between the materialize path's scores and the plain
 #: catalogue pass's, relative to the row's largest score: float32
 #: rounding of other summation orders, far above it a wrong score.
@@ -119,6 +152,18 @@ def bound(ops, nbytes):
     t_ops = ops / FP32_OPS_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, 'operations') if t_ops >= t_bytes else (t_bytes, 'bytes')
+
+
+def kernel_entry(name, src, replaces, shape, ms, plain_ms, ops, nbytes,
+                 err, library_ms=None, **extra):
+    """A kernel-table entry: the measured times, and the bound worked from
+    the operations and bytes of the call."""
+    bound_ms, bound_by = bound(ops, nbytes)
+    return dict(name=name, route='cuda',
+                source='spotlight_tpu_torch/ops/kernels/csrc/' + src,
+                replaces=replaces, shape=shape, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms, **extra)
 
 
 def ulp_gap(torch, a, b):
@@ -159,7 +204,7 @@ def check_rank_kernels(torch, card, generator):
     for batch, width in ((2048, 4), (256, 128)):
         users, items, bias = kernel_inputs(torch, batch, generator)
         ids = torch.randint(0, NUM_ITEMS, (batch, width),
-                            generator=generator, device='cuda')
+                            generator=generator, device=DEVICE)
         ts = ranking.matched_target_scores(users, items, bias, ids)
         ts_plain = ranking.matched_target_scores_plain(users, items, bias,
                                                        ids)
@@ -200,14 +245,10 @@ def check_rank_kernels(torch, card, generator):
              k1_ops, k1_bytes, 0.0),
         )
         for name, src, replaces, fn, plain_fn, ops, nbytes, err in cases:
-            bound_ms, bound_by = bound(ops, nbytes)
-            entry = dict(
-                name=name, route='cuda',
-                source='spotlight_tpu_torch/ops/kernels/csrc/' + src,
-                replaces=replaces, shape=shape, max_abs_err=err,
-                ms=median_ms(torch, fn, KERNEL_REPS),
-                plain_ms=median_ms(torch, plain_fn, PLAIN_REPS),
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+            entry = kernel_entry(name, src, replaces, shape,
+                                 median_ms(torch, fn, KERNEL_REPS),
+                                 median_ms(torch, plain_fn, PLAIN_REPS),
+                                 ops, nbytes, err)
             log(kernel_case=entry, card=card)
             if batch == 2048:
                 entries[name] = entry
@@ -244,21 +285,17 @@ def check_topk_kernel(torch, card, generator):
         ops = 2 * batch * NUM_ITEMS * D + batch * NUM_ITEMS
         nbytes = (4 * NUM_ITEMS * D + 4 * NUM_ITEMS + 4 * batch * D
                   + 8 * batch * k)
-        bound_ms, bound_by = bound(ops, nbytes)
-        entry = dict(
-            name='streaming_topk', route='cuda',
-            source='spotlight_tpu_torch/ops/kernels/csrc/topk.cu',
-            replaces='spotlight_tpu/ops/kernels/topk.py:62',
-            shape='B={} N={} D={} k={}'.format(batch, NUM_ITEMS, D, k),
-            max_abs_err=err,
-            ms=median_ms(torch,
-                         lambda: topk.streaming_topk(users, items, bias, k),
-                         KERNEL_REPS),
-            plain_ms=median_ms(
-                torch,
-                lambda: topk.streaming_topk_plain(users, items, bias, k),
-                PLAIN_REPS),
-            bound_ms=bound_ms, bound_by=bound_by,
+        entry = kernel_entry(
+            'streaming_topk', 'topk.cu',
+            'spotlight_tpu/ops/kernels/topk.py:62',
+            'B={} N={} D={} k={}'.format(batch, NUM_ITEMS, D, k),
+            median_ms(torch,
+                      lambda: topk.streaming_topk(users, items, bias, k),
+                      KERNEL_REPS),
+            median_ms(torch,
+                      lambda: topk.streaming_topk_plain(users, items, bias,
+                                                        k), PLAIN_REPS),
+            ops, nbytes, err,
             library_ms=median_ms(torch, library, PLAIN_REPS))
         log(kernel_case=entry, card=card)
         if (batch, k) == (2048, MAIN_TOPK_K):
@@ -281,14 +318,11 @@ def mixture_entry(torch, card, name, src, replaces, shape, fn, plain_fn,
     """A mixture kernel's case: its median time over KERNEL_REPS launches
     (or ``ms``, for K3, which has no launch of its own), its plain
     version's, the bound; printed, and returned as a kernel-table entry."""
-    bound_ms, bound_by = bound(ops, nbytes)
-    out = dict(
-        name=name, route='cuda',
-        source='spotlight_tpu_torch/ops/kernels/csrc/' + src,
-        replaces=replaces, shape=shape, max_abs_err=err, max_ulp=gap,
-        ms=median_ms(torch, fn, KERNEL_REPS) if ms is None else ms,
-        plain_ms=median_ms(torch, plain_fn, PLAIN_REPS),
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    out = kernel_entry(
+        name, src, replaces, shape,
+        median_ms(torch, fn, KERNEL_REPS) if ms is None else ms,
+        median_ms(torch, plain_fn, PLAIN_REPS), ops, nbytes, err,
+        max_ulp=gap)
     log(kernel_case=out, card=card)
     return out
 
@@ -584,7 +618,6 @@ def sequence_model():
 
 def run_sequence_slice(torch, card):
     """Returns (launch counts of the main path, model, test set)."""
-    from spotlight_tpu_torch import evaluation
     from spotlight_tpu_torch.data import SequenceInteractions
     from spotlight_tpu_torch.evaluation import (
         sequence_mrr_score, sequence_precision_recall_score)
@@ -662,20 +695,32 @@ def run_sequence_slice(torch, card):
         mean_mrr=float(mrr.mean()), mean_mrr_exclude=float(mrr_ex.mean()),
         mean_precision=float(precision.mean()), card=card)
 
-    # Streaming against materialize on the first sequences.  The two sum
-    # in other orders, so a rank may differ at a near tie: each rank that
-    # differs is printed, with two witnesses.  Every streaming rank must be
-    # the exact average-tie rank of the plain catalogue pass (bit-equal to
-    # the kernels), and the materialize path's scores must lie within
-    # SCORE_RTOL of the plain pass's, so an item the two paths order
-    # differently against a target lies within that gap of it.
-    sub = SequenceInteractions(sequences[:SEQ_CHECK], num_items=NUM_ITEMS)
+    check_streaming_against_materialize(torch, model, sequences[:SEQ_CHECK],
+                                        NUM_ITEMS)
+    return launches, model, test
+
+
+def check_streaming_against_materialize(torch, model, sequences, num_items):
+    """Streaming against materialize on ``sequences``.  The two sum in
+    other orders, so a rank may differ at a near tie: each rank that
+    differs is printed, with two witnesses.  Every streaming rank must be
+    the exact average-tie rank of the plain catalogue pass (bit-equal to
+    the kernels), and the materialize path's scores must lie within
+    SCORE_RTOL of the plain pass's, so an item the two paths order
+    differently against a target lies within that gap of it.  P@10 must
+    be equal."""
+    from spotlight_tpu_torch import evaluation
+    from spotlight_tpu_torch.data import SequenceInteractions
+    from spotlight_tpu_torch.evaluation import (
+        sequence_mrr_score, sequence_precision_recall_score)
+    from spotlight_tpu_torch.ops.kernels import ranking
+
+    sub = SequenceInteractions(sequences, num_items=num_items)
     prefixes = sub.sequences[:, :-1]
     targets = torch.as_tensor(sub.sequences[:, -1:].astype(np.int64),
                               device=DEVICE)
     reprs, items, bias, mixtures = model._rank_factors_sequences(prefixes)
-    exact = ranking.plain_mixture_scores(reprs, items, bias,
-                                         mixtures).T.contiguous()
+    exact = ranking.plain_scores(reprs, items, bias, mixtures).T.contiguous()
     full = model._score_catalog_sequences(prefixes)
     scale = exact.abs().amax(dim=1, keepdim=True)
     drift = float(((full - exact).abs() / scale).max())
@@ -709,18 +754,20 @@ def run_sequence_slice(torch, card):
                 items_ordered_apart=int(flipped.sum()),
                 widest_gap_of_scale=float(own[flipped].abs().max()
                                           / scale[b, 0])))
-        log(check='sequence streaming vs materialize',
-            exclude_preceding=exclude, sequences=SEQ_CHECK,
+        log(check='sequence streaming vs materialize', items=num_items,
+            exclude_preceding=exclude, sequences=len(sequences),
             streaming_equals_exact_rank=True, score_drift_of_scale=drift,
             ranks_apart=len(ties), near_ties=ties)
+    del exact, full, witness, seen
     p_s, r_s = sequence_precision_recall_score(model, sub, k=SEQ_K)
     p_m, r_m = sequence_precision_recall_score(model, sub, k=SEQ_K,
                                                streaming=False)
-    log(check='sequence P@10 streaming == materialize', sequences=SEQ_CHECK,
+    log(check='sequence P@10 streaming == materialize', items=num_items,
+        sequences=len(sequences),
         precision_apart=np.flatnonzero(p_s != p_m).tolist())
     np.testing.assert_array_equal(p_s, p_m)
     np.testing.assert_array_equal(r_s, r_m)
-    return launches, model, test
+    torch.cuda.empty_cache()
 
 
 def sliced(fn, *rows):
@@ -854,6 +901,579 @@ def check_duplicated_row_tie(torch, card, model, test):
                           for b in extra], card=card)
 
 
+# -- phase 7: the bloom sequence slice at full width -------------------------
+
+def bloom_model():
+    """The untrained bloom LSTM model of
+    examples/bloom_embeddings/performance.py at 1e6 items, seeded (row 0 of
+    the compressed table and the item biases zero), and the sequences."""
+    import torch
+
+    from spotlight_tpu_torch.data import SequenceInteractions
+    from spotlight_tpu_torch.ops.embeddings import BloomEmbedding
+    from spotlight_tpu_torch.sequence import ImplicitSequenceModel, LSTMNet
+
+    sequences = np.random.RandomState(42).randint(
+        1, BLOOM_ITEMS, (SEQ_ROWS, SEQ_LENGTH)).astype(np.int32)
+    generator = torch.Generator().manual_seed(0)
+    net = LSTMNet(BLOOM_ITEMS, embedding_dim=D,
+                  item_embedding_layer=BloomEmbedding(
+                      BLOOM_ITEMS, D, compression_ratio=BLOOM_RATIO,
+                      num_hash_functions=BLOOM_HASHES, generator=generator),
+                  generator=generator)
+    model = ImplicitSequenceModel(loss='bpr', representation=net)
+    model._initialize(SequenceInteractions(sequences, num_items=BLOOM_ITEMS))
+    return model, sequences
+
+
+def run_bloom_slice(torch, card):
+    """Returns (launch counts of the main path, model, test set, the
+    per-sequence values of ``sequence_mrr_score``)."""
+    from spotlight_tpu_torch.data import SequenceInteractions
+    from spotlight_tpu_torch.evaluation import (
+        sequence_mrr_score, sequence_precision_recall_score)
+    from spotlight_tpu_torch.ops.kernels import ranking
+
+    model, sequences = bloom_model()
+    layer = model._net.item_embeddings
+    if (model._net.fused or layer.compressed_num_embeddings != BLOOM_ROWS
+            or bool(layer.weight[0].any())):
+        raise AssertionError('the bloom model is not the configuration\'s')
+    test = SequenceInteractions(sequences[:SEQ_EVAL], num_items=BLOOM_ITEMS)
+
+    # The main path, with the launch counters zeroed just before it.
+    torch.cuda.synchronize()
+    reset_counters()
+    seconds = {}
+    start = time.perf_counter()
+    scores = model.predict(sequences[0])
+    seconds['predict'] = time.perf_counter() - start
+    start = time.perf_counter()
+    mrr = sequence_mrr_score(model, test)
+    seconds['sequence_mrr_score'] = time.perf_counter() - start
+    start = time.perf_counter()
+    mrr_ex = sequence_mrr_score(model, test, exclude_preceding=True)
+    seconds['sequence_mrr_score exclude_preceding'] = (time.perf_counter()
+                                                       - start)
+    start = time.perf_counter()
+    precision, recall = sequence_precision_recall_score(model, test,
+                                                        k=SEQ_K)
+    seconds['sequence_precision_recall_score'] = (time.perf_counter()
+                                                  - start)
+    launches = counters()
+    log(bloom_path_launches=launches)
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError('{} never launched on the bloom path'
+                                 .format(name))
+
+    # predict against the plain catalogue pass of the same representation.
+    final, items, bias, mixtures = model._rank_factors_sequences(
+        sequences[:1])
+    if mixtures is not None or items.shape != (BLOOM_ITEMS, D):
+        raise AssertionError('the bloom catalogue is not (N, D) dot scoring')
+    want = ranking.plain_scores(final, items, bias)[:, 0]
+    if scores.shape != (BLOOM_ITEMS,) or not np.all(np.isfinite(scores)):
+        raise AssertionError('predict: bad output {}'.format(scores.shape))
+    np.testing.assert_allclose(scores, want.cpu().numpy(), rtol=1e-5,
+                               atol=1e-6)
+    for name, values in (('sequence_mrr_score', mrr),
+                         ('sequence_mrr_score exclude_preceding', mrr_ex)):
+        if values.shape != (SEQ_EVAL,) or not (
+                np.all(values > 0) and np.all(values <= 1)):
+            raise AssertionError('{}: bad output'.format(name))
+    for name, values in (('precision', precision), ('recall', recall)):
+        if values.shape != (SEQ_EVAL,) or not (
+                np.all(values >= 0) and np.all(values <= 1)):
+            raise AssertionError('{}: bad output'.format(name))
+
+    calls = {
+        'sequence_mrr_score': lambda: sequence_mrr_score(model, test),
+        'sequence_mrr_score exclude_preceding': lambda: sequence_mrr_score(
+            model, test, exclude_preceding=True),
+        'sequence_precision_recall_score':
+            lambda: sequence_precision_recall_score(model, test, k=SEQ_K)}
+    for name, call in calls.items():
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        call()
+        warm_s = time.perf_counter() - start
+        log(bloom_slice=name, sequences=SEQ_EVAL, items=BLOOM_ITEMS,
+            first_s=seconds[name], warm_s=warm_s,
+            sequences_per_s=SEQ_EVAL / warm_s,
+            g_item_scores_per_s=SEQ_EVAL * BLOOM_ITEMS / warm_s / 1e9,
+            card=card)
+    log(bloom_slice='predict', seconds=seconds['predict'],
+        mean_mrr=float(mrr.mean()), mean_mrr_exclude=float(mrr_ex.mean()),
+        mean_precision=float(precision.mean()), card=card)
+
+    check_streaming_against_materialize(torch, model, sequences[:SEQ_CHECK],
+                                        BLOOM_ITEMS)
+    return launches, model, test, mrr
+
+
+# -- phase 8: the kernel entry points on the bloom model's operands ----------
+
+def bloom_counters():
+    from spotlight_tpu_torch.ops.kernels import bloom, multihot, ranking
+
+    return {'rank_counts': ranking.RANK_COUNTS_LAUNCHES,
+            'rank_counts (mixture)': ranking.MIXTURE_RANK_COUNTS_LAUNCHES,
+            'bloom_gather_sum': bloom.BLOOM_GATHER_LAUNCHES,
+            'bloom_gather_sum backward':
+                bloom.BLOOM_GATHER_BACKWARD_LAUNCHES,
+            'multihot_gather_sum': multihot.MULTIHOT_LAUNCHES,
+            'multihot_gather_sum backward':
+                multihot.MULTIHOT_BACKWARD_LAUNCHES}
+
+
+def reset_bloom_counters():
+    from spotlight_tpu_torch.ops.kernels import bloom, multihot, ranking
+
+    ranking.RANK_COUNTS_LAUNCHES = 0
+    ranking.MIXTURE_RANK_COUNTS_LAUNCHES = 0
+    bloom.BLOOM_GATHER_LAUNCHES = 0
+    bloom.BLOOM_GATHER_BACKWARD_LAUNCHES = 0
+    multihot.MULTIHOT_LAUNCHES = 0
+    multihot.MULTIHOT_BACKWARD_LAUNCHES = 0
+
+
+def bits(torch, x):
+    """The raw bits of a float32 or bfloat16 tensor (-0.0 apart from
+    +0.0), for comparisons bit for bit."""
+    return x.detach().view(torch.int16 if x.dtype == torch.bfloat16
+                           else torch.int32)
+
+
+def rank_counts_bytes(batch, num_items, width, targets):
+    """Bytes K5 must move: the items, their bias, the users, and per
+    target a score and an id in, two counts out."""
+    return 4 * num_items * (D + 1) + 4 * batch * width + 16 * batch * targets
+
+
+def check_bloom_kernels(torch, card, model, test, mrr, mix_model, mix_test):
+    """The kernel entry points K5, K6, K7f and K7b on the bloom model's
+    operands, driven once with their launch counters zeroed just before
+    and read just after (the returned launches); then each result held
+    against its plain version and the yardsticks, and each timed.  Returns
+    the kernel-table entries."""
+    from spotlight_tpu_torch.ops.kernels import bloom, multihot, ranking
+
+    reprs, items, bias, _ = model._rank_factors_sequences(
+        test.sequences[:, :-1])
+    targets = torch.as_tensor(test.sequences[:, -1:].astype(np.int64),
+                              device=DEVICE)
+    mask = torch.ones_like(targets, dtype=torch.bool)
+    mix_reprs, mix_items, mix_bias, mixtures = (
+        mix_model._rank_factors_sequences(mix_test.sequences[:MIX_BATCH,
+                                                             :-1]))
+    generator = torch.Generator(device=DEVICE)
+    generator.manual_seed(3)
+    mix_ids = torch.randint(1, NUM_ITEMS, (MIX_BATCH, 4), generator=generator,
+                            device=DEVICE)
+    layer = model._net.item_embeddings
+    table = layer.weight
+    all_items = torch.arange(BLOOM_ITEMS, device=DEVICE)
+    rows = layer.hashed_rows(all_items)
+    cotangent = torch.randn(BLOOM_ITEMS, D, generator=generator,
+                            device=DEVICE)
+
+    # The path: each entry point once, counters zeroed just before.
+    torch.cuda.synchronize()
+    reset_bloom_counters()
+    rr = ranking.reciprocal_ranks_streaming(reprs, items, bias, targets,
+                                            mask)
+    mix_ts = ranking.matched_candidate_scores(mix_reprs, mix_items, mix_bias,
+                                              mix_ids, mixtures)
+    mix_counts = ranking.rank_counts(mix_reprs, mix_items, mix_bias, mix_ts,
+                                     mix_ids, mixtures)
+    multihot_out = multihot.multihot_gather_sum(table, rows,
+                                                mask_row_zero=True)
+    multihot_grad, = torch.autograd.grad((multihot_out * cotangent).sum(),
+                                         table)
+    bloom_out = bloom.bloom_gather_sum(table, rows)
+    bloom_grad, = torch.autograd.grad((bloom_out * cotangent).sum(), table)
+    torch.cuda.synchronize()
+    launches = bloom_counters()
+    log(bloom_kernel_path_launches=launches)
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError('{} never launched on the kernel entry '
+                                 'points\' path'.format(name))
+    entries = {}
+
+    # K5: the K1 identity on the metric's own operands, bit for bit.
+    rr = rr.cpu().numpy()
+    if not np.array_equal(rr.view(np.int32), mrr.view(np.int32)):
+        raise AssertionError(
+            'reciprocal_ranks_streaming differs from sequence_mrr_score on '
+            '{} of {} sequences'.format(int((rr != mrr).sum()), len(mrr)))
+    ts = ranking.matched_target_scores(reprs, items, bias, targets)
+    greater, equal = ranking.rank_counts(reprs, items, bias, ts, targets)
+    plain_greater, plain_equal = (torch.cat(part) for part in zip(*sliced(
+        lambda u, t, i: ranking.rank_counts_plain(u, items, bias, t, i),
+        reprs, ts, targets)))
+    if not (torch.equal(greater, plain_greater)
+            and torch.equal(equal, plain_equal)):
+        raise AssertionError(
+            'rank_counts differs from its plain version on the bloom '
+            'model\'s operands: {} greater, {} equal counts'.format(
+                int((greater != plain_greater).sum()),
+                int((equal != plain_equal).sum())))
+    del plain_greater, plain_equal
+    weights = ranking.rank_weights(reprs, items, bias, ts)
+    if not torch.equal(weights, greater + 0.5 * (equal + 1.0)):
+        raise AssertionError('rank_weights != greater + (equal + 1) / 2')
+    batch = reprs.shape[0]
+    shape = 'B={} N={} D={} T=1'.format(batch, BLOOM_ITEMS, D)
+    entries['rank_counts'] = kernel_entry(
+        'rank_counts', 'ranking.cu',
+        'spotlight_tpu/ops/kernels/ranking.py:273', shape,
+        median_ms(torch, lambda: ranking.rank_counts(reprs, items, bias, ts,
+                                                     targets), KERNEL_REPS),
+        median_ms(torch, lambda: sliced(
+            lambda u, t, i: ranking.rank_counts_plain(u, items, bias, t, i),
+            reprs, ts, targets), 2),
+        2 * batch * BLOOM_ITEMS * D + 3 * batch * BLOOM_ITEMS,
+        rank_counts_bytes(batch, BLOOM_ITEMS, D, 1), 0.0)
+    log(kernel_case=entries['rank_counts'], card=card)
+
+    check_rank_counts_shapes(torch, card)
+
+    # K5 with mixture scoring, on the mixture model's operands.
+    mix_plain = ranking.rank_counts_plain(mix_reprs, mix_items, mix_bias,
+                                          mix_ts, mix_ids, mixtures)
+    if not (torch.equal(mix_counts[0], mix_plain[0])
+            and torch.equal(mix_counts[1], mix_plain[1])):
+        raise AssertionError('mixture rank_counts differs from its plain '
+                             'version')
+    mix_weights = ranking.rank_weights(mix_reprs, mix_items, mix_bias,
+                                       mix_ts, mixtures)
+    if not torch.equal(mix_weights, mix_counts[0]
+                       + 0.5 * (mix_counts[1] + 1.0)):
+        raise AssertionError('mixture rank_weights != greater + (equal + '
+                             '1) / 2')
+    entries['rank_counts (mixture)'] = kernel_entry(
+        'rank_counts (mixture)', 'ranking.cu',
+        'spotlight_tpu/ops/kernels/ranking.py:273',
+        'B={} N={} D={} M={} T=4'.format(MIX_BATCH, NUM_ITEMS, D, mixtures),
+        median_ms(torch, lambda: ranking.rank_counts(
+            mix_reprs, mix_items, mix_bias, mix_ts, mix_ids, mixtures),
+            KERNEL_REPS),
+        median_ms(torch, lambda: ranking.rank_counts_plain(
+            mix_reprs, mix_items, mix_bias, mix_ts, mix_ids, mixtures),
+            PLAIN_REPS),
+        mixture_ops(MIX_BATCH, NUM_ITEMS, mixtures) + 3 * 4 * MIX_BATCH
+        * NUM_ITEMS,
+        rank_counts_bytes(MIX_BATCH, NUM_ITEMS, 2 * mixtures * D, 4), 0.0)
+    log(kernel_case=entries['rank_counts (mixture)'], card=card)
+    del mix_plain, mix_weights
+    torch.cuda.empty_cache()
+
+    entries.update(check_lookups(torch, card, layer, rows, cotangent, items,
+                                 multihot_out, multihot_grad, bloom_out,
+                                 bloom_grad))
+    return launches, entries
+
+
+def check_rank_counts_shapes(torch, card):
+    """K5 at the repo's own shape (scripts/bench_suite.py:355-381: B=256,
+    D=64, N=100,000, T=16, RandomState(0) normals) against its plain
+    version, and four quarter-catalogue calls with shifted target ids (the
+    per-shard shape, :419-449), whose counts must add up to the one pass's
+    exactly."""
+    from spotlight_tpu_torch.ops.kernels import ranking
+
+    rs = np.random.RandomState(0)
+    batch, num_items, width = 256, 100_000, 16
+    users, items, bias = (torch.as_tensor(part.astype(np.float32),
+                                          device=DEVICE)
+                          for part in (rs.randn(batch, D),
+                                       rs.randn(num_items, D),
+                                       rs.randn(num_items)))
+    ids = torch.as_tensor(rs.randint(0, num_items, (batch, width)),
+                          device=DEVICE)
+    ts = ranking.matched_target_scores(users, items, bias, ids)
+    greater, equal = ranking.rank_counts(users, items, bias, ts, ids)
+    plain = ranking.rank_counts_plain(users, items, bias, ts, ids)
+    if not (torch.equal(greater, plain[0]) and torch.equal(equal, plain[1])):
+        raise AssertionError('rank_counts differs from its plain version at '
+                             'B=256 N=100000 T=16')
+    local = num_items // 4
+
+    def quarters():
+        counts = [torch.zeros_like(greater), torch.zeros_like(equal)]
+        for shard in range(4):
+            part = slice(shard * local, (shard + 1) * local)
+            for total, count in zip(counts, ranking.rank_counts(
+                    users, items[part], bias[part], ts,
+                    ids - shard * local)):
+                total += count
+        return counts
+
+    summed = quarters()
+    if not (torch.equal(summed[0], greater) and torch.equal(summed[1],
+                                                            equal)):
+        raise AssertionError('four quarter-catalogue rank_counts do not add '
+                             'up to the one pass')
+    entry = kernel_entry(
+        'rank_counts', 'ranking.cu',
+        'spotlight_tpu/ops/kernels/ranking.py:273',
+        'B={} N={} D={} T={}'.format(batch, num_items, D, width),
+        median_ms(torch, lambda: ranking.rank_counts(users, items, bias, ts,
+                                                     ids), KERNEL_REPS),
+        median_ms(torch, lambda: ranking.rank_counts_plain(
+            users, items, bias, ts, ids), PLAIN_REPS),
+        2 * batch * num_items * D + 3 * batch * width * num_items,
+        rank_counts_bytes(batch, num_items, D, width), 0.0,
+        four_quarters_ms=median_ms(torch, quarters, KERNEL_REPS))
+    log(kernel_case=entry, card=card)
+
+
+def lookup_bytes(batch, hashes, dim, touched, size=4):
+    """Bytes a gather-sum must move: the rows (int32), each table row it
+    touches once, the (B, D) output.  The re-reads of a row are not
+    counted (each input byte once); they are the ``gathered_bytes``."""
+    return 4 * batch * hashes + size * dim * touched + size * batch * dim
+
+
+def scatter_bytes(batch, hashes, dim, num_rows, size=4):
+    """Bytes the backward must move: the (B, D) cotangent, the rows
+    (int32), the (C, D) table gradient."""
+    return size * batch * dim + 4 * batch * hashes + size * num_rows * dim
+
+
+def check_lookups(torch, card, layer, rows, cotangent, items, multihot_out,
+                  multihot_grad, bloom_out, bloom_grad):
+    """K7f, K6 and their backward over the whole catalogue of the bloom
+    model (the path's own results), each against its plain version bit for
+    bit, the forward against the layer's own lookup (the densified
+    catalogue ``items``), the backward against a second launch bit for bit
+    and against ``index_add_``; then each timed beside its plain version
+    and its ``embedding_bag`` yardstick, and K7f beside the layer's own
+    forward (hashing included, and the hashing alone), which it could
+    replace.  Returns the kernel-table entries."""
+    import torch.nn.functional as F
+
+    from spotlight_tpu_torch.ops.kernels import bloom, gather_sum, multihot
+
+    table = layer.weight
+    weight = table.detach()
+    batch, hashes = rows.shape
+    num_rows = weight.shape[0]
+    flat = rows.reshape(-1).long()
+    touched = int(torch.unique(flat).numel())
+    touched_unmasked = touched - int(bool((flat == 0).any()))
+    tiny = torch.finfo(torch.float32).tiny
+
+    # Forward: bit-equal to the plain versions; the layer's forward sums
+    # the same four terms (its mask where row == 0 is K7f's).
+    if not torch.equal(bits(torch, multihot_out), bits(
+            torch, multihot.multihot_gather_sum_plain(weight, rows, True))):
+        raise AssertionError('multihot_gather_sum differs from its plain '
+                             'version')
+    if not torch.equal(bits(torch, bloom_out), bits(
+            torch, bloom.bloom_gather_sum_plain(weight, rows))):
+        raise AssertionError('bloom_gather_sum differs from its plain '
+                             'version')
+    magnitude = multihot.multihot_gather_sum_plain(weight.abs(), rows, True)
+    gap = (multihot_out.detach() - items).abs()
+    if bool((gap > 1e-6 * magnitude).any()):
+        raise AssertionError('multihot_gather_sum is more than 1e-6 of the '
+                             'terms\' magnitude from the layer\'s forward')
+    log(check='multihot_gather_sum(mask_row_zero) == BloomEmbedding.forward',
+        ids=batch, exact=bool(torch.equal(bits(torch, multihot_out),
+                                          bits(torch, items))),
+        elements_apart=int((multihot_out != items).sum()),
+        largest_gap_of_magnitude=float((gap / magnitude.clamp(min=tiny))
+                                       .max()), card=card)
+    del gap, magnitude
+
+    # Backward: bit-equal to the order-fixing plain version and to a second
+    # launch, within 1e-5 of the terms' magnitude of index_add_.
+    repeated = cotangent.repeat_interleave(hashes, dim=0)
+    witness = torch.zeros_like(weight).index_add_(0, flat, repeated)
+    magnitude = torch.zeros_like(weight).index_add_(0, flat, repeated.abs())
+    del repeated
+    backward_cases = (
+        ('multihot_gather_sum backward', multihot_grad, True,
+         lambda: multihot.multihot_gather_sum(table, rows, True),
+         lambda: multihot.multihot_gather_sum_backward_plain(
+             cotangent, rows, num_rows, True, weight.dtype)),
+        ('bloom_gather_sum backward', bloom_grad, False,
+         lambda: bloom.bloom_gather_sum(table, rows),
+         lambda: bloom.bloom_gather_sum_backward_plain(cotangent, rows,
+                                                       num_rows)))
+    graphs = {}
+    for name, grad, masked, forward, plain in backward_cases:
+        out = forward()
+        again, = torch.autograd.grad(out, table, cotangent,
+                                     retain_graph=True)
+        graphs[name] = out
+        want = witness.clone()
+        if masked:
+            want[0] = 0.0
+        gap = float(((grad - want).abs() - 1e-5 * magnitude).max())
+        checks = {
+            'equals its plain version': torch.equal(
+                bits(torch, grad), bits(torch, plain())),
+            'same bits in two launches': torch.equal(bits(torch, grad),
+                                                     bits(torch, again)),
+            'within 1e-5 of index_add_': gap <= 0.0,
+            'row 0 zero under the mask': not masked or not bool(
+                bits(torch, grad[0]).any())}
+        log(check=name, rows=num_rows, **checks, card=card)
+        failed = [what for what, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError('{}: {}'.format(name, ', '.join(failed)))
+    del witness, magnitude
+
+    shape = 'B={} k={} C={} D={} f32'.format(batch, hashes, num_rows, D)
+    adds = batch * (hashes - 1) * D
+    rows32 = rows.to(torch.int32)
+    entries = {}
+    for name, masked, fn, plain, library in (
+            ('multihot_gather_sum', True,
+             lambda: multihot.multihot_gather_sum(weight, rows, True),
+             lambda: multihot.multihot_gather_sum_plain(weight, rows, True),
+             lambda: F.embedding_bag(rows, weight, mode='sum',
+                                     padding_idx=0)),
+            ('bloom_gather_sum', False,
+             lambda: bloom.bloom_gather_sum(weight, rows),
+             lambda: bloom.bloom_gather_sum_plain(weight, rows),
+             lambda: F.embedding_bag(rows, weight, mode='sum'))):
+        replaces = ('spotlight_tpu/ops/kernels/multihot.py:74' if masked
+                    else 'spotlight_tpu/ops/kernels/bloom.py:34')
+        entries[name] = kernel_entry(
+            name, 'gather_sum.cu', replaces, shape,
+            median_ms(torch, fn, KERNEL_REPS),
+            median_ms(torch, plain, PLAIN_REPS), adds,
+            lookup_bytes(batch, hashes, D,
+                         touched_unmasked if masked else touched), 0.0,
+            library_ms=median_ms(torch, library, KERNEL_REPS),
+            launch_only_ms=median_ms(torch, lambda: gather_sum.gather_sum_cuda(
+                weight, rows32, masked, not masked), KERNEL_REPS),
+            gathered_bytes=4 * batch * hashes * D)
+        log(kernel_case=entries[name], card=card)
+    all_items = torch.arange(batch, device=DEVICE)
+    with torch.no_grad():
+        entries['multihot_gather_sum'].update(
+            layer_forward_ms=median_ms(torch, lambda: layer(all_items),
+                                       KERNEL_REPS),
+            layer_hash_ms=median_ms(torch, lambda: layer.hashed_rows(
+                all_items), KERNEL_REPS))
+    log(layer_forward=entries['multihot_gather_sum'], card=card)
+
+    backward_ops = (batch * hashes - touched) * D
+    for name, masked, plain in (
+            ('multihot_gather_sum backward', True,
+             lambda: multihot.multihot_gather_sum_backward_plain(
+                 cotangent, rows, num_rows, True, weight.dtype)),
+            ('bloom_gather_sum backward', False,
+             lambda: bloom.bloom_gather_sum_backward_plain(cotangent, rows,
+                                                           num_rows))):
+        out = graphs[name]
+        library_out = F.embedding_bag(rows, table, mode='sum',
+                                      padding_idx=0 if masked else None)
+        replaces = ('spotlight_tpu/ops/kernels/multihot.py:102' if masked
+                    else 'spotlight_tpu/ops/kernels/bloom.py:151')
+        entries[name] = kernel_entry(
+            name, 'gather_sum.cu', replaces, shape,
+            median_ms(torch, lambda: torch.autograd.grad(
+                out, table, cotangent, retain_graph=True), KERNEL_REPS),
+            median_ms(torch, plain, PLAIN_REPS), backward_ops,
+            scatter_bytes(batch, hashes, D, num_rows), 0.0,
+            library_ms=median_ms(torch, lambda: torch.autograd.grad(
+                library_out, table, cotangent, retain_graph=True),
+                KERNEL_REPS))
+        log(kernel_case=entries[name], card=card)
+    del graphs
+    torch.cuda.empty_cache()
+    return entries
+
+
+def check_lookup_shapes(torch, card):
+    """Forward and forward + backward of both gather-sums at the bloom
+    benchmark's shapes (scripts/bloom_kernel_bench.py: B=8,192, k=4,
+    C in {4,096, 65,536, 262,144}, D in {64, 128}, float32, RandomState(0)),
+    each held against its plain version bit for bit, beside the
+    ``embedding_bag`` yardstick; then one bfloat16 table through each entry
+    point and its backward against the plain versions."""
+    import torch.nn.functional as F
+
+    from spotlight_tpu_torch.ops.kernels import bloom, multihot
+
+    batch, hashes = LOOKUP_BATCH, BLOOM_HASHES
+
+    def operands(num_rows, dim, dtype):
+        rs = np.random.RandomState(0)
+        table = torch.as_tensor(rs.randn(num_rows, dim).astype(np.float32),
+                                device=DEVICE).to(dtype).requires_grad_(True)
+        rows = torch.as_tensor(rs.randint(0, num_rows, (batch, hashes)),
+                               device=DEVICE)
+        cotangent = torch.as_tensor(rs.randn(batch, dim).astype(np.float32),
+                                    device=DEVICE).to(dtype)
+        return table, rows, cotangent
+
+    def both(fn, table, rows, cotangent):
+        out = fn(table, rows)
+        return out, torch.autograd.grad(out, table, cotangent)[0]
+
+    entry_points = (
+        ('bloom_gather_sum', bloom.bloom_gather_sum,
+         lambda t, r, g: (bloom.bloom_gather_sum_plain(t, r),
+                          bloom.bloom_gather_sum_backward_plain(
+                              g, r, t.shape[0]))),
+        ('multihot_gather_sum', multihot.multihot_gather_sum,
+         lambda t, r, g: (multihot.multihot_gather_sum_plain(t, r),
+                          multihot.multihot_gather_sum_backward_plain(
+                              g, r, t.shape[0], False, t.dtype))))
+    for num_rows in LOOKUP_ROWS:
+        for dim in (64, 128):
+            table, rows, cotangent = operands(num_rows, dim, torch.float32)
+            touched = int(torch.unique(rows).numel())
+            case = dict(shape='B={} k={} C={} D={} f32'.format(
+                batch, hashes, num_rows, dim))
+            for name, fn, plain in entry_points:
+                got = both(fn, table, rows, cotangent)
+                want = plain(table.detach(), rows.to(torch.int32), cotangent)
+                if not all(torch.equal(bits(torch, a), bits(torch, b))
+                           for a, b in zip(got, want)):
+                    raise AssertionError('{} differs from its plain version '
+                                         'at {}'.format(name, case['shape']))
+                case[name + ' ms'] = median_ms(
+                    torch, lambda: fn(table.detach(), rows), KERNEL_REPS)
+                case[name + ' fwd+bwd ms'] = median_ms(
+                    torch, lambda: both(fn, table, rows, cotangent),
+                    KERNEL_REPS)
+            case['embedding_bag ms'] = median_ms(
+                torch, lambda: F.embedding_bag(rows, table.detach(),
+                                               mode='sum'), KERNEL_REPS)
+            case['embedding_bag fwd+bwd ms'] = median_ms(
+                torch, lambda: both(lambda t, r: F.embedding_bag(
+                    r, t, mode='sum'), table, rows, cotangent), KERNEL_REPS)
+            case['forward bound ms'] = bound(
+                batch * (hashes - 1) * dim,
+                lookup_bytes(batch, hashes, dim, touched))[0]
+            case['backward bound ms'] = bound(
+                (batch * hashes - touched) * dim,
+                scatter_bytes(batch, hashes, dim, num_rows))[0]
+            log(lookup_shape=case, card=card)
+
+    table, rows, cotangent = operands(65_536, 64, torch.bfloat16)
+    for name, fn, plain in entry_points:
+        got = both(fn, table, rows, cotangent)
+        want = plain(table.detach(), rows.to(torch.int32), cotangent)
+        equal = [torch.equal(bits(torch, a), bits(torch, b))
+                 for a, b in zip(got, want)]
+        log(check=name + ' bf16 table', shape='B={} k={} C=65536 D=64'
+            .format(batch, hashes), forward_equal=equal[0],
+            backward_equal=equal[1], dtype=str(got[0].dtype), card=card)
+        if not all(equal) or got[0].dtype != torch.bfloat16:
+            raise AssertionError('{} with a bf16 table differs from its plain '
+                                 'version'.format(name))
+
+
 # -- phase 5: where the time goes --------------------------------------------
 
 def profile_metrics(torch, card, model, test, train, heavy):
@@ -954,11 +1574,28 @@ def main():
     check_duplicated_row_tie(torch, card, seq_model, seq_test)
     profile_call(torch, card, 'sequence_mrr_score',
                  lambda: sequence_mrr_score(seq_model, seq_test))
+    torch.cuda.empty_cache()
+
+    bloom_launches, bloom_model_, bloom_test, bloom_mrr = run_bloom_slice(
+        torch, card)
+    for name, count in bloom_launches.items():
+        launches[name] += count
+    kernel_launches, bloom_entries = check_bloom_kernels(
+        torch, card, bloom_model_, bloom_test, bloom_mrr, seq_model,
+        seq_test)
+    launches.update(kernel_launches)
+    entries.update(bloom_entries)
+    check_lookup_shapes(torch, card)
+    profile_call(torch, card, 'bloom sequence_mrr_score',
+                 lambda: sequence_mrr_score(bloom_model_, bloom_test))
 
     kernels = []
     for name in ('rank_weights', 'matched_target_scores', 'streaming_topk',
                  'rank_weights (mixture)', 'streaming_topk (mixture)',
-                 'mixture_score', 'matched_candidate_scores'):
+                 'mixture_score', 'matched_candidate_scores', 'rank_counts',
+                 'rank_counts (mixture)', 'bloom_gather_sum',
+                 'bloom_gather_sum backward', 'multihot_gather_sum',
+                 'multihot_gather_sum backward'):
         entry = dict(entries[name])
         entry['launches'] = launches[name]
         kernels.append(entry)

@@ -9,7 +9,11 @@ matrix factorisation (``Interactions``, ``BilinearNet``,
 ``ImplicitFactorizationModel.predict``, ``mrr_score`` and
 ``precision_recall_score``) and of LSTM and mixture-of-tastes sequence
 models (``SequenceInteractions``, ``ImplicitSequenceModel.predict``,
-``sequence_mrr_score`` and ``sequence_precision_recall_score``).
+``sequence_mrr_score`` and ``sequence_precision_recall_score``), bloom
+embeddings (``ops.BloomEmbedding``, ``ops.ScaledEmbeddingBag``) as item
+layers of sequence models and user and item layers of ``BilinearNet``, and
+the kernel entry points ``rank_counts``, ``reciprocal_ranks_streaming``,
+``bloom_gather_sum`` and ``multihot_gather_sum`` (``ops.kernels``).
 """
 
 __version__ = '0.1.0'

@@ -27,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from spotlight_tpu_torch.factorization._base import resolve_device
 from spotlight_tpu_torch.ops.kernels.ranking import (
     matched_candidate_scores, matched_target_scores, rank_weights)
 from spotlight_tpu_torch.ops.kernels.topk import streaming_topk
@@ -290,7 +291,11 @@ def _resolve_batch_size(batch_size, streaming, model, kind='users'):
 
 
 def _model_device(model):
-    return getattr(model, '_device', torch.device('cpu'))
+    """The model's ``_device``; a model without one runs where the
+    estimators do by default: ``cuda``, raising when no card is present.
+    A caller who wants the CPU says so on the model."""
+    device = getattr(model, '_device', None)
+    return resolve_device(None) if device is None else device
 
 
 def _eval_rows(test, train):

@@ -26,12 +26,13 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[3] / 'build' / 'kernels'
-SOURCES = ('ranking', 'topk')
+SOURCES = ('ranking', 'topk', 'gather_sum')
 FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-O3', '-std=c++17',
          '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     'ranking': {
         'spotlight_rank_weights': (_I, [_P, _P, _I, _P, _P, _P, _I, _I, _I,
@@ -40,7 +41,10 @@ _SIGNATURES = {
                                           _P]),
         'spotlight_candidate_scores': (_I, [_P, _P, _I, _P, _P, _P, _I, _I,
                                             _I, _I, _P]),
+        'spotlight_rank_counts': (_I, [_P, _P, _I, _P, _P, _P, _P, _P, _I,
+                                       _I, _I, _I, _I, _I, _P]),
         'spotlight_rank_max_targets': (_I, [_I]),
+        'spotlight_rank_counts_max_targets': (_I, [_I]),
         'spotlight_rank_block_users': (_I, [_I]),
         'spotlight_rank_smem_bytes': (ctypes.c_size_t, [_I, _I]),
     },
@@ -48,6 +52,12 @@ _SIGNATURES = {
         'spotlight_streaming_topk': (_I, [_P, _P, _I, _P, _P, _P, _I, _I, _I,
                                           _I, _I, _I, _I, _P, _P, _P, _P]),
         'spotlight_topk_stage1_smem_bytes': (ctypes.c_size_t, [_I, _I, _I]),
+    },
+    'gather_sum': {
+        'spotlight_gather_sum': (_I, [_P, _I, _P, _P, _L, _I, _I, _I, _I,
+                                      _P]),
+        'spotlight_scatter_rows': (_I, [_P, _I, _P, _P, _P, _I, _I, _I, _I,
+                                        _I, _P]),
     },
 }
 

@@ -1,9 +1,11 @@
-// Streaming rank weights (K1, dot and mixture scoring), matched target
-// scores (K1c) and matched candidate scores (K4).
+// Streaming rank weights (K1, dot and mixture scoring), streaming rank
+// counts (K5, dot and mixture scoring), matched target scores (K1c) and
+// matched candidate scores (K4).
 //
 // Replaces: spotlight_tpu/ops/kernels/ranking.py, _rank_weight_kernel (the
 // Pallas kernel behind rank_weights, with the default dot score_fn and with
-// make_mixture_score_fn), the MXU arithmetic of matched_target_scores, and
+// make_mixture_score_fn), _rank_count_kernel (the Pallas kernel behind
+// rank_counts), the MXU arithmetic of matched_target_scores, and
 // _tile_scores_kernel (the Pallas kernel behind matched_candidate_scores).
 //
 // What it computes: for every user b and target t,
@@ -12,6 +14,14 @@
 // adds 1 half unit), where score comes from score_block (dot: item . user +
 // item_bias) or mixture_score_block (common.cuh).  The wrapper returns
 // half_units * 0.5.
+//
+// K5 is the same kernel with COUNTS = true: two exact int32 counters per
+// (user, target), greater[b, t] = count(score > ts) and equal[b, t] =
+// count(score == ts), over the catalogue rows whose id differs from the
+// target's id tids[b, t].  The target is excluded by id, not by score, so
+// the target scores may come from any arithmetic; an id outside [0, N)
+// matches no row (per-shard callers pass shifted ids on purpose).  Rows at
+// or past N never count: the loop stops at the catalogue's end.
 //
 // What bounds it on an H100: arithmetic.  At B = 2048 users, N = 200K items,
 // D = 64 the dot catalogue pass is 2 * B * N * D = 5.2e10 float32 operations
@@ -61,13 +71,17 @@ __host__ __device__ constexpr int users_per_thread(bool mixture) {
 }
 
 // MAXM = 0 scores dot products, MAXM > 0 mixtures of at most MAXM tastes.
-template <typename Item, int MAXP, int RU, int MAXM>
+// COUNTS = false writes K1's half units to out_a (tids and out_b unused);
+// COUNTS = true writes K5's greater counts to out_a and equal counts to
+// out_b, excluding the row whose id is tids[b, t].
+template <typename Item, int MAXP, int RU, int MAXM, bool COUNTS>
 __global__ void __launch_bounds__(kThreads)
 rank_weights_kernel(const float* __restrict__ users,
                     const Item* __restrict__ items,
                     const float* __restrict__ bias,
                     const float* __restrict__ tscores,
-                    int* __restrict__ half_units, int B, int N, int D, int T,
+                    const int* __restrict__ tids, int* __restrict__ out_a,
+                    int* __restrict__ out_b, int B, int N, int D, int T,
                     int mixtures, int tiles_per_split) {
   constexpr int kUsers = block_users<RU>();
   constexpr int kUS = kUsers + 1;
@@ -89,11 +103,18 @@ rank_weights_kernel(const float* __restrict__ users,
   const int b = b0 + cu;
   float ts[MAXP];
   int count[MAXP];
+  int target_id[COUNTS ? MAXP : 1];
+  int equal[COUNTS ? MAXP : 1];
 #pragma unroll
   for (int k = 0; k < MAXP; ++k) {
     const int t = t0 + kTargetRows * k;
-    ts[k] = (b < B && t < T) ? tscores[(long long)b * T + t] : 0.0f;
+    const bool real = b < B && t < T;
+    ts[k] = real ? tscores[(long long)b * T + t] : 0.0f;
     count[k] = 0;
+    if constexpr (COUNTS) {
+      target_id[k] = real ? tids[(long long)b * T + t] : -1;
+      equal[k] = 0;
+    }
   }
   // Scoring ownership: items ti + 16 r, users tu + 16 c.
   const int ti = tid / 16;
@@ -137,9 +158,18 @@ rank_weights_kernel(const float* __restrict__ users,
     const int valid = min(kItems, N - row0);
     for (int i = 0; i < valid; ++i) {
       const float s = ss[i * kUS + cu];
+      if constexpr (COUNTS) {
 #pragma unroll
-      for (int k = 0; k < MAXP; ++k)
-        count[k] += 2 * (s > ts[k]) + (s == ts[k]);
+        for (int k = 0; k < MAXP; ++k) {
+          const int other = row0 + i != target_id[k];
+          count[k] += other & (s > ts[k]);
+          equal[k] += other & (s == ts[k]);
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < MAXP; ++k)
+          count[k] += 2 * (s > ts[k]) + (s == ts[k]);
+      }
     }
     __syncthreads();
   }
@@ -147,8 +177,10 @@ rank_weights_kernel(const float* __restrict__ users,
 #pragma unroll
   for (int k = 0; k < MAXP; ++k) {
     const int t = t0 + kTargetRows * k;
-    if (b < B && t < T && count[k] != 0)
-      atomicAdd(&half_units[(long long)b * T + t], count[k]);
+    if (b >= B || t >= T) continue;
+    if (count[k] != 0) atomicAdd(&out_a[(long long)b * T + t], count[k]);
+    if constexpr (COUNTS)
+      if (equal[k] != 0) atomicAdd(&out_b[(long long)b * T + t], equal[k]);
   }
 }
 
@@ -201,12 +233,13 @@ size_t rank_smem_bytes(int D, int mixtures) {
                           (size_t)kItems * (users + 1) + kItems);
 }
 
-template <typename Item, int MAXP, int RU, int MAXM>
+template <typename Item, int MAXP, int RU, int MAXM, bool COUNTS>
 int launch_rank(const float* users, const void* items, const float* bias,
-                const float* tscores, int* half_units, int B, int N, int D,
-                int T, int mixtures, int splits, cudaStream_t stream) {
+                const float* tscores, const int* tids, int* out_a,
+                int* out_b, int B, int N, int D, int T, int mixtures,
+                int splits, cudaStream_t stream) {
   const size_t smem = rank_smem_bytes(D, mixtures);
-  auto kernel = rank_weights_kernel<Item, MAXP, RU, MAXM>;
+  auto kernel = rank_weights_kernel<Item, MAXP, RU, MAXM, COUNTS>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -216,8 +249,8 @@ int launch_rank(const float* users, const void* items, const float* bias,
   constexpr int kUsers = block_users<RU>();
   dim3 grid((B + kUsers - 1) / kUsers, used_splits);
   kernel<<<grid, kThreads, smem, stream>>>(
-      users, static_cast<const Item*>(items), bias, tscores, half_units, B, N, D,
-      T, mixtures, per_split);
+      users, static_cast<const Item*>(items), bias, tscores, tids, out_a,
+      out_b, B, N, D, T, mixtures, per_split);
   return cudaGetLastError();
 }
 
@@ -225,10 +258,10 @@ template <typename Item>
 int dispatch_rank(const float* users, const void* items, const float* bias,
                   const float* tscores, int* half_units, int B, int N, int D,
                   int T, int mixtures, int splits, cudaStream_t stream) {
-#define SPOTLIGHT_RANK(MAXP, RU, MAXM)                                    \
-  return launch_rank<Item, MAXP, RU, MAXM>(users, items, bias, tscores,   \
-                                           half_units, B, N, D, T,        \
-                                           mixtures, splits, stream)
+#define SPOTLIGHT_RANK(MAXP, RU, MAXM)                                      \
+  return launch_rank<Item, MAXP, RU, MAXM, false>(                          \
+      users, items, bias, tscores, nullptr, half_units, nullptr, B, N, D, T, \
+      mixtures, splits, stream)
   if (mixtures == 0) {
     constexpr int rows = kThreads / block_users<4>();
     if (T <= 1 * rows) SPOTLIGHT_RANK(1, 4, 0);
@@ -251,6 +284,38 @@ int dispatch_rank(const float* users, const void* items, const float* bias,
 #undef SPOTLIGHT_RANK
 }
 
+// K5: at most 8 targets a thread (32 a launch), since each carries a
+// score, an id and two counters in registers.
+template <typename Item>
+int dispatch_counts(const float* users, const void* items, const float* bias,
+                    const float* tscores, const int* tids, int* greater,
+                    int* equal, int B, int N, int D, int T, int mixtures,
+                    int splits, cudaStream_t stream) {
+#define SPOTLIGHT_COUNTS(MAXP, RU, MAXM)                                     \
+  return launch_rank<Item, MAXP, RU, MAXM, true>(                            \
+      users, items, bias, tscores, tids, greater, equal, B, N, D, T,         \
+      mixtures, splits, stream)
+  if (mixtures == 0) {
+    constexpr int rows = kThreads / block_users<4>();
+    if (T <= 1 * rows) SPOTLIGHT_COUNTS(1, 4, 0);
+    if (T <= 2 * rows) SPOTLIGHT_COUNTS(2, 4, 0);
+    if (T <= 8 * rows) SPOTLIGHT_COUNTS(8, 4, 0);
+    return cudaErrorInvalidValue;
+  }
+  constexpr int rows = kThreads / block_users<2>();
+  if (mixtures <= 4) {
+    if (T <= 1 * rows) SPOTLIGHT_COUNTS(1, 2, 4);
+    if (T <= 4 * rows) SPOTLIGHT_COUNTS(4, 2, 4);
+    return cudaErrorInvalidValue;
+  }
+  if (mixtures <= kMaxMixtures) {
+    if (T <= 1 * rows) SPOTLIGHT_COUNTS(1, 2, kMaxMixtures);
+    if (T <= 4 * rows) SPOTLIGHT_COUNTS(4, 2, kMaxMixtures);
+  }
+  return cudaErrorInvalidValue;
+#undef SPOTLIGHT_COUNTS
+}
+
 }  // namespace
 
 extern "C" {
@@ -259,6 +324,12 @@ extern "C" {
 int spotlight_rank_max_targets(int mixtures) {
   return mixtures > 0 ? 4 * (kThreads / block_users<2>())
                       : 32 * (kThreads / block_users<4>());
+}
+
+// Widest target block one K5 launch takes; the wrapper chunks wider ones.
+int spotlight_rank_counts_max_targets(int mixtures) {
+  return mixtures > 0 ? 4 * (kThreads / block_users<2>())
+                      : 8 * (kThreads / block_users<4>());
 }
 
 // Users per block of the rank kernel.
@@ -288,6 +359,26 @@ int spotlight_rank_weights(const float* users, const void* items,
                                         splits, s);
   return dispatch_rank<float>(users, items, bias, tscores, half_units, B, N,
                               D, T, mixtures, splits, s);
+}
+
+// K5.  greater and equal (B, T) int32 must be zeroed by the caller; tids
+// (B, T) int32 are the target ids (any value; one outside [0, N) excludes
+// nothing).  Returns a cudaError_t (0 on success).
+int spotlight_rank_counts(const float* users, const void* items,
+                          int items_bf16, const float* bias,
+                          const float* tscores, const int* tids, int* greater,
+                          int* equal, int B, int N, int D, int T,
+                          int mixtures, int splits, void* stream) {
+  if (B <= 0 || N <= 0 || D <= 0 || T <= 0 || splits <= 0 || mixtures < 0 ||
+      mixtures > kMaxMixtures)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (items_bf16)
+    return dispatch_counts<__nv_bfloat16>(users, items, bias, tscores, tids,
+                                          greater, equal, B, N, D, T,
+                                          mixtures, splits, s);
+  return dispatch_counts<float>(users, items, bias, tscores, tids, greater,
+                                equal, B, N, D, T, mixtures, splits, s);
 }
 
 // out (B, T) float32 = dot score of item ids[b, t] for user b.

@@ -1,8 +1,9 @@
-"""Streaming rank weights over the catalogue, matched target scores and
-matched candidate scores.
+"""Streaming rank weights and rank counts over the catalogue, matched target
+scores and matched candidate scores.
 
 Counterpart of ``spotlight_tpu/ops/kernels/ranking.py`` (``rank_weights``
-with dot or mixture-of-tastes scoring, ``matched_target_scores``,
+and ``rank_counts`` with dot or mixture-of-tastes scoring,
+``reciprocal_ranks_streaming``, ``matched_target_scores``,
 ``matched_candidate_scores`` and the mixture score function
 ``make_mixture_score_fn`` / ``mixture_combine``).  On a CUDA tensor each
 function launches its hand-written kernel (``csrc/ranking.cu``); on a CPU
@@ -29,11 +30,13 @@ import torch
 
 from spotlight_tpu_torch.ops.kernels import _build
 
-#: Kernel launches made by :func:`rank_weights` (dot and mixture scoring
-#: counted apart), :func:`matched_target_scores` and
-#: :func:`matched_candidate_scores` (one per C call).
+#: Kernel launches made by :func:`rank_weights` and :func:`rank_counts`
+#: (dot and mixture scoring counted apart), :func:`matched_target_scores`
+#: and :func:`matched_candidate_scores` (one per C call).
 RANK_WEIGHTS_LAUNCHES = 0
 MIXTURE_RANK_WEIGHTS_LAUNCHES = 0
+RANK_COUNTS_LAUNCHES = 0
+MIXTURE_RANK_COUNTS_LAUNCHES = 0
 MATCHED_SCORES_LAUNCHES = 0
 CANDIDATE_SCORES_LAUNCHES = 0
 
@@ -254,6 +257,140 @@ def _rank_weights_cuda(user_reprs, item_matrix, item_bias, target_scores,
         parts.append(half_units)
     half_units = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     return half_units.float() * 0.5
+
+
+def rank_counts(user_reprs, item_matrix, item_bias, target_scores,
+                target_ids, num_mixtures=None):
+    """Streaming comparison counts of target scores against the catalogue
+    (K5).
+
+    ``greater[b, t]`` and ``equal[b, t]`` count the catalogue rows whose
+    score is above, and equal to, ``target_scores[b, t]``, leaving out the
+    row whose id is ``target_ids[b, t]``: the target is excluded by id, so
+    its score may come from any arithmetic.  The average-tie rank is
+    ``greater + equal / 2 + 1``.  Target ids outside ``[0, N)`` match no
+    row (they are compared, never gathered), as per-shard callers need.
+
+    Parameters
+    ----------
+    user_reprs : (B, D) float32, or (B, 2 * M * D) for mixtures
+    item_matrix : (N, D) float32 or bfloat16
+    item_bias : (N,) float32
+    target_scores : (B, T) float32
+    target_ids : (B, T) int
+    num_mixtures : int, optional
+        M for mixture-of-tastes scoring; None scores dot products.
+
+    Returns
+    -------
+    (greater, equal) : (B, T) float32 counts.
+    """
+    check_factors(user_reprs, item_matrix, item_bias, num_mixtures)
+    batch = user_reprs.shape[0]
+    if (target_scores.dim() != 2 or target_scores.dtype != torch.float32
+            or target_scores.shape[0] != batch):
+        raise ValueError('target_scores must be (B, T) float32')
+    if (target_ids.shape != target_scores.shape
+            or target_ids.dtype.is_floating_point):
+        raise ValueError('target_ids must be (B, T) integers, the shape of '
+                         'target_scores')
+    if not on_cuda(user_reprs, item_matrix, item_bias, target_scores,
+                   target_ids):
+        return rank_counts_plain(user_reprs, item_matrix, item_bias,
+                                 target_scores, target_ids, num_mixtures)
+    return _rank_counts_cuda(user_reprs, item_matrix, item_bias,
+                             target_scores, target_ids, num_mixtures)
+
+
+def rank_counts_plain(user_reprs, item_matrix, item_bias, target_scores,
+                      target_ids, num_mixtures=None):
+    """Plain PyTorch version of :func:`rank_counts`, on any device."""
+    scores = plain_scores(user_reprs, item_matrix, item_bias,
+                          num_mixtures)                         # (N, B)
+    rows = torch.arange(scores.shape[0], device=scores.device)[:, None]
+    greater = torch.zeros(target_scores.shape, dtype=torch.int64,
+                          device=scores.device)
+    equal = torch.zeros_like(greater)
+    for t in range(target_scores.shape[1]):
+        ts = target_scores[:, t]
+        other = rows != target_ids[:, t]
+        greater[:, t] = ((scores > ts) & other).sum(dim=0)
+        equal[:, t] = ((scores == ts) & other).sum(dim=0)
+    return greater.float(), equal.float()
+
+
+def _rank_counts_cuda(user_reprs, item_matrix, item_bias, target_scores,
+                      target_ids, num_mixtures=None):
+    global RANK_COUNTS_LAUNCHES, MIXTURE_RANK_COUNTS_LAUNCHES
+    require_contiguous(user_reprs, item_matrix, item_bias)
+    lib = _build.load('ranking')
+    batch = user_reprs.shape[0]
+    num_items, dim = item_matrix.shape
+    mixtures = num_mixtures or 0
+    if lib.spotlight_rank_smem_bytes(dim, mixtures) > _MAX_SHARED:
+        raise ValueError('embedding width {} exceeds the rank kernel\'s '
+                         'shared memory'.format(dim))
+    # Ids outside [0, N) match no row: -1 says so in int32 without
+    # clamping, which would exclude a real row.
+    target_ids = torch.where((target_ids >= 0) & (target_ids < num_items),
+                             target_ids, -1).to(torch.int32)
+    device = user_reprs.device
+    user_blocks = -(-batch // lib.spotlight_rank_block_users(mixtures))
+    splits = catalogue_splits(user_blocks, num_items, device)
+    chunk = lib.spotlight_rank_counts_max_targets(mixtures)
+    stream = stream_handle(device)
+    greater_parts, equal_parts = [], []
+    for start in range(0, target_scores.shape[1], chunk):
+        ts = target_scores[:, start:start + chunk].contiguous()
+        tids = target_ids[:, start:start + chunk].contiguous()
+        greater = torch.zeros(ts.shape, dtype=torch.int32, device=device)
+        equal = torch.zeros_like(greater)
+        status = lib.spotlight_rank_counts(
+            user_reprs.data_ptr(), item_matrix.data_ptr(),
+            int(item_matrix.dtype == torch.bfloat16), item_bias.data_ptr(),
+            ts.data_ptr(), tids.data_ptr(), greater.data_ptr(),
+            equal.data_ptr(), batch, num_items, dim, ts.shape[1], mixtures,
+            splits, stream)
+        _build.check(status, 'rank_counts kernel')
+        if mixtures:
+            MIXTURE_RANK_COUNTS_LAUNCHES += 1
+        else:
+            RANK_COUNTS_LAUNCHES += 1
+        greater_parts.append(greater)
+        equal_parts.append(equal)
+    return (torch.cat(greater_parts, dim=1).float(),
+            torch.cat(equal_parts, dim=1).float())
+
+
+def reciprocal_ranks_streaming(user_reprs, item_matrix, item_bias, targets,
+                               target_mask):
+    """Mean reciprocal (average-tie) rank per user through the rank-count
+    kernel: the targets' scores by :func:`matched_target_scores`, then
+    :func:`rank_counts` with the targets excluded by id.
+
+    Parameters
+    ----------
+    user_reprs : (B, D) float32
+    item_matrix : (N, D) float32 or bfloat16
+    item_bias : (N,) float32
+    targets : (B, T) int item ids (pads are clipped into ``[0, N)``)
+    target_mask : (B, T) bool
+
+    Returns
+    -------
+    (B,) float32 mean reciprocal rank over each row's valid targets.
+    """
+    safe_targets = targets.clamp(0, item_matrix.shape[0] - 1)
+    target_scores = matched_target_scores(user_reprs, item_matrix,
+                                          item_bias, safe_targets)
+    greater, equal = rank_counts(user_reprs, item_matrix, item_bias,
+                                 target_scores, safe_targets)
+    # The target is left out of the counts: with its own tie, the average
+    # rank is greater + ((equal + 1) + 1) / 2.
+    ranks = greater + equal * 0.5 + 1.0
+    rr = torch.where(target_mask, 1.0 / ranks, 0.0)
+    denom = target_mask.sum(dim=1).clamp(min=1)
+    return rr.sum(dim=1) / denom
 
 
 def _check_ids(ids, user_reprs, item_matrix):

@@ -12,9 +12,14 @@ step.  ``score(per_step, targets)`` scores target items at every step;
 ``score_catalog(final)`` scores the final representation against the whole
 catalogue (the materialize evaluation path).
 
-As in the JAX package, activations are ``(batch, time, features)``, the item
-bias lives in column ``D`` of one fused float32 ``(num_items, D + 1)`` table
-whose padding row 0 reads as zeros, and the LSTM keeps JAX's ``(D, 4D)`` weight
+As in the JAX package, activations are ``(batch, time, features)``, and
+with the default layers the item bias lives in column ``D`` of one fused
+float32 ``(num_items, D + 1)`` table whose padding row 0 reads as zeros.
+Injecting an ``item_embedding_layer`` or ``item_bias_layer`` (a
+:class:`~spotlight_tpu_torch.ops.embeddings.BloomEmbedding`, say) selects the
+classic layout: the item layer (default ``ScaledEmbedding``) beside a
+``ZeroEmbedding(num_items, 1, padding_idx=0)`` bias layer; ``fused`` forces
+either.  The LSTM keeps JAX's ``(D, 4D)`` weight
 layout with gates in the order (i, f, g, o): one input-projection product for
 all steps, then a Python loop over ``h @ w_hh``.  (``nn.LSTM`` is not used:
 its layout is the transpose of JAX's, and cuDNN runs float32 RNNs in TF32 by
@@ -30,7 +35,9 @@ import math
 import torch
 from torch import nn
 
-from spotlight_tpu_torch.ops.embeddings import PADDING_IDX, FusedBiasEmbedding
+from spotlight_tpu_torch.ops.embeddings import (PADDING_IDX,
+                                                FusedBiasEmbedding,
+                                                ScaledEmbedding, ZeroEmbedding)
 
 
 def _uniform(shape, bound, generator):
@@ -38,15 +45,26 @@ def _uniform(shape, bound, generator):
 
 
 class _ItemRepresentationBase(nn.Module):
-    """The fused item table and the scoring shared by the representations."""
+    """The item layers and the scoring shared by the representations."""
 
-    def __init__(self, num_items, embedding_dim, generator, device):
+    def __init__(self, num_items, embedding_dim, item_embedding_layer,
+                 item_bias_layer, fused, generator, device):
         super().__init__()
         self.num_items = num_items
         self.embedding_dim = embedding_dim
-        self.item_embeddings = FusedBiasEmbedding(
+        if fused is None:
+            fused = item_embedding_layer is None and item_bias_layer is None
+        self.fused = fused
+        if fused:
+            self.item_embeddings = item_embedding_layer or FusedBiasEmbedding(
+                num_items, embedding_dim, padding_idx=PADDING_IDX,
+                generator=generator, device=device)
+            return
+        self.item_embeddings = item_embedding_layer or ScaledEmbedding(
             num_items, embedding_dim, padding_idx=PADDING_IDX,
             generator=generator, device=device)
+        self.item_biases = item_bias_layer or ZeroEmbedding(
+            num_items, 1, padding_idx=PADDING_IDX, device=device)
 
     def _parameters_from(self, shapes, generator, device):
         """A ``ParameterDict`` of U(-1/sqrt(D), 1/sqrt(D)) draws."""
@@ -56,11 +74,17 @@ class _ItemRepresentationBase(nn.Module):
             for name, shape in shapes.items()})
 
     def _target_rows(self, targets):
-        """(vectors, bias) of target item ids in float32."""
+        """(vectors, bias) of target item ids in float32: one fused-row
+        gather, or the item layer's vectors and the bias layer's column."""
+        if not self.fused:
+            return (self.item_embeddings(targets),
+                    self.item_biases(targets)[..., 0])
         rows = self.item_embeddings(targets)
         return rows[..., :self.embedding_dim], rows[..., self.embedding_dim]
 
     def _embed(self, sequences):
+        if not self.fused:
+            return self.item_embeddings(sequences)
         return self._target_rows(sequences)[0]
 
     def user_representation(self, sequences):
@@ -84,12 +108,14 @@ class _ItemRepresentationBase(nn.Module):
 
     def _catalog_matrix(self):
         """Dense ``(num_items, D)`` item matrix and ``(num_items,)`` bias:
-        the inputs of catalogue scoring and of the evaluation kernels."""
+        the inputs of catalogue scoring and of the evaluation kernels.  For
+        a bloom item layer this is one lookup of the whole catalogue; the
+        kernels score (and the matched scores gather from) this one matrix,
+        so a target's ties stay exact whatever order the lookup sums in."""
         all_items = torch.arange(self.num_items,
                                  device=self.item_embeddings.weight.device)
-        rows = self.item_embeddings(all_items)
-        return (rows[:, :self.embedding_dim].contiguous(),
-                rows[:, self.embedding_dim].contiguous())
+        vectors, bias = self._target_rows(all_items)
+        return vectors.contiguous(), bias.contiguous()
 
     def score_catalog(self, final_representations):
         """(B, num_items) scores of final representations (B, D)."""
@@ -106,15 +132,25 @@ class LSTMNet(_ItemRepresentationBase):
     ----------
     num_items : int
     embedding_dim : int, optional
+    item_embedding_layer : nn.Module, optional
+        Custom item layer (a ``BloomEmbedding``, say); selects the classic
+        layout.
     sparse : bool
         Accepted for API parity.
+    item_bias_layer : nn.Module, optional
+        Custom ``(num_items, 1)`` bias layer; selects the classic layout.
+    fused : bool, optional
+        Force the fused layout on (True) or off (False).  Default (None):
+        fused exactly when no custom layer is injected.
     generator : torch.Generator, optional
     device : str or torch.device
     """
 
-    def __init__(self, num_items, embedding_dim=32, sparse=False,
+    def __init__(self, num_items, embedding_dim=32, item_embedding_layer=None,
+                 sparse=False, item_bias_layer=None, fused=None,
                  generator=None, device='cpu'):
-        super().__init__(num_items, embedding_dim, generator, device)
+        super().__init__(num_items, embedding_dim, item_embedding_layer,
+                         item_bias_layer, fused, generator, device)
         self.sparse = sparse
         dim = embedding_dim
         self.lstm = self._parameters_from(
@@ -159,9 +195,13 @@ class MixtureLSTMNet(LSTMNet):
     """
 
     def __init__(self, num_items, embedding_dim=32, num_mixtures=4,
-                 sparse=False, generator=None, device='cpu'):
-        super().__init__(num_items, embedding_dim, sparse=sparse,
-                         generator=generator, device=device)
+                 item_embedding_layer=None, sparse=False,
+                 item_bias_layer=None, fused=None, generator=None,
+                 device='cpu'):
+        super().__init__(num_items, embedding_dim,
+                         item_embedding_layer=item_embedding_layer,
+                         sparse=sparse, item_bias_layer=item_bias_layer,
+                         fused=fused, generator=generator, device=device)
         self.num_mixtures = num_mixtures
         out_dim = embedding_dim * num_mixtures * 2
         self.projection = self._parameters_from(

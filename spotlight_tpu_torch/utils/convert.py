@@ -41,7 +41,12 @@ def params_from_jax(net, params_numpy):
         tables.  ``LSTMNet``'s is ``{'item_embeddings': {'weight':
         (N, D+1)}, 'lstm': {'w_ih': (D, 4D), 'w_hh': (D, 4D), 'b_ih':
         (4D,), 'b_hh': (4D,)}}``; ``MixtureLSTMNet`` adds ``'projection':
-        {'weight': (D, 2MD), 'bias': (2MD,)}``.
+        {'weight': (D, 2MD), 'bias': (2MD,)}``.  A sequence network in the
+        classic layout (an injected item layer, ``BloomEmbedding`` say)
+        has ``'item_embeddings': {'weight': (C, D)}`` (C the layer's rows:
+        the compressed ones for bloom) and ``'item_biases': {'weight':
+        (N, 1)}`` in place of the fused table; so has ``BilinearNet`` with
+        bloom user or item layers.
 
     Returns
     -------

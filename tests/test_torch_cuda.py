@@ -12,7 +12,9 @@ exact.  Mixture scores also go through ``expf``: the kernels' and
 ``torch.exp``'s come from the CUDA math library and should agree bit for
 bit, but the two may be built from different CUDA versions, so mixture
 scores are held to within 2 ulp, and the counts and ids they decide
-exactly.
+exactly.  The bloom gather-sums and their backward sum in one fixed order
+in kernel and plain version alike, so they are held bit for bit, and the
+backward to the same bits in two launches.
 """
 
 import numpy as np
@@ -22,7 +24,8 @@ import torch
 from spotlight_tpu_torch import evaluation
 from spotlight_tpu_torch.data import Interactions, SequenceInteractions
 from spotlight_tpu_torch.factorization import ImplicitFactorizationModel
-from spotlight_tpu_torch.ops.kernels import ranking, topk
+from spotlight_tpu_torch.ops.kernels import (bloom, gather_sum, multihot,
+                                             ranking, topk)
 from spotlight_tpu_torch.sequence import ImplicitSequenceModel
 from spotlight_tpu_torch.utils.convert import params_from_jax
 
@@ -291,3 +294,185 @@ def test_metrics_on_the_card_equal_the_cpu(cuda):
             np.testing.assert_array_equal(got, want)
     np.testing.assert_allclose(on_card.predict(5), on_cpu.predict(5),
                                rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize('batch,num_items,dim,width,dtype,mixtures', [
+    (100, 5000, 64, 9, torch.float32, None),
+    (70, 1000, 32, 70, torch.float32, None),      # three target chunks
+    (65, 777, 48, 4, torch.bfloat16, None),       # ragged everywhere
+    (50, 3000, 32, 4, torch.float32, 4),
+    (33, 777, 16, 40, torch.float32, 8),          # two chunks, widest mixture
+])
+def test_rank_counts_kernel_equals_plain_version(cuda, batch, num_items, dim,
+                                                 width, dtype, mixtures):
+    """K5's counts exactly, with target ids below 0 and at or past N among
+    them (they exclude no row), and target scores both matched (a self tie
+    by score, excluded by id) and drawn at random."""
+    users, items, bias = _operands(batch + width, batch, num_items, dim,
+                                   item_dtype=dtype, mixtures=mixtures)
+    if mixtures:
+        users = users / dim ** .5
+    gen = torch.Generator().manual_seed(2)
+    ids = torch.randint(-3, num_items + 3, (batch, width),
+                        generator=gen).to(cuda)
+    safe = ids.clamp(0, num_items - 1)
+    if mixtures:
+        ts = ranking.matched_candidate_scores(users, items, bias, safe,
+                                              mixtures)
+    else:
+        ts = ranking.matched_target_scores(users, items, bias, safe)
+    ts[:, ::2] = torch.randn(batch, (width + 1) // 2, generator=gen).to(cuda)
+    greater, equal = ranking.rank_counts(users, items, bias, ts, ids,
+                                         mixtures)
+    want = ranking.rank_counts_plain(users, items, bias, ts, ids, mixtures)
+    assert torch.equal(greater, want[0]) and torch.equal(equal, want[1])
+    assert greater.dtype == equal.dtype == torch.float32
+
+
+def test_rank_counts_ids_outside_the_catalogue_exclude_nothing(cuda):
+    """Target ids are compared, never gathered or clamped: -1, N, 2^31 - 1
+    and -2^40 leave all N rows in the counts, while a real id leaves out
+    exactly its own row."""
+    users, items, bias = _operands(1, 8, 500, 16)
+    ts = ranking.matched_target_scores(
+        users, items, bias, torch.full((8, 1), 7, device=cuda)).repeat(1, 5)
+    ids = torch.tensor([[-1, 500, 2 ** 31 - 1, -2 ** 40, 7]],
+                       device=cuda).repeat(8, 1)
+    greater, equal = ranking.rank_counts(users, items, bias, ts, ids)
+    scores = ranking.plain_scores(users, items, bias).T
+    above = (scores > ts[:, :1]).sum(dim=1).float()
+    same = (scores == ts[:, :1]).sum(dim=1).float()
+    assert torch.equal(greater, above[:, None].expand(8, 5))
+    assert torch.equal(equal[:, :4], same[:, None].expand(8, 4))
+    assert torch.equal(equal[:, 4], same - 1)
+
+
+def test_reciprocal_ranks_streaming_equals_the_rank_weight_path(cuda):
+    """The K1 identity: with matched target scores, K5's counts give the
+    rank weights' ranks, so both MRR paths agree bit for bit, ties made by
+    a duplicated row included."""
+    users, items, bias = _operands(4, 300, 4000, 32)
+    items[9], bias[9] = items[3], bias[3]
+    targets = torch.randint(0, 4000, (300, 3),
+                            generator=torch.Generator().manual_seed(5)).to(
+                                cuda)
+    targets[:, 0] = 3
+    mask = torch.ones_like(targets, dtype=torch.bool)
+    mask[::3, 2] = False
+    got = ranking.reciprocal_ranks_streaming(users, items, bias, targets,
+                                             mask)
+    want = evaluation._streaming_ranks_device(users, items, bias, targets,
+                                              mask, None)
+    assert torch.equal(got, want)
+
+
+def _bloom_operands(seed, batch, num_rows, dim, hashes, dtype, skew=False):
+    rs = np.random.RandomState(seed)
+    table = torch.from_numpy(rs.randn(num_rows, dim).astype(np.float32))
+    rows = rs.randint(0, num_rows, (batch, hashes))
+    rows[0, :2] = 3                           # a duplicated hash
+    if skew:
+        rows[: batch // 2] = 0                # row 0 takes every padding id
+        rows[1::7, -1] = 1
+    cotangent = rs.randn(batch, dim).astype(np.float32)
+    return (table.to(device='cuda', dtype=dtype),
+            torch.from_numpy(rows).to('cuda'),
+            torch.from_numpy(cotangent).to(device='cuda', dtype=dtype))
+
+
+def _bits(x):
+    """The raw bits of a float32 or bfloat16 tensor: -0.0 and +0.0 apart."""
+    return x.detach().view(torch.int16 if x.dtype == torch.bfloat16
+                           else torch.int32)
+
+
+def _lookup(entry, table, rows):
+    name, mask = entry
+    if name == 'bloom':
+        return bloom.bloom_gather_sum(table, rows)
+    return multihot.multihot_gather_sum(table, rows, mask)
+
+
+def _plain_lookup(entry, table, rows, cotangent):
+    """(forward, backward) of the plain versions."""
+    name, mask = entry
+    rows = rows.to(torch.int32)
+    if name == 'bloom':
+        return (bloom.bloom_gather_sum_plain(table, rows),
+                bloom.bloom_gather_sum_backward_plain(cotangent, rows,
+                                                      table.shape[0]))
+    return (multihot.multihot_gather_sum_plain(table, rows, mask),
+            multihot.multihot_gather_sum_backward_plain(
+                cotangent, rows, table.shape[0], mask, table.dtype))
+
+
+ENTRIES = [('bloom', False), ('multihot', False), ('multihot', True)]
+
+
+@pytest.mark.parametrize('entry', ENTRIES)
+@pytest.mark.parametrize('batch,num_rows,dim,hashes,dtype,skew', [
+    (513, 1000, 64, 4, torch.float32, False),
+    (300, 64, 128, 24, torch.float32, True),      # every seed, skewed rows
+    (77, 40, 30, 2, torch.float32, False),        # no 16-byte vectors
+    (129, 300, 64, 4, torch.bfloat16, False),
+    (40, 50, 12, 3, torch.bfloat16, True),
+    (64, 30, 8, 1, torch.float32, False),         # a single hash
+])
+def test_gather_sum_kernels_equal_plain_versions(cuda, entry, batch,
+                                                 num_rows, dim, hashes, dtype,
+                                                 skew):
+    """K6 and K7f forward, K6's backward and K7b, bit for bit, and the
+    backward in the same bits in two launches."""
+    table, rows, cotangent = _bloom_operands(batch + dim, batch, num_rows,
+                                             dim, hashes, dtype, skew)
+    table.requires_grad_(True)
+    out = _lookup(entry, table, rows)
+    first, = torch.autograd.grad(out, table, cotangent, retain_graph=True)
+    again, = torch.autograd.grad(out, table, cotangent)
+    plain_out, plain_grad = _plain_lookup(entry, table.detach(), rows,
+                                          cotangent)
+    assert out.dtype == first.dtype == dtype
+    assert torch.equal(_bits(out), _bits(plain_out))
+    assert torch.equal(_bits(first), _bits(again))
+    assert torch.equal(_bits(first), _bits(plain_grad))
+    if entry == ('multihot', True):
+        assert not bool(first[0].any())
+
+
+def test_gather_sum_rows_out_of_range_raise(cuda):
+    table, rows, _ = _bloom_operands(0, 8, 20, 16, 4, torch.float32)
+    for bad in (-1, 20):
+        rows[3, 1] = bad
+        with pytest.raises(ValueError, match='rows must lie in'):
+            bloom.bloom_gather_sum(table, rows)
+        with pytest.raises(ValueError, match='rows must lie in'):
+            multihot.multihot_gather_sum(table, rows, True)
+    with pytest.raises(ValueError, match='several devices'):
+        bloom.bloom_gather_sum(table, rows.cpu())
+
+
+def test_each_new_launch_counts_once(cuda):
+    users, items, bias = _operands(2, 64, 1000, 32)
+    mix_users, _, _ = _operands(3, 64, 1000, 32, mixtures=2)
+    ids = torch.zeros(64, 3, dtype=torch.int64, device=cuda)
+    ts = torch.zeros(64, 3, device=cuda)
+    table, rows, cotangent = _bloom_operands(1, 50, 100, 16, 4,
+                                             torch.float32)
+    table.requires_grad_(True)
+    counters = (
+        (ranking, 'RANK_COUNTS_LAUNCHES'),
+        (ranking, 'MIXTURE_RANK_COUNTS_LAUNCHES'),
+        (bloom, 'BLOOM_GATHER_LAUNCHES'),
+        (bloom, 'BLOOM_GATHER_BACKWARD_LAUNCHES'),
+        (multihot, 'MULTIHOT_LAUNCHES'),
+        (multihot, 'MULTIHOT_BACKWARD_LAUNCHES'))
+    before = [getattr(module, name) for module, name in counters]
+    ranking.rank_counts(users, items, bias, ts, ids)
+    ranking.rank_counts(mix_users, items, bias, ts, ids, 2)
+    torch.autograd.grad(bloom.bloom_gather_sum(table, rows), table,
+                        cotangent)
+    torch.autograd.grad(multihot.multihot_gather_sum(table, rows), table,
+                        cotangent)
+    after = [getattr(module, name) for module, name in counters]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1, 1, 1]
+    assert gather_sum.check_operands(table, rows).dtype == torch.int32

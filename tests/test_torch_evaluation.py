@@ -118,13 +118,33 @@ def test_streaming_equals_materialize_in_ragged_batches(batch_size):
 
 
 class _PredictOnly:
-    """A model that only predicts: the metrics score it user by user."""
+    """A model that only predicts: the metrics score it user by user.  It
+    asks for the CPU through ``_device``, as any model must that wants the
+    metrics off the card."""
+
+    _device = torch.device('cpu')
 
     def __init__(self, scores):
         self._scores = scores
 
     def predict(self, user_ids, item_ids=None):
         return self._scores[user_ids]
+
+
+def test_predict_only_model_without_device_needs_the_card(monkeypatch):
+    """A model that names no device is evaluated on ``cuda``, as the
+    estimators are by default: without a card the metrics raise rather
+    than run on the CPU unasked."""
+    _, _, _, _, _, ptest = _setup()
+
+    class NoDevice:
+        def predict(self, user_ids, item_ids=None):
+            raise AssertionError('scored on the CPU unasked')
+
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    for metric in (evaluation.mrr_score, evaluation.precision_recall_score):
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            metric(NoDevice(), ptest)
 
 
 def test_predict_only_model_matches_jax():
