@@ -64,11 +64,28 @@ each of which exits non-zero when it fails:
    version and its ``embedding_bag`` yardstick; the lookup benchmark's
    shapes and one bfloat16 table; where the device time of one bloom
    ``sequence_mrr_score`` goes.
+9. training: P1 (``row_adam``) against its plain version bit for bit, in
+   two launches, at the probe's shapes (R = 100,000 + 8 and 2,000,000 + 8,
+   W=128, 24,576 ids from ``RandomState(0)``) with
+   ``torch.optim.SparseAdam`` as the yardstick (rtol 1e-5); the lazy engine
+   at ``bench_lazy_knobs``' width (BPR, D=64, 2e6 users x 5e5 items, 1e6
+   pairs, batch 8,192): one warm epoch, then 4 timed epochs with the P1
+   counter zeroed just before and read just after (2 launches a step), one
+   epoch profiled; P1 on that engine's own operands captured from one warm
+   step (float32 and bfloat16 tables) at the engine's own l2 (0), timed,
+   with ``SparseAdam`` from the captured moments as the yardstick, and once
+   more bit for bit at l2=1e-6; the dense engine at
+   ``bench.py``'s width (1e5 x 2e4): one warm epoch, 10 timed, one
+   profiled; the JAX package's learning gates through ``fit`` and
+   ``mrr_score`` on the card; one lazy step on the card against the same
+   step on the CPU (gradients within rtol 1e-5, its P1 calls bit-equal to
+   the plain version).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import json
 import os
 import statistics
@@ -121,6 +138,20 @@ BLOOM_ROWS = int(BLOOM_RATIO * BLOOM_ITEMS)
 #: scripts/bloom_kernel_bench.py's lookup shapes.
 LOOKUP_BATCH = 8_192
 LOOKUP_ROWS = (4_096, 65_536, 262_144)
+#: Phase 9, training: scripts/bench_suite.py's bench_lazy_knobs (the lazy
+#: engine) and bench.py (the dense engine), not cut; the probe's P1 shapes.
+TRAIN_DIM = 64
+TRAIN_BATCH = 8_192
+FIT_PAIRS = 1_000_000
+LAZY_USERS, LAZY_ITEMS, LAZY_EPOCHS = 2_000_000, 500_000, 4
+DENSE_USERS, DENSE_ITEMS, DENSE_EPOCHS = 100_000, 20_000, 10
+#: The warm epoch's step whose row updates phase 9 captures.
+CAPTURE_STEP = 60
+PROBE_ROWS = (100_000, 2_000_000)
+PROBE_WIDTH, PROBE_IDS = 128, 24_576
+#: Model seeds whose mean the lazy bpr gate holds (one seed of a random
+#: stream other than JAX's is a coin toss at that gate).
+GATE_LAZY_SEEDS = (0, 1, 2, 3)
 #: Largest gap between the materialize path's scores and the plain
 #: catalogue pass's, relative to the row's largest score: float32
 #: rounding of other summation orders, far above it a wrong score.
@@ -1474,6 +1505,453 @@ def check_lookup_shapes(torch, card):
                                  'version'.format(name))
 
 
+# -- phase 9: training -------------------------------------------------------
+
+def row_update_bytes(distinct, n, width, param_size, fused=False):
+    """Bytes P1 must move: each distinct row's parameters, ``mu`` and ``nu``
+    read and written once, each occurrence's float32 gradient row read once,
+    and the index arrays (order, offsets, segment rows, the count; with
+    ``fused`` the occurrence ids and the sort's own output too)."""
+    index = 12 * n + 8 + (8 * n if fused else 0)
+    return distinct * width * 2 * (param_size + 8) + 4 * n * width + index
+
+
+def row_update_ops(distinct, n, width):
+    """float32 operations of P1: the occurrence sums, and per element of a
+    distinct row the l2 term, the two moments, the bias corrections, the
+    square root, the step and the addition (about 15)."""
+    return n * width + 15 * distinct * width
+
+
+def sparse_adam_yardstick(torch, param, mu, nu, ids, grads, t, lr):
+    """``torch.optim.SparseAdam``'s step ``t`` from the moments ``mu`` and
+    ``nu`` on the coalesced sparse gradient of the occurrences, against
+    P1's step ``t`` (l2=0) from the same state: the same function in
+    another rounding order (rtol 1e-5).  SparseAdam adds ``eps`` to
+    ``sqrt(v)`` before the bias correction, P1 (as optax) to
+    ``sqrt(v_hat)``: with its ``eps`` scaled by ``sqrt(1 - b2 ** t)`` the
+    steps are one function.  Returns (median ms of one step, largest
+    gap)."""
+    from spotlight_tpu_torch.ops.lazy_adam import sparse_adam_rows
+    from spotlight_tpu_torch.utils.training import B2, EPS
+
+    weight = torch.nn.Parameter(param.clone())
+    optimizer = torch.optim.SparseAdam([weight], lr=lr,
+                                       eps=EPS * (1 - B2 ** t) ** 0.5)
+    optimizer.state[weight] = {'step': t - 1, 'exp_avg': mu.clone(),
+                               'exp_avg_sq': nu.clone()}
+    weight.grad = torch.sparse_coo_tensor(
+        ids[None].long(), grads, param.shape,
+        check_invariants=False).coalesce()
+    optimizer.step()
+    ours = param.clone()
+    sparse_adam_rows(ids, ours, mu.clone(), nu.clone(), grads, t, lr)
+    torch.testing.assert_close(weight.detach(), ours, rtol=1e-5, atol=1e-6)
+    gap = float((weight.detach() - ours).abs().max())
+    ms = median_ms(torch, optimizer.step, KERNEL_REPS)
+    del weight, optimizer, ours
+    return ms, gap
+
+
+def check_row_update(torch, card, shape, param, mu, nu, ids, grads, t, lr,
+                     l2, library=False, timed=True):
+    """P1 against its plain version on one operand set: ``param``, ``mu``
+    and ``nu`` bit for bit, in two launches, for the occurrence form and
+    for the probe's pre-deduplicated form (unique rows, pre-summed
+    gradients); then, with ``timed``: the kernel alone on the deduplicated
+    rows (the probe's ``pallas_kernel_only``), the index preparation and
+    the kernel (``pallas_fused``), the plain version and, with ``library``
+    (l2=0, a float32 table), ``torch.optim.SparseAdam`` from the same
+    moments.  Returns the kernel-table entry (None unless ``timed``)."""
+    from spotlight_tpu_torch.ops.kernels import row_update
+
+    segments = row_update.prepare_segments(ids)
+    scalars = row_update.adam_scalars(t, lr, l2)
+    distinct = int(segments.count)
+    summed = row_update.segment_sums_plain(grads, segments, distinct)
+    unique = row_update.Segments(
+        torch.arange(distinct, dtype=torch.int32, device=ids.device),
+        torch.arange(distinct + 1, dtype=torch.int32, device=ids.device),
+        segments.rows[:distinct].contiguous(), segments.count)
+
+    def run(fn, segs, rows):
+        tables = (param.clone(), mu.clone(), nu.clone())
+        fn(*tables, rows, segs, scalars)
+        return tables
+
+    want = run(row_update.row_adam_plain, segments, grads)
+    for form, segs, rows in (('occurrences', segments, grads),
+                             ('deduplicated', unique, summed)):
+        for launch in range(2):
+            got = run(row_update.row_adam, segs, rows)
+            torch.cuda.synchronize()
+            for name, a, b in zip(('param', 'mu', 'nu'), got, want):
+                if not torch.equal(bits(torch, a), bits(torch, b)):
+                    raise AssertionError(
+                        'row_adam ({}, launch {}) differs from its plain '
+                        'version in {} at {}: {} elements'.format(
+                            form, launch, name, shape,
+                            int((bits(torch, a) != bits(torch, b)).sum())))
+            del got
+    moved = float((want[0].float() - param.float()).abs().max())
+    del want
+    if not timed:
+        log(check='row_adam bit-equal to its plain version, twice',
+            shape=shape, card=card)
+        return None
+
+    p, m, v = param.clone(), mu.clone(), nu.clone()
+    kernel_ms = median_ms(
+        torch, lambda: row_update.row_adam(p, m, v, summed, unique, scalars),
+        KERNEL_REPS)
+    fused_ms = median_ms(
+        torch, lambda: row_update.row_adam(
+            p, m, v, grads, row_update.prepare_segments(ids), scalars),
+        KERNEL_REPS)
+    plain_ms = median_ms(
+        torch, lambda: row_update.row_adam_plain(
+            p, m, v, grads, row_update.prepare_segments(ids), scalars),
+        PLAIN_REPS)
+    del p, m, v
+    library_ms = library_gap = None
+    if library:
+        library_ms, library_gap = sparse_adam_yardstick(
+            torch, param, mu, nu, ids, grads, t, lr)
+    width = param.shape[1]
+    size = param.element_size()
+    entry = kernel_entry(
+        'row_adam (P1)', 'row_update.cu', 'scripts/fused_rowupdate_probe.py:78',
+        shape, fused_ms, plain_ms,
+        row_update_ops(distinct, ids.numel(), width),
+        row_update_bytes(distinct, ids.numel(), width, size, fused=True),
+        0.0, library_ms=library_ms, kernel_only_ms=kernel_ms,
+        kernel_only_bound_ms=bound(
+            row_update_ops(distinct, distinct, width),
+            row_update_bytes(distinct, distinct, width, size))[0],
+        distinct_rows=distinct, occurrences=ids.numel(),
+        library_max_abs_gap=library_gap, largest_step=moved)
+    torch.cuda.empty_cache()
+    log(kernel_case=entry, card=card)
+    return entry
+
+
+def check_probe_shapes(torch, card):
+    """P1 at the probe's shapes (``scripts/fused_rowupdate_probe.py``):
+    R + 8 rows of W=128 (R = 100,000 and 2,000,000), 24,576 occurrence ids
+    from ``RandomState(0)`` as the probe draws them, t=5, lr=1e-2."""
+    rs = np.random.RandomState(0)
+    for rows in PROBE_ROWS:
+        padded = rows + 8
+        param = torch.from_numpy(rs.randn(padded, PROBE_WIDTH).astype(
+            np.float32)).to(DEVICE)
+        zeros = torch.zeros_like(param)
+        ids = torch.from_numpy(rs.randint(0, rows, PROBE_IDS).astype(
+            np.int32)).to(DEVICE)
+        grads = torch.from_numpy((rs.randn(PROBE_IDS, PROBE_WIDTH) * 1e-2)
+                                 .astype(np.float32)).to(DEVICE)
+        check_row_update(torch, card, 'R={} W={} n={} f32 (probe)'.format(
+            padded, PROBE_WIDTH, PROBE_IDS), param, zeros, zeros.clone(),
+            ids, grads, 5, 1e-2, 0.0, library=True)
+        del param, zeros, ids, grads
+        torch.cuda.empty_cache()
+
+
+def fit_interactions(num_users, num_items):
+    """``FIT_PAIRS`` random (user, item) pairs from ``RandomState(42)``, as
+    ``bench.py`` and ``bench_lazy_knobs`` draw them."""
+    from spotlight_tpu_torch.data import Interactions
+
+    rs = np.random.RandomState(42)
+    return Interactions(rs.randint(0, num_users, FIT_PAIRS).astype(np.int64),
+                        rs.randint(0, num_items, FIT_PAIRS).astype(np.int64),
+                        num_users=num_users, num_items=num_items)
+
+
+def capture_row_updates(step):
+    """Wrap the lazy engine's ``sparse_adam_rows`` so that the operands of
+    its two calls at ``step`` (1-based; the user table, then the item
+    table) are cloned before they update.  Returns (captured list, undo)."""
+    from spotlight_tpu_torch.factorization import lazy
+
+    original = lazy.sparse_adam_rows
+    captured = []
+    calls = [0]
+
+    def wrapper(ids, param, mu, nu, grad_rows, t, lr, l2=0.0):
+        calls[0] += 1
+        if (calls[0] + 1) // 2 == step:
+            captured.append(dict(ids=ids.clone(), param=param.clone(),
+                                 mu=mu.clone(), nu=nu.clone(),
+                                 grads=grad_rows.clone(), t=t, lr=lr, l2=l2))
+        return original(ids, param, mu, nu, grad_rows, t, lr, l2)
+
+    lazy.sparse_adam_rows = wrapper
+
+    def undo():
+        lazy.sparse_adam_rows = original
+
+    return captured, undo
+
+
+def timed_fit(torch, model, interactions, epochs):
+    """Seconds of one ``fit`` of ``epochs`` epochs, host clock; ``fit`` ends
+    in the last epoch's loss readback.  Every epoch's loss is read back and
+    checked finite and non-zero by the estimator's own guard."""
+    model._n_iter = epochs
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    model.fit(interactions)
+    torch.cuda.synchronize()
+    return time.perf_counter() - start
+
+
+def run_lazy_training(torch, card):
+    """The lazy engine at ``bench_lazy_knobs``' width: BPR, D=64, 2e6 users
+    x 5e5 items, 1e6 pairs, batch 8,192, lr 1e-2.  One warm epoch (whose
+    step ``CAPTURE_STEP`` row updates are captured), then ``LAZY_EPOCHS``
+    timed epochs with the P1 counter zeroed just before and read just
+    after.  Returns (launches, captured operands)."""
+    from spotlight_tpu_torch.factorization import ImplicitFactorizationModel
+    from spotlight_tpu_torch.ops.kernels import row_update
+
+    interactions = fit_interactions(LAZY_USERS, LAZY_ITEMS)
+    model = ImplicitFactorizationModel(
+        loss='bpr', embedding_dim=TRAIN_DIM, n_iter=1, batch_size=TRAIN_BATCH,
+        learning_rate=1e-2, sparse=True,
+        random_state=np.random.RandomState(42))
+    captured, undo = capture_row_updates(CAPTURE_STEP)
+    try:
+        warm_s = timed_fit(torch, model, interactions, 1)
+    finally:
+        undo()
+    if not model._lazy or len(captured) != 2:
+        raise AssertionError('the lazy engine did not run')
+    num_batches = -(-FIT_PAIRS // TRAIN_BATCH)
+
+    # The main path, with the P1 counter zeroed just before it.
+    row_update.ROW_ADAM_LAUNCHES = 0
+    seconds = timed_fit(torch, model, interactions, LAZY_EPOCHS)
+    launches = row_update.ROW_ADAM_LAUNCHES
+    expected = 2 * num_batches * LAZY_EPOCHS
+    log(main_path_launches={'row_adam (P1)': launches}, expected=expected)
+    if launches != expected:
+        raise AssertionError('row_adam launched {} times, not {}'.format(
+            launches, expected))
+    loss = model._last_epoch_loss
+    if not np.isfinite(loss):
+        raise AssertionError('lazy engine: epoch loss {}'.format(loss))
+    log(training='lazy', config='bpr D={} {}x{} n={} B={}'.format(
+        TRAIN_DIM, LAZY_USERS, LAZY_ITEMS, FIT_PAIRS, TRAIN_BATCH),
+        warm_epoch_s=warm_s, epochs=LAZY_EPOCHS, seconds=seconds,
+        examples_per_s=LAZY_EPOCHS * FIT_PAIRS / seconds,
+        ms_per_step=seconds * 1e3 / (LAZY_EPOCHS * num_batches),
+        last_epoch_loss=loss, card=card)
+    model._n_iter = 1
+    profile_call(torch, card, 'lazy training epoch',
+                 lambda: model.fit(interactions))
+    del model
+    torch.cuda.empty_cache()
+    return launches, captured
+
+
+def check_engine_operands(torch, card, captured):
+    """P1 on the lazy engine's own operands at full width (W=65), captured
+    from one warm step: the user table's call (8,192 ids) and the item
+    table's (16,384 ids, the positives and their negatives), float32 and
+    bfloat16 tables.  At the call's own l2 (the engine's default, 0) each is
+    timed, the float32 tables beside ``SparseAdam`` from the captured
+    moments; at l2=1e-6 each is held bit for bit once more.  Returns the
+    item call's float32 entry."""
+    main = None
+    for table, operands in zip(('user', 'item'), captured):
+        grads = operands['grads'].reshape(operands['ids'].numel(),
+                                          -1).float()
+        for dtype in (torch.float32, torch.bfloat16):
+            param = operands['param'].to(dtype)
+            for l2 in dict.fromkeys((operands['l2'], 1e-6)):
+                shape = '{} table R={} W={} n={} {} t={} l2={} (engine)'.format(
+                    table, param.shape[0], param.shape[1],
+                    operands['ids'].numel(), str(dtype).split('.')[-1],
+                    operands['t'], l2)
+                main_l2 = l2 == operands['l2']
+                entry = check_row_update(
+                    torch, card, shape, param, operands['mu'], operands['nu'],
+                    operands['ids'], grads, operands['t'], operands['lr'], l2,
+                    library=main_l2 and l2 == 0 and dtype == torch.float32,
+                    timed=main_l2)
+                if main_l2 and table == 'item' and dtype == torch.float32:
+                    main = entry
+            del param
+    torch.cuda.empty_cache()
+    return main
+
+
+def run_dense_training(torch, card):
+    """The dense engine at ``bench.py``'s width: BPR, D=64, 1e5 users x 2e4
+    items, 1e6 pairs, batch 8,192, lr 1e-2: one warm epoch, then
+    ``DENSE_EPOCHS`` timed epochs, and one epoch profiled."""
+    from spotlight_tpu_torch.factorization import ImplicitFactorizationModel
+
+    interactions = fit_interactions(DENSE_USERS, DENSE_ITEMS)
+    model = ImplicitFactorizationModel(
+        loss='bpr', embedding_dim=TRAIN_DIM, n_iter=1, batch_size=TRAIN_BATCH,
+        learning_rate=1e-2, random_state=np.random.RandomState(42))
+    warm_s = timed_fit(torch, model, interactions, 1)
+    if model._lazy:
+        raise AssertionError('the dense engine did not run')
+    seconds = timed_fit(torch, model, interactions, DENSE_EPOCHS)
+    num_batches = -(-FIT_PAIRS // TRAIN_BATCH)
+    log(training='dense', config='bpr D={} {}x{} n={} B={}'.format(
+        TRAIN_DIM, DENSE_USERS, DENSE_ITEMS, FIT_PAIRS, TRAIN_BATCH),
+        warm_epoch_s=warm_s, epochs=DENSE_EPOCHS, seconds=seconds,
+        examples_per_s=DENSE_EPOCHS * FIT_PAIRS / seconds,
+        ms_per_step=seconds * 1e3 / (DENSE_EPOCHS * num_batches),
+        last_epoch_loss=model._last_epoch_loss, card=card)
+    model._n_iter = 1
+    profile_call(torch, card, 'dense training epoch',
+                 lambda: model.fit(interactions))
+    del model
+    torch.cuda.empty_cache()
+
+
+def run_learning_gates(torch, card):
+    """The JAX package's learning gates, through ``fit`` on the card and the
+    port's ``mrr_score`` (K1 on the card): the dense engine with each loss
+    on ``tests/factorization/test_implicit.py``'s data (MRR > 0.030, the
+    gate less its epsilon), an untrained model there (< 0.02), and the lazy
+    engine on ``tests/test_lazy_adam.py``'s (bpr, 20 epochs, the mean over
+    the model seeds 0-3 > 0.05; adaptive hinge, 10 epochs, > 0.04)."""
+    from spotlight_tpu_torch.data import random_train_test_split
+    from spotlight_tpu_torch.data.synthetic import generate_factorization
+    from spotlight_tpu_torch.evaluation import mrr_score
+    from spotlight_tpu_torch.factorization import ImplicitFactorizationModel
+
+    def split(*shape, **kwargs):
+        data = generate_factorization(
+            *shape, random_state=np.random.RandomState(42), **kwargs)
+        return random_train_test_split(
+            data, random_state=np.random.RandomState(0))
+
+    def mrr(model, train, test):
+        return float(mrr_score(model, test, train=train).mean())
+
+    results = {}
+    train, test = split(600, 400, 30000, rank=8, noise=0.15)
+    untrained = ImplicitFactorizationModel(
+        n_iter=10, random_state=np.random.RandomState(42))
+    untrained._initialize(train)
+    results['untrained'] = (mrr(untrained, train, test), '<', 0.02)
+    for loss in ('pointwise', 'bpr', 'hinge', 'adaptive_hinge'):
+        model = ImplicitFactorizationModel(
+            loss=loss, embedding_dim=32, n_iter=10, batch_size=1024,
+            learning_rate=1e-2, l2=1e-6,
+            random_state=np.random.RandomState(42)).fit(train)
+        results['dense ' + loss] = (mrr(model, train, test), '>', 0.030)
+    train, test = split(120, 90, 6000)
+    scores = []
+    for seed in GATE_LAZY_SEEDS:
+        model = ImplicitFactorizationModel(
+            loss='bpr', n_iter=20, batch_size=512, sparse=True,
+            random_state=np.random.RandomState(seed)).fit(train)
+        scores.append(mrr(model, train, test))
+    results['lazy bpr (mean of seeds {})'.format(list(GATE_LAZY_SEEDS))] = (
+        float(np.mean(scores)), '>', 0.05)
+    model = ImplicitFactorizationModel(
+        loss='adaptive_hinge', n_iter=10, batch_size=512, sparse=True,
+        random_state=np.random.RandomState(42)).fit(train)
+    results['lazy adaptive_hinge'] = (mrr(model, train, test), '>', 0.04)
+    log(learning_gates={name: value for name, (value, _, _) in
+                        results.items()}, lazy_bpr_seeds=scores, card=card)
+    for name, (value, op, gate) in results.items():
+        passed = value < gate if op == '<' else value > gate
+        if not passed:
+            raise AssertionError('learning gate {}: MRR {} is not {} {}'
+                                 .format(name, value, op, gate))
+
+
+@contextlib.contextmanager
+def no_host_sync(torch, device):
+    """On the card, make any synchronising CUDA call inside raise: a
+    training step reads nothing back to the host."""
+    if torch.device(device).type != 'cuda':
+        yield
+        return
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+
+
+def check_step_against_cpu(torch, card):
+    """One lazy step on the card against the same step on the CPU, from the
+    same parameters (the estimator's generator is on the CPU), batch and
+    negatives, at ``bench.py``'s table sizes: the occurrence gradients
+    within rtol 1e-5 (torch's CUDA reductions sum in another order), and
+    the step's P1 calls on the card bit-equal to the plain version on the
+    card's own gradients.  The card's step runs with CUDA's
+    synchronisation check set to raise."""
+    from spotlight_tpu_torch.factorization import ImplicitFactorizationModel
+    from spotlight_tpu_torch.ops.kernels import row_update
+    from spotlight_tpu_torch.utils import training
+
+    interactions = fit_interactions(DENSE_USERS, DENSE_ITEMS)
+    steps = {}
+    for device in ('cpu', DEVICE):
+        model = ImplicitFactorizationModel(
+            loss='adaptive_hinge', embedding_dim=TRAIN_DIM,
+            batch_size=TRAIN_BATCH, sparse=True, l2=1e-6,
+            random_state=np.random.RandomState(7), device=device)
+        model._initialize(interactions)
+        data, n_valid, _ = model._epoch_data(interactions)
+        perm, negatives = training.epoch_draws(
+            model._generator, TRAIN_BATCH, (1, model._num_step_negatives,
+                                            TRAIN_BATCH),
+            DENSE_ITEMS, device)
+        captured, undo = capture_row_updates(1)
+        step = model._step_fn()
+        batch = {k: v[:TRAIN_BATCH] for k, v in data.items()}
+        try:
+            with no_host_sync(torch, device):
+                loss = training.run_epoch(step, batch, n_valid, 1,
+                                          TRAIN_BATCH, perm, negatives)
+        finally:
+            undo()
+        steps[device] = (float(loss), captured)
+    cpu_loss, cpu_ops = steps['cpu']
+    card_loss, card_ops = steps[DEVICE]
+    gaps = []
+    for table, cpu, gpu in zip(('user', 'item'), cpu_ops, card_ops):
+        if not torch.equal(cpu['ids'], gpu['ids'].cpu()):
+            raise AssertionError('the draws differ between the devices')
+        torch.testing.assert_close(gpu['param'].cpu(), cpu['param'],
+                                   rtol=0, atol=0)
+        scale = float(cpu['grads'].abs().max())
+        torch.testing.assert_close(gpu['grads'].cpu(), cpu['grads'],
+                                   rtol=1e-5, atol=1e-7 * scale)
+        gaps.append(float((gpu['grads'].cpu() - cpu['grads']).abs().max())
+                    / scale)
+        segments = row_update.prepare_segments(gpu['ids'])
+        scalars = row_update.adam_scalars(gpu['t'], gpu['lr'], gpu['l2'])
+        grads = gpu['grads'].reshape(gpu['ids'].numel(), -1)
+        tables = []
+        for fn in (row_update.row_adam, row_update.row_adam_plain):
+            out = (gpu['param'].clone(), gpu['mu'].clone(),
+                   gpu['nu'].clone())
+            fn(*out, grads, segments, scalars)
+            tables.append(out)
+        torch.cuda.synchronize()
+        for a, b in zip(*tables):
+            if not torch.equal(bits(torch, a), bits(torch, b)):
+                raise AssertionError('the step\'s row_adam on the {} table '
+                                     'differs from its plain version'
+                                     .format(table))
+    np.testing.assert_allclose(card_loss, cpu_loss, rtol=1e-5)
+    log(check='lazy step: card against CPU', loss_card=card_loss,
+        loss_cpu=cpu_loss, grad_max_rel_gap=gaps, card=card)
+
+
 # -- phase 5: where the time goes --------------------------------------------
 
 def profile_metrics(torch, card, model, test, train, heavy):
@@ -1588,6 +2066,18 @@ def main():
     check_lookup_shapes(torch, card)
     profile_call(torch, card, 'bloom sequence_mrr_score',
                  lambda: sequence_mrr_score(bloom_model_, bloom_test))
+    del bloom_model_, bloom_test, seq_model, seq_test
+    torch.cuda.empty_cache()
+
+    check_probe_shapes(torch, card)
+    p1_launches, captured = run_lazy_training(torch, card)
+    launches['row_adam (P1)'] = p1_launches
+    entries['row_adam (P1)'] = check_engine_operands(torch, card, captured)
+    del captured
+    torch.cuda.empty_cache()
+    run_dense_training(torch, card)
+    run_learning_gates(torch, card)
+    check_step_against_cpu(torch, card)
 
     kernels = []
     for name in ('rank_weights', 'matched_target_scores', 'streaming_topk',
@@ -1595,7 +2085,7 @@ def main():
                  'mixture_score', 'matched_candidate_scores', 'rank_counts',
                  'rank_counts (mixture)', 'bloom_gather_sum',
                  'bloom_gather_sum backward', 'multihot_gather_sum',
-                 'multihot_gather_sum backward'):
+                 'multihot_gather_sum backward', 'row_adam (P1)'):
         entry = dict(entries[name])
         entry['launches'] = launches[name]
         kernels.append(entry)

@@ -13,7 +13,10 @@ models (``SequenceInteractions``, ``ImplicitSequenceModel.predict``,
 embeddings (``ops.BloomEmbedding``, ``ops.ScaledEmbeddingBag``) as item
 layers of sequence models and user and item layers of ``BilinearNet``, and
 the kernel entry points ``rank_counts``, ``reciprocal_ranks_streaming``,
-``bloom_gather_sum`` and ``multihot_gather_sum`` (``ops.kernels``).
+``bloom_gather_sum`` and ``multihot_gather_sum`` (``ops.kernels``), and
+the training of implicit matrix factorisation
+(``ImplicitFactorizationModel.fit``: the dense engine and the row-sparse
+lazy-Adam engine, whose row update is the kernel ``row_adam``).
 """
 
 __version__ = '0.1.0'

@@ -1,18 +1,22 @@
 """Shared plumbing for the factorization estimators.
 
 Counterpart of ``spotlight_tpu/factorization/_base.py``: representation
-construction, input validation, prediction id broadcasting, and the
-catalogue factors the evaluation kernels consume.  PyTorch runs eagerly, so
-the JAX package's jit caches and bucket padding have no counterpart here;
-the results are the same.
+construction, the choice of training engine and its optimizer state, input
+validation, prediction id broadcasting, and the catalogue factors the
+evaluation kernels consume.  PyTorch runs eagerly, so the JAX package's jit
+caches and bucket padding have no counterpart here; the results are the
+same.
 """
 
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
 
 from spotlight_tpu_torch.factorization.representations import BilinearNet
+from spotlight_tpu_torch.ops.lazy_adam import lazy_adam_init
 from spotlight_tpu_torch.utils import training
 
 
@@ -40,7 +44,11 @@ class _FactorizationBase:
 
     def __init__(self, embedding_dim, n_iter, batch_size, l2, learning_rate,
                  optimizer_func, representation, sparse, random_state,
-                 device=None):
+                 device=None, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                'mesh= is not ported yet: the distributed layer is the last '
+                'item of the port (ROADMAP.md, Queue 1). Train on one device.')
         self._embedding_dim = embedding_dim
         self._n_iter = n_iter
         self._batch_size = batch_size
@@ -55,6 +63,10 @@ class _FactorizationBase:
         self._num_users = None
         self._num_items = None
         self._net = None
+        self._lazy = False
+        self._optimizer = None
+        self._opt_state = None
+        self._epoch_fn_cache = {}
         # Bumped whenever the parameters change; keys the item-factor cache.
         self._params_version = 0
         self._item_factor_cache = None
@@ -67,6 +79,35 @@ class _FactorizationBase:
     @property
     def _initialized(self):
         return self._net is not None
+
+    def _lazy_fallback_reason(self):
+        """Why ``sparse=True`` cannot use the lazy engine here, or None."""
+        if not (isinstance(self._net, BilinearNet) and self._net.fused):
+            return ('it requires the default fused BilinearNet layout '
+                    '(custom representations / injected embedding layers '
+                    'use the dense engine)')
+        if self._optimizer_func is not None:
+            return ('a custom optimizer_func is set (row-sparse lazy Adam '
+                    'IS the optimizer)')
+        return None
+
+    def _use_lazy_engine(self):
+        """``sparse=True`` selects the row-sparse (lazy) Adam engine
+        (:mod:`spotlight_tpu_torch.factorization.lazy`); where a
+        configuration cannot use it (a custom representation or optimizer)
+        ``sparse`` trains dense, with the JAX package's warning, never
+        silently."""
+        if not self._sparse:
+            return False
+        reason = self._lazy_fallback_reason()
+        if reason is not None:
+            warnings.warn(
+                'sparse=True falls back to the dense engine because {} — '
+                'training remains correct; above ~0.5M-row tables the '
+                'lazy engine would be faster.'.format(reason),
+                RuntimeWarning, stacklevel=3)
+            return False
+        return True
 
     def _initialize(self, interactions):
         self._num_users = interactions.num_users
@@ -81,6 +122,15 @@ class _FactorizationBase:
                                     sparse=self._sparse,
                                     generator=self._generator,
                                     device=self._device)
+        self._lazy = self._use_lazy_engine()
+        params = dict(self._net.named_parameters())
+        if self._lazy:
+            self._opt_state = lazy_adam_init(params)
+        else:
+            self._optimizer = training.make_optimizer(
+                self._learning_rate, self._l2, self._optimizer_func)
+            self._opt_state = self._optimizer.init(params)
+        self._epoch_fn_cache = {}
         self._params_version += 1
 
     def _load_params(self, state):

@@ -14,8 +14,11 @@ Two scoring paths, as in the JAX package:
 With the default layers each side keeps one fused table of width
 ``embedding_dim + 1`` whose last column is the bias
 (:class:`~spotlight_tpu_torch.ops.embeddings.FusedBiasEmbedding`);
-``fused=False`` selects the four-table layout.  The sampled-negative and
-in-batch scoring paths and table sharding belong to later slices.
+``fused=False`` selects the four-table layout.  The training paths score
+positives with sampled negatives (:meth:`BilinearNet.apply_with_negatives`)
+or with in-batch negatives
+(:meth:`BilinearNet.apply_with_inbatch_negatives`).  Table sharding
+belongs to a later slice.
 """
 
 from __future__ import annotations
@@ -109,6 +112,79 @@ class BilinearNet(nn.Module):
         u_bias = self.user_biases(user_ids)[..., 0]
         i_bias = self.item_biases(item_ids)[..., 0]
         return (users * items).sum(dim=-1) + u_bias + i_bias
+
+    def apply_with_negatives(self, user_ids, item_ids, negative_item_ids):
+        """Score positives and sampled negatives with one user-row gather
+        and one stacked item-row gather.
+
+        Parameters
+        ----------
+        user_ids, item_ids : (B,) int
+        negative_item_ids : (B,) or (n, B) int
+
+        Returns
+        -------
+        (positive_scores, negative_scores), shaped (B,) and like
+        ``negative_item_ids``.
+        """
+        stacked = negative_item_ids.dim() == item_ids.dim() + 1
+        negatives = (negative_item_ids if stacked
+                     else negative_item_ids[None])
+        all_items = torch.cat([item_ids[None], negatives], dim=0)
+
+        if self.fused:
+            dim = self.embedding_dim
+            u = self.user_embeddings(user_ids)
+            iv = self.item_embeddings(all_items)
+            dots = ((u[None, ..., :dim] * iv[..., :dim]).sum(dim=-1)
+                    + u[None, ..., dim] + iv[..., dim])
+        else:
+            users = self.user_embeddings(user_ids)
+            u_bias = self.user_biases(user_ids)[..., 0]
+            vectors = self.item_embeddings(all_items)
+            biases = self.item_biases(all_items)[..., 0]
+            dots = (users[None] * vectors).sum(dim=-1) + biases + u_bias
+        positive = dots[0]
+        negative = dots[1:] if stacked else dots[1]
+        return positive, negative
+
+    def apply_with_inbatch_negatives(self, user_ids, item_ids,
+                                     num_negatives=1):
+        """Score positives against in-batch negatives: the negatives of
+        example ``b`` are the positive items of the examples 1..n places
+        before it (a circular shift of the gathered rows), so no negative
+        row is gathered.
+
+        Returns
+        -------
+        (positive, negative) : (B,) and ((B,) if ``num_negatives == 1``
+            else (num_negatives, B)) scores.
+        """
+        if self.fused:
+            dim = self.embedding_dim
+            u = self.user_embeddings(user_ids)
+            iv = self.item_embeddings(item_ids)
+            uf, ub = u[..., :dim], u[..., dim]
+            positive = (uf * iv[..., :dim]).sum(dim=-1) + ub + iv[..., dim]
+            negatives = []
+            for shift in range(1, num_negatives + 1):
+                nv = torch.roll(iv, shift, dims=0)
+                negatives.append(
+                    (uf * nv[..., :dim]).sum(dim=-1) + ub + nv[..., dim])
+        else:
+            users = self.user_embeddings(user_ids)
+            u_bias = self.user_biases(user_ids)[..., 0]
+            items = self.item_embeddings(item_ids)
+            i_bias = self.item_biases(item_ids)[..., 0]
+            positive = (users * items).sum(dim=-1) + u_bias + i_bias
+            negatives = []
+            for shift in range(1, num_negatives + 1):
+                nv = torch.roll(items, shift, dims=0)
+                nb = torch.roll(i_bias, shift, dims=0)
+                negatives.append((users * nv).sum(dim=-1) + u_bias + nb)
+        if num_negatives == 1:
+            return positive, negatives[0]
+        return positive, torch.stack(negatives, dim=0)
 
     def item_factors(self):
         """Dense ``(num_items, dim)`` factor matrix and ``(num_items,)``

@@ -26,6 +26,7 @@ package keeps them: its gather-sum kernels are separate entry points
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from spotlight_tpu_torch.ops.hashing import SEEDS, bloom_hash
@@ -34,8 +35,12 @@ PADDING_IDX = 0
 
 
 def _masked_gather(weight, ids, padding_idx):
-    """Gather rows; rows of ``padding_idx`` read as zero vectors."""
-    vectors = weight[ids]
+    """Gather rows; rows of ``padding_idx`` read as zero vectors.
+
+    ``F.embedding`` and not ``weight[ids]``: its backward sums each row's
+    contributions without atomics (``index_put_``'s accumulation does not
+    repeat its bits from run to run), so dense training is reproducible."""
+    vectors = F.embedding(ids, weight)
     if padding_idx is not None:
         vectors = torch.where((ids == padding_idx)[..., None],
                               torch.zeros((), dtype=vectors.dtype,

@@ -16,6 +16,10 @@
 - :func:`~spotlight_tpu_torch.ops.kernels.bloom.bloom_gather_sum` and
   :func:`~spotlight_tpu_torch.ops.kernels.multihot.multihot_gather_sum`:
   the bloom gather-sum, each with a deterministic backward.
+- :func:`~spotlight_tpu_torch.ops.kernels.row_update.row_adam`: Adam on the
+  rows named by occurrence ids, in place (the lazy training engine's row
+  update, through :func:`~spotlight_tpu_torch.ops.lazy_adam.
+  sparse_adam_rows`).
 """
 
 from spotlight_tpu_torch.ops.kernels.bloom import bloom_gather_sum  # noqa: F401
@@ -23,4 +27,5 @@ from spotlight_tpu_torch.ops.kernels.multihot import (  # noqa: F401
     multihot_gather_sum)
 from spotlight_tpu_torch.ops.kernels.ranking import (  # noqa: F401
     rank_counts, rank_weights, reciprocal_ranks_streaming)
+from spotlight_tpu_torch.ops.kernels.row_update import row_adam  # noqa: F401
 from spotlight_tpu_torch.ops.kernels.topk import streaming_topk  # noqa: F401

@@ -26,13 +26,14 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[3] / 'build' / 'kernels'
-SOURCES = ('ranking', 'topk', 'gather_sum')
+SOURCES = ('ranking', 'topk', 'gather_sum', 'row_update')
 FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-O3', '-std=c++17',
          '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     'ranking': {
         'spotlight_rank_weights': (_I, [_P, _P, _I, _P, _P, _P, _I, _I, _I,
@@ -58,6 +59,10 @@ _SIGNATURES = {
                                       _P]),
         'spotlight_scatter_rows': (_I, [_P, _I, _P, _P, _P, _I, _I, _I, _I,
                                         _I, _P]),
+    },
+    'row_update': {
+        'spotlight_row_adam': (_I, [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+                                    _I, _I] + [_F] * 9 + [_P]),
     },
 }
 

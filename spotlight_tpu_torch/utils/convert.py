@@ -8,7 +8,10 @@ tree as numpy arrays (for example
 a sequence representation
 (:class:`~spotlight_tpu_torch.sequence.representations.LSTMNet`,
 :class:`~spotlight_tpu_torch.sequence.representations.MixtureLSTMNet`), so
-both packages can score with the same numbers.  Nothing here imports JAX.
+both packages can score with the same numbers.  :func:`opt_state_from_jax`
+carries an optimizer state across the same way (the lazy engine's
+``{'mu', 'nu', 't'}`` or the dense engine's optax Adam state), so a training
+step can be compared from one starting point.  Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -68,3 +71,61 @@ def params_from_jax(net, params_numpy):
                                      tuple(target.shape)))
         state[name] = tensor.to(target.device)
     return state
+
+
+def _find_adam_state(node):
+    """The optax ``ScaleByAdamState`` inside a chain's state (any object
+    with ``count``, ``mu`` and ``nu``), found by walking tuples."""
+    if all(hasattr(node, name) for name in ('count', 'mu', 'nu')):
+        return node
+    if isinstance(node, (tuple, list)):
+        for child in node:
+            found = _find_adam_state(child)
+            if found is not None:
+                return found
+    return None
+
+
+def _moments(net, tree, dtype_of):
+    moments = {}
+    for name, param in net.named_parameters():
+        table, leaf = name.split('.')
+        tensor = _tensor(tree[table][leaf], dtype_of(param))
+        if tensor.shape != param.shape:
+            raise ValueError('{}: moment shape {} does not match the '
+                             'parameter\'s {}'.format(name,
+                                                      tuple(tensor.shape),
+                                                      tuple(param.shape)))
+        moments[name] = tensor.to(param.device)
+    return moments
+
+
+def opt_state_from_jax(net, opt_state_numpy):
+    """The port's optimizer state for ``net`` from a JAX optimizer state
+    whose arrays are numpy (``jax.tree_util.tree_map(np.asarray, state)``).
+
+    - The lazy engine's ``{'mu': tree, 'nu': tree, 't': ()}`` becomes
+      ``{'mu': {name: float32}, 'nu': {name: float32}, 't': int}``
+      (:func:`~spotlight_tpu_torch.ops.lazy_adam.lazy_adam_init`'s layout).
+    - The dense engine's optax chain state (``adam``, with or without
+      ``add_decayed_weights``) becomes ``{'count': int, 'mu': {name:
+      tensor}, 'nu': {name: tensor}}`` (:class:`~spotlight_tpu_torch.utils.
+      training.Adam`'s layout), the moments in each parameter's dtype.
+
+    ``name`` is the parameter's name in ``net`` (``user_embeddings.weight``
+    for the JAX tree's ``['user_embeddings']['weight']``).
+    """
+    if isinstance(opt_state_numpy, dict) and set(opt_state_numpy) == {
+            'mu', 'nu', 't'}:
+        return {'mu': _moments(net, opt_state_numpy['mu'],
+                               lambda p: torch.float32),
+                'nu': _moments(net, opt_state_numpy['nu'],
+                               lambda p: torch.float32),
+                't': int(np.asarray(opt_state_numpy['t']))}
+    adam = _find_adam_state(opt_state_numpy)
+    if adam is None:
+        raise ValueError('no lazy state and no Adam state (count, mu, nu) '
+                         'found in the optimizer state')
+    return {'count': int(np.asarray(adam.count)),
+            'mu': _moments(net, adam.mu, lambda p: p.dtype),
+            'nu': _moments(net, adam.nu, lambda p: p.dtype)}

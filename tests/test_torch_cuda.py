@@ -14,7 +14,11 @@ bit, but the two may be built from different CUDA versions, so mixture
 scores are held to within 2 ulp, and the counts and ids they decide
 exactly.  The bloom gather-sums and their backward sum in one fixed order
 in kernel and plain version alike, so they are held bit for bit, and the
-backward to the same bits in two launches.
+backward to the same bits in two launches.  So is P1, the row-Adam update
+(``ops/kernels/row_update.py``): its sums, products, quotients and square
+roots are IEEE-rounded one by one in kernel and plain version alike.  A lazy
+training step on the card is held to the same step on the CPU: torch sums
+the gradients in another order there, so to rtol 1e-5.
 """
 
 import numpy as np
@@ -25,7 +29,8 @@ from spotlight_tpu_torch import evaluation
 from spotlight_tpu_torch.data import Interactions, SequenceInteractions
 from spotlight_tpu_torch.factorization import ImplicitFactorizationModel
 from spotlight_tpu_torch.ops.kernels import (bloom, gather_sum, multihot,
-                                             ranking, topk)
+                                             ranking, row_update, topk)
+from spotlight_tpu_torch.ops.lazy_adam import sparse_adam_rows
 from spotlight_tpu_torch.sequence import ImplicitSequenceModel
 from spotlight_tpu_torch.utils.convert import params_from_jax
 
@@ -476,3 +481,197 @@ def test_each_new_launch_counts_once(cuda):
     after = [getattr(module, name) for module, name in counters]
     assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1, 1, 1]
     assert gather_sum.check_operands(table, rows).dtype == torch.int32
+
+
+def _row_operands(seed, num_rows, width, n, dtype, device):
+    """Occurrence ids with repeats (row 3 ten times, the sentinel row count
+    three times), a table, warm moments and gradient rows, on ``device``."""
+    rs = np.random.RandomState(seed)
+    ids = rs.randint(0, num_rows, n)
+    ids[:10] = 3
+    ids[-3:] = num_rows
+    param = torch.from_numpy(rs.randn(num_rows, width).astype(np.float32))
+    mu = torch.from_numpy((0.01 * rs.randn(num_rows, width)).astype(
+        np.float32))
+    nu = torch.from_numpy((1e-4 * rs.rand(num_rows, width)).astype(
+        np.float32))
+    grads = torch.from_numpy((0.1 * rs.randn(n, width)).astype(np.float32))
+    grads[10:12] = -0.0
+    return (torch.from_numpy(ids).to(device), param.to(device, dtype),
+            mu.to(device), nu.to(device), grads.to(device))
+
+
+@pytest.mark.parametrize('num_rows,width,n,dtype,l2,t', [
+    (1000, 65, 4096, torch.float32, 1e-6, 7),
+    (1000, 65, 4096, torch.bfloat16, 1e-6, 7),
+    (5000, 128, 24576, torch.float32, 0.0, 5),
+    (300, 33, 5000, torch.float32, 0.0, 1),        # deep segments
+    (70, 1, 40, torch.bfloat16, 1e-3, 1000),
+])
+def test_row_adam_kernel_equals_plain_version(cuda, num_rows, width, n,
+                                              dtype, l2, t):
+    ids, param, mu, nu, grads = _row_operands(n + width, num_rows, width, n,
+                                              dtype, cuda)
+    segments = row_update.prepare_segments(ids)
+    scalars = row_update.adam_scalars(t, 1e-2, l2)
+    results = []
+    for _ in range(2):
+        p, m, v = param.clone(), mu.clone(), nu.clone()
+        row_update.row_adam(p, m, v, grads, segments, scalars)
+        results.append((p, m, v))
+    p, m, v = param.clone(), mu.clone(), nu.clone()
+    row_update.row_adam_plain(p, m, v, grads, segments, scalars)
+    torch.cuda.synchronize()
+    for got in results:
+        for a, b in zip(got, (p, m, v)):
+            assert torch.equal(_bits(a), _bits(b))
+    assert not torch.equal(results[0][0], param)
+    # The sentinel row count updates nothing; untouched rows stay.
+    untouched = torch.ones(num_rows, dtype=torch.bool, device=cuda)
+    untouched[ids[ids < num_rows]] = False
+    assert torch.equal(results[0][1][untouched], mu[untouched])
+
+
+def test_row_adam_kernel_matches_the_cpu(cuda):
+    """The whole of ``sparse_adam_rows`` on the card against the CPU: both
+    run the same IEEE-rounded arithmetic, so bit for bit."""
+    cpu = _row_operands(9, 400, 65, 2000, torch.float32, 'cpu')
+    card = [x.to(cuda) for x in cpu]
+    sparse_adam_rows(*cpu[:4], cpu[4], 3, 1e-2, 1e-6)
+    sparse_adam_rows(*card[:4], card[4], 3, 1e-2, 1e-6)
+    for a, b in zip(cpu[1:4], card[1:4]):
+        assert torch.equal(_bits(a), _bits(b.cpu()))
+
+
+def test_row_adam_launch_counts_once(cuda):
+    ids, param, mu, nu, grads = _row_operands(1, 50, 8, 64, torch.float32,
+                                              cuda)
+    before = row_update.ROW_ADAM_LAUNCHES
+    sparse_adam_rows(ids, param, mu, nu, grads, 1, 1e-2)
+    assert row_update.ROW_ADAM_LAUNCHES == before + 1
+    row_update.row_adam_plain(param, mu, nu, grads,
+                              row_update.prepare_segments(ids),
+                              row_update.adam_scalars(2, 1e-2))
+    assert row_update.ROW_ADAM_LAUNCHES == before + 1
+
+
+def _lazy_model(device, loss, negative_sampling):
+    model = ImplicitFactorizationModel(
+        loss=loss, embedding_dim=16, batch_size=256, sparse=True, l2=1e-6,
+        negative_sampling=negative_sampling,
+        random_state=np.random.RandomState(4), device=device)
+    rs = np.random.RandomState(2)
+    data = Interactions(rs.randint(0, 200, 1000), rs.randint(0, 150, 1000),
+                        num_users=200, num_items=150)
+    model._initialize(data)
+    return model, data
+
+
+@pytest.mark.parametrize('loss,negative_sampling', [
+    ('bpr', 'uniform'), ('adaptive_hinge', 'uniform'),
+    ('pointwise', 'in_batch')])
+def test_lazy_epoch_on_the_card_matches_the_cpu(cuda, loss,
+                                                negative_sampling):
+    """The same seed gives the same draws on both devices (the generator is
+    on the CPU); an epoch of four steps on the card, every row update
+    through P1, stays within rtol 1e-5 of the CPU's."""
+    launches = row_update.ROW_ADAM_LAUNCHES
+    results = []
+    for device in ('cpu', cuda):
+        model, data = _lazy_model(device, loss, negative_sampling)
+        model._n_iter = 1
+        model.fit(data)
+        results.append(model)
+    assert row_update.ROW_ADAM_LAUNCHES == launches + 2 * 4
+    assert results[1]._opt_state['t'] == results[0]._opt_state['t'] == 4
+    np.testing.assert_allclose(results[1]._last_epoch_loss,
+                               results[0]._last_epoch_loss, rtol=1e-5)
+    # Adam normalises each gradient: where one is a difference of near-equal
+    # terms, the summation order moves its step by up to ~1e-6 (as between
+    # the port and JAX on the CPU), and four steps add up.
+    for name, value in results[0]._net.state_dict().items():
+        torch.testing.assert_close(results[1]._net.state_dict()[name].cpu(),
+                                   value, rtol=1e-5, atol=1e-5)
+    for moment in ('mu', 'nu'):
+        for name, value in results[0]._opt_state[moment].items():
+            torch.testing.assert_close(
+                results[1]._opt_state[moment][name].cpu(), value,
+                rtol=1e-5, atol=1e-7)
+
+
+def test_dense_fit_on_the_card_matches_the_cpu(cuda):
+    results = []
+    for device in ('cpu', cuda):
+        model = ImplicitFactorizationModel(
+            loss='hinge', embedding_dim=16, n_iter=2, batch_size=256,
+            random_state=np.random.RandomState(4), device=device)
+        rs = np.random.RandomState(2)
+        model.fit(Interactions(rs.randint(0, 200, 1000),
+                               rs.randint(0, 150, 1000), num_users=200,
+                               num_items=150))
+        results.append(model)
+    assert not results[1]._lazy
+    for name, value in results[0]._net.state_dict().items():
+        torch.testing.assert_close(results[1]._net.state_dict()[name].cpu(),
+                                   value, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize('sparse', [True, False], ids=['lazy', 'dense'])
+def test_training_steps_never_synchronise(cuda, sparse):
+    """A step reads nothing back to the host: the epoch's loss is read one
+    epoch late, and the number of distinct rows stays on the device.  Run
+    with CUDA's synchronisation check set to raise; the epoch's draws (one
+    copy in) come before it."""
+    from spotlight_tpu_torch.utils import training
+
+    model, data = _lazy_model(cuda, 'adaptive_hinge', 'uniform')
+    if not sparse:
+        model = ImplicitFactorizationModel(
+            loss='adaptive_hinge', embedding_dim=16, batch_size=256,
+            random_state=np.random.RandomState(4), device=cuda)
+        model._initialize(data)
+    placed, n_valid, num_batches = model._epoch_data(data)
+    perm, negatives = training.epoch_draws(
+        model._generator, num_batches * 256,
+        (num_batches, model._num_step_negatives, 256), 150, cuda)
+    step = model._step_fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        loss = training.run_epoch(step, placed, n_valid, num_batches, 256,
+                                  perm, negatives)
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    assert np.isfinite(float(loss))
+
+
+@pytest.mark.parametrize('table', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('sparse', [True, False], ids=['lazy', 'dense'])
+@pytest.mark.parametrize('negative_sampling', ['uniform', 'in_batch'])
+@pytest.mark.parametrize('loss', ['pointwise', 'bpr', 'hinge',
+                                  'adaptive_hinge'])
+def test_fit_trains_on_the_card(cuda, loss, negative_sampling, sparse,
+                                table):
+    """``fit`` on the card, with the default device, for every loss,
+    sampling, engine and table dtype: the loss is finite and every table
+    moves, in its own dtype."""
+    from spotlight_tpu_torch.factorization import BilinearNet
+
+    rs = np.random.RandomState(6)
+    data = Interactions(rs.randint(0, 200, 1500), rs.randint(0, 150, 1500),
+                        num_users=200, num_items=150)
+    net = BilinearNet(200, 150, 16, table_dtype=table,
+                      generator=torch.Generator().manual_seed(0))
+    before = {k: v.clone() for k, v in net.state_dict().items()}
+    model = ImplicitFactorizationModel(
+        loss=loss, n_iter=2, batch_size=512, sparse=sparse,
+        negative_sampling=negative_sampling, representation=net,
+        random_state=np.random.RandomState(1))
+    launches = row_update.ROW_ADAM_LAUNCHES
+    assert model.fit(data) is model
+    assert model._device.type == 'cuda' and model._lazy == sparse
+    assert row_update.ROW_ADAM_LAUNCHES == launches + (12 if sparse else 0)
+    assert np.isfinite(model._last_epoch_loss)
+    for name, value in model._net.state_dict().items():
+        assert value.dtype == table and value.is_cuda
+        assert not torch.equal(value.cpu(), before[name])

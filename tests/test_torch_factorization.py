@@ -209,10 +209,21 @@ def test_check_input_matches_jax():
         ImplicitFactorizationModel(device='cpu').predict(0)
 
 
-def test_fit_is_not_faked():
-    model = ImplicitFactorizationModel(device='cpu')
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        model.fit(to_port(fitted_pair(True)[2]))
+def test_fit_trains_and_returns_self():
+    """``fit`` trains (it raised before the training slice): the epoch
+    loss is finite, the parameters move and the item-factor cache of the
+    metrics is invalidated."""
+    train = to_port(fitted_pair(True)[2])
+    model = ImplicitFactorizationModel(loss='bpr', n_iter=2, batch_size=512,
+                                       random_state=np.random.RandomState(3),
+                                       device='cpu')
+    model._initialize(train)
+    before = model._net.item_embeddings.weight.detach().clone()
+    matrix = model._rank_factors_users(np.array([0]))[1]
+    assert model.fit(train) is model
+    assert np.isfinite(model._last_epoch_loss)
+    assert not torch.equal(model._net.item_embeddings.weight, before)
+    assert model._rank_factors_users(np.array([0]))[1] is not matrix
 
 
 def test_default_device_is_cuda_and_never_the_cpu(monkeypatch):
