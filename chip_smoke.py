@@ -101,6 +101,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 #: outside the tensor cores, and HBM3 bandwidth.
 FP32_OPS_PER_S = 67e12
 HBM_BYTES_PER_S = 3.35e12
+#: float32 instructions a second of the same card's CUDA cores when no
+#: multiply and add may fuse (132 SMs x 128 lanes x ~1.98 GHz): the floor
+#: of scores held to the exact-tie contract (csrc/common.cuh), which bars
+#: FMA, so each multiply and each add is its own instruction.
+NO_FMA_OPS_PER_S = 33.5e12
 
 #: Where the kernel checks put their operands (the card).
 DEVICE = 'cuda'
@@ -292,8 +297,10 @@ def check_topk_kernel(torch, card, generator):
     """K2 at B=256 with k=10, k=134 (P@10 plus a 124-wide train
     over-fetch) and k=300 (resume rounds), and at the main path's two
     shapes: B=2048 with k=34 (P@10 plus a batch's widest train row, ~24)
-    and k=143 (the batch of the 120-item heavy user).  Returns the
-    kernel-table entry of the main path's common case."""
+    and k=143 (the batch of the 120-item heavy user).  Each kernel_case
+    line carries, beside the bound, the exact-tie contract's no-FMA floor
+    of the scoring (2 B N D instructions at NO_FMA_OPS_PER_S).  Returns the
+    kernel-table entry of the main path's common case, without the floor."""
     from spotlight_tpu_torch.ops.kernels import topk
 
     main = None
@@ -328,7 +335,8 @@ def check_topk_kernel(torch, card, generator):
                                                         k), PLAIN_REPS),
             ops, nbytes, err,
             library_ms=median_ms(torch, library, PLAIN_REPS))
-        log(kernel_case=entry, card=card)
+        floor_ms = 2 * batch * NUM_ITEMS * D / NO_FMA_OPS_PER_S * 1e3
+        log(kernel_case=dict(entry, no_fma_floor_ms=floor_ms), card=card)
         if (batch, k) == (2048, MAIN_TOPK_K):
             main = entry
         del users, items, bias, scores, ids, p_scores, p_ids

@@ -53,6 +53,7 @@ _SIGNATURES = {
         'spotlight_streaming_topk': (_I, [_P, _P, _I, _P, _P, _P, _I, _I, _I,
                                           _I, _I, _I, _I, _P, _P, _P, _P]),
         'spotlight_topk_stage1_smem_bytes': (ctypes.c_size_t, [_I, _I, _I]),
+        'spotlight_topk_block_users': (_I, [_I, _I]),
     },
     'gather_sum': {
         'spotlight_gather_sum': (_I, [_P, _I, _P, _P, _L, _I, _I, _I, _I,

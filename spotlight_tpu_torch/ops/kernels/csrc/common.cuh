@@ -61,6 +61,52 @@ __device__ __forceinline__ void dot_block(float (&out)[RI][RU], int dim,
   }
 }
 
+// The register-tiled form of dot_block, for operands staged in shared
+// memory transposed ([d][row] float32, rows 16-byte aligned).  The thread
+// owns RI items x RU users (multiples of 4): item r = 4q + e is
+// items[d * item_stride + q * item_gap + e] and user c = 4q + e is
+// users[d * user_stride + q * user_gap + e], each group of four read as
+// one float4, so one pass over d costs RI / 4 + RU / 4 shared loads for
+// RI * RU products.  acc carries the sum across calls (slabs of d in
+// order); it enters the first slab holding -0.0, and -0.0 + p == p for
+// every p, the signs of zeros included, so the result is dot_block's, bit
+// for bit: the products added one at a time in d order, each product and
+// each sum rounded on its own.
+template <int RI, int RU>
+__device__ __forceinline__ void dot_tile_accumulate(
+    float (&acc)[RI][RU], int depth, const float* __restrict__ items,
+    int item_stride, int item_gap, const float* __restrict__ users,
+    int user_stride, int user_gap) {
+  static_assert(RI % 4 == 0 && RU % 4 == 0, "register tiles are float4s");
+#pragma unroll 4
+  for (int d = 0; d < depth; ++d) {
+    float iv[RI], uv[RU];
+#pragma unroll
+    for (int q = 0; q < RI / 4; ++q) {
+      const float4 v = *reinterpret_cast<const float4*>(
+          items + d * item_stride + q * item_gap);
+      iv[4 * q] = v.x;
+      iv[4 * q + 1] = v.y;
+      iv[4 * q + 2] = v.z;
+      iv[4 * q + 3] = v.w;
+    }
+#pragma unroll
+    for (int q = 0; q < RU / 4; ++q) {
+      const float4 v = *reinterpret_cast<const float4*>(
+          users + d * user_stride + q * user_gap);
+      uv[4 * q] = v.x;
+      uv[4 * q + 1] = v.y;
+      uv[4 * q + 2] = v.z;
+      uv[4 * q + 3] = v.w;
+    }
+#pragma unroll
+    for (int r = 0; r < RI; ++r)
+#pragma unroll
+      for (int c = 0; c < RU; ++c)
+        acc[r][c] = __fadd_rn(acc[r][c], __fmul_rn(uv[c], iv[r]));
+  }
+}
+
 // Dot-product scores: dot_block plus the item's bias, bias_at(r).
 template <int RI, int RU, class ItemAt, class UserAt, class BiasAt>
 __device__ __forceinline__ void score_block(float (&out)[RI][RU], int dim,

@@ -23,10 +23,12 @@ from spotlight_tpu_torch.ops.kernels.ranking import (
     _MAX_SHARED, catalogue_splits, check_factors, on_cuda, plain_scores,
     require_contiguous, stream_handle)
 
-#: Widest fetch one launch takes.  Stage 1 keeps, for each of its 32
-#: users, a list and a candidate buffer of KP 8-byte keys each in shared
-#: memory: 128 KB at KP = 256 beside the ~33 KB of tiles at D = 64, while
-#: KP = 512 would need 256 KB, beyond the 227 KB a block may use.
+#: Widest fetch one launch takes.  Dot stage 1 keeps, for each of its U
+#: users (64 at KP <= 64, 32 above), a list and a candidate buffer of 256
+#: (512) 8-byte keys in shared memory: 128 KB beside 33 KB of item slabs
+#: and 4 U bytes a dimension of resident users, so it takes embedding
+#: widths up to 261 at KP <= 64 and up to 525 at KP = 128 or 256.  KP =
+#: 512 would need 256 KB of keys, beyond the 227 KB a block may use.
 SINGLE_LAUNCH_K = 256
 
 #: Kernel launches made by :func:`streaming_topk` (one per C call), dot
@@ -34,7 +36,6 @@ SINGLE_LAUNCH_K = 256
 STREAMING_TOPK_LAUNCHES = 0
 MIXTURE_STREAMING_TOPK_LAUNCHES = 0
 
-_TOPK_USERS = 32           # users per stage-1 block (csrc/topk.cu)
 _MIN_KP = 16
 _STAGE2_KEYS = 8192        # stage 2 sorts at most this many keys per user
 
@@ -125,8 +126,8 @@ def _topk_cuda(user_reprs, item_matrix, item_bias, k, num_mixtures=None,
                              k, dim, ' with {} mixtures'.format(mixtures)
                              if mixtures else ''))
     device = user_reprs.device
-    splits = catalogue_splits(-(-batch // _TOPK_USERS), num_items, device,
-                              cap=_STAGE2_KEYS // kp)
+    user_blocks = -(-batch // lib.spotlight_topk_block_users(kp, mixtures))
+    splits = _splits(user_blocks, num_items, device, kp, mixtures)
     partial = torch.empty(batch * splits * kp, dtype=torch.int64,
                           device=device)
     scores = torch.empty(batch, k, dtype=torch.float32, device=device)
@@ -151,3 +152,17 @@ def _topk_cuda(user_reprs, item_matrix, item_bias, k, num_mixtures=None,
     else:
         STREAMING_TOPK_LAUNCHES += 1
     return scores, ids
+
+
+def _splits(user_blocks, num_items, device, kp, mixtures):
+    """Catalogue splits per user block.  Dot stage 1 runs one block an SM
+    and its blocks cost the same, so it takes as many splits as fill one
+    wave (rounded down: a second, partial wave would double the time; the
+    kernel drops splits beyond the catalogue's tiles); the mixture stage 1
+    takes ``catalogue_splits``' several blocks an SM.  Stage 2 sorts at
+    most ``_STAGE2_KEYS`` keys a user."""
+    if mixtures:
+        return catalogue_splits(user_blocks, num_items, device,
+                                cap=_STAGE2_KEYS // kp)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(sms // user_blocks, _STAGE2_KEYS // kp))

@@ -122,6 +122,87 @@ def test_topk_kernel_on_an_ascending_catalogue(cuda, k):
                                                          k)[0])
 
 
+@pytest.mark.parametrize('num_items', [127, 128, 129, 1000])
+@pytest.mark.parametrize('dim', [1, 3, 4, 5, 64])
+def test_topk_kernel_tile_edges(cuda, num_items, dim):
+    """Ragged item tiles (128 items), dimension slabs (32) and user blocks
+    (64 users at lists of 16-64 keys, 32 at 128-256), at every list width,
+    a bf16 table among them, and a resumed fetch."""
+    for batch, dtype in ((1, torch.float32), (63, torch.float32),
+                         (65, torch.bfloat16), (200, torch.float32)):
+        users, items, bias = _operands(num_items + dim + batch, batch,
+                                       num_items, dim, item_dtype=dtype)
+        for k in (1, 16, 17, 64, 65, 256):
+            if k > num_items:
+                continue
+            got = topk.streaming_topk(users, items, bias, k)
+            want = topk.streaming_topk_plain(users, items, bias, k)
+            assert torch.equal(got[1], want[1]), (batch, k)
+            assert torch.equal(got[0], want[0]), (batch, k)
+        # Resume strictly after each user's 17th key.
+        resume_score, resume_id = want[0][:, 16], want[1][:, 16]
+        k = min(65, num_items - 17)
+        got = topk._topk_call(users, items, bias, k, None,
+                              resume_score.contiguous(),
+                              resume_id.contiguous())
+        want = topk.streaming_topk_plain(users, items, bias, k, None,
+                                         resume_score, resume_id)
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+@pytest.mark.parametrize('k', [1, 34, 143, 256])
+def test_topk_kernel_on_a_descending_catalogue(cuda, k):
+    """Scores fall with the id, so each split's first tile holds its best
+    items: the warm start fills the lists at once and no later key
+    passes the threshold."""
+    num_items = 1000
+    items = ((num_items - torch.arange(num_items, dtype=torch.float32))
+             / 64)[:, None].repeat(1, 4).to(cuda)
+    users = torch.full((70, 4), 0.25, device=cuda)
+    bias = torch.zeros(num_items, device=cuda)
+    scores, ids = topk.streaming_topk(users, items, bias, k)
+    want = torch.arange(k, dtype=torch.int32, device=cuda)
+    assert torch.equal(ids, want.expand(70, k))
+    assert torch.equal(scores, topk.streaming_topk_plain(users, items, bias,
+                                                         k)[0])
+
+
+@pytest.mark.parametrize('k', [1, 34, 256, 300])
+def test_topk_kernel_on_an_all_equal_catalogue(cuda, k):
+    """Every key ties at the threshold score, so the id alone orders them."""
+    num_items = 1000
+    users, _, _ = _operands(k, 70, num_items, 8)
+    items = torch.ones(num_items, 8, device=cuda)
+    bias = torch.full((num_items,), 0.5, device=cuda)
+    scores, ids = topk.streaming_topk(users, items, bias, k)
+    want = torch.arange(k, dtype=torch.int32, device=cuda)
+    assert torch.equal(ids, want.expand(70, k))
+    assert torch.equal(scores, topk.streaming_topk_plain(users, items, bias,
+                                                         k)[0])
+
+
+def test_topk_kernel_repeats_its_bits(cuda):
+    users, items, bias = _operands(11, 200, 5000, 64)
+    first = topk.streaming_topk(users, items, bias, 34)
+    second = topk.streaming_topk(users, items, bias, 34)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1],
+                                                            second[1])
+
+
+@pytest.mark.parametrize('k, widest', [(10, 261), (34, 261), (143, 525),
+                                       (256, 525)])
+def test_topk_kernel_widest_embedding(cuda, k, widest):
+    """Dot stage 1 holds its users' vectors in shared memory beside the
+    keys: the widest width that fits runs exact, one more raises."""
+    users, items, bias = _operands(k, 70, 300, widest)
+    got = topk.streaming_topk(users, items, bias, k)
+    want = topk.streaming_topk_plain(users, items, bias, k)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    users, items, bias = _operands(k, 70, 300, widest + 1)
+    with pytest.raises(ValueError, match='shared memory'):
+        topk.streaming_topk(users, items, bias, k)
+
+
 def test_topk_kernel_bf16_and_negative_zero(cuda):
     users, items, bias = _operands(5, 40, 900, 32,
                                    item_dtype=torch.bfloat16)

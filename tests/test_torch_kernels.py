@@ -172,22 +172,42 @@ def _port_topk(users, items, bias, k):
     return scores.numpy(), ids.numpy()
 
 
-@pytest.mark.parametrize('k', [10, 200, 700])
-def test_streaming_topk_matches_jax(k):
-    rs = np.random.RandomState(k)
-    users, items, bias = _gaussian(rs, 8, 16, 700)
+@pytest.mark.parametrize('k,batch,dim,num_items', [
+    pytest.param(10, 8, 16, 700, id='10'),
+    pytest.param(200, 8, 16, 700, id='200'),
+    pytest.param(700, 8, 16, 700, id='700'),
+    # The CUDA kernel's tile edges (128-item tiles, 32-dimension slabs,
+    # 64 or 32 users a block, lists of 16-256 keys): ragged N, D and B.
+    pytest.param(1, 1, 1, 127, id='B1-D1-N127-k1'),
+    pytest.param(17, 65, 3, 128, id='B65-D3-N128-k17'),
+    pytest.param(65, 65, 5, 129, id='B65-D5-N129-k65'),
+    pytest.param(16, 63, 5, 1000, id='B63-D5-N1000-k16'),
+])
+def test_streaming_topk_matches_jax(k, batch, dim, num_items):
+    rs = np.random.RandomState(k + num_items)
+    users, items, bias = _gaussian(rs, batch, dim, num_items)
     want_s, want_i = _jax_topk(users, items, bias, k)
     got_s, got_i = _port_topk(users, items, bias, k)
-    assert got_i.shape == (8, k) and got_i.dtype == np.int32
+    assert got_i.shape == (batch, k) and got_i.dtype == np.int32
     np.testing.assert_array_equal(got_i, want_i)
     np.testing.assert_allclose(got_s, want_s, rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize('k', [5, 24, 150, 300])
-def test_streaming_topk_dyadic_ties_exact(k):
-    """Every score appears 80 times; the lower id comes first on ties."""
+@pytest.mark.parametrize('k,batch,dim,num_base,copies', [
+    pytest.param(5, 8, 16, 8, 80, id='5'),
+    pytest.param(24, 8, 16, 8, 80, id='24'),
+    pytest.param(150, 8, 16, 8, 80, id='150'),
+    pytest.param(300, 8, 16, 8, 80, id='300'),
+    # The CUDA kernel's tile edges, as in test_streaming_topk_matches_jax.
+    pytest.param(1, 1, 1, 127, 1, id='B1-D1-N127-k1'),
+    pytest.param(16, 65, 3, 43, 3, id='B65-D3-N129-k16'),
+    pytest.param(17, 65, 5, 32, 4, id='B65-D5-N128-k17'),
+])
+def test_streaming_topk_dyadic_ties_exact(k, batch, dim, num_base, copies):
+    """Every score appears ``copies`` times; the lower id comes first on
+    ties."""
     rs = np.random.RandomState(7)
-    users, items, bias = _dyadic_catalogue(rs, 8, 16, 8, 80)
+    users, items, bias = _dyadic_catalogue(rs, batch, dim, num_base, copies)
     want_s, want_i = _jax_topk(users, items, bias, k)
     got_s, got_i = _port_topk(users, items, bias, k)
     np.testing.assert_array_equal(got_i, want_i)
