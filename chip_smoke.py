@@ -62,22 +62,28 @@ each of which exits non-zero when it fails:
    the backward in two launches and within 1e-5 of ``index_add_``, K7f
    within 1e-6 of the layer's own lookup; each timed beside its plain
    version and its ``embedding_bag`` yardstick; the lookup benchmark's
-   shapes and one bfloat16 table; where the device time of one bloom
+   shapes (int64 rows), the forward once more with int32 rows under
+   ``torch.cuda.set_sync_debug_mode('error')`` (no host synchronisation)
+   and one bfloat16 table; where the device time of one bloom
    ``sequence_mrr_score`` goes.
 9. training: P1 (``row_adam``) against its plain version bit for bit, in
    two launches, at the probe's shapes (R = 100,000 + 8 and 2,000,000 + 8,
    W=128, 24,576 ids from ``RandomState(0)``) with
-   ``torch.optim.SparseAdam`` as the yardstick (rtol 1e-5); the lazy engine
-   at ``bench_lazy_knobs``' width (BPR, D=64, 2e6 users x 5e5 items, 1e6
-   pairs, batch 8,192): one warm epoch, then 4 timed epochs with the P1
-   counter zeroed just before and read just after (2 launches a step), one
-   epoch profiled; P1 on that engine's own operands captured from one warm
-   step (float32 and bfloat16 tables) at the engine's own l2 (0), timed,
-   with ``SparseAdam`` from the captured moments as the yardstick, and once
-   more bit for bit at l2=1e-6; the dense engine at
-   ``bench.py``'s width (1e5 x 2e4): one warm epoch, 10 timed, one
-   profiled; the JAX package's learning gates through ``fit`` and
-   ``mrr_score`` on the card; one lazy step on the card against the same
+   ``torch.optim.SparseAdam`` as the yardstick (rtol 1e-5; timed with its
+   sparse gradient built and coalesced, and its step alone); the lazy
+   engine at ``bench_lazy_knobs``' width (BPR, D=64, 2e6 users x 5e5
+   items, 1e6 pairs, batch 8,192): one warm epoch, then three timed fits
+   of 4 epochs with the P1 counter zeroed just before and read just after
+   (2 launches a step), one epoch profiled; P1 on that engine's own
+   operands captured at one warm step (float32 and bfloat16 tables) and at
+   the epoch's last step (each call's longest segment printed) at the
+   engine's own l2 (0), timed, with ``SparseAdam`` from the captured
+   moments as the yardstick, and once more bit for bit at l2=1e-6; the
+   device kernels of one ``sparse_adam_rows`` call counted by
+   ``torch.profiler`` (the sort's and one); the dense engine at
+   ``bench.py``'s width (1e5 x 2e4): one warm epoch, three timed fits of
+   10 epochs, one profiled; the JAX package's learning gates through
+   ``fit`` and ``mrr_score`` on the card; one lazy step on the card against the same
    step on the CPU (gradients within rtol 1e-5, its P1 calls bit-equal to
    the plain version).
 
@@ -150,8 +156,11 @@ TRAIN_BATCH = 8_192
 FIT_PAIRS = 1_000_000
 LAZY_USERS, LAZY_ITEMS, LAZY_EPOCHS = 2_000_000, 500_000, 4
 DENSE_USERS, DENSE_ITEMS, DENSE_EPOCHS = 100_000, 20_000, 10
-#: The warm epoch's step whose row updates phase 9 captures.
+#: The warm epoch's step whose row updates phase 9 captures (beside its
+#: last step).
 CAPTURE_STEP = 60
+#: Timed fits of each training engine (their median is reported).
+TIMED_FITS = 3
 PROBE_ROWS = (100_000, 2_000_000)
 PROBE_WIDTH, PROBE_IDS = 128, 24_576
 #: Model seeds whose mean the lazy bpr gate holds (one seed of a random
@@ -1369,7 +1378,6 @@ def check_lookups(torch, card, layer, rows, cotangent, items, multihot_out,
 
     shape = 'B={} k={} C={} D={} f32'.format(batch, hashes, num_rows, D)
     adds = batch * (hashes - 1) * D
-    rows32 = rows.to(torch.int32)
     entries = {}
     for name, masked, fn, plain, library in (
             ('multihot_gather_sum', True,
@@ -1391,7 +1399,7 @@ def check_lookups(torch, card, layer, rows, cotangent, items, multihot_out,
                          touched_unmasked if masked else touched), 0.0,
             library_ms=median_ms(torch, library, KERNEL_REPS),
             launch_only_ms=median_ms(torch, lambda: gather_sum.gather_sum_cuda(
-                weight, rows32, masked, not masked), KERNEL_REPS),
+                weight, rows, masked, not masked), KERNEL_REPS),
             gathered_bytes=4 * batch * hashes * D)
         log(kernel_case=entries[name], card=card)
     all_items = torch.arange(batch, device=DEVICE)
@@ -1499,6 +1507,21 @@ def check_lookup_shapes(torch, card):
                 scatter_bytes(batch, hashes, dim, num_rows))[0]
             log(lookup_shape=case, card=card)
 
+    # The forward reads nothing back: both entry points, int64 and int32
+    # rows, with CUDA's synchronisation check set to raise.
+    table, rows, _ = operands(65_536, 64, torch.float32)
+    with no_host_sync(torch, DEVICE):
+        outs = [fn(table.detach(), r) for r in (rows, rows.to(torch.int32))
+                for _, fn, _ in entry_points]
+    same = [torch.equal(bits(torch, outs[i]), bits(torch, outs[i + 2]))
+            for i in range(2)]
+    log(check='gather-sum forward under set_sync_debug_mode(error)',
+        shape='B={} k={} C=65536 D=64 f32, int64 and int32 rows'.format(
+            batch, hashes), raised=False, int32_equals_int64=same, card=card)
+    if not all(same):
+        raise AssertionError('the gather-sum forward differs between int32 '
+                             'and int64 rows')
+
     table, rows, cotangent = operands(65_536, 64, torch.bfloat16)
     for name, fn, plain in entry_points:
         got = both(fn, table, rows, cotangent)
@@ -1515,12 +1538,13 @@ def check_lookup_shapes(torch, card):
 
 # -- phase 9: training -------------------------------------------------------
 
-def row_update_bytes(distinct, n, width, param_size, fused=False):
+def row_update_bytes(distinct, n, width, param_size, id_size=4,
+                     fused=False):
     """Bytes P1 must move: each distinct row's parameters, ``mu`` and ``nu``
-    read and written once, each occurrence's float32 gradient row read once,
-    and the index arrays (order, offsets, segment rows, the count; with
-    ``fused`` the occurrence ids and the sort's own output too)."""
-    index = 12 * n + 8 + (8 * n if fused else 0)
+    read and written once, each occurrence's float32 gradient row read
+    once, and its ids: with ``fused`` the occurrence ids (the call's
+    input), else the sorted ids and the int64 order the kernel reads."""
+    index = n * id_size if fused else n * (id_size + 8)
     return distinct * width * 2 * (param_size + 8) + 4 * n * width + index
 
 
@@ -1538,8 +1562,10 @@ def sparse_adam_yardstick(torch, param, mu, nu, ids, grads, t, lr):
     another rounding order (rtol 1e-5).  SparseAdam adds ``eps`` to
     ``sqrt(v)`` before the bias correction, P1 (as optax) to
     ``sqrt(v_hat)``: with its ``eps`` scaled by ``sqrt(1 - b2 ** t)`` the
-    steps are one function.  Returns (median ms of one step, largest
-    gap)."""
+    steps are one function.  Returns (median ms of the function P1
+    computes: the sparse gradient built and coalesced from the occurrence
+    ids, then the step; median ms of the step alone on a coalesced
+    gradient; largest gap)."""
     from spotlight_tpu_torch.ops.lazy_adam import sparse_adam_rows
     from spotlight_tpu_torch.utils.training import B2, EPS
 
@@ -1548,50 +1574,59 @@ def sparse_adam_yardstick(torch, param, mu, nu, ids, grads, t, lr):
                                        eps=EPS * (1 - B2 ** t) ** 0.5)
     optimizer.state[weight] = {'step': t - 1, 'exp_avg': mu.clone(),
                                'exp_avg_sq': nu.clone()}
-    weight.grad = torch.sparse_coo_tensor(
-        ids[None].long(), grads, param.shape,
-        check_invariants=False).coalesce()
-    optimizer.step()
+
+    def step():
+        weight.grad = torch.sparse_coo_tensor(
+            ids.reshape(1, -1).long(), grads, param.shape,
+            check_invariants=False).coalesce()
+        optimizer.step()
+
+    step()
     ours = param.clone()
     sparse_adam_rows(ids, ours, mu.clone(), nu.clone(), grads, t, lr)
     torch.testing.assert_close(weight.detach(), ours, rtol=1e-5, atol=1e-6)
     gap = float((weight.detach() - ours).abs().max())
-    ms = median_ms(torch, optimizer.step, KERNEL_REPS)
+    ms = median_ms(torch, step, KERNEL_REPS)
+    step_only_ms = median_ms(torch, optimizer.step, KERNEL_REPS)
     del weight, optimizer, ours
-    return ms, gap
+    return ms, step_only_ms, gap
 
 
 def check_row_update(torch, card, shape, param, mu, nu, ids, grads, t, lr,
                      l2, library=False, timed=True):
     """P1 against its plain version on one operand set: ``param``, ``mu``
-    and ``nu`` bit for bit, in two launches, for the occurrence form and
-    for the probe's pre-deduplicated form (unique rows, pre-summed
-    gradients); then, with ``timed``: the kernel alone on the deduplicated
-    rows (the probe's ``pallas_kernel_only``), the index preparation and
-    the kernel (``pallas_fused``), the plain version and, with ``library``
-    (l2=0, a float32 table), ``torch.optim.SparseAdam`` from the same
-    moments.  Returns the kernel-table entry (None unless ``timed``)."""
+    and ``nu`` bit for bit, in two launches, for the occurrence form (one
+    stable sort's ``(sorted_ids, order)``) and for the probe's
+    pre-deduplicated form (unique sorted rows, ``order = arange``,
+    pre-summed gradients); then, with ``timed``: the kernel alone on the
+    deduplicated rows (the probe's ``pallas_kernel_only``), the sort and
+    the kernel (``pallas_fused``: ``sparse_adam_rows``' device work), the
+    plain version and, with ``library`` (l2=0, a float32 table),
+    ``torch.optim.SparseAdam`` from the same moments, sparse gradient
+    included.  Returns the kernel-table entry (None unless ``timed``)."""
     from spotlight_tpu_torch.ops.kernels import row_update
 
-    segments = row_update.prepare_segments(ids)
+    sorted_ids, order = row_update.sort_occurrences(ids)
+    segments = row_update.prepare_segments(sorted_ids, order)
     scalars = row_update.adam_scalars(t, lr, l2)
     distinct = int(segments.count)
+    lengths = segments.offsets[1:distinct + 1] - segments.offsets[:distinct]
+    longest = int(lengths.max())
     summed = row_update.segment_sums_plain(grads, segments, distinct)
-    unique = row_update.Segments(
-        torch.arange(distinct, dtype=torch.int32, device=ids.device),
-        torch.arange(distinct + 1, dtype=torch.int32, device=ids.device),
-        segments.rows[:distinct].contiguous(), segments.count)
+    unique_ids = segments.rows[:distinct].contiguous()
+    unique_order = torch.arange(distinct, device=ids.device)
 
-    def run(fn, segs, rows):
+    def run(fn, rows, pair):
         tables = (param.clone(), mu.clone(), nu.clone())
-        fn(*tables, rows, segs, scalars)
+        fn(*tables, rows, *pair, scalars)
         return tables
 
-    want = run(row_update.row_adam_plain, segments, grads)
-    for form, segs, rows in (('occurrences', segments, grads),
-                             ('deduplicated', unique, summed)):
+    want = run(row_update.row_adam_plain, grads, (sorted_ids, order))
+    for form, rows, pair in (('occurrences', grads, (sorted_ids, order)),
+                             ('deduplicated', summed,
+                              (unique_ids, unique_order))):
         for launch in range(2):
-            got = run(row_update.row_adam, segs, rows)
+            got = run(row_update.row_adam, rows, pair)
             torch.cuda.synchronize()
             for name, a, b in zip(('param', 'mu', 'nu'), got, want):
                 if not torch.equal(bits(torch, a), bits(torch, b)):
@@ -1605,42 +1640,116 @@ def check_row_update(torch, card, shape, param, mu, nu, ids, grads, t, lr,
     del want
     if not timed:
         log(check='row_adam bit-equal to its plain version, twice',
-            shape=shape, card=card)
+            shape=shape, longest_segment=longest, card=card)
         return None
 
     p, m, v = param.clone(), mu.clone(), nu.clone()
     kernel_ms = median_ms(
-        torch, lambda: row_update.row_adam(p, m, v, summed, unique, scalars),
+        torch, lambda: row_update.row_adam(p, m, v, summed, unique_ids,
+                                           unique_order, scalars),
         KERNEL_REPS)
     fused_ms = median_ms(
         torch, lambda: row_update.row_adam(
-            p, m, v, grads, row_update.prepare_segments(ids), scalars),
+            p, m, v, grads, *row_update.sort_occurrences(ids), scalars),
         KERNEL_REPS)
+    sort_ms = median_ms(torch, lambda: row_update.sort_occurrences(ids),
+                        KERNEL_REPS)
     plain_ms = median_ms(
         torch, lambda: row_update.row_adam_plain(
-            p, m, v, grads, row_update.prepare_segments(ids), scalars),
+            p, m, v, grads, *row_update.sort_occurrences(ids), scalars),
         PLAIN_REPS)
     del p, m, v
-    library_ms = library_gap = None
+    library_ms = step_only_ms = library_gap = None
     if library:
-        library_ms, library_gap = sparse_adam_yardstick(
+        library_ms, step_only_ms, library_gap = sparse_adam_yardstick(
             torch, param, mu, nu, ids, grads, t, lr)
     width = param.shape[1]
     size = param.element_size()
+    id_size = ids.element_size()
     entry = kernel_entry(
         'row_adam (P1)', 'row_update.cu', 'scripts/fused_rowupdate_probe.py:78',
         shape, fused_ms, plain_ms,
         row_update_ops(distinct, ids.numel(), width),
-        row_update_bytes(distinct, ids.numel(), width, size, fused=True),
-        0.0, library_ms=library_ms, kernel_only_ms=kernel_ms,
+        row_update_bytes(distinct, ids.numel(), width, size, id_size,
+                         fused=True),
+        0.0, library_ms=library_ms, library_step_only_ms=step_only_ms,
+        kernel_only_ms=kernel_ms, sort_ms=sort_ms,
         kernel_only_bound_ms=bound(
             row_update_ops(distinct, distinct, width),
-            row_update_bytes(distinct, distinct, width, size))[0],
+            row_update_bytes(distinct, distinct, width, size, id_size))[0],
         distinct_rows=distinct, occurrences=ids.numel(),
-        library_max_abs_gap=library_gap, largest_step=moved)
+        longest_segment=longest, library_max_abs_gap=library_gap,
+        largest_step=moved)
     torch.cuda.empty_cache()
     log(kernel_case=entry, card=card)
     return entry
+
+
+def device_kernels(torch, call):
+    """Names of the device activities (kernels, copies, fills) of one call
+    of ``call``, from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    return [event.name for event in prof.events()
+            if event.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def sparse_adam_device_work(ids, num_rows, width):
+    """Run in a fresh process (a long run's profiler record can drop
+    events): the device activities of one stable sort of ``ids`` (int64
+    numpy) and of one ``sparse_adam_rows`` call on them, into float32
+    tables of ``num_rows`` x ``width``.  Returns the two name lists."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from spotlight_tpu_torch.ops.kernels import row_update
+    from spotlight_tpu_torch.ops.lazy_adam import sparse_adam_rows
+
+    ids = torch.from_numpy(ids).to(DEVICE)
+    tables = [torch.zeros(num_rows, width, device=DEVICE) for _ in range(3)]
+    grads = torch.randn(ids.numel(), width, device=DEVICE)
+    sparse_adam_rows(ids, *tables, grads, 1, 1e-2)
+    sort = device_kernels(torch, lambda: row_update.sort_occurrences(ids))
+    call = device_kernels(
+        torch, lambda: sparse_adam_rows(ids, *tables, grads, 2, 1e-2))
+    return sort, call
+
+
+def check_sparse_adam_launches(torch, card, operands):
+    """What one ``sparse_adam_rows`` call puts on the card, on the lazy
+    engine's captured item-table operands: no host synchronisation (here),
+    and (in a fresh process, on the same ids) the stable sort's device
+    work and one P1 launch, nothing else."""
+    import multiprocessing
+
+    from spotlight_tpu_torch.ops.lazy_adam import sparse_adam_rows
+
+    ids = operands['ids']
+    tables = (operands['param'].clone(), operands['mu'].clone(),
+              operands['nu'].clone())
+    with no_host_sync(torch, DEVICE):
+        sparse_adam_rows(ids, *tables, operands['grads'], operands['t'],
+                         operands['lr'], operands['l2'])
+    del tables
+    with multiprocessing.get_context('spawn').Pool(1) as pool:
+        sort, launched = pool.apply(sparse_adam_device_work, (
+            ids.cpu().numpy(), operands['param'].shape[0],
+            operands['param'].shape[1]))
+    p1 = sum('row_adam_kernel' in name for name in launched)
+    log(sparse_adam_rows_device_work={
+        'ids': ids.numel(), 'ids_dtype': str(ids.dtype),
+        'sort_kernels': len(sort), 'call_kernels': len(launched),
+        'row_adam_launches': p1, 'call': sorted(set(launched))},
+        host_syncs=0, card=card)
+    if len(launched) != len(sort) + 1 or p1 != 1:
+        raise AssertionError('sparse_adam_rows launched {} device kernels '
+                             '({} row_adam), not the sort\'s {} and one'
+                             .format(len(launched), p1, len(sort)))
 
 
 def check_probe_shapes(torch, card):
@@ -1675,10 +1784,11 @@ def fit_interactions(num_users, num_items):
                         num_users=num_users, num_items=num_items)
 
 
-def capture_row_updates(step):
+def capture_row_updates(*steps):
     """Wrap the lazy engine's ``sparse_adam_rows`` so that the operands of
-    its two calls at ``step`` (1-based; the user table, then the item
-    table) are cloned before they update.  Returns (captured list, undo)."""
+    its two calls at each of ``steps`` (1-based; the user table, then the
+    item table) are cloned before they update.  Returns (captured list, in
+    call order, each with its ``step``; undo)."""
     from spotlight_tpu_torch.factorization import lazy
 
     original = lazy.sparse_adam_rows
@@ -1687,10 +1797,12 @@ def capture_row_updates(step):
 
     def wrapper(ids, param, mu, nu, grad_rows, t, lr, l2=0.0):
         calls[0] += 1
-        if (calls[0] + 1) // 2 == step:
+        step = (calls[0] + 1) // 2
+        if step in steps:
             captured.append(dict(ids=ids.clone(), param=param.clone(),
                                  mu=mu.clone(), nu=nu.clone(),
-                                 grads=grad_rows.clone(), t=t, lr=lr, l2=l2))
+                                 grads=grad_rows.clone(), t=t, lr=lr, l2=l2,
+                                 step=step))
         return original(ids, param, mu, nu, grad_rows, t, lr, l2)
 
     lazy.sparse_adam_rows = wrapper
@@ -1713,50 +1825,64 @@ def timed_fit(torch, model, interactions, epochs):
     return time.perf_counter() - start
 
 
+def log_training(torch, card, engine, model, interactions, num_users,
+                 num_items, epochs, warm_s, seconds):
+    """The training line: examples/s of each timed ``fit`` (their median,
+    least and largest), then one more epoch profiled for the idle share."""
+    rates = [epochs * FIT_PAIRS / s for s in seconds]
+    num_batches = -(-FIT_PAIRS // TRAIN_BATCH)
+    loss = model._last_epoch_loss
+    if not np.isfinite(loss):
+        raise AssertionError('{} engine: epoch loss {}'.format(engine, loss))
+    log(training=engine, config='bpr D={} {}x{} n={} B={}'.format(
+        TRAIN_DIM, num_users, num_items, FIT_PAIRS, TRAIN_BATCH),
+        warm_epoch_s=warm_s, epochs=epochs, fits=len(seconds),
+        seconds=seconds, examples_per_s=statistics.median(rates),
+        examples_per_s_min=min(rates), examples_per_s_max=max(rates),
+        ms_per_step=statistics.median(seconds) * 1e3 / (epochs
+                                                        * num_batches),
+        last_epoch_loss=loss, card=card)
+    model._n_iter = 1
+    profile_call(torch, card, engine + ' training epoch',
+                 lambda: model.fit(interactions))
+
+
 def run_lazy_training(torch, card):
     """The lazy engine at ``bench_lazy_knobs``' width: BPR, D=64, 2e6 users
     x 5e5 items, 1e6 pairs, batch 8,192, lr 1e-2.  One warm epoch (whose
-    step ``CAPTURE_STEP`` row updates are captured), then ``LAZY_EPOCHS``
-    timed epochs with the P1 counter zeroed just before and read just
-    after.  Returns (launches, captured operands)."""
+    step ``CAPTURE_STEP`` and last step row updates are
+    captured), then ``TIMED_FITS`` timed fits of ``LAZY_EPOCHS`` epochs
+    with the P1 counter zeroed just before and read just after.  Returns
+    (launches, captured operands)."""
     from spotlight_tpu_torch.factorization import ImplicitFactorizationModel
     from spotlight_tpu_torch.ops.kernels import row_update
 
     interactions = fit_interactions(LAZY_USERS, LAZY_ITEMS)
+    num_batches = -(-FIT_PAIRS // TRAIN_BATCH)
     model = ImplicitFactorizationModel(
         loss='bpr', embedding_dim=TRAIN_DIM, n_iter=1, batch_size=TRAIN_BATCH,
         learning_rate=1e-2, sparse=True,
         random_state=np.random.RandomState(42))
-    captured, undo = capture_row_updates(CAPTURE_STEP)
+    captured, undo = capture_row_updates(CAPTURE_STEP, num_batches)
     try:
         warm_s = timed_fit(torch, model, interactions, 1)
     finally:
         undo()
-    if not model._lazy or len(captured) != 2:
+    if not model._lazy or len(captured) != 4:
         raise AssertionError('the lazy engine did not run')
-    num_batches = -(-FIT_PAIRS // TRAIN_BATCH)
 
     # The main path, with the P1 counter zeroed just before it.
     row_update.ROW_ADAM_LAUNCHES = 0
-    seconds = timed_fit(torch, model, interactions, LAZY_EPOCHS)
+    seconds = [timed_fit(torch, model, interactions, LAZY_EPOCHS)
+               for _ in range(TIMED_FITS)]
     launches = row_update.ROW_ADAM_LAUNCHES
-    expected = 2 * num_batches * LAZY_EPOCHS
+    expected = 2 * num_batches * LAZY_EPOCHS * TIMED_FITS
     log(main_path_launches={'row_adam (P1)': launches}, expected=expected)
     if launches != expected:
         raise AssertionError('row_adam launched {} times, not {}'.format(
             launches, expected))
-    loss = model._last_epoch_loss
-    if not np.isfinite(loss):
-        raise AssertionError('lazy engine: epoch loss {}'.format(loss))
-    log(training='lazy', config='bpr D={} {}x{} n={} B={}'.format(
-        TRAIN_DIM, LAZY_USERS, LAZY_ITEMS, FIT_PAIRS, TRAIN_BATCH),
-        warm_epoch_s=warm_s, epochs=LAZY_EPOCHS, seconds=seconds,
-        examples_per_s=LAZY_EPOCHS * FIT_PAIRS / seconds,
-        ms_per_step=seconds * 1e3 / (LAZY_EPOCHS * num_batches),
-        last_epoch_loss=loss, card=card)
-    model._n_iter = 1
-    profile_call(torch, card, 'lazy training epoch',
-                 lambda: model.fit(interactions))
+    log_training(torch, card, 'lazy', model, interactions, LAZY_USERS,
+                 LAZY_ITEMS, LAZY_EPOCHS, warm_s, seconds)
     del model
     torch.cuda.empty_cache()
     return launches, captured
@@ -1764,32 +1890,42 @@ def run_lazy_training(torch, card):
 
 def check_engine_operands(torch, card, captured):
     """P1 on the lazy engine's own operands at full width (W=65), captured
-    from one warm step: the user table's call (8,192 ids) and the item
-    table's (16,384 ids, the positives and their negatives), float32 and
-    bfloat16 tables.  At the call's own l2 (the engine's default, 0) each is
+    from one warm epoch: the user table's call (8,192 ids) and the item
+    table's (16,384 ids, the positives and their negatives) at step
+    ``CAPTURE_STEP``, float32 and bfloat16 tables, and at the epoch's last
+    step (float32); each step's ~60 padded examples name user 0 and item
+    0, the longest segments.  At the call's own l2 (the engine's default, 0) each is
     timed, the float32 tables beside ``SparseAdam`` from the captured
-    moments; at l2=1e-6 each is held bit for bit once more.  Returns the
-    item call's float32 entry."""
+    moments; at l2=1e-6 each is held bit for bit once more.  Then what one
+    call puts on the card.  Returns the item call's float32 entry at step
+    ``CAPTURE_STEP``."""
     main = None
-    for table, operands in zip(('user', 'item'), captured):
+    for operands in captured:
+        table = 'user' if operands['ids'].numel() == TRAIN_BATCH else 'item'
+        last = operands['step'] != CAPTURE_STEP
         grads = operands['grads'].reshape(operands['ids'].numel(),
                                           -1).float()
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.float32,) if last else (torch.float32,
+                                                      torch.bfloat16):
             param = operands['param'].to(dtype)
             for l2 in dict.fromkeys((operands['l2'], 1e-6)):
-                shape = '{} table R={} W={} n={} {} t={} l2={} (engine)'.format(
+                shape = ('{} table R={} W={} n={} {} step={} t={} l2={} '
+                         '(engine{})').format(
                     table, param.shape[0], param.shape[1],
                     operands['ids'].numel(), str(dtype).split('.')[-1],
-                    operands['t'], l2)
+                    operands['step'], operands['t'], l2,
+                    ', last step' if last else '')
                 main_l2 = l2 == operands['l2']
                 entry = check_row_update(
                     torch, card, shape, param, operands['mu'], operands['nu'],
                     operands['ids'], grads, operands['t'], operands['lr'], l2,
                     library=main_l2 and l2 == 0 and dtype == torch.float32,
                     timed=main_l2)
-                if main_l2 and table == 'item' and dtype == torch.float32:
+                if (main_l2 and table == 'item' and not last
+                        and dtype == torch.float32):
                     main = entry
             del param
+    check_sparse_adam_launches(torch, card, captured[1])
     torch.cuda.empty_cache()
     return main
 
@@ -1797,7 +1933,8 @@ def check_engine_operands(torch, card, captured):
 def run_dense_training(torch, card):
     """The dense engine at ``bench.py``'s width: BPR, D=64, 1e5 users x 2e4
     items, 1e6 pairs, batch 8,192, lr 1e-2: one warm epoch, then
-    ``DENSE_EPOCHS`` timed epochs, and one epoch profiled."""
+    ``TIMED_FITS`` timed fits of ``DENSE_EPOCHS`` epochs, and one epoch
+    profiled."""
     from spotlight_tpu_torch.factorization import ImplicitFactorizationModel
 
     interactions = fit_interactions(DENSE_USERS, DENSE_ITEMS)
@@ -1807,17 +1944,10 @@ def run_dense_training(torch, card):
     warm_s = timed_fit(torch, model, interactions, 1)
     if model._lazy:
         raise AssertionError('the dense engine did not run')
-    seconds = timed_fit(torch, model, interactions, DENSE_EPOCHS)
-    num_batches = -(-FIT_PAIRS // TRAIN_BATCH)
-    log(training='dense', config='bpr D={} {}x{} n={} B={}'.format(
-        TRAIN_DIM, DENSE_USERS, DENSE_ITEMS, FIT_PAIRS, TRAIN_BATCH),
-        warm_epoch_s=warm_s, epochs=DENSE_EPOCHS, seconds=seconds,
-        examples_per_s=DENSE_EPOCHS * FIT_PAIRS / seconds,
-        ms_per_step=seconds * 1e3 / (DENSE_EPOCHS * num_batches),
-        last_epoch_loss=model._last_epoch_loss, card=card)
-    model._n_iter = 1
-    profile_call(torch, card, 'dense training epoch',
-                 lambda: model.fit(interactions))
+    seconds = [timed_fit(torch, model, interactions, DENSE_EPOCHS)
+               for _ in range(TIMED_FITS)]
+    log_training(torch, card, 'dense', model, interactions, DENSE_USERS,
+                 DENSE_ITEMS, DENSE_EPOCHS, warm_s, seconds)
     del model
     torch.cuda.empty_cache()
 
@@ -1940,14 +2070,14 @@ def check_step_against_cpu(torch, card):
                                    rtol=1e-5, atol=1e-7 * scale)
         gaps.append(float((gpu['grads'].cpu() - cpu['grads']).abs().max())
                     / scale)
-        segments = row_update.prepare_segments(gpu['ids'])
+        pair = row_update.sort_occurrences(gpu['ids'])
         scalars = row_update.adam_scalars(gpu['t'], gpu['lr'], gpu['l2'])
         grads = gpu['grads'].reshape(gpu['ids'].numel(), -1)
         tables = []
         for fn in (row_update.row_adam, row_update.row_adam_plain):
             out = (gpu['param'].clone(), gpu['mu'].clone(),
                    gpu['nu'].clone())
-            fn(*out, grads, segments, scalars)
+            fn(*out, grads, *pair, scalars)
             tables.append(out)
         torch.cuda.synchronize()
         for a, b in zip(*tables):

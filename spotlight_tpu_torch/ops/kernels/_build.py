@@ -56,14 +56,14 @@ _SIGNATURES = {
         'spotlight_topk_block_users': (_I, [_I, _I]),
     },
     'gather_sum': {
-        'spotlight_gather_sum': (_I, [_P, _I, _P, _P, _L, _I, _I, _I, _I,
-                                      _P]),
+        'spotlight_gather_sum': (_I, [_P, _I, _L, _P, _I, _P, _L, _I, _I,
+                                      _I, _I, _P]),
         'spotlight_scatter_rows': (_I, [_P, _I, _P, _P, _P, _I, _I, _I, _I,
                                         _I, _P]),
     },
     'row_update': {
-        'spotlight_row_adam': (_I, [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
-                                    _I, _I] + [_F] * 9 + [_P]),
+        'spotlight_row_adam': (_I, [_P, _I, _P, _P, _P, _P, _I, _P, _I, _I,
+                                    _I] + [_F] * 9 + [_P]),
     },
 }
 

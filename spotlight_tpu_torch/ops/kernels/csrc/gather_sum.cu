@@ -38,15 +38,30 @@
 // What the design does about it.  Neither TPU formulation is the natural
 // one here: K6's pipelined row DMAs worked around Mosaic's lane alignment,
 // K7f's multi-hot matmul around the TPU's gather latency.  On the card a
-// gather is plain loads: one thread per (id, 16-byte chunk of the row)
-// reads the id's k row numbers (broadcast within the warp) and then its
-// chunk of each row, neighbouring threads on neighbouring addresses, and
-// writes its chunk of the output once.  The backward is the transpose
-// without atomics: the wrapper groups the B * k contributions by row with a
-// stable sort (index preparation: the sorted flat indices and each row's
-// offset into them), and one thread per (row, 16-byte chunk) walks its
-// row's list in order.  A row's work grows with its multiplicity, which is
-// skewed (row 0 takes every padding id); nothing is sized for the mean.
+// gather is plain loads.  Forward: a block holds blockDim.y ids, and
+// blockDim.x threads cover an id's row in 16-byte chunks, neighbouring
+// threads on neighbouring addresses (no index division).  A thread reads
+// its id's k row numbers in their own type (int32 or int64: no cast
+// launch), checks each against [0, C), and sums the rows in hash order.
+// What limits it is L2, not device memory: every id re-reads k rows
+// through L2, 1 GB at the densify shape against 51 MB of table, so even a
+// bfloat16 table that fits in L2 runs at ~4 TB/s of L2 traffic.  A k = 4
+// kernel reading the row numbers in one vector load and issuing all row
+// loads before the first addition, streaming stores for the output, an
+// evict-last hint and a persisting L2 window over the table measured no
+// faster (PERF.md, section 6).  The range check costs the host nothing:
+// a row outside [0, C) prints the row and the bound and traps, so the
+// launch fails with a device-side error at the caller's next
+// synchronisation, as F.embedding_bag's index check does on the card; no
+// value is ever read from outside the table.
+// The backward is the transpose without atomics: the wrapper groups the
+// B * k contributions by row with a stable sort (index preparation: the
+// sorted flat indices and each row's offset into them), and one thread per
+// (row, 16-byte chunk) walks its row's list in order.  A row's work grows
+// with its multiplicity, which is skewed (row 0 takes every padding id);
+// nothing is sized for the mean.
+#include <cstdio>
+
 #include "common.cuh"
 
 using namespace spotlight;
@@ -109,35 +124,58 @@ __device__ __forceinline__ void accumulate(float (&acc)[VEC],
   }
 }
 
-template <typename T, int VEC, bool MASK, bool ACC_TABLE>
-__global__ void __launch_bounds__(kThreads)
-gather_sum_kernel(const T* __restrict__ table, const int* __restrict__ rows,
-                  T* __restrict__ out, long long B, int k, int D) {
-  const int chunks = D / VEC;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= B * chunks) return;
-  const long long b = idx / chunks;
-  const int d0 = (int)(idx - b * chunks) * VEC;
-  const int* r = rows + b * k;
+// A row outside [0, C): report it and stop the launch.
+__device__ __noinline__ void row_out_of_range(long long b, int j,
+                                              long long row, long long C) {
+  printf("spotlight gather_sum: rows[%lld, %d] = %lld lies outside "
+         "[0, %lld)\n", b, j, row, C);
+  __trap();
+}
 
-  auto term = [&](int j, float (&v)[VEC]) {
-    const int row = r[j];
-    if (MASK && row == 0) {
+template <typename I>
+__device__ __forceinline__ long long checked_row(I row, long long b, int j,
+                                                 long long C) {
+  const long long r = static_cast<long long>(row);
+  if (static_cast<unsigned long long>(r) >= static_cast<unsigned long long>(C))
+    row_out_of_range(b, j, r, C);
+  return r;
+}
+
+template <typename T, int VEC, bool MASK>
+__device__ __forceinline__ void load_term(const T* __restrict__ table,
+                                          long long row, int D, int d0,
+                                          float (&v)[VEC]) {
+  if (MASK && row == 0) {
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) v[i] = 0.0f;
-    } else {
-      load_vec<T, VEC>(table + (long long)row * D + d0, v);
-    }
-  };
-  float acc[VEC];
-  term(0, acc);
-#pragma unroll 4
-  for (int j = 1; j < k; ++j) {
-    float v[VEC];
-    term(j, v);
-    accumulate<T, VEC, ACC_TABLE>(acc, v);
+    for (int i = 0; i < VEC; ++i) v[i] = 0.0f;
+  } else {
+    load_vec<T, VEC>(table + row * D + d0, v);
   }
-  store_vec<T, VEC>(out + b * D + d0, acc);
+}
+
+// The forward.  Block (x, y): x over an id's 16-byte chunks, y over
+// blockDim.y ids.
+template <typename T, typename I, int VEC, bool MASK, bool ACC_TABLE>
+__global__ void __launch_bounds__(kThreads)
+gather_sum_kernel(const T* __restrict__ table, const I* __restrict__ rows,
+                  T* __restrict__ out, long long B, int k, int D,
+                  long long C) {
+  const long long b = (long long)blockIdx.x * blockDim.y + threadIdx.y;
+  if (b >= B) return;
+  const int chunks = D / VEC;
+  const I* r = rows + b * k;
+  for (int c = threadIdx.x; c < chunks; c += blockDim.x) {
+    const int d0 = c * VEC;
+    float acc[VEC];
+    load_term<T, VEC, MASK>(table, checked_row(r[0], b, 0, C), D, d0, acc);
+#pragma unroll 4
+    for (int j = 1; j < k; ++j) {
+      float v[VEC];
+      load_term<T, VEC, MASK>(table, checked_row(r[j], b, j, C), D, d0, v);
+      accumulate<T, VEC, ACC_TABLE>(acc, v);
+    }
+    store_vec<T, VEC>(out + b * D + d0, acc);
+  }
 }
 
 template <typename T, int VEC, bool MASK, bool ACC_TABLE>
@@ -176,15 +214,32 @@ unsigned blocks_for(long long threads) {
   return (unsigned)((threads + kThreads - 1) / kThreads);
 }
 
+// The forward's block: x over an id's chunks, y over ids.
+dim3 gather_block(int chunks) {
+  const int x = chunks < kThreads ? chunks : kThreads;
+  return dim3(x, kThreads / x);
+}
+
 struct Gather {
-  template <typename T, int VEC, bool MASK, bool ACC_TABLE>
-  static int run(const void* table, const int* rows, void* out, long long B,
-                 int k, int D, cudaStream_t s) {
-    gather_sum_kernel<T, VEC, MASK, ACC_TABLE>
-        <<<blocks_for(B * (D / VEC)), kThreads, 0, s>>>(
-            static_cast<const T*>(table), rows, static_cast<T*>(out), B, k,
-            D);
+  template <typename T, typename I, int VEC, bool MASK, bool ACC_TABLE>
+  static int launch(const void* table, const void* rows, void* out,
+                    long long B, int k, int D, long long C, cudaStream_t s) {
+    const dim3 block = gather_block(D / VEC);
+    gather_sum_kernel<T, I, VEC, MASK, ACC_TABLE>
+        <<<(unsigned)((B + block.y - 1) / block.y), block, 0, s>>>(
+            static_cast<const T*>(table), static_cast<const I*>(rows),
+            static_cast<T*>(out), B, k, D, C);
     return cudaGetLastError();
+  }
+
+  template <typename T, int VEC, bool MASK, bool ACC_TABLE>
+  static int run(const void* table, const void* rows, int rows_int64,
+                 void* out, long long B, int k, int D, long long C,
+                 cudaStream_t s) {
+    return rows_int64 ? launch<T, long long, VEC, MASK, ACC_TABLE>(
+                            table, rows, out, B, k, D, C, s)
+                      : launch<T, int, VEC, MASK, ACC_TABLE>(
+                            table, rows, out, B, k, D, C, s);
   }
 };
 
@@ -225,20 +280,23 @@ int dispatch(bool bf16, bool wide, bool mask, bool acc_table, Args... args) {
 
 extern "C" {
 
-// out (B, D) = the sum of the k rows of table (C, D) named by rows (B, k)
-// int32, every row in [0, C) (the wrapper checks).  table and out are
-// float32 or, with table_bf16, bfloat16.  mask zeroes row 0's terms;
-// acc_table rounds the sum to the table's dtype after every addition.
-// Returns a cudaError_t (0 on success).
-int spotlight_gather_sum(const void* table, int table_bf16, const int* rows,
-                         void* out, long long B, int k, int D, int mask,
-                         int acc_table, void* stream) {
-  if (B <= 0 || k <= 0 || D <= 0) return cudaErrorInvalidValue;
+// out (B, D) = the sum of the k rows of table (C, D) named by rows (B, k),
+// int32 or, with rows_int64, int64.  A row outside [0, C) stops the launch
+// with a device-side error (printed; it surfaces at the next
+// synchronisation).  table and out are float32 or, with table_bf16,
+// bfloat16.  mask zeroes row 0's terms; acc_table rounds the sum to the
+// table's dtype after every addition.  Returns a cudaError_t (0 on
+// success).
+int spotlight_gather_sum(const void* table, int table_bf16, long long C,
+                         const void* rows, int rows_int64, void* out,
+                         long long B, int k, int D, int mask, int acc_table,
+                         void* stream) {
+  if (B <= 0 || k <= 0 || D <= 0 || C <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int vec = table_bf16 ? 8 : 4;
   const bool wide = D % vec == 0 && aligned16(table) && aligned16(out);
-  return dispatch<Gather>(table_bf16, wide, mask, acc_table, table, rows, out,
-                          B, k, D, s);
+  return dispatch<Gather>(table_bf16, wide, mask, acc_table, table, rows,
+                          rows_int64, out, B, k, D, C, s);
 }
 
 // dtable (C, D) = the transpose of spotlight_gather_sum applied to grad

@@ -25,10 +25,13 @@ from spotlight_tpu_torch.ops.kernels.ranking import (on_cuda,
 
 def check_operands(table, rows):
     """Validate a (C, D) float32 or bfloat16 table and (B, k) integer rows;
-    returns the rows as contiguous int32.  Rows outside ``[0, C)`` raise
-    (one readback of their least and largest value): the kernels never
-    read out of bounds, and torch's plain gather would wrap a negative
-    row."""
+    returns the rows contiguous, int32 or int64 as given (any other integer
+    dtype as int32).  Only host metadata is read on CUDA tensors: there the
+    kernel checks every row it reads, and a row outside ``[0, C)`` stops
+    the launch with a device-side error that surfaces at the next
+    synchronisation, as ``F.embedding_bag``'s does.  On CPU tensors such a
+    row raises ``ValueError`` here (one look at the least and largest
+    row), since torch's plain gather would wrap a negative row."""
     if table.dim() != 2 or table.dtype not in (torch.float32,
                                                torch.bfloat16):
         raise ValueError('table must be (C, D) float32 or bfloat16')
@@ -38,13 +41,14 @@ def check_operands(table, rows):
     if num_rows >= 2 ** 31 or rows.numel() >= 2 ** 31:
         raise ValueError('tables and row lists beyond int32 are not '
                          'supported')
-    on_cuda(table, rows)
-    if rows.numel():
+    if not on_cuda(table, rows) and rows.numel():
         low, high = torch.stack(list(torch.aminmax(rows))).tolist()
         if low < 0 or high >= num_rows:
             raise ValueError('rows must lie in [0, {}) (got [{}, {}])'.format(
                 num_rows, low, high))
-    return rows.to(torch.int32).contiguous()
+    if rows.dtype not in (torch.int32, torch.int64):
+        rows = rows.to(torch.int32)
+    return rows.contiguous()
 
 
 def gather_sum_plain(table, rows, mask_row_zero, acc_dtype):
@@ -102,8 +106,9 @@ def scatter_rows_plain(grad, rows, num_rows, mask_row_zero, acc_dtype,
 
 
 def gather_sum_cuda(table, rows, mask_row_zero, acc_table):
-    """Launch the gather-sum kernel on validated operands."""
-    require_contiguous(table)
+    """Launch the gather-sum kernel on validated operands: one launch, no
+    host synchronisation."""
+    require_contiguous(table, rows)
     lib = _build.load('gather_sum')
     batch, num_hashes = rows.shape
     out = torch.empty(batch, table.shape[1], dtype=table.dtype,
@@ -113,9 +118,10 @@ def gather_sum_cuda(table, rows, mask_row_zero, acc_table):
     if num_hashes == 0:
         return out.zero_()
     status = lib.spotlight_gather_sum(
-        table.data_ptr(), int(table.dtype == torch.bfloat16),
-        rows.data_ptr(), out.data_ptr(), batch, num_hashes, table.shape[1],
-        int(mask_row_zero), int(acc_table), stream_handle(table.device))
+        table.data_ptr(), int(table.dtype == torch.bfloat16), table.shape[0],
+        rows.data_ptr(), int(rows.dtype == torch.int64), out.data_ptr(),
+        batch, num_hashes, table.shape[1], int(mask_row_zero),
+        int(acc_table), stream_handle(table.device))
     _build.check(status, 'gather_sum kernel')
     return out
 
@@ -123,9 +129,9 @@ def gather_sum_cuda(table, rows, mask_row_zero, acc_table):
 def scatter_rows_cuda(grad, rows, num_rows, mask_row_zero, acc_table,
                       out_dtype):
     """Launch the scatter-by-row kernel: ``grad`` (B, D) in the table's
-    dtype, ``rows`` the validated (B, k) int32 rows.  The index preparation
-    (a stable sort of the flat rows and each row's offset) is torch's; the
-    sums are the kernel's."""
+    dtype, ``rows`` the validated (B, k) int32 or int64 rows.  The index
+    preparation (a stable sort of the flat rows and each row's offset) is
+    torch's; the sums are the kernel's."""
     lib = _build.load('gather_sum')
     grad = grad.to(out_dtype).contiguous()
     dim = grad.shape[1]

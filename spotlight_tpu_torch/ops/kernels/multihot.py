@@ -84,7 +84,11 @@ def multihot_gather_sum(table, rows, mask_row_zero=False):
     Parameters
     ----------
     table : (C, D) float32 or bfloat16 compressed embedding table
-    rows : (B, k) int hashed row indices per id, each in ``[0, C)``
+    rows : (B, k) int hashed row indices per id, each in ``[0, C)``; int32
+        and int64 are taken as given.  On the card the kernel checks them:
+        a row outside stops the launch with a device-side error at the next
+        synchronisation, as ``F.embedding_bag`` does; on the CPU it raises
+        ``ValueError``.
     mask_row_zero : bool
         Drop every contribution that lands on row 0 (padding semantics, see
         :class:`~spotlight_tpu_torch.ops.embeddings.BloomEmbedding`); the

@@ -4,19 +4,22 @@ Counterpart of ``scripts/fused_rowupdate_probe.py``'s ``_row_update_kernel``
 (``fused_row_update``: in-place Adam on unique rows with pre-summed
 gradients) and of the row update inside
 ``spotlight_tpu/ops/lazy_adam.py::sparse_adam_rows``, which the lazy
-training engine runs twice a step.  :func:`row_adam` takes occurrence ids
-with repeats: :func:`prepare_segments` groups them by row with a stable
-sort (torch's, shared by both versions), and the update sums each row's
-occurrence gradients, adds ``l2 * row`` when ``l2 != 0`` and applies Adam to
-``param``, ``mu`` and ``nu`` in place.
+training engine runs twice a step.  :func:`row_adam` takes the occurrence
+ids sorted once by :func:`sort_occurrences` (torch's stable sort, as JAX's
+``argsort``), as the pair ``(sorted_ids, order)``: each run of equal ids is
+one row's segment, ``order`` names its occurrences in ascending occurrence
+order.  The update sums each row's occurrence gradients, adds ``l2 * row``
+when ``l2 != 0`` and applies Adam to ``param``, ``mu`` and ``nu`` in place.
+The probe's pre-deduplicated form is unique sorted ids with ``order =
+arange(n)``.
 
 On a CUDA tensor :func:`row_adam` launches the kernel of
-``csrc/row_update.cu``; on a CPU tensor it runs :func:`row_adam_plain`,
-which does the same arithmetic in the same order as separate torch ops
-(each segment's sum from +0.0 in ascending occurrence order, taken a rank
-at a time), so kernel and plain version agree bit for bit.  Nothing falls
-back.  No step of either reads a value back to the host on the kernel's
-path: the number of distinct rows stays on the device.
+``csrc/row_update.cu``, which reads the pair directly: a call is the sort
+and one launch, with nothing read back to the host.  On a CPU tensor it
+runs :func:`row_adam_plain`, which groups the runs with torch ops
+(:func:`prepare_segments`) and does the same arithmetic in the same order
+(each segment's sum from +0.0 in ascending position, taken a rank at a
+time), so kernel and plain version agree bit for bit.  Nothing falls back.
 
 The float32 constants are rounded as JAX's weak typing rounds them: each
 Python float (``b1``, ``1 - b1``, ``-lr``, ``eps``, ``l2``, ...) is computed
@@ -63,43 +66,47 @@ def adam_scalars(t, lr, l2=0.0, b1=B1, b2=B2, eps=EPS):
                        bias_correction(b2, t))
 
 
+def sort_occurrences(ids):
+    """``(sorted_ids, order)``: one stable sort of the flat occurrence ids
+    (any shape), in their own dtype when int32 or int64 (any other integer
+    dtype as int64); ``order`` is int64, equal ids in occurrence order."""
+    flat = ids.reshape(-1)
+    if flat.dtype not in (torch.int32, torch.int64):
+        flat = flat.long()
+    return torch.sort(flat, stable=True)
+
+
 class Segments(NamedTuple):
-    """Occurrences grouped by row: ``order`` (n,) lists the occurrences by
-    ascending row id (equal ids in occurrence order), segment ``s`` covers
-    ``order[offsets[s]:offsets[s + 1]]`` and names row ``rows[s]``;
-    ``count`` (a 0-d tensor) segments exist.  All int32, on the ids'
-    device; ``rows`` past ``count`` hold no meaning."""
+    """The plain version's runs of a sorted occurrence list: segment ``s``
+    covers ``order[offsets[s]:offsets[s + 1]]`` and names row ``rows[s]``;
+    ``count`` (a 0-d tensor) segments exist; ``rows`` past ``count`` hold
+    no meaning."""
     order: torch.Tensor
     offsets: torch.Tensor
     rows: torch.Tensor
     count: torch.Tensor
 
 
-def prepare_segments(ids):
-    """Group the occurrence ids (any shape, any integer dtype) by row, with
-    no host synchronisation: a stable sort, head flags, their running sum
+def prepare_segments(sorted_ids, order):
+    """Group a sorted occurrence list (:func:`sort_occurrences`) into
+    segments, with no host synchronisation: head flags, their running sum
     for segment numbers, the offsets by ``searchsorted`` and the segment
     count as a device scalar."""
-    flat = ids.reshape(-1).to(torch.int32)
-    n = flat.numel()
-    device = flat.device
+    n = sorted_ids.numel()
+    device = sorted_ids.device
     if n == 0:
-        empty = torch.zeros(0, dtype=torch.int32, device=device)
-        return Segments(empty, torch.zeros(1, dtype=torch.int32,
-                                           device=device), empty,
-                        torch.zeros((), dtype=torch.int32, device=device))
-    sorted_ids, order = torch.sort(flat, stable=True)
+        return Segments(order, torch.zeros(1, dtype=torch.int64,
+                                           device=device), sorted_ids,
+                        torch.zeros((), dtype=torch.int64, device=device))
     head = torch.ones(n, dtype=torch.bool, device=device)
     head[1:] = sorted_ids[1:] != sorted_ids[:-1]
     segment = torch.cumsum(head, 0) - 1
-    offsets = torch.searchsorted(
-        segment, torch.arange(n + 1, device=device), out_int32=True)
-    rows = sorted_ids[offsets[:n].clamp(max=n - 1).long()]
-    count = head.sum().to(torch.int32)
-    return Segments(order.to(torch.int32), offsets, rows, count)
+    offsets = torch.searchsorted(segment, torch.arange(n + 1, device=device))
+    rows = sorted_ids[offsets[:n].clamp(max=n - 1)]
+    return Segments(order, offsets, rows, head.sum())
 
 
-def check_operands(param, mu, nu, grads, segments):
+def check_operands(param, mu, nu, grads, sorted_ids, order):
     if param.dim() != 2 or param.dtype not in (torch.float32,
                                                torch.bfloat16):
         raise ValueError('param must be (R, W) float32 or bfloat16')
@@ -107,35 +114,44 @@ def check_operands(param, mu, nu, grads, segments):
         if table.shape != param.shape or table.dtype != torch.float32:
             raise ValueError('{} must be float32 of the shape of param'
                              .format(name))
-    n = segments.order.numel()
+    n = order.numel()
+    if order.shape != (n,) or order.dtype != torch.int64:
+        raise ValueError('order must be (n,) int64')
+    if sorted_ids.shape != (n,) or sorted_ids.dtype not in (torch.int32,
+                                                            torch.int64):
+        raise ValueError('sorted_ids must be (n,) int32 or int64, one per '
+                         'occurrence')
     if grads.shape != (n, param.shape[1]) or grads.dtype != torch.float32:
         raise ValueError('grads must be (n, W) float32, one row per '
                          'occurrence')
-    if param.shape[0] >= 2 ** 31 or n >= 2 ** 31:
+    if param.shape[0] >= 2 ** 31 or n * -(-param.shape[1] // 32) >= 2 ** 31:
         raise ValueError('tables and id lists beyond int32 are not '
                          'supported')
-    return on_cuda(param, mu, nu, grads, *segments)
+    return on_cuda(param, mu, nu, grads, sorted_ids, order)
 
 
 @torch.no_grad()
-def row_adam(param, mu, nu, grads, segments, scalars):
-    """Adam on the rows of ``segments`` (:func:`prepare_segments`) with the
-    occurrence gradients ``grads`` (n, W) float32, in place on ``param``
-    (R, W) float32 or bfloat16 and its float32 moments ``mu`` and ``nu``.
-    ``scalars`` from :func:`adam_scalars`.  Returns ``(param, mu, nu)``."""
-    if not check_operands(param, mu, nu, grads, segments):
-        return row_adam_plain(param, mu, nu, grads, segments, scalars)
+def row_adam(param, mu, nu, grads, sorted_ids, order, scalars):
+    """Adam on the rows named by the sorted occurrence list ``(sorted_ids,
+    order)`` (:func:`sort_occurrences`) with the occurrence gradients
+    ``grads`` (n, W) float32, in place on ``param`` (R, W) float32 or
+    bfloat16 and its float32 moments ``mu`` and ``nu``; an id outside
+    ``[0, R)`` updates nothing.  ``scalars`` from :func:`adam_scalars`.
+    Returns ``(param, mu, nu)``."""
+    if not check_operands(param, mu, nu, grads, sorted_ids, order):
+        return row_adam_plain(param, mu, nu, grads, sorted_ids, order,
+                              scalars)
     global ROW_ADAM_LAUNCHES
-    require_contiguous(param, mu, nu, grads, *segments)
-    n = segments.order.numel()
+    require_contiguous(param, mu, nu, grads, sorted_ids, order)
+    n = order.numel()
     if n == 0 or param.numel() == 0:
         return param, mu, nu
     lib = _build.load('row_update')
     status = lib.spotlight_row_adam(
         param.data_ptr(), int(param.dtype == torch.bfloat16), mu.data_ptr(),
-        nu.data_ptr(), grads.data_ptr(), segments.order.data_ptr(),
-        segments.offsets.data_ptr(), segments.rows.data_ptr(),
-        segments.count.data_ptr(), n, param.shape[0], param.shape[1],
+        nu.data_ptr(), grads.data_ptr(), sorted_ids.data_ptr(),
+        int(sorted_ids.dtype == torch.int64), order.data_ptr(), n,
+        param.shape[0], param.shape[1],
         *(float(value) for value in scalars), stream_handle(param.device))
     _build.check(status, 'row_adam kernel')
     ROW_ADAM_LAUNCHES += 1
@@ -163,8 +179,9 @@ def segment_sums_plain(grads, segments, num_segments):
 
 
 @torch.no_grad()
-def row_adam_plain(param, mu, nu, grads, segments, scalars):
+def row_adam_plain(param, mu, nu, grads, sorted_ids, order, scalars):
     """The kernel's arithmetic as separate torch ops (any device)."""
+    segments = prepare_segments(sorted_ids, order)
     num_segments = int(segments.count)
     if num_segments == 0:
         return param, mu, nu

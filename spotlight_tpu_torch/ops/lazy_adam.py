@@ -1,10 +1,12 @@
 """Row-sparse (lazy) Adam: moments updated at the touched rows only.
 
 Counterpart of ``spotlight_tpu/ops/lazy_adam.py``.  The index preparation
-(a stable sort of the occurrence ids into segments) is torch's; the update
-itself runs through P1 (:mod:`spotlight_tpu_torch.ops.kernels.row_update`):
-the hand-written kernel on a CUDA tensor, its plain version on a CPU
-tensor.  Tables and moments are updated in place.
+is one stable sort of the occurrence ids (torch's, as JAX's ``argsort``);
+the segment sums and the update run through P1
+(:mod:`spotlight_tpu_torch.ops.kernels.row_update`), which reads the sort's
+output directly: the hand-written kernel on a CUDA tensor (one launch, no
+readback), its plain version on a CPU tensor.  Tables and moments are
+updated in place.
 
 Semantics, as in the JAX package (torch's ``SparseAdam``): untouched rows'
 moments do not decay between the steps that touch them; the bias
@@ -56,8 +58,9 @@ def sparse_adam_rows(ids, param, mu, nu, grad_rows, t, lr, l2=0.0, b1=B1,
     -------
     (param, mu, nu), the same tensors, updated.
     """
-    segments = row_update.prepare_segments(ids)
-    grads = grad_rows.reshape(segments.order.numel(), -1).to(
+    sorted_ids, order = row_update.sort_occurrences(ids)
+    grads = grad_rows.reshape(order.numel(), -1).to(
         torch.float32).contiguous()
     scalars = row_update.adam_scalars(t, lr, l2, b1, b2, eps)
-    return row_update.row_adam(param, mu, nu, grads, segments, scalars)
+    return row_update.row_adam(param, mu, nu, grads, sorted_ids, order,
+                               scalars)

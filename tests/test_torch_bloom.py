@@ -309,6 +309,37 @@ def test_multihot_gather_sum_exact_on_dyadic_tables(mask):
     assert torch.equal(grad, witness)
 
 
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('entry', ['bloom', 'multihot', 'multihot masked'])
+def test_gather_sums_same_bits_for_int32_and_int64_rows(entry, dtype):
+    """The entry points take int32 and int64 rows as given (the kernel is
+    templated on the index type, no cast): forward and gradient carry the
+    same bits either way; K6's equal JAX's kernel on the int32 rows."""
+    table, rows, cotangent = _lookup_operands(3, dyadic=False)
+    if entry == 'bloom':
+        fn = bloom.bloom_gather_sum
+    else:
+        fn = functools.partial(multihot.multihot_gather_sum,
+                               mask_row_zero=entry == 'multihot masked')
+    torch_dtype = getattr(torch, dtype)
+    results = [_port_value_and_grad(fn, table, rows.astype(index), cotangent,
+                                    torch_dtype)
+               for index in (np.int32, np.int64)]
+    for a, b in zip(*results):
+        assert a.dtype == torch_dtype
+        assert torch.equal(a.view(torch.int16 if dtype == 'bfloat16'
+                                  else torch.int32),
+                           b.view(torch.int16 if dtype == 'bfloat16'
+                                  else torch.int32))
+    if entry == 'bloom':
+        want = _jax_value_and_grad(
+            lambda t, r: jax_bloom.bloom_gather_sum(t, r, 8, True), table,
+            rows, cotangent, getattr(jnp, dtype))
+        for got_part, want_part in zip(results[1], want):
+            np.testing.assert_array_equal(_as_numpy(got_part),
+                                          _as_numpy(want_part))
+
+
 def test_gather_sums_reject_bad_rows():
     table = torch.zeros(10, 4)
     for bad in ([[0, 10]], [[-1, 2]]):

@@ -504,13 +504,16 @@ ENTRIES = [('bloom', False), ('multihot', False), ('multihot', True)]
     (40, 50, 12, 3, torch.bfloat16, True),
     (64, 30, 8, 1, torch.float32, False),         # a single hash
 ])
+@pytest.mark.parametrize('rows_dtype', [torch.int64, torch.int32])
 def test_gather_sum_kernels_equal_plain_versions(cuda, entry, batch,
                                                  num_rows, dim, hashes, dtype,
-                                                 skew):
+                                                 skew, rows_dtype):
     """K6 and K7f forward, K6's backward and K7b, bit for bit, and the
-    backward in the same bits in two launches."""
+    backward in the same bits in two launches, with int64 and int32
+    rows."""
     table, rows, cotangent = _bloom_operands(batch + dim, batch, num_rows,
                                              dim, hashes, dtype, skew)
+    rows = rows.to(rows_dtype)
     table.requires_grad_(True)
     out = _lookup(entry, table, rows)
     first, = torch.autograd.grad(out, table, cotangent, retain_graph=True)
@@ -525,16 +528,62 @@ def test_gather_sum_kernels_equal_plain_versions(cuda, entry, batch,
         assert not bool(first[0].any())
 
 
-def test_gather_sum_rows_out_of_range_raise(cuda):
+_OUT_OF_RANGE = """
+import sys
+import torch
+sys.path.insert(0, {root!r})
+from spotlight_tpu_torch.ops.kernels import bloom, multihot
+table = torch.ones(20, 16, device='cuda')
+rows = torch.zeros(8, 4, dtype=torch.{dtype}, device='cuda')
+rows[3, 1] = {bad}
+out = {call}
+torch.cuda.synchronize()
+print('RESULT', float(out.sum()))
+"""
+
+
+@pytest.mark.parametrize('bad,dtype,call', [
+    (-1, 'int64', 'bloom.bloom_gather_sum(table, rows)'),
+    (20, 'int32', 'multihot.multihot_gather_sum(table, rows, True)'),
+])
+def test_gather_sum_rows_out_of_range_raise(cuda, bad, dtype, call):
+    """A row outside [0, C) on the card stops the launch with a device-side
+    error (the kernel checks every row it reads, as ``embedding_bag``
+    does): the process fails at its next synchronisation and returns no
+    result.  It runs in a child process, since the error poisons the CUDA
+    context."""
+    import pathlib
+    import subprocess
+    import sys
+
+    root = str(pathlib.Path(__file__).resolve().parents[1])
+    script = _OUT_OF_RANGE.format(root=root, dtype=dtype, bad=bad, call=call)
+    done = subprocess.run([sys.executable, '-c', script], capture_output=True,
+                          text=True, timeout=600)
+    assert done.returncode != 0
+    assert 'RESULT' not in done.stdout
     table, rows, _ = _bloom_operands(0, 8, 20, 16, 4, torch.float32)
-    for bad in (-1, 20):
-        rows[3, 1] = bad
-        with pytest.raises(ValueError, match='rows must lie in'):
-            bloom.bloom_gather_sum(table, rows)
-        with pytest.raises(ValueError, match='rows must lie in'):
-            multihot.multihot_gather_sum(table, rows, True)
     with pytest.raises(ValueError, match='several devices'):
         bloom.bloom_gather_sum(table, rows.cpu())
+
+
+def test_gather_sum_forward_never_synchronises(cuda):
+    """Both forward entry points, int32 and int64 rows, under CUDA's
+    synchronisation check set to raise: the range check is the kernel's,
+    nothing is read back and the rows are not cast."""
+    table, rows, _ = _bloom_operands(5, 300, 1000, 64, 4, torch.float32)
+    bloom.bloom_gather_sum(table, rows)             # builds and loads
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        outs = [fn(table, r) for r in (rows, rows.to(torch.int32))
+                for fn in (bloom.bloom_gather_sum,
+                           lambda t, r: multihot.multihot_gather_sum(
+                               t, r, True))]
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    assert torch.equal(_bits(outs[0]), _bits(outs[2]))
+    assert torch.equal(_bits(outs[1]), _bits(outs[3]))
 
 
 def test_each_new_launch_counts_once(cuda):
@@ -561,16 +610,24 @@ def test_each_new_launch_counts_once(cuda):
                         cotangent)
     after = [getattr(module, name) for module, name in counters]
     assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1, 1, 1]
-    assert gather_sum.check_operands(table, rows).dtype == torch.int32
+    # The rows reach the kernel in their own dtype (no cast launch); other
+    # integer dtypes as int32.
+    assert rows.dtype == torch.int64
+    for dtype, want in ((torch.int64, torch.int64), (torch.int32, torch.int32),
+                        (torch.int16, torch.int32)):
+        assert gather_sum.check_operands(table, rows.to(dtype)).dtype == want
 
 
-def _row_operands(seed, num_rows, width, n, dtype, device):
+def _row_operands(seed, num_rows, width, n, dtype, device, deep=0):
     """Occurrence ids with repeats (row 3 ten times, the sentinel row count
-    three times), a table, warm moments and gradient rows, on ``device``."""
+    three times, a negative id once, row 0 at ``deep`` scattered
+    positions), a table, warm moments and gradient rows, on ``device``."""
     rs = np.random.RandomState(seed)
-    ids = rs.randint(0, num_rows, n)
+    ids = rs.randint(1, num_rows, n)
     ids[:10] = 3
     ids[-3:] = num_rows
+    ids[-4] = -2
+    ids[rs.choice(n - 4, deep, replace=False)] = 0
     param = torch.from_numpy(rs.randn(num_rows, width).astype(np.float32))
     mu = torch.from_numpy((0.01 * rs.randn(num_rows, width)).astype(
         np.float32))
@@ -582,41 +639,55 @@ def _row_operands(seed, num_rows, width, n, dtype, device):
             mu.to(device), nu.to(device), grads.to(device))
 
 
-@pytest.mark.parametrize('num_rows,width,n,dtype,l2,t', [
-    (1000, 65, 4096, torch.float32, 1e-6, 7),
-    (1000, 65, 4096, torch.bfloat16, 1e-6, 7),
-    (5000, 128, 24576, torch.float32, 0.0, 5),
-    (300, 33, 5000, torch.float32, 0.0, 1),        # deep segments
-    (70, 1, 40, torch.bfloat16, 1e-3, 1000),
+@pytest.mark.parametrize('ids_dtype', [torch.int64, torch.int32])
+@pytest.mark.parametrize('num_rows,width,n,dtype,l2,t,deep', [
+    (1000, 65, 4096, torch.float32, 1e-6, 7, 0),
+    (1000, 65, 4096, torch.bfloat16, 1e-6, 7, 0),
+    (5000, 128, 24576, torch.float32, 0.0, 5, 0),
+    (300, 33, 5000, torch.float32, 0.0, 1, 0),     # deep segments
+    (70, 1, 40, torch.bfloat16, 1e-3, 1000, 0),
+    (2000, 65, 8192, torch.float32, 1e-6, 60, 2000),   # a padded step
+    (500, 64, 3000, torch.bfloat16, 0.0, 3, 2000),
 ])
 def test_row_adam_kernel_equals_plain_version(cuda, num_rows, width, n,
-                                              dtype, l2, t):
+                                              dtype, l2, t, deep, ids_dtype):
+    """P1 from one stable sort on the card, bit for bit against its plain
+    version, in two launches: int64 and int32 ids, ties kept in occurrence
+    order (the card's sort against the CPU's), a 2,000-occurrence row-0
+    segment, the sentinel row count and a negative id."""
     ids, param, mu, nu, grads = _row_operands(n + width, num_rows, width, n,
-                                              dtype, cuda)
-    segments = row_update.prepare_segments(ids)
+                                              dtype, cuda, deep)
+    ids = ids.to(ids_dtype)
+    sorted_ids, order = row_update.sort_occurrences(ids)
+    cpu_sorted, cpu_order = torch.sort(ids.cpu(), stable=True)
+    assert sorted_ids.dtype == ids_dtype
+    assert torch.equal(sorted_ids.cpu(), cpu_sorted)
+    assert torch.equal(order.cpu(), cpu_order)
     scalars = row_update.adam_scalars(t, 1e-2, l2)
     results = []
     for _ in range(2):
         p, m, v = param.clone(), mu.clone(), nu.clone()
-        row_update.row_adam(p, m, v, grads, segments, scalars)
+        row_update.row_adam(p, m, v, grads, sorted_ids, order, scalars)
         results.append((p, m, v))
     p, m, v = param.clone(), mu.clone(), nu.clone()
-    row_update.row_adam_plain(p, m, v, grads, segments, scalars)
+    row_update.row_adam_plain(p, m, v, grads, sorted_ids, order, scalars)
     torch.cuda.synchronize()
     for got in results:
         for a, b in zip(got, (p, m, v)):
             assert torch.equal(_bits(a), _bits(b))
     assert not torch.equal(results[0][0], param)
-    # The sentinel row count updates nothing; untouched rows stay.
+    # The sentinel row count and the negative id update nothing; untouched
+    # rows stay.
     untouched = torch.ones(num_rows, dtype=torch.bool, device=cuda)
-    untouched[ids[ids < num_rows]] = False
+    named = ids[(ids >= 0) & (ids < num_rows)]
+    untouched[named.long()] = False
     assert torch.equal(results[0][1][untouched], mu[untouched])
 
 
 def test_row_adam_kernel_matches_the_cpu(cuda):
     """The whole of ``sparse_adam_rows`` on the card against the CPU: both
     run the same IEEE-rounded arithmetic, so bit for bit."""
-    cpu = _row_operands(9, 400, 65, 2000, torch.float32, 'cpu')
+    cpu = _row_operands(9, 400, 65, 2000, torch.float32, 'cpu', deep=300)
     card = [x.to(cuda) for x in cpu]
     sparse_adam_rows(*cpu[:4], cpu[4], 3, 1e-2, 1e-6)
     sparse_adam_rows(*card[:4], card[4], 3, 1e-2, 1e-6)
@@ -631,9 +702,44 @@ def test_row_adam_launch_counts_once(cuda):
     sparse_adam_rows(ids, param, mu, nu, grads, 1, 1e-2)
     assert row_update.ROW_ADAM_LAUNCHES == before + 1
     row_update.row_adam_plain(param, mu, nu, grads,
-                              row_update.prepare_segments(ids),
+                              *row_update.sort_occurrences(ids),
                               row_update.adam_scalars(2, 1e-2))
     assert row_update.ROW_ADAM_LAUNCHES == before + 1
+
+
+def _device_kernels(fn):
+    """Names of the device activities (kernels, copies, fills) of one call
+    of ``fn``, from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [event.name for event in prof.events()
+            if event.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.parametrize('ids_dtype', [torch.int64, torch.int32])
+def test_sparse_adam_rows_is_one_sort_and_one_launch(cuda, ids_dtype):
+    """A ``sparse_adam_rows`` call on the card is the stable sort's device
+    work and one P1 launch, nothing else, and reads nothing back."""
+    ids, param, mu, nu, grads = _row_operands(2, 5000, 65, 16384,
+                                              torch.float32, cuda)
+    ids = ids.to(ids_dtype)
+    sparse_adam_rows(ids, param, mu, nu, grads, 1, 1e-2)      # builds
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        sparse_adam_rows(ids, param, mu, nu, grads, 2, 1e-2)
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    sort = _device_kernels(lambda: row_update.sort_occurrences(ids))
+    call = _device_kernels(
+        lambda: sparse_adam_rows(ids, param, mu, nu, grads, 3, 1e-2))
+    assert len(call) == len(sort) + 1
+    assert sum('row_adam_kernel' in name for name in call) == 1
 
 
 def _lazy_model(device, loss, negative_sampling):

@@ -164,17 +164,13 @@ def test_matches_the_probe_kernel_in_interpret_mode():
         summed, t=5, interpret=True)]
 
     # The probe's own form: unique rows, pre-summed, one occurrence each.
-    uids = np.array(uids)
-    unique = torch.from_numpy(uids)
-    segments = row_update.Segments(
-        torch.arange(len(uids), dtype=torch.int32),
-        torch.arange(len(uids) + 1, dtype=torch.int32), unique,
-        torch.tensor(len(uids), dtype=torch.int32))
+    unique = torch.from_numpy(np.array(uids))
     p = torch.from_numpy(param.copy())
     m = torch.zeros(padded_rows, width)
     v = torch.zeros(padded_rows, width)
-    row_update.row_adam(p, m, v, torch.from_numpy(np.asarray(summed)),
-                        segments, row_update.adam_scalars(5, 1e-2))
+    row_update.row_adam(p, m, v, torch.from_numpy(np.array(summed)),
+                        unique, torch.arange(len(unique)),
+                        row_update.adam_scalars(5, 1e-2))
     real = np.arange(num_rows)
     np.testing.assert_array_equal(m.numpy()[real], want[1][real])
     np.testing.assert_array_equal(v.numpy()[real], want[2][real])
@@ -200,15 +196,23 @@ def test_bias_corrections_equal_jax_for_the_first_two_thousand_steps():
 
 
 def test_segments_group_occurrences_without_host_values():
+    """One stable sort of the ids, in their own dtype, and the plain
+    version's segments built from it on the device."""
     ids = torch.tensor([[5, 2, 5], [7, 2, 5]])
-    segments = row_update.prepare_segments(ids)
-    assert all(x.dtype == torch.int32 for x in segments)
+    sorted_ids, order = row_update.sort_occurrences(ids)
+    assert sorted_ids.tolist() == [2, 2, 5, 5, 5, 7]
+    assert order.tolist() == [1, 4, 0, 2, 5, 3]
+    assert sorted_ids.dtype == order.dtype == torch.int64
+    assert row_update.sort_occurrences(ids.int())[0].dtype == torch.int32
+    assert row_update.sort_occurrences(ids.short())[0].dtype == torch.int64
+    segments = row_update.prepare_segments(sorted_ids, order)
     assert segments.count.dim() == 0 and int(segments.count) == 3
     assert segments.order.tolist() == [1, 4, 0, 2, 5, 3]
     assert segments.offsets.tolist()[:4] == [0, 2, 5, 6]
     assert segments.offsets.tolist()[4:] == [6, 6, 6]
     assert segments.rows.tolist()[:3] == [2, 5, 7]
-    empty = row_update.prepare_segments(torch.zeros(0, dtype=torch.int64))
+    empty = row_update.prepare_segments(*row_update.sort_occurrences(
+        torch.zeros(0, dtype=torch.int64)))
     assert int(empty.count) == 0 and empty.offsets.tolist() == [0]
 
 
@@ -222,12 +226,56 @@ def test_lazy_adam_init_keeps_float32_moments():
 
 def test_operand_checks():
     param = torch.zeros(4, 3)
-    segments = row_update.prepare_segments(torch.tensor([1, 2]))
+    sorted_ids, order = row_update.sort_occurrences(torch.tensor([1, 2]))
     scalars = row_update.adam_scalars(1, 1e-2)
     with pytest.raises(ValueError, match='grads'):
         row_update.row_adam(param, torch.zeros(4, 3), torch.zeros(4, 3),
-                            torch.zeros(3, 3), segments, scalars)
+                            torch.zeros(3, 3), sorted_ids, order, scalars)
     with pytest.raises(ValueError, match='mu'):
         row_update.row_adam(param, torch.zeros(4, 3, dtype=torch.bfloat16),
-                            torch.zeros(4, 3), torch.zeros(2, 3), segments,
+                            torch.zeros(4, 3), torch.zeros(2, 3), sorted_ids,
+                            order, scalars)
+    with pytest.raises(ValueError, match='order'):
+        row_update.row_adam(param, torch.zeros(4, 3), torch.zeros(4, 3),
+                            torch.zeros(2, 3), sorted_ids, order.int(),
                             scalars)
+    with pytest.raises(ValueError, match='sorted_ids'):
+        row_update.row_adam(param, torch.zeros(4, 3), torch.zeros(4, 3),
+                            torch.zeros(2, 3), sorted_ids[:1], order,
+                            scalars)
+
+
+@pytest.mark.parametrize('ids_dtype', ['int32', 'int64'])
+@pytest.mark.parametrize('table', ['float32', 'bfloat16'])
+def test_sorted_ids_plain_version_matches_jax(ids_dtype, table):
+    """P1's plain version on one stable sort's ``(sorted_ids, order)``
+    against JAX's ``sparse_adam_rows``: repeats (row 3 five times, row 0
+    forty times, as a padded step names it), the sentinel id R, a negative
+    id and -0.0 gradients.  JAX wraps the negative id onto row R - 1, which
+    the port leaves alone (no id names it otherwise); every other row
+    agrees, the moments bit for bit."""
+    rs = np.random.RandomState(11)
+    num_rows, width, n = 30, 7, 96
+    ids, param, mu, nu, grads = operands(rs, num_rows, width, n,
+                                         sentinel=True, negative_zero=True)
+    ids = np.where(ids == num_rows - 1, 1, ids)
+    ids[10:50] = 0
+    ids[-4] = -1
+    torch_dtype = getattr(torch, table)
+    if table == 'bfloat16':
+        param = torch.from_numpy(param).to(torch.bfloat16).float().numpy()
+    want = jax_update(ids, param, mu, nu, grads, 4, 1e-2, 1e-6,
+                      getattr(jnp, table))
+    sorted_ids, order = row_update.sort_occurrences(
+        torch.from_numpy(ids.astype(ids_dtype)))
+    assert sorted_ids.dtype == getattr(torch, ids_dtype)
+    got = [torch.from_numpy(param.copy()).to(torch_dtype),
+           torch.from_numpy(mu.copy()), torch.from_numpy(nu.copy())]
+    row_update.row_adam_plain(*got, torch.from_numpy(grads), sorted_ids,
+                              order, row_update.adam_scalars(4, 1e-2, 1e-6))
+    got = [x.float().numpy() for x in got]
+    keep = np.arange(num_rows - 1)
+    assert_update_matches([x[keep] for x in got], [x[keep] for x in want])
+    np.testing.assert_array_equal(got[1][num_rows - 1], mu[num_rows - 1])
+    np.testing.assert_array_equal(got[0][num_rows - 1],
+                                  param[num_rows - 1])
