@@ -211,6 +211,12 @@ def kernel_entry(name, src, replaces, shape, ms, plain_ms, ops, nbytes,
                 library_ms=library_ms, **extra)
 
 
+def no_fma_floor_ms(batch, num_items):
+    """The exact-tie contract's floor of a dot catalogue pass: 2 B N D
+    float32 instructions at NO_FMA_OPS_PER_S."""
+    return 2 * batch * num_items * D / NO_FMA_OPS_PER_S * 1e3
+
+
 def ulp_gap(torch, a, b):
     """Largest distance in units in the last place between two float32
     tensors of finite values (0 when they are bit-equal)."""
@@ -241,8 +247,8 @@ def kernel_inputs(torch, batch, generator):
 
 def check_rank_kernels(torch, card, generator):
     """K1 and K1c at the main path's (B=2048, T=4) and a heavy target
-    width (B=256, T=128).  Returns the kernel-table entries of the main
-    path's case."""
+    width (B=256, T=128); K1's kernel_case lines carry the no-FMA floor.
+    Returns the kernel-table entries of the main path's case."""
     from spotlight_tpu_torch.ops.kernels import ranking
 
     entries = {}
@@ -294,7 +300,11 @@ def check_rank_kernels(torch, card, generator):
                                  median_ms(torch, fn, KERNEL_REPS),
                                  median_ms(torch, plain_fn, PLAIN_REPS),
                                  ops, nbytes, err)
-            log(kernel_case=entry, card=card)
+            if name == 'rank_weights':
+                log(kernel_case=dict(entry, no_fma_floor_ms=no_fma_floor_ms(
+                    batch, NUM_ITEMS)), card=card)
+            else:
+                log(kernel_case=entry, card=card)
             if batch == 2048:
                 entries[name] = entry
         del users, items, bias, ts, weights, plain
@@ -344,8 +354,8 @@ def check_topk_kernel(torch, card, generator):
                                                         k), PLAIN_REPS),
             ops, nbytes, err,
             library_ms=median_ms(torch, library, PLAIN_REPS))
-        floor_ms = 2 * batch * NUM_ITEMS * D / NO_FMA_OPS_PER_S * 1e3
-        log(kernel_case=dict(entry, no_fma_floor_ms=floor_ms), card=card)
+        log(kernel_case=dict(entry, no_fma_floor_ms=no_fma_floor_ms(
+            batch, NUM_ITEMS)), card=card)
         if (batch, k) == (2048, MAIN_TOPK_K):
             main = entry
         del users, items, bias, scores, ids, p_scores, p_ids
@@ -1184,7 +1194,8 @@ def check_bloom_kernels(torch, card, model, test, mrr, mix_model, mix_test):
             reprs, ts, targets), 2),
         2 * batch * BLOOM_ITEMS * D + 3 * batch * BLOOM_ITEMS,
         rank_counts_bytes(batch, BLOOM_ITEMS, D, 1), 0.0)
-    log(kernel_case=entries['rank_counts'], card=card)
+    log(kernel_case=dict(entries['rank_counts'], no_fma_floor_ms=(
+        no_fma_floor_ms(batch, BLOOM_ITEMS))), card=card)
 
     check_rank_counts_shapes(torch, card)
 
@@ -1274,7 +1285,8 @@ def check_rank_counts_shapes(torch, card):
             users, items, bias, ts, ids), PLAIN_REPS),
         2 * batch * num_items * D + 3 * batch * width * num_items,
         rank_counts_bytes(batch, num_items, D, width), 0.0,
-        four_quarters_ms=median_ms(torch, quarters, KERNEL_REPS))
+        four_quarters_ms=median_ms(torch, quarters, KERNEL_REPS),
+        no_fma_floor_ms=no_fma_floor_ms(batch, num_items))
     log(kernel_case=entry, card=card)
 
 
@@ -1444,8 +1456,9 @@ def check_lookup_shapes(torch, card):
     benchmark's shapes (scripts/bloom_kernel_bench.py: B=8,192, k=4,
     C in {4,096, 65,536, 262,144}, D in {64, 128}, float32, RandomState(0)),
     each held against its plain version bit for bit, beside the
-    ``embedding_bag`` yardstick; then one bfloat16 table through each entry
-    point and its backward against the plain versions."""
+    ``embedding_bag`` yardstick, and the backward alone beside
+    ``embedding_bag``'s backward alone; then one bfloat16 table through
+    each entry point and its backward against the plain versions."""
     import torch.nn.functional as F
 
     from spotlight_tpu_torch.ops.kernels import bloom, multihot
@@ -1465,6 +1478,12 @@ def check_lookup_shapes(torch, card):
     def both(fn, table, rows, cotangent):
         out = fn(table, rows)
         return out, torch.autograd.grad(out, table, cotangent)[0]
+
+    def backward_ms(out, table, cotangent):
+        """The backward alone: one forward's graph, kept, differentiated
+        again and again."""
+        return median_ms(torch, lambda: torch.autograd.grad(
+            out, table, cotangent, retain_graph=True), KERNEL_REPS)
 
     entry_points = (
         ('bloom_gather_sum', bloom.bloom_gather_sum,
@@ -1493,12 +1512,16 @@ def check_lookup_shapes(torch, card):
                 case[name + ' fwd+bwd ms'] = median_ms(
                     torch, lambda: both(fn, table, rows, cotangent),
                     KERNEL_REPS)
+                case[name + ' bwd ms'] = backward_ms(fn(table, rows),
+                                                     table, cotangent)
             case['embedding_bag ms'] = median_ms(
                 torch, lambda: F.embedding_bag(rows, table.detach(),
                                                mode='sum'), KERNEL_REPS)
             case['embedding_bag fwd+bwd ms'] = median_ms(
                 torch, lambda: both(lambda t, r: F.embedding_bag(
                     r, t, mode='sum'), table, rows, cotangent), KERNEL_REPS)
+            case['embedding_bag bwd ms'] = backward_ms(
+                F.embedding_bag(rows, table, mode='sum'), table, cotangent)
             case['forward bound ms'] = bound(
                 batch * (hashes - 1) * dim,
                 lookup_bytes(batch, hashes, dim, touched))[0]

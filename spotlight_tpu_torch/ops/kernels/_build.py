@@ -44,8 +44,7 @@ _SIGNATURES = {
                                             _I, _I, _P]),
         'spotlight_rank_counts': (_I, [_P, _P, _I, _P, _P, _P, _P, _P, _I,
                                        _I, _I, _I, _I, _I, _P]),
-        'spotlight_rank_max_targets': (_I, [_I]),
-        'spotlight_rank_counts_max_targets': (_I, [_I]),
+        'spotlight_rank_max_targets': (_I, [_I, _I]),
         'spotlight_rank_block_users': (_I, [_I]),
         'spotlight_rank_smem_bytes': (ctypes.c_size_t, [_I, _I]),
     },

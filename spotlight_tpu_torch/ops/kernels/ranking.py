@@ -43,10 +43,10 @@ CANDIDATE_SCORES_LAUNCHES = 0
 #: Most mixture components the kernels take (``kMaxMixtures``, common.cuh).
 MAX_MIXTURES = 8
 
-# Items per tile (csrc/ranking.cu).
+# Items per tile of the mixture rank kernel (csrc/ranking.cu).
 _TILE_ITEMS = 64
 _MAX_SHARED = 232448       # bytes of shared memory one H100 block may use
-_BLOCKS_PER_SM = 4         # blocks in flight per SM the split count aims at
+_BLOCKS_PER_SM = 4         # mixture blocks in flight per SM the splits aim at
 
 
 def on_cuda(*tensors):
@@ -102,6 +102,29 @@ def catalogue_splits(user_blocks, num_items, device, cap=None):
     tiles = -(-num_items // _TILE_ITEMS)
     splits = max(1, min(tiles, -(-_BLOCKS_PER_SM * sms // user_blocks)))
     return min(splits, cap) if cap else splits
+
+
+def _rank_splits(lib, batch, num_items, device, mixtures):
+    """Catalogue splits per user block of a rank launch.  The dot kernel
+    runs one block an SM and its blocks cost the same, so it takes as many
+    splits as fill one wave (rounded down: a second, partial wave would
+    double the time; the kernel drops splits beyond the catalogue's tiles
+    and adds some where a split would hold more than its counts take); the
+    mixture kernel takes ``catalogue_splits``' several blocks an SM."""
+    user_blocks = -(-batch // lib.spotlight_rank_block_users(mixtures))
+    if mixtures:
+        return catalogue_splits(user_blocks, num_items, device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, sms // user_blocks)
+
+
+def _check_width(lib, dim, mixtures):
+    """The rank kernels hold their users and an item tile in shared memory:
+    dot scoring takes D <= 768 (with fewer targets a launch past D = 383),
+    mixtures of M tastes narrower ones."""
+    if lib.spotlight_rank_smem_bytes(dim, mixtures) > _MAX_SHARED:
+        raise ValueError('embedding width {} exceeds the rank kernel\'s '
+                         'shared memory'.format(dim))
 
 
 def stream_handle(device):
@@ -232,13 +255,10 @@ def _rank_weights_cuda(user_reprs, item_matrix, item_bias, target_scores,
     batch = user_reprs.shape[0]
     num_items, dim = item_matrix.shape
     mixtures = num_mixtures or 0
-    if lib.spotlight_rank_smem_bytes(dim, mixtures) > _MAX_SHARED:
-        raise ValueError('embedding width {} exceeds the rank kernel\'s '
-                         'shared memory'.format(dim))
+    _check_width(lib, dim, mixtures)
     device = user_reprs.device
-    user_blocks = -(-batch // lib.spotlight_rank_block_users(mixtures))
-    splits = catalogue_splits(user_blocks, num_items, device)
-    chunk = lib.spotlight_rank_max_targets(mixtures)
+    splits = _rank_splits(lib, batch, num_items, device, mixtures)
+    chunk = lib.spotlight_rank_max_targets(dim, mixtures)
     stream = stream_handle(device)
     parts = []
     for start in range(0, target_scores.shape[1], chunk):
@@ -327,17 +347,14 @@ def _rank_counts_cuda(user_reprs, item_matrix, item_bias, target_scores,
     batch = user_reprs.shape[0]
     num_items, dim = item_matrix.shape
     mixtures = num_mixtures or 0
-    if lib.spotlight_rank_smem_bytes(dim, mixtures) > _MAX_SHARED:
-        raise ValueError('embedding width {} exceeds the rank kernel\'s '
-                         'shared memory'.format(dim))
+    _check_width(lib, dim, mixtures)
     # Ids outside [0, N) match no row: -1 says so in int32 without
     # clamping, which would exclude a real row.
     target_ids = torch.where((target_ids >= 0) & (target_ids < num_items),
                              target_ids, -1).to(torch.int32)
     device = user_reprs.device
-    user_blocks = -(-batch // lib.spotlight_rank_block_users(mixtures))
-    splits = catalogue_splits(user_blocks, num_items, device)
-    chunk = lib.spotlight_rank_counts_max_targets(mixtures)
+    splits = _rank_splits(lib, batch, num_items, device, mixtures)
+    chunk = lib.spotlight_rank_max_targets(dim, mixtures)
     stream = stream_handle(device)
     greater_parts, equal_parts = [], []
     for start in range(0, target_scores.shape[1], chunk):

@@ -72,13 +72,29 @@ def _operands(seed, batch, num_items, dim, dyadic=False, copies=1,
             torch.from_numpy(bias).to(device))
 
 
+# The dot rank kernel's edges: item tiles of 128, dimension slabs of 32,
+# blocks of 64 users, 4 targets held in registers (a narrow launch), 128
+# sorted targets a wide launch up to D = 383, fewer above, D <= 768.
+RANK_EDGES = [
+    (65, 129, 33, 4, torch.float32, False),        # T at the register count
+    (130, 1000, 48, 5, torch.bfloat16, False),     # one past: a wide launch
+    (64, 1000, 33, 128, torch.float32, False),     # the widest launch
+    (3, 129, 65, 129, torch.float32, False),       # two launches
+    (40, 700, 8, 9, torch.float32, False),         # one slab a tile, wide
+    (66, 2000, 40, 2, torch.bfloat16, True),       # dyadic ties, bf16
+    (129, 1000, 17, 17, torch.float32, True),      # dyadic ties, wide
+    (3, 300, 400, 70, torch.float32, False),       # 64 targets a launch
+    (2, 300, 768, 9, torch.float32, False),        # the widest embedding
+]
+
+
 @pytest.mark.parametrize('batch,num_items,dim,width,dtype,dyadic', [
     (100, 5000, 64, 9, torch.float32, False),
     (70, 1000, 32, 130, torch.float32, False),     # two target chunks
     (65, 777, 48, 4, torch.bfloat16, False),       # ragged everywhere
     (1, 64, 64, 1, torch.float32, False),
     (130, 4000, 16, 6, torch.float32, True),       # 200 copies of each row
-])
+] + RANK_EDGES)
 def test_rank_kernels_equal_plain_versions(cuda, batch, num_items, dim,
                                            width, dtype, dyadic):
     users, items, bias = _operands(batch + width, batch, num_items, dim,
@@ -384,11 +400,12 @@ def test_metrics_on_the_card_equal_the_cpu(cuda):
 
 @pytest.mark.parametrize('batch,num_items,dim,width,dtype,mixtures', [
     (100, 5000, 64, 9, torch.float32, None),
-    (70, 1000, 32, 70, torch.float32, None),      # three target chunks
+    (70, 1000, 32, 70, torch.float32, None),
     (65, 777, 48, 4, torch.bfloat16, None),       # ragged everywhere
     (50, 3000, 32, 4, torch.float32, 4),
     (33, 777, 16, 40, torch.float32, 8),          # two chunks, widest mixture
-])
+] + [(batch, num_items, dim, width, dtype, None)
+     for batch, num_items, dim, width, dtype, _ in RANK_EDGES])
 def test_rank_counts_kernel_equals_plain_version(cuda, batch, num_items, dim,
                                                  width, dtype, mixtures):
     """K5's counts exactly, with target ids below 0 and at or past N among
@@ -413,6 +430,42 @@ def test_rank_counts_kernel_equals_plain_version(cuda, batch, num_items, dim,
     want = ranking.rank_counts_plain(users, items, bias, ts, ids, mixtures)
     assert torch.equal(greater, want[0]) and torch.equal(equal, want[1])
     assert greater.dtype == equal.dtype == torch.float32
+
+
+@pytest.mark.parametrize('width', [1, 4, 5, 129])
+def test_rank_counts_kernel_dyadic_ties(cuda, width):
+    """On a catalogue of 50 copies of 40 dyadic rows every score ties 49
+    others besides its own row, which K5 leaves out by id wherever it lies
+    among the splits."""
+    users, items, bias = _operands(width, 100, 2000, 24, dyadic=True,
+                                   copies=50)
+    ids = torch.randint(0, 2000, (100, width),
+                        generator=torch.Generator().manual_seed(6)).to(cuda)
+    ts = ranking.matched_target_scores(users, items, bias, ids)
+    greater, equal = ranking.rank_counts(users, items, bias, ts, ids)
+    want = ranking.rank_counts_plain(users, items, bias, ts, ids)
+    assert torch.equal(greater, want[0]) and torch.equal(equal, want[1])
+    assert bool((equal >= 49).all())
+
+
+def test_rank_kernels_widest_embedding(cuda):
+    """Dot scoring takes D <= 768 (the users, two item slabs and the counts
+    of 4 targets in one block's shared memory); one wider raises."""
+    users, items, bias = _operands(7, 3, 200, 769)
+    ids = torch.zeros(3, 2, dtype=torch.int64, device=cuda)
+    ts = ranking.matched_target_scores(users, items, bias, ids)
+    with pytest.raises(ValueError, match='shared memory'):
+        ranking.rank_weights(users, items, bias, ts)
+    with pytest.raises(ValueError, match='shared memory'):
+        ranking.rank_counts(users, items, bias, ts, ids)
+    users = users[:, :768].contiguous()
+    items = items[:, :768].contiguous()
+    ts = ranking.matched_target_scores(users, items, bias, ids)
+    weights = ranking.rank_weights(users, items, bias, ts)
+    assert torch.equal(weights, ranking.rank_weights_plain(users, items, bias,
+                                                           ts))
+    greater, equal = ranking.rank_counts(users, items, bias, ts, ids)
+    assert torch.equal(weights, greater + 0.5 * (equal + 1.0))
 
 
 def test_rank_counts_ids_outside_the_catalogue_exclude_nothing(cuda):

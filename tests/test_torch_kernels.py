@@ -104,24 +104,43 @@ def test_rank_weights_padding_rows_never_count():
 
 @functools.lru_cache(maxsize=None)
 def _wide_targets():
-    """Inputs and JAX weights of a 13-wide target block."""
+    """Inputs and JAX weights of a 129-wide target block."""
     rs = np.random.RandomState(13)
     users, items, bias = _gaussian(rs, 8, 16, 600)
-    ids = rs.randint(0, 600, (8, 13)).astype(np.int32)
+    ids = rs.randint(0, 600, (8, 129)).astype(np.int32)
     return users, items, bias, ids, _jax_rank_weights(users, items, bias,
                                                       ids)[0]
 
 
-@pytest.mark.parametrize('num_targets', [1, 3, 9, 13])
+@pytest.mark.parametrize('num_targets', [1, 3, 5, 9, 13, 129])
 def test_rank_weights_target_widths(num_targets):
-    """Widths that are not multiples of 8: each target's weight depends on
-    its own column only, so the port's narrower calls equal the leading
-    columns of one 13-wide JAX call."""
+    """Widths that are not multiples of 8, on both sides of the CUDA
+    kernel's 4 targets in registers and 128 a launch: each target's weight
+    depends on its own column only, so the port's narrower calls equal the
+    leading columns of one 129-wide JAX call."""
     users, items, bias, ids, want = _wide_targets()
     got, _ = _port_rank_weights(users, items, bias,
                                 np.ascontiguousarray(ids[:, :num_targets]))
     assert got.shape == (8, num_targets)
     np.testing.assert_array_equal(got, want[:, :num_targets])
+
+
+@pytest.mark.parametrize('num_targets', [1, 5, 129])
+def test_rank_weights_tile_edges_match_jax(num_targets):
+    """N = 129 and D = 33: one row past the CUDA kernel's 128-item tile and
+    one dimension past its 32-dimension slab; a duplicated row ties."""
+    rs = np.random.RandomState(num_targets)
+    users, items, bias = _gaussian(rs, 5, 33, 129)
+    items[128], bias[128] = items[0], bias[0]
+    ids = rs.randint(0, 129, (5, num_targets)).astype(np.int32)
+    ids[:, 0] = 128
+    want, want_ts = _jax_rank_weights(users, items, bias, ids)
+    got, got_ts = _port_rank_weights(users, items, bias, ids)
+    np.testing.assert_array_equal(got, want)
+    # 33 products of N(0, 1) operands summed in two orders: float32
+    # rounding of partial sums up to ~10 (a few 1e-6 apart).
+    np.testing.assert_allclose(got_ts, want_ts, rtol=1e-6, atol=1e-5)
+    assert np.all(got[:, 0] % 1 == 0)    # row 128 ties row 0
 
 
 def test_rank_weights_bf16_items():

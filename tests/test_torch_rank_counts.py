@@ -82,6 +82,23 @@ def test_rank_counts_wide_targets_match_jax():
     _assert_counts_match(users, items, bias, ts, ids)
 
 
+@pytest.mark.parametrize('num_targets', [1, 5, 129])
+def test_rank_counts_tile_edges_match_jax(num_targets):
+    """N = 129 (43 dyadic rows three times) and D = 33: one row past the
+    CUDA kernel's 128-item tile and one dimension past its 32-dimension
+    slab, on both sides of its 4 targets in registers and 128 a launch;
+    ids outside [0, N) among the targets."""
+    rs = np.random.RandomState(num_targets)
+    users, items, bias = _dyadic_catalogue(rs, 6, 33, 43, 3)
+    ids = rs.randint(-2, 131, (6, num_targets)).astype(np.int32)
+    scores = _catalogue_scores(users, items, bias)
+    ts = np.take_along_axis(scores, np.clip(ids, 0, 128), 1)
+    greater, equal = _assert_counts_match(users, items, bias, ts, ids)
+    inside = (ids >= 0) & (ids < 129)
+    # Each target ties its two copies, and itself unless excluded by id.
+    np.testing.assert_array_equal(equal >= np.where(inside, 2, 3), True)
+
+
 def test_rank_counts_ids_outside_the_catalogue_match_jax():
     """Ids below 0 and at or past N are compared, never clamped: they
     exclude no row, in both packages (per-shard callers pass shifted ids
