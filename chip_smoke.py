@@ -64,7 +64,9 @@ each of which exits non-zero when it fails:
    version and its ``embedding_bag`` yardstick; the lookup benchmark's
    shapes (int64 rows), the forward once more with int32 rows under
    ``torch.cuda.set_sync_debug_mode('error')`` (no host synchronisation)
-   and one bfloat16 table; where the device time of one bloom
+   and one bfloat16 table; the device kernels of one backward at B=8,192
+   counted by ``torch.profiler`` (the sort's and one, no host
+   synchronisation); where the device time of one bloom
    ``sequence_mrr_score`` goes.
 9. training: P1 (``row_adam``) against its plain version bit for bit, in
    two launches, at the probe's shapes (R = 100,000 + 8 and 2,000,000 + 8,
@@ -191,6 +193,28 @@ def median_ms(torch, fn, reps):
     return statistics.median(s.elapsed_time(e) for s, e in marks)
 
 
+def interleaved_ms(torch, fns, reps, rounds=5):
+    """Median device time of one call of each of ``fns`` (a dict), timed in
+    alternating rounds of ``reps`` calls each, so that the host's drift
+    over the measurement falls on all of them alike."""
+    times = {name: [] for name in fns}
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            marks = [(torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                     for _ in range(reps)]
+            for start, end in marks:
+                start.record()
+                fn()
+                end.record()
+            torch.cuda.synchronize()
+            times[name] += [s.elapsed_time(e) for s, e in marks]
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
 def bound(ops, nbytes):
     """(bound_ms, bound_by): the larger of the operations over the float32
     peak and the bytes over the memory rate."""
@@ -211,10 +235,11 @@ def kernel_entry(name, src, replaces, shape, ms, plain_ms, ops, nbytes,
                 library_ms=library_ms, **extra)
 
 
-def no_fma_floor_ms(batch, num_items):
-    """The exact-tie contract's floor of a dot catalogue pass: 2 B N D
-    float32 instructions at NO_FMA_OPS_PER_S."""
-    return 2 * batch * num_items * D / NO_FMA_OPS_PER_S * 1e3
+def no_fma_floor_ms(batch, num_items, width=D):
+    """The exact-tie contract's floor of a catalogue pass: 2 B N K float32
+    instructions at NO_FMA_OPS_PER_S, K the user width (D for dots, 2 M D
+    for a mixture of M tastes)."""
+    return 2 * batch * num_items * width / NO_FMA_OPS_PER_S * 1e3
 
 
 def ulp_gap(torch, a, b):
@@ -372,16 +397,20 @@ def mixture_ops(batch, num_items, mixtures=MIXTURES):
 
 
 def mixture_entry(torch, card, name, src, replaces, shape, fn, plain_fn,
-                  ops, nbytes, gap, err, ms=None):
+                  ops, nbytes, gap, err, ms=None, floor_ms=None):
     """A mixture kernel's case: its median time over KERNEL_REPS launches
     (or ``ms``, for K3, which has no launch of its own), its plain
-    version's, the bound; printed, and returned as a kernel-table entry."""
+    version's, the bound; printed with the catalogue pass's no-FMA floor
+    ``floor_ms`` where given, and returned as a kernel-table entry."""
     out = kernel_entry(
         name, src, replaces, shape,
         median_ms(torch, fn, KERNEL_REPS) if ms is None else ms,
         median_ms(torch, plain_fn, PLAIN_REPS), ops, nbytes, err,
         max_ulp=gap)
-    log(kernel_case=out, card=card)
+    if floor_ms is None:
+        log(kernel_case=out, card=card)
+    else:
+        log(kernel_case=dict(out, no_fma_floor_ms=floor_ms), card=card)
     return out
 
 
@@ -402,8 +431,8 @@ def check_mixture_kernels(torch, card, generator):
                             device=DEVICE) / D ** .5
         return users, items, bias
 
-    def entry(*args):
-        return mixture_entry(torch, card, *args)
+    def entry(*args, **kwargs):
+        return mixture_entry(torch, card, *args, **kwargs)
 
     entries = {}
     users, items, bias = operands(2048)
@@ -460,7 +489,7 @@ def check_mixture_kernels(torch, card, generator):
           lambda: ranking.rank_weights_plain(users, items, bias, ts_plain,
                                              MIXTURES),
           scoring + 2 * MIX_BATCH * NUM_ITEMS, table_bytes + 8 * MIX_BATCH,
-          0, 0.0)
+          0, 0.0, floor_ms=no_fma_floor_ms(MIX_BATCH, NUM_ITEMS, width))
 
     for k in (SEQ_K, 59):
         scores, top = topk.streaming_topk(users, items, bias, k, MIXTURES)
@@ -480,7 +509,8 @@ def check_mixture_kernels(torch, card, generator):
                                                 MIXTURES),
               scoring + MIX_BATCH * NUM_ITEMS,
               table_bytes + 8 * MIX_BATCH * k, gap,
-              float((scores - p_scores).abs().max()))
+              float((scores - p_scores).abs().max()),
+              floor_ms=no_fma_floor_ms(MIX_BATCH, NUM_ITEMS, width))
     del users, items, bias, ts, ts_plain, weights, plain
     torch.cuda.empty_cache()
     return entries
@@ -880,7 +910,8 @@ def check_sequence_kernels(torch, card, model, test):
         lambda: ranking.rank_weights(reprs, items, bias, ts, mixtures),
         lambda: sliced(lambda u, t: ranking.rank_weights_plain(
             u, items, bias, t, mixtures), reprs, ts),
-        scoring + 2 * batch * NUM_ITEMS, table_bytes + 8 * batch, 0, 0.0)
+        scoring + 2 * batch * NUM_ITEMS, table_bytes + 8 * batch, 0, 0.0,
+        floor_ms=no_fma_floor_ms(batch, NUM_ITEMS, reprs.shape[1]))
 
     reprs_k = model._rank_factors_sequences(test.sequences[:, :-SEQ_K])[0]
     scores, top = topk.streaming_topk(reprs_k, items, bias, SEQ_K, mixtures)
@@ -902,7 +933,8 @@ def check_sequence_kernels(torch, card, model, test):
         lambda: sliced(lambda u: topk.streaming_topk_plain(
             u, items, bias, SEQ_K, mixtures), reprs_k),
         scoring + batch * NUM_ITEMS, table_bytes + 8 * batch * SEQ_K, gap,
-        float((scores - p_scores).abs().max()))
+        float((scores - p_scores).abs().max()),
+        floor_ms=no_fma_floor_ms(batch, NUM_ITEMS, reprs_k.shape[1]))
 
     # K3 runs inside K1, K2 and K4 and has no launch of its own: its time
     # is the T=1 rank pass's, whose work it is.
@@ -1225,7 +1257,10 @@ def check_bloom_kernels(torch, card, model, test, mrr, mix_model, mix_test):
         mixture_ops(MIX_BATCH, NUM_ITEMS, mixtures) + 3 * 4 * MIX_BATCH
         * NUM_ITEMS,
         rank_counts_bytes(MIX_BATCH, NUM_ITEMS, 2 * mixtures * D, 4), 0.0)
-    log(kernel_case=entries['rank_counts (mixture)'], card=card)
+    log(kernel_case=dict(entries['rank_counts (mixture)'],
+                         no_fma_floor_ms=no_fma_floor_ms(
+                             MIX_BATCH, NUM_ITEMS, 2 * mixtures * D)),
+        card=card)
     del mix_plain, mix_weights
     torch.cuda.empty_cache()
 
@@ -1457,8 +1492,10 @@ def check_lookup_shapes(torch, card):
     C in {4,096, 65,536, 262,144}, D in {64, 128}, float32, RandomState(0)),
     each held against its plain version bit for bit, beside the
     ``embedding_bag`` yardstick, and the backward alone beside
-    ``embedding_bag``'s backward alone; then one bfloat16 table through
-    each entry point and its backward against the plain versions."""
+    ``embedding_bag``'s backward alone (the three timed in alternating
+    rounds); the device work of one backward;
+    then one bfloat16 table through each entry point and its backward
+    against the plain versions."""
     import torch.nn.functional as F
 
     from spotlight_tpu_torch.ops.kernels import bloom, multihot
@@ -1479,11 +1516,11 @@ def check_lookup_shapes(torch, card):
         out = fn(table, rows)
         return out, torch.autograd.grad(out, table, cotangent)[0]
 
-    def backward_ms(out, table, cotangent):
+    def backward(out, table, cotangent):
         """The backward alone: one forward's graph, kept, differentiated
         again and again."""
-        return median_ms(torch, lambda: torch.autograd.grad(
-            out, table, cotangent, retain_graph=True), KERNEL_REPS)
+        return lambda: torch.autograd.grad(out, table, cotangent,
+                                           retain_graph=True)
 
     entry_points = (
         ('bloom_gather_sum', bloom.bloom_gather_sum,
@@ -1512,16 +1549,18 @@ def check_lookup_shapes(torch, card):
                 case[name + ' fwd+bwd ms'] = median_ms(
                     torch, lambda: both(fn, table, rows, cotangent),
                     KERNEL_REPS)
-                case[name + ' bwd ms'] = backward_ms(fn(table, rows),
-                                                     table, cotangent)
+            backwards = {name + ' bwd ms': backward(fn(table, rows), table,
+                                                    cotangent)
+                         for name, fn, _ in entry_points}
+            backwards['embedding_bag bwd ms'] = backward(
+                F.embedding_bag(rows, table, mode='sum'), table, cotangent)
+            case.update(interleaved_ms(torch, backwards, KERNEL_REPS))
             case['embedding_bag ms'] = median_ms(
                 torch, lambda: F.embedding_bag(rows, table.detach(),
                                                mode='sum'), KERNEL_REPS)
             case['embedding_bag fwd+bwd ms'] = median_ms(
                 torch, lambda: both(lambda t, r: F.embedding_bag(
                     r, t, mode='sum'), table, rows, cotangent), KERNEL_REPS)
-            case['embedding_bag bwd ms'] = backward_ms(
-                F.embedding_bag(rows, table, mode='sum'), table, cotangent)
             case['forward bound ms'] = bound(
                 batch * (hashes - 1) * dim,
                 lookup_bytes(batch, hashes, dim, touched))[0]
@@ -1533,6 +1572,7 @@ def check_lookup_shapes(torch, card):
     # The forward reads nothing back: both entry points, int64 and int32
     # rows, with CUDA's synchronisation check set to raise.
     table, rows, _ = operands(65_536, 64, torch.float32)
+    check_scatter_rows_launches(torch, card, rows, 65_536, 64)
     with no_host_sync(torch, DEVICE):
         outs = [fn(table.detach(), r) for r in (rows, rows.to(torch.int32))
                 for _, fn, _ in entry_points]
@@ -1557,6 +1597,54 @@ def check_lookup_shapes(torch, card):
         if not all(equal) or got[0].dtype != torch.bfloat16:
             raise AssertionError('{} with a bf16 table differs from its plain '
                                  'version'.format(name))
+
+
+def scatter_rows_device_work(rows, num_rows, dim):
+    """Run in a fresh process (a long run's profiler record can drop
+    events): the device activities of one stable sort of the flat ``rows``
+    ((B, k) int64 numpy; the cast to int32 keys included) and of one
+    backward of ``multihot_gather_sum(mask_row_zero=True)`` on them (K7b,
+    a float32 table of ``num_rows`` x ``dim``).  Returns the two name
+    lists."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from spotlight_tpu_torch.ops.kernels import gather_sum, multihot
+
+    rows = torch.from_numpy(rows).to(DEVICE)
+    table = torch.randn(num_rows, dim, device=DEVICE, requires_grad=True)
+    cotangent = torch.randn(rows.shape[0], dim, device=DEVICE)
+    out = multihot.multihot_gather_sum(table, rows, True)
+
+    def backward():
+        return torch.autograd.grad(out, table, cotangent, retain_graph=True)
+
+    backward()
+    with no_host_sync(torch, DEVICE):
+        backward()
+    sort = device_kernels(torch, lambda: gather_sum.sort_rows(rows))
+    return sort, device_kernels(torch, backward)
+
+
+def check_scatter_rows_launches(torch, card, rows, num_rows, dim):
+    """What one gather-sum backward puts on the card at the lookup
+    benchmark's batch (in a fresh process): the stable sort's device work
+    and one scatter launch, nothing else, with no host synchronisation."""
+    import multiprocessing
+
+    with multiprocessing.get_context('spawn').Pool(1) as pool:
+        sort, launched = pool.apply(scatter_rows_device_work, (
+            rows.cpu().numpy(), num_rows, dim))
+    scatter = sum('scatter_rows_kernel' in name for name in launched)
+    log(scatter_rows_device_work={
+        'rows': list(rows.shape), 'rows_dtype': str(rows.dtype),
+        'table': [num_rows, dim], 'sort_kernels': len(sort),
+        'call_kernels': len(launched), 'scatter_launches': scatter,
+        'call': launched}, host_syncs=0, card=card)
+    if len(launched) != len(sort) + 1 or scatter != 1:
+        raise AssertionError('the gather-sum backward launched {} device '
+                             'kernels ({} scatter), not the sort\'s {} and '
+                             'one'.format(len(launched), scatter, len(sort)))
 
 
 # -- phase 9: training -------------------------------------------------------

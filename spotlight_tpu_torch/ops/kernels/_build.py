@@ -57,8 +57,8 @@ _SIGNATURES = {
     'gather_sum': {
         'spotlight_gather_sum': (_I, [_P, _I, _L, _P, _I, _P, _L, _I, _I,
                                       _I, _I, _P]),
-        'spotlight_scatter_rows': (_I, [_P, _I, _P, _P, _P, _I, _I, _I, _I,
-                                        _I, _P]),
+        'spotlight_scatter_rows': (_I, [_P, _I, _P, _P, _I, _P, _I, _I, _I,
+                                        _I, _I, _P]),
     },
     'row_update': {
         'spotlight_row_adam': (_I, [_P, _I, _P, _P, _P, _P, _I, _P, _I, _I,

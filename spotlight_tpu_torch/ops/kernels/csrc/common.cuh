@@ -5,9 +5,10 @@
 // the target score computed on its own (matched scores, candidate scores)
 // must equal, bit for bit, the score the catalogue pass computes for the
 // same (user, item) pair.  Every score that is ever compared is therefore
-// produced by ONE function in one fixed order: score_block for dot
-// products, mixture_score_block for mixture-of-tastes scoring.  Both build
-// on dot_block:
+// produced in one fixed order: dot products by dot_block or its
+// register-tiled form dot_tile_accumulate, then the bias (score_block);
+// mixtures by 2M such dots and one combine (mixture_combine, or its steps in
+// mixture_score_block).  Every dot is dot_block's order:
 //
 //     acc = u[0] * float(i[0]); for d in 1..D-1: acc = acc + u[d] * float(i[d])
 //
@@ -123,9 +124,8 @@ __device__ __forceinline__ void score_block(float (&out)[RI][RU], int dim,
 
 // Mixture-of-tastes scores (replaces mixture_combine and
 // make_mixture_score_fn of spotlight_tpu/ops/kernels/ranking.py).  Each
-// user is 2M vectors of width D, user_at(c, k, d) reading component k:
-// tastes are k = 0..M-1, attentions k = M..2M-1.  For each (item, user)
-// pair, in this order:
+// user is 2M vectors of width D: tastes are components k = 0..M-1,
+// attentions k = M..2M-1.  For each (item, user) pair, in this order:
 //
 //     a_m = dot(attention_m, item), t_m = dot(taste_m, item)   (dot_block)
 //     amax = a_0, then amax = fmaxf(amax, a_m) for m = 1..M-1
@@ -137,7 +137,63 @@ __device__ __forceinline__ void score_block(float (&out)[RI][RU], int dim,
 // each operation rounded on its own; expf is the accurate libdevice
 // function (no --use_fast_math, no __expf).  M = mixtures is a run-time
 // value of at most MAXM: the per-pair weights live in registers, indexed
-// by unrolled constants.
+// by unrolled constants.  The combine (everything after the dots) is one
+// set of functions below, which every mixture kernel calls: mixture_combine
+// on a pair's 2M dots held in registers (the rank pass's register tile),
+// or its three steps in turn (mixture_score_block, which computes the
+// taste dots one component at a time), the same operations in the same
+// order either way.
+
+// The softmax weights of one pair, in place: w[m], the dot of attention m,
+// becomes w_m for m < mixtures; returns denom.
+template <int MAXM>
+__device__ __forceinline__ float mixture_weights(float (&w)[MAXM],
+                                                 int mixtures) {
+  float amax = w[0];
+#pragma unroll
+  for (int m = 1; m < MAXM; ++m)
+    if (m < mixtures) amax = fmaxf(amax, w[m]);
+#pragma unroll
+  for (int m = 0; m < MAXM; ++m)
+    if (m < mixtures) w[m] = expf(__fsub_rn(w[m], amax));
+  float denom = w[0];
+#pragma unroll
+  for (int m = 1; m < MAXM; ++m)
+    if (m < mixtures) denom = __fadd_rn(denom, w[m]);
+  return denom;
+}
+
+// The weighted taste sum after component m's term (out is ignored at m = 0).
+__device__ __forceinline__ float mixture_term(float out, float w, float t,
+                                              int m) {
+  const float term = __fmul_rn(w, t);
+  return m == 0 ? term : __fadd_rn(out, term);
+}
+
+__device__ __forceinline__ float mixture_finish(float out, float denom,
+                                                float bias) {
+  return __fadd_rn(__fdiv_rn(out, denom), bias);
+}
+
+// The score of one pair from its dots: dots[m] is t_m and dots[MAXM + m]
+// is a_m (components past mixtures unused).
+template <int MAXM>
+__device__ __forceinline__ float mixture_combine(const float (&dots)[2 * MAXM],
+                                                 int mixtures, float bias) {
+  float w[MAXM];
+#pragma unroll
+  for (int m = 0; m < MAXM; ++m) w[m] = dots[MAXM + m];
+  const float denom = mixture_weights<MAXM>(w, mixtures);
+  float out = 0.0f;
+#pragma unroll
+  for (int m = 0; m < MAXM; ++m)
+    if (m < mixtures) out = mixture_term(out, w[m], dots[m], m);
+  return mixture_finish(out, denom, bias);
+}
+
+// Mixture scores of an RI x RU block of pairs, each dot by dot_block, the
+// combine by mixture_weights, mixture_term and mixture_finish.
+// user_at(c, k, d) reads component k of user c.
 template <int RI, int RU, int MAXM, class ItemAt, class UserAt,
           class BiasAt>
 __device__ __forceinline__ void mixture_score_block(
@@ -156,17 +212,12 @@ __device__ __forceinline__ void mixture_score_block(
   for (int r = 0; r < RI; ++r)
 #pragma unroll
     for (int c = 0; c < RU; ++c) {
-      float amax = w[0][r][c];
+      float pair[MAXM];
 #pragma unroll
-      for (int m = 1; m < MAXM; ++m)
-        if (m < mixtures) amax = fmaxf(amax, w[m][r][c]);
+      for (int m = 0; m < MAXM; ++m) pair[m] = w[m][r][c];
+      denom[r][c] = mixture_weights<MAXM>(pair, mixtures);
 #pragma unroll
-      for (int m = 0; m < MAXM; ++m)
-        if (m < mixtures) w[m][r][c] = expf(__fsub_rn(w[m][r][c], amax));
-      denom[r][c] = w[0][r][c];
-#pragma unroll
-      for (int m = 1; m < MAXM; ++m)
-        if (m < mixtures) denom[r][c] = __fadd_rn(denom[r][c], w[m][r][c]);
+      for (int m = 0; m < MAXM; ++m) w[m][r][c] = pair[m];
     }
 
 #pragma unroll
@@ -178,17 +229,15 @@ __device__ __forceinline__ void mixture_score_block(
 #pragma unroll
     for (int r = 0; r < RI; ++r)
 #pragma unroll
-      for (int c = 0; c < RU; ++c) {
-        const float term = __fmul_rn(w[m][r][c], taste[r][c]);
-        out[r][c] = m == 0 ? term : __fadd_rn(out[r][c], term);
-      }
+      for (int c = 0; c < RU; ++c)
+        out[r][c] = mixture_term(out[r][c], w[m][r][c], taste[r][c], m);
   }
 #pragma unroll
   for (int r = 0; r < RI; ++r) {
     const float b = bias_at(r);
 #pragma unroll
     for (int c = 0; c < RU; ++c)
-      out[r][c] = __fadd_rn(__fdiv_rn(out[r][c], denom[r][c]), b);
+      out[r][c] = mixture_finish(out[r][c], denom[r][c], b);
   }
 }
 

@@ -54,12 +54,19 @@
 // launch fails with a device-side error at the caller's next
 // synchronisation, as F.embedding_bag's index check does on the card; no
 // value is ever read from outside the table.
-// The backward is the transpose without atomics: the wrapper groups the
-// B * k contributions by row with a stable sort (index preparation: the
-// sorted flat indices and each row's offset into them), and one thread per
-// (row, 16-byte chunk) walks its row's list in order.  A row's work grows
-// with its multiplicity, which is skewed (row 0 takes every padding id);
-// nothing is sized for the mean.
+// The backward is the transpose without atomics, one stable sort and one
+// launch, as P1 (row_update.cu): the wrapper sorts the B * k flat rows once
+// (torch's stable sort of int32 keys: the sorted rows and, for each, its
+// flat index b * k + j, equal rows in ascending flat index), and the kernel
+// reads the two as the sort returns them; no offsets, casts or
+// searchsorted between them.  A group of lanes owns a row of the table:
+// it finds the row's run among the sorted rows by a search that probes as
+// many positions a step as it has lanes, then walks the run in order (see
+// scatter_rows_kernel).  Every row of the table is written by the same
+// launch, an untouched one (an empty run) and row 0 under MASK (skipped,
+// not walked, though it takes every padding id) as zeros.  A row's work
+// grows with its multiplicity, which is skewed; the sum of a column stays
+// in one thread, so skew costs time, not bits.
 #include <cstdio>
 
 #include "common.cuh"
@@ -178,40 +185,108 @@ gather_sum_kernel(const T* __restrict__ table, const I* __restrict__ rows,
   }
 }
 
+constexpr unsigned kFull = 0xffffffffu;
+
+// The backward.  A row of the table belongs to a group of L lanes of one
+// warp (L, a power of two from 8 to 32, covers its 16-byte chunks; a row
+// of more than 32 chunks takes them 32 at a time).  The group finds where
+// the row's run starts among the sorted rows by an L-ary search (each step
+// probes L positions at once and keeps the part between the last probe
+// below c and the first one not below: about log_{L+1} n steps, each one
+// round trip), then walks the run L positions at a time as P1 does: each
+// lane reads one position's row and flat index (coalesced), a ballot
+// counts the run's members among them (a prefix: the rows are sorted),
+// and the lanes, one chunk each, load kInFlight contributions at once and
+// add them in order; the next chunk's positions are loaded before this
+// chunk's contributions.  The run ends at the first chunk of positions
+// that is not full of members.  A column's sum stays in one thread, from
+// its first term, so a run's bits do not depend on its length.
 template <typename T, int VEC, bool MASK, bool ACC_TABLE>
 __global__ void __launch_bounds__(kThreads)
-scatter_rows_kernel(const T* __restrict__ grad, const int* __restrict__ order,
-                    const int* __restrict__ offsets, T* __restrict__ dtable,
-                    int C, int k, int D) {
-  const int chunks = D / VEC;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)C * chunks) return;
-  const int c = (int)(idx / chunks);
-  const int d0 = (int)(idx - (long long)c * chunks) * VEC;
-  const int begin = offsets[c];
-  const int end = offsets[c + 1];
+scatter_rows_kernel(const T* __restrict__ grad,
+                    const int* __restrict__ sorted_rows,
+                    const long long* __restrict__ order, int n,
+                    T* __restrict__ dtable, int C, int k, int D, int L) {
+  constexpr int kInFlight = 4;
+  const int lane = threadIdx.x & 31;
+  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int g = lane % L;           // the lane's place in its group
+  const int base = lane - g;        // the group's first lane
+  const unsigned group = L == 32 ? kFull : ((1u << L) - 1) << base;
+  const int c = warp * (32 / L) + lane / L;
+  if (c >= C) return;               // whole groups leave together
+  const bool walk = !(MASK && c == 0);
 
-  float acc[VEC];
-  if (begin == end || (MASK && c == 0)) {
+  // begin = how many sorted rows lie below c.
+  int begin = 0;
+  for (int len = walk ? n : 0; len > 0;) {
+    const int step = (len + L) / (L + 1);
+    const long long probe = (long long)begin + (long long)step * (g + 1) - 1;
+    const bool below =
+        probe < (long long)begin + len && sorted_rows[probe] < c;
+    const int t = __popc(__ballot_sync(group, below));
+    const int probes = min(L, len / step);
+    begin += step * t;
+    len = t < probes ? step - 1 : len - step * t;
+  }
+
+  const int chunks = D / VEC;
+  for (int c0 = 0; c0 < chunks; c0 += L) {
+    const int chunk = c0 + g;
+    const bool has = chunk < chunks;
+    const int d0 = chunk * VEC;
+    float acc[VEC];
 #pragma unroll
     for (int i = 0; i < VEC; ++i) acc[i] = 0.0f;
-  } else {
-    load_vec<T, VEC>(grad + (long long)(order[begin] / k) * D + d0, acc);
-    for (int e = begin + 1; e < end; ++e) {
-      float v[VEC];
-      load_vec<T, VEC>(grad + (long long)(order[e] / k) * D + d0, v);
-      accumulate<T, VEC, ACC_TABLE>(acc, v);
+    bool started = false;
+    // The run's chunk of L positions at e0: each lane's row and flat index,
+    // loaded one chunk ahead; a ballot counts the members.
+    int e0 = begin;
+    int row = -1;
+    long long flat = 0;
+    if (walk && e0 + g < n) {
+      row = sorted_rows[e0 + g];
+      flat = order[e0 + g];
     }
+    while (true) {
+      const bool member = row == c;
+      // order < B * k < 2^31: the flat index and its id fit an int.
+      const int b = member ? (int)flat / k : 0;
+      const int count = __popc(__ballot_sync(group, member));
+      row = -1;
+      if (count == L && e0 + L + g < n) {
+        row = sorted_rows[e0 + L + g];
+        flat = order[e0 + L + g];
+      }
+      for (int j0 = 0; j0 < count; j0 += kInFlight) {
+        float v[kInFlight][VEC];
+#pragma unroll
+        for (int j = 0; j < kInFlight; ++j) {
+          const int bj = __shfl_sync(group, b, j0 + j, L);
+          if (has && j0 + j < count)
+            load_vec<T, VEC>(grad + (long long)bj * D + d0, v[j]);
+        }
+#pragma unroll
+        for (int j = 0; j < kInFlight; ++j) {
+          if (!(has && j0 + j < count)) continue;
+          if (started) {
+            accumulate<T, VEC, ACC_TABLE>(acc, v[j]);
+          } else {
+#pragma unroll
+            for (int i = 0; i < VEC; ++i) acc[i] = v[j][i];
+            started = true;
+          }
+        }
+      }
+      if (count < L) break;
+      e0 += L;
+    }
+    if (has) store_vec<T, VEC>(dtable + (long long)c * D + d0, acc);
   }
-  store_vec<T, VEC>(dtable + (long long)c * D + d0, acc);
 }
 
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
-unsigned blocks_for(long long threads) {
-  return (unsigned)((threads + kThreads - 1) / kThreads);
 }
 
 // The forward's block: x over an id's chunks, y over ids.
@@ -243,14 +318,25 @@ struct Gather {
   }
 };
 
+// Lanes a table row takes in the backward: its chunks rounded up to a
+// power of two, at least 8 (they search together), at most a warp.
+int row_lanes(int chunks) {
+  int lanes = 8;
+  while (lanes < chunks && lanes < 32) lanes *= 2;
+  return lanes;
+}
+
 struct Scatter {
   template <typename T, int VEC, bool MASK, bool ACC_TABLE>
-  static int run(const void* grad, const int* order, const int* offsets,
-                 void* dtable, int C, int k, int D, cudaStream_t s) {
+  static int run(const void* grad, const int* sorted_rows,
+                 const long long* order, int n, void* dtable, int C, int k,
+                 int D, cudaStream_t s) {
+    const int lanes = row_lanes(D / VEC);
+    const long long rows_per_block = (long long)(kThreads / 32) * (32 / lanes);
     scatter_rows_kernel<T, VEC, MASK, ACC_TABLE>
-        <<<blocks_for((long long)C * (D / VEC)), kThreads, 0, s>>>(
-            static_cast<const T*>(grad), order, offsets,
-            static_cast<T*>(dtable), C, k, D);
+        <<<(unsigned)((C + rows_per_block - 1) / rows_per_block), kThreads,
+           0, s>>>(static_cast<const T*>(grad), sorted_rows, order, n,
+                   static_cast<T*>(dtable), C, k, D, lanes);
     return cudaGetLastError();
   }
 };
@@ -300,18 +386,20 @@ int spotlight_gather_sum(const void* table, int table_bf16, long long C,
 }
 
 // dtable (C, D) = the transpose of spotlight_gather_sum applied to grad
-// (B, D).  order (B * k,) int32 holds the flat indices b * k + j sorted by
-// their row, ascending within a row; offsets (C + 1,) int32 the start of
-// each row's run in order.  Returns a cudaError_t (0 on success).
-int spotlight_scatter_rows(const void* grad, int grad_bf16, const int* order,
-                           const int* offsets, void* dtable, int C, int k,
-                           int D, int mask, int acc_table, void* stream) {
-  if (C <= 0 || k <= 0 || D <= 0) return cudaErrorInvalidValue;
+// (B, D): row c sums grad[b] over the flat indices b * k + j whose row is
+// c, in ascending flat index.  sorted_rows (n,) int32 and order (n,) int64
+// are one stable sort of the n = B * k flat rows (the sorted rows, and the
+// flat index of each).  Returns a cudaError_t (0 on success).
+int spotlight_scatter_rows(const void* grad, int grad_bf16,
+                           const int* sorted_rows, const long long* order,
+                           int n, void* dtable, int C, int k, int D, int mask,
+                           int acc_table, void* stream) {
+  if (n <= 0 || C <= 0 || k <= 0 || D <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int vec = grad_bf16 ? 8 : 4;
   const bool wide = D % vec == 0 && aligned16(grad) && aligned16(dtable);
-  return dispatch<Scatter>(grad_bf16, wide, mask, acc_table, grad, order,
-                           offsets, dtable, C, k, D, s);
+  return dispatch<Scatter>(grad_bf16, wide, mask, acc_table, grad,
+                           sorted_rows, order, n, dtable, C, k, D, s);
 }
 
 }  // extern "C"

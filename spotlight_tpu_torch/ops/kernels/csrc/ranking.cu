@@ -12,10 +12,11 @@
 //     half_units[b, t] = 2 * count(score > ts[b, t]) + count(score == ts[b, t])
 // over the whole catalogue, the target itself included (its exact self-tie
 // adds 1 half unit), where score is item . user + item_bias in
-// score_block's order (dot_tile_accumulate, then the bias) or comes from
-// mixture_score_block (common.cuh).  The wrapper returns half_units * 0.5.
+// score_block's order (dot_tile_accumulate, then the bias) or is a
+// mixture of such dots (M tastes, M attentions) through mixture_combine
+// (common.cuh).  The wrapper returns half_units * 0.5.
 //
-// K5 is the same kernels with COUNTS = true: two exact int32 counters per
+// K5 is the same kernel with COUNTS = true: two exact int32 counters per
 // (user, target), greater[b, t] = count(score > ts) and equal[b, t] =
 // count(score == ts), over the catalogue rows whose id differs from the
 // target's id tids[b, t].  The target is excluded by id, not by score, so
@@ -27,33 +28,44 @@
 // D = 64 the dot catalogue pass is 2 * B * N * D = 5.2e10 float32 operations
 // against a 51 MB read of the item table, about 1,000 operations per byte;
 // mixture scoring with M = 4 does 2M = 8 such dots per pair (4.2e11
-// operations) plus M expf.  The exact-tie contract forbids the tensor cores
+// operations, a floor of 12.5 ms) plus M expf.  The exact-tie contract forbids the tensor cores
 // (TF32 rounds the operands) and FMA contraction, so every multiply and
 // every add is its own instruction on the float32 CUDA cores: the floor is
 // 2 * B * N * D instructions at ~33.5e12 a second (132 SMs x 128 lanes x
 // ~1.98 GHz), half the data sheet's FMA rate.
 //
-// Dot scoring (rank_dot_kernel, K1 and K5 with mixtures == 0) is K2's dot
-// stage 1 (topk.cu) with its filter replaced by counting.  One block of 512
-// threads an SM keeps 64 users resident in shared memory (transposed, rows
-// 16-byte aligned) and walks its contiguous split of the catalogue in
-// 128-item tiles, 32 dimensions a slab.  The slabs are double-buffered
+// One kernel, rank_kernel, serves both scorings: K2's dot stage 1 (topk.cu)
+// with its filter replaced by counting.  One block of 512 threads an SM
+// keeps its users resident in shared memory (transposed, rows 16-byte
+// aligned) and walks its contiguous split of the catalogue in 128-item
+// tiles, 32 dimensions a slab.  The slabs are double-buffered
 // through registers: the next slab's global loads are issued before this
 // slab is scored and stored (transposed, bf16 upcast) after it, one
-// barrier a slab, no index division.  Each thread scores 4 items x 4 users
-// with dot_tile_accumulate (two float4 shared loads feed 16 products), then
-// adds the bias: score_block's order, so the scores tie K1c's bit for bit.
+// barrier a slab, no index division.  The scoring policy (RankShape) is the
+// only difference between the two:
+// - dot scoring keeps 64 users a block; each thread scores 4 items x 4
+//   users with dot_tile_accumulate (two float4 shared loads feed 16
+//   products), then adds the bias: score_block's order, so the scores tie
+//   K1c's bit for bit;
+// - mixture scoring keeps 16 users a block, each as 2M adjacent columns
+//   of the staged users (tastes, then attentions; M rounded up to 2, 4 or
+//   8, so the columns come in float4s), so one dot_tile_accumulate call
+//   gives a thread all 2M dots of its 4 items x 1 user (at M = 4, three
+//   float4 shared loads feed 32 products), and mixture_combine turns each
+//   pair's dots into its score in registers: K4's bits.  Where a wider D
+//   does not fit, the launch takes fewer targets, never another kernel.
 // Rows at or past N score NaN, which no comparison counts.  Counting:
-// - narrow (T <= 4): the thread compares its own 16 scores against the
-//   T target scores of its 4 users, held in registers; at the split's end
+// - narrow (T <= 4): the thread compares its own scores against the T
+//   target scores of its users, held in registers; at the split's end
 //   the 32 threads sharing a user add their counts (two warp shuffles,
 //   then shared-memory integer atomics) and one atomicAdd a (user, target)
 //   goes to global memory;
-// - wide (T <= 128 a launch; the wrapper chunks wider T): comparing every
-//   score with every target costs T integer-pipe instructions or more a
-//   score, so the block sorts each user's targets once into shared memory,
-//   the tile's scores go to shared memory, and each thread binary-searches
-//   16 of them a tile for one user: a score that beats p targets and
+// - wide (T <= 128 a launch with dot scoring, 32 with mixtures; the
+//   wrapper chunks wider T): comparing every score with every target costs
+//   T integer-pipe instructions or more a score, so the block sorts each
+//   user's targets once into shared memory, the tile's scores go to shared
+//   memory, and each thread binary-searches some of them a tile for one
+//   user: a score that beats p targets and
 //   reaches q adds to the user's bins p and q (shared-memory integer
 //   atomics), and target j's counts are, at the split's end, the sums of
 //   the bins above its rank.
@@ -64,71 +76,110 @@
 // the fact: the block whose split holds row tids[b, t] scores that row once
 // more in the same order and takes its comparisons back out.
 //
-// Mixture scoring (rank_weights_kernel) holds 2M vectors a user (512
-// floats at M = 4, D = 64), so a block keeps 32 users (67 KB of users, 93
-// KB in all: two blocks an SM) in shared memory and walks 64-item tiles
-// staged element by element; each thread scores a 4 x 2 block with
-// mixture_score_block, whose M softmax weights per pair stay in registers.
-// The tile's scores go to shared memory; each thread then owns one user
-// and up to MAXP targets and compares the tile against them from
-// registers.
-//
 // Counts are int32 half units: exact and independent of order, so the
 // splits add their counts with atomicAdd in any order.  The TPU kernel's
 // grid ran in sequence and accumulated in VMEM; here the splits run in
 // parallel.
 //
 // K1c and K4 score one (user, id) pair a thread through score_block /
-// mixture_score_block, so their scores are bit-equal to the catalogue
-// pass's.  The JAX K4 scored every gathered row against every user of the
+// mixture_score_block (the same dots, the same combine), so their scores
+// are bit-equal to the catalogue pass's.  The JAX K4 scored every gathered row against every user of the
 // batch and kept the diagonal; here only the B * T pairs are scored.
+#include <type_traits>
+
 #include "common.cuh"
 
 using namespace spotlight;
 
 namespace {
 
-// ---- dot scoring ----------------------------------------------------------
+// ---- the rank pass (K1 and K5, dot and mixture scoring) -------------------
 
-constexpr int kDotThreads = 512;
-constexpr int kDotUsers = 64;                 // users a block, resident
-constexpr int kDotItems = 128;                // items a tile
-constexpr int kDotDepth = 32;                 // dimensions a staged slab
-constexpr int kDotStride = kDotItems + 4;     // padded row of a slab
-constexpr int kDotRI = 4;                     // items a thread scores
-constexpr int kDotRU = 4;                     // users a thread scores
-constexpr int kScoreStride = kDotUsers + 4;   // padded row of a score tile
+constexpr int kRankThreads = 512;
+constexpr int kRankDepth = 32;   // dimensions a staged slab
+constexpr int kRankRI = 4;       // items a thread scores
 // Targets a narrow launch holds in registers; target slots of the widest
-// wide launch.
+// wide launch, with dot and with mixture scoring.
 constexpr int kNarrowTargets = 4;
 constexpr int kWideTargets = 128;
+constexpr int kWideMixtureTargets = 32;
+// Targets a narrow launch of MP components a user holds: at MP = 8 a
+// thread's 64 dot accumulators leave room for one (four spill).
+template <int MP>
+__host__ __device__ constexpr int narrow_targets() {
+  return MP == kMaxMixtures ? 1 : kNarrowTargets;
+}
 // Shared memory one H100 block may use.
 constexpr size_t kMaxSharedBytes = 232448;
 
-// Shared memory of the dot kernel: the resident users and two item slabs,
-// then the narrow path's per-block counts or the wide path's score tile,
-// sorted targets and count bins (TP target slots, TP = 0 for narrow).
-// 232,448 bytes a block allow D <= 768 narrow, D <= 383 at TP = 128.
-size_t rank_dot_smem_bytes(int D, int TP) {
-  const size_t extra =
-      TP == 0 ? 2 * kDotUsers * kNarrowTargets
-              : kDotItems * kScoreStride + (2 * (size_t)TP + 1) * kDotUsers;
-  return sizeof(float) *
-         ((size_t)D * kDotUsers + 2 * kDotDepth * kDotStride + extra);
+// The shape of a rank block whose users have MP mixture components (MP = 0:
+// dot scoring).  A thread owns kRankRI items x kRU register columns: with
+// dot scoring 4 users of one column each, with mixture scoring one user's
+// 2 MP columns, its tastes then its attentions (MP is the user's M rounded
+// up to 2, 4 or 8; the columns past M hold zeros and are never combined).
+// Either way a block has 16 user slots, scores 128-item tiles with 512
+// threads, and shares every other constant.
+template <int MP>
+struct RankShape {
+  static constexpr int kCols = MP == 0 ? 1 : 2 * MP;   // columns a user
+  static constexpr int kUPT = MP == 0 ? 4 : 1;         // users a thread
+  static constexpr int kRU = kUPT * kCols;             // columns a thread
+  static constexpr int kUsers = 16 * kUPT;             // users a block
+  static constexpr int kUserStride = kUsers * kCols;   // staged users' row
+  static constexpr int kItems = 128;                   // items a tile
+  static constexpr int kItemStride = kItems + 4;       // padded slab row
+  static constexpr int kScoreStride = kUsers + 4;      // padded score row
+  static_assert(kRU % 4 == 0, "register tiles are float4s");
+};
+
+// Calls f(std::integral_constant<int, MP>()) with the MP of a launch of
+// mixtures components (0: dot scoring).
+template <class F>
+int with_shape(int mixtures, F f) {
+  if (mixtures == 0) return f(std::integral_constant<int, 0>());
+  if (mixtures <= 2) return f(std::integral_constant<int, 2>());
+  if (mixtures <= 4) return f(std::integral_constant<int, 4>());
+  return f(std::integral_constant<int, kMaxMixtures>());
 }
 
-// The dot score of one (user, row) pair in dot_tile_accumulate's order
-// (from -0.0, one product added at a time), then the bias: the same bits
-// as the catalogue pass's score of that pair.
-template <typename Item>
-__device__ __forceinline__ float dot_row_score(const float* user,
-                                               int user_stride,
-                                               const Item* row, float bias,
-                                               int D) {
-  float acc = -0.0f;
-  for (int d = 0; d < D; ++d)
-    acc = __fadd_rn(acc, __fmul_rn(user[d * user_stride], to_f32(row[d])));
-  return __fadd_rn(acc, bias);
+// Shared memory of a rank launch: the resident users and two item slabs,
+// then the narrow path's per-block counts or the wide path's score tile,
+// sorted targets and count bins (TP target slots, TP = 0 for narrow).
+// 232,448 bytes a block allow dot scoring D <= 768 narrow and D <= 383 at
+// TP = 128; mixtures D <= 774, 387 and 193 at MP = 2, 4 and 8.
+template <int MP>
+size_t rank_smem_bytes(int D, int TP) {
+  using S = RankShape<MP>;
+  const size_t extra =
+      TP == 0 ? 2 * S::kUsers * kNarrowTargets
+              : S::kItems * S::kScoreStride + (2 * (size_t)TP + 1) * S::kUsers;
+  return sizeof(float) * ((size_t)D * S::kUserStride +
+                          2 * kRankDepth * S::kItemStride + extra);
+}
+
+// The score of one (user, row) pair in the catalogue pass's order: each of
+// the user's columns dotted with the row from -0.0, one product added at a
+// time (dot_tile_accumulate's order), then the bias or the mixture
+// combine; the same bits as the catalogue pass's score of that pair.  user
+// points at the user's first column among the staged users.
+template <int MP, typename Item>
+__device__ __forceinline__ float row_score(const float* user, const Item* row,
+                                           float bias, int D, int mixtures) {
+  using S = RankShape<MP>;
+  float dots[S::kCols];
+#pragma unroll
+  for (int k = 0; k < S::kCols; ++k) dots[k] = -0.0f;
+  for (int d = 0; d < D; ++d) {
+    const float v = to_f32(row[d]);
+#pragma unroll
+    for (int k = 0; k < S::kCols; ++k)
+      dots[k] = __fadd_rn(dots[k],
+                          __fmul_rn(user[d * S::kUserStride + k], v));
+  }
+  if constexpr (MP == 0)
+    return __fadd_rn(dots[0], bias);
+  else
+    return mixture_combine<MP>(dots, mixtures, bias);
 }
 
 // Counts score s against target score ts: greater (s > ts) plus
@@ -161,45 +212,50 @@ __device__ __forceinline__ uint32_t sort_key(float v) {
 
 // K1 (COUNTS = false: half units to out_a; tids and out_b unused) or K5
 // (COUNTS = true: greater counts to out_a, equal counts to out_b, the row
-// whose id is tids[b, t] left out) with dot scoring.
+// whose id is tids[b, t] left out), with dot scoring (MP = 0) or mixtures
+// of mixtures <= MP components.
 // - Narrow (WIDE = false): T <= TP <= kNarrowTargets; each thread holds TP
-//   target scores of each of its kDotRU users in registers and compares
-//   its own scores against them.
+//   target scores of each of its kUPT users in registers and compares its
+//   own scores against them.
 // - Wide: T <= TP, a power of two; the block sorts each user's targets
-//   into shared memory once, then each thread takes one user and 16 items
+//   into shared memory once, then each thread takes one user and some items
 //   of the tile's shared scores and finds, by binary search, how many
 //   targets each score beats (p) or reaches (q); bins p and q of the user
 //   count it, and at the end target j's count is the sum of the bins above
 //   its rank j, so a score costs log2(TP) + 2 shared loads, not T compares.
-template <typename Item, int TP, bool WIDE, bool COUNTS>
-__global__ void __launch_bounds__(kDotThreads, 1)
-rank_dot_kernel(const float* __restrict__ users,
-                const Item* __restrict__ items,
-                const float* __restrict__ bias,
-                const float* __restrict__ tscores,
-                const int* __restrict__ tids, int* __restrict__ out_a,
-                int* __restrict__ out_b, int B, int N, int D, int T,
-                int tiles_per_split) {
-  constexpr int U = kDotUsers;
-  constexpr int RI = kDotRI;
-  constexpr int RU = kDotRU;
-  constexpr int kT = kDotThreads;
+template <typename Item, int MP, int TP, bool WIDE, bool COUNTS>
+__global__ void __launch_bounds__(kRankThreads, 1)
+rank_kernel(const float* __restrict__ users, const Item* __restrict__ items,
+            const float* __restrict__ bias, const float* __restrict__ tscores,
+            const int* __restrict__ tids, int* __restrict__ out_a,
+            int* __restrict__ out_b, int B, int N, int D, int T,
+            int mixtures, int tiles_per_split) {
+  using S = RankShape<MP>;
+  constexpr int U = S::kUsers;
+  constexpr int RI = kRankRI;
+  constexpr int RU = S::kRU;
+  constexpr int UPT = S::kUPT;
+  constexpr int US = S::kUserStride;
+  constexpr int TI = S::kItems;
+  constexpr int kIS = S::kItemStride;
+  constexpr int kSS = S::kScoreStride;
+  constexpr int kT = kRankThreads;
   constexpr int kWarps = kT / 32;
-  constexpr int kLoads = kDotItems * kDotDepth / kT;  // slab loads a thread
-  constexpr int kUserWarps = U / RU / 8;  // warps across the user groups
-  constexpr int kSlab = kDotDepth * kDotStride;
-  constexpr int kRows = kT / U;           // wide: threads a user
-  constexpr int kHeld = WIDE ? 1 : RU * TP;  // narrow: targets in registers
+  constexpr int kLoads = TI * kRankDepth / kT;  // slab loads a thread
+  constexpr int kUserWarps = U / UPT / 8;  // warps across the user slots
+  constexpr int kSlab = kRankDepth * kIS;
+  constexpr int kRows = kT / U;            // wide: threads a user
+  constexpr int kHeld = WIDE ? 1 : UPT * TP;  // narrow: targets in registers
   constexpr int GE = COUNTS ? 1 << 16 : 1;
-  static_assert((kDotItems / RI) * (U / RU) == kT, "one tile a block");
+  static_assert((TI / RI) * (U / UPT) == kT, "one tile a block");
   static_assert(WIDE ? (TP & (TP - 1)) == 0 && TP <= kWideTargets
-                     : TP <= kNarrowTargets, "target slots");
+                     : TP <= narrow_targets<MP>(), "target slots");
 
-  extern __shared__ __align__(16) float dot_smem[];
-  float* su = dot_smem;                     // [D][U] resident users
-  float* si = su + D * U;                   // [2][kDotDepth][kDotStride]
-  float* ss = si + 2 * kSlab;               // wide: [kDotItems][kScoreStride]
-  float* st = ss + kDotItems * kScoreStride;  // wide: [TP][U] sorted targets
+  extern __shared__ __align__(16) float rank_smem[];
+  float* su = rank_smem;                    // [D][US] resident users
+  float* si = su + D * US;                  // [2][kRankDepth][kIS]
+  float* ss = si + 2 * kSlab;               // wide: [TI][kSS]
+  float* st = ss + TI * kSS;                // wide: [TP][U] sorted targets
   int* bins = reinterpret_cast<int*>(st + TP * U);  // wide: [TP + 1][U]
   int* red = reinterpret_cast<int*>(ss);    // narrow: [2][U][TP] counts
 
@@ -207,16 +263,32 @@ rank_dot_kernel(const float* __restrict__ users,
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int b0 = blockIdx.x * U;
-  for (int e = tid; e < U * D; e += kT) {
-    const int u = e / D;
-    const int d = e - u * D;
-    su[d * U + u] = b0 + u < B ? users[(long long)(b0 + u) * D + d] : 0.0f;
+  // Column k of user u, dimension d, at su[d * US + u * kCols + k].
+  if constexpr (MP == 0) {
+    for (int e = tid; e < U * D; e += kT) {
+      const int u = e / D;
+      const int d = e - u * D;
+      su[d * U + u] = b0 + u < B ? users[(long long)(b0 + u) * D + d] : 0.0f;
+    }
+  } else {
+    const int width = 2 * mixtures * D;  // a user's row: tastes, attentions
+    for (int e = tid; e < U * S::kCols * D; e += kT) {
+      const int u = e / (S::kCols * D);
+      const int rest = e - u * S::kCols * D;
+      const int col = rest / D;
+      const int d = rest - col * D;
+      const int m = col < MP ? col : col - MP;    // the component's number
+      const int k = col < MP ? m : mixtures + m;  // its place in the row
+      su[d * US + u * S::kCols + col] =
+          b0 + u < B && m < mixtures
+              ? users[(long long)(b0 + u) * width + k * D + d] : 0.0f;
+    }
   }
 
-  // Scoring ownership: items 4 ig + r, users 4 ug + c; a warp covers 4
-  // item groups x 8 user groups, so its float4 reads of a dimension touch
-  // 64 and 128 contiguous bytes, and the 4 lanes that differ in lane & 3
-  // share users.
+  // Scoring ownership: items 4 ig + r, user slot ug (users kUPT ug + c); a
+  // warp covers 4 item groups x 8 user slots, so its float4 reads of a
+  // dimension touch 64 contiguous bytes of items and 8 slots of users, and
+  // the 4 lanes that differ in lane & 3 share users.
   const int ug = (warp % kUserWarps) * 8 + (lane >> 2);
   const int ig = (warp / kUserWarps) * 4 + (lane & 3);
   // Staging ownership: dimension sd of rows sr + kWarps j; a warp loads
@@ -259,22 +331,22 @@ rank_dot_kernel(const float* __restrict__ users,
     for (int e = tid; e < 2 * U * TP; e += kT) red[e] = 0;
 #pragma unroll
     for (int h = 0; h < kHeld; ++h) {
-      const int b = b0 + 4 * ug + h / TP;
+      const int b = b0 + UPT * ug + h / TP;
       const int t = h % TP;
       ts[h] = b < B && t < T ? tscores[(long long)b * T + t] : nan;
       count[h] = 0;
     }
   }
 
-  const int num_tiles = (N + kDotItems - 1) / kDotItems;
+  const int num_tiles = (N + TI - 1) / TI;
   const int tile_begin = blockIdx.y * tiles_per_split;
   const int tile_end = min(num_tiles, tile_begin + tiles_per_split);
-  const int slabs = (D + kDotDepth - 1) / kDotDepth;
+  const int slabs = (D + kRankDepth - 1) / kRankDepth;
 
   Item staged[kLoads];
   auto load_slab = [&](int tile, int slab) {
-    const int d = slab * kDotDepth + sd;
-    const long long row = (long long)tile * kDotItems + sr;
+    const int d = slab * kRankDepth + sd;
+    const long long row = (long long)tile * TI + sr;
 #pragma unroll
     for (int j = 0; j < kLoads; ++j) {
       const long long r = row + kWarps * j;
@@ -284,7 +356,7 @@ rank_dot_kernel(const float* __restrict__ users,
   auto store_slab = [&](float* slab) {
 #pragma unroll
     for (int j = 0; j < kLoads; ++j)
-      slab[sd * kDotStride + sr + kWarps * j] = to_f32(staged[j]);
+      slab[sd * kIS + sr + kWarps * j] = to_f32(staged[j]);
   };
 
   load_slab(tile_begin, 0);
@@ -303,7 +375,7 @@ rank_dot_kernel(const float* __restrict__ users,
     const bool more = next_tile < tile_end;
     if (more) load_slab(next_tile, next_slab);
 
-    const int row0 = tile * kDotItems;
+    const int row0 = tile * TI;
     if (slab == 0) {
 #pragma unroll
       for (int r = 0; r < RI; ++r) {
@@ -313,38 +385,50 @@ rank_dot_kernel(const float* __restrict__ users,
         for (int c = 0; c < RU; ++c) acc[r][c] = -0.0f;
       }
     }
-    const int d0 = slab * kDotDepth;
+    const int d0 = slab * kRankDepth;
     const float* slab_items = si + buf * kSlab + 4 * ig;
-    const float* slab_users = su + d0 * U + 4 * ug;
-    if (D - d0 >= kDotDepth)  // a full slab: a constant trip count
-      dot_tile_accumulate<RI, RU>(acc, kDotDepth, slab_items, kDotStride, 0,
-                                  slab_users, U, 0);
+    const float* slab_users = su + d0 * US + RU * ug;
+    if (D - d0 >= kRankDepth)  // a full slab: a constant trip count
+      dot_tile_accumulate<RI, RU>(acc, kRankDepth, slab_items, kIS, 0,
+                                  slab_users, US, 4);
     else
-      dot_tile_accumulate<RI, RU>(acc, D - d0, slab_items, kDotStride, 0,
-                                  slab_users, U, 0);
+      dot_tile_accumulate<RI, RU>(acc, D - d0, slab_items, kIS, 0,
+                                  slab_users, US, 4);
 
     const bool last = slab == slabs - 1;
     if (last) {
       // Rows at or past N score NaN, which no comparison counts.
-      float s[RI][RU];
+      float s[RI][UPT];
 #pragma unroll
-      for (int r = 0; r < RI; ++r)
+      for (int r = 0; r < RI; ++r) {
+        const bool live = row0 + 4 * ig + r < N;
+        if constexpr (MP == 0) {
 #pragma unroll
-        for (int c = 0; c < RU; ++c)
-          s[r][c] = row0 + 4 * ig + r < N
-                        ? __fadd_rn(acc[r][c], item_bias[r]) : nan;
+          for (int c = 0; c < UPT; ++c)
+            s[r][c] = live ? __fadd_rn(acc[r][c], item_bias[r]) : nan;
+        } else {
+          s[r][0] = live ? mixture_combine<MP>(acc[r], mixtures, item_bias[r])
+                         : nan;
+        }
+      }
       if constexpr (WIDE) {
         // With one slab a tile, no barrier yet separates the last tile's
         // searches from this tile's scores.
         if (slabs == 1) __syncthreads();
 #pragma unroll
-        for (int r = 0; r < RI; ++r)
-          *reinterpret_cast<float4*>(
-              ss + (4 * ig + r) * kScoreStride + 4 * ug) =
-              make_float4(s[r][0], s[r][1], s[r][2], s[r][3]);
+        for (int r = 0; r < RI; ++r) {
+          float* row = ss + (4 * ig + r) * kSS + UPT * ug;
+          if constexpr (UPT == 4) {
+            *reinterpret_cast<float4*>(row) =
+                make_float4(s[r][0], s[r][1], s[r][2], s[r][3]);
+          } else {
+#pragma unroll
+            for (int c = 0; c < UPT; ++c) row[c] = s[r][c];
+          }
+        }
       } else {
 #pragma unroll
-        for (int c = 0; c < RU; ++c)
+        for (int c = 0; c < UPT; ++c)
 #pragma unroll
           for (int t = 0; t < TP; ++t)
 #pragma unroll
@@ -358,8 +442,8 @@ rank_dot_kernel(const float* __restrict__ users,
       if (last) {
         const float* sorted = st + cu;
 #pragma unroll 2
-        for (int k = 0; k < kDotItems / kRows; ++k) {
-          const float s = ss[(trow + kRows * k) * kScoreStride + cu];
+        for (int k = 0; k < TI / kRows; ++k) {
+          const float s = ss[(trow + kRows * k) * kSS + cu];
           const int p = count_below<TP>(sorted, U, s);
           int q = p;
           while (q < TP && sorted[q * U] <= s) ++q;
@@ -383,8 +467,8 @@ rank_dot_kernel(const float* __restrict__ users,
   // first takes out the comparisons of row tids[b, t] if it lies in this
   // split (an id outside the split, or outside [0, N), excludes nothing
   // here).
-  const int row_begin = tile_begin * kDotItems;
-  const int row_end = min(N, tile_end * kDotItems);
+  const int row_begin = tile_begin * TI;
+  const int row_end = min(N, tile_end * TI);
   // a: K1's half units or K5's greater count; ge: K5's greater-or-equal
   // count.
   auto finish = [&](int u, int t, int a, int ge) {
@@ -395,8 +479,9 @@ rank_dot_kernel(const float* __restrict__ users,
       int e = ge - a;
       const int id = tids[bt];
       if (id >= row_begin && id < row_end) {
-        const float s = dot_row_score(su + u, U, items + (long long)id * D,
-                                      bias[id], D);
+        const float s = row_score<MP>(su + u * S::kCols,
+                                      items + (long long)id * D, bias[id],
+                                      D, mixtures);
         const float target = tscores[bt];
         a -= s > target ? 1 : 0;
         e -= s == target ? 1 : 0;
@@ -450,7 +535,7 @@ rank_dot_kernel(const float* __restrict__ users,
         if constexpr (COUNTS) e += __shfl_xor_sync(0xffffffffu, e, m);
       }
       if ((lane & 3) == 0) {
-        const int slot = (4 * ug + h / TP) * TP + h % TP;
+        const int slot = (UPT * ug + h / TP) * TP + h % TP;
         atomicAdd(&red_a[slot], a);
         if constexpr (COUNTS) atomicAdd(&red_b[slot], e);
       }
@@ -460,175 +545,86 @@ rank_dot_kernel(const float* __restrict__ users,
       finish(slot / TP, slot % TP, red_a[slot], red_b[slot]);
   }
 }
-template <typename Item, int TP, bool WIDE, bool COUNTS>
-int launch_dot(const float* users, const void* items, const float* bias,
-               const float* tscores, const int* tids, int* out_a,
-               int* out_b, int B, int N, int D, int T, int splits,
-               cudaStream_t stream) {
-  const size_t smem = rank_dot_smem_bytes(D, WIDE ? TP : 0);
-  auto kernel = rank_dot_kernel<Item, TP, WIDE, COUNTS>;
+
+template <typename Item, int MP, int TP, bool WIDE, bool COUNTS>
+int launch_rank(const float* users, const void* items, const float* bias,
+                const float* tscores, const int* tids, int* out_a,
+                int* out_b, int B, int N, int D, int T, int mixtures,
+                int splits, cudaStream_t stream) {
+  using S = RankShape<MP>;
+  const size_t smem = rank_smem_bytes<MP>(D, WIDE ? TP : 0);
+  auto kernel = rank_kernel<Item, MP, TP, WIDE, COUNTS>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int num_tiles = (N + kDotItems - 1) / kDotItems;
-  // K5 counts in half words: a narrow thread meets kDotRI rows of each
+  const int num_tiles = (N + S::kItems - 1) / S::kItems;
+  // K5 counts in half words: a narrow thread meets kRankRI rows of each
   // tile, a wide block's bin all of them, and neither may pass 65,535 rows.
-  constexpr int kMaxTiles = 65535 / (WIDE ? kDotItems : kDotRI);
+  constexpr int kMaxTiles = 65535 / (WIDE ? S::kItems : kRankRI);
   const int per_split = min(kMaxTiles, (num_tiles + splits - 1) / splits);
   const int used_splits = (num_tiles + per_split - 1) / per_split;
-  dim3 grid((B + kDotUsers - 1) / kDotUsers, used_splits);
-  kernel<<<grid, kDotThreads, smem, stream>>>(
+  dim3 grid((B + S::kUsers - 1) / S::kUsers, used_splits);
+  kernel<<<grid, kRankThreads, smem, stream>>>(
       users, static_cast<const Item*>(items), bias, tscores, tids, out_a,
-      out_b, B, N, D, T, per_split);
+      out_b, B, N, D, T, mixtures, per_split);
   return cudaGetLastError();
 }
 
+// Widest target block one launch takes at width D: the widest wide launch
+// whose shared memory fits, else a narrow one.
+template <int MP>
+int max_targets(int D) {
+  if constexpr (MP != 0) {
+    return rank_smem_bytes<MP>(D, kWideMixtureTargets) <= kMaxSharedBytes
+               ? kWideMixtureTargets : narrow_targets<MP>();
+  } else {
+    int tp = kWideTargets;
+    while (tp > kNarrowTargets &&
+           rank_smem_bytes<MP>(D, tp) > kMaxSharedBytes)
+      tp /= 2;
+    return tp;
+  }
+}
+
 // The narrowest instantiation that holds T targets.
-template <typename Item, bool COUNTS>
-int dispatch_dot(const float* users, const void* items, const float* bias,
-                 const float* tscores, const int* tids, int* out_a,
-                 int* out_b, int B, int N, int D, int T, int splits,
-                 cudaStream_t stream) {
-#define SPOTLIGHT_DOT(TP, WIDE)                                              \
-  return launch_dot<Item, TP, WIDE, COUNTS>(users, items, bias, tscores,    \
-                                            tids, out_a, out_b, B, N, D, T, \
-                                            splits, stream)
-  if (T <= 1) SPOTLIGHT_DOT(1, false);
-  if (T <= 2) SPOTLIGHT_DOT(2, false);
-  if (T <= kNarrowTargets) SPOTLIGHT_DOT(kNarrowTargets, false);
-  if (T <= 8) SPOTLIGHT_DOT(8, true);
-  if (T <= 16) SPOTLIGHT_DOT(16, true);
-  if (T <= 32) SPOTLIGHT_DOT(32, true);
-  if (T <= 64) SPOTLIGHT_DOT(64, true);
-  if (T <= kWideTargets) SPOTLIGHT_DOT(kWideTargets, true);
+template <typename Item, int MP, bool COUNTS>
+int dispatch_rank(const float* users, const void* items, const float* bias,
+                  const float* tscores, const int* tids, int* out_a,
+                  int* out_b, int B, int N, int D, int T, int mixtures,
+                  int splits, cudaStream_t stream) {
+#define SPOTLIGHT_RANK(TP, WIDE)                                         \
+  return launch_rank<Item, MP, TP, WIDE, COUNTS>(                        \
+      users, items, bias, tscores, tids, out_a, out_b, B, N, D, T,       \
+      mixtures, splits, stream)
+  if (T <= 1) SPOTLIGHT_RANK(1, false);
+  if constexpr (MP == 0) {
+    if (T <= 2) SPOTLIGHT_RANK(2, false);
+    if (T <= kNarrowTargets) SPOTLIGHT_RANK(kNarrowTargets, false);
+    if (T <= 8) SPOTLIGHT_RANK(8, true);
+    if (T <= 16) SPOTLIGHT_RANK(16, true);
+    if (T <= 32) SPOTLIGHT_RANK(32, true);
+    if (T <= 64) SPOTLIGHT_RANK(64, true);
+    if (T <= kWideTargets) SPOTLIGHT_RANK(kWideTargets, true);
+  } else {
+    if constexpr (narrow_targets<MP>() > 1)
+      if (T <= kNarrowTargets) SPOTLIGHT_RANK(kNarrowTargets, false);
+    if (T <= kWideMixtureTargets) SPOTLIGHT_RANK(kWideMixtureTargets, true);
+  }
   return cudaErrorInvalidValue;
-#undef SPOTLIGHT_DOT
+#undef SPOTLIGHT_RANK
 }
 
-// Widest target block one dot launch takes at width D: the widest wide
-// launch whose shared memory fits, else a narrow one.
-int dot_max_targets(int D) {
-  int tp = kWideTargets;
-  while (tp > kNarrowTargets &&
-         rank_dot_smem_bytes(D, tp) > kMaxSharedBytes)
-    tp /= 2;
-  return tp;
-}
-
-// ---- mixture scoring ------------------------------------------------------
-
-constexpr int kThreads = 256;
-constexpr int kItems = 64;              // items per tile
-constexpr int kIS = kItems + 1;         // padded stride of the item tile
-constexpr int kMixRU = 2;               // users a thread scores
-constexpr int kMixUsers = 16 * kMixRU;  // users a block (16 threads across)
-
-// Mixtures of at most MAXM tastes.  COUNTS = false writes K1's half units
-// to out_a (tids and out_b unused); COUNTS = true writes K5's greater
-// counts to out_a and equal counts to out_b, excluding the row whose id is
-// tids[b, t].
-template <typename Item, int MAXP, int MAXM, bool COUNTS>
-__global__ void __launch_bounds__(kThreads)
-rank_weights_kernel(const float* __restrict__ users,
-                    const Item* __restrict__ items,
-                    const float* __restrict__ bias,
-                    const float* __restrict__ tscores,
-                    const int* __restrict__ tids, int* __restrict__ out_a,
-                    int* __restrict__ out_b, int B, int N, int D, int T,
-                    int mixtures, int tiles_per_split) {
-  constexpr int RU = kMixRU;
-  constexpr int kUsers = kMixUsers;
-  constexpr int kUS = kUsers + 1;
-  constexpr int kRows = kThreads / kUsers;
-  const int K = 2 * mixtures * D;  // user operand width
-  extern __shared__ float smem[];
-  float* su = smem;               // [K][kUS]   resident users
-  float* si = su + K * kUS;       // [D][kIS]   item tile
-  float* ss = si + D * kIS;       // [kItems][kUS] tile scores
-  float* sb = ss + kItems * kUS;  // [kItems]   tile biases
-
-  const int tid = threadIdx.x;
-  const int b0 = blockIdx.x * kUsers;
-  stage_transposed(su, users, b0, kUsers, B, K, kUS);
-
-  // Comparison ownership: one user, targets t0, t0 + kRows, ...
-  const int cu = tid % kUsers;
-  const int t0 = tid / kUsers;
-  const int b = b0 + cu;
-  float ts[MAXP];
-  int count[MAXP];
-  int target_id[COUNTS ? MAXP : 1];
-  int equal[COUNTS ? MAXP : 1];
-#pragma unroll
-  for (int k = 0; k < MAXP; ++k) {
-    const int t = t0 + kRows * k;
-    const bool real = b < B && t < T;
-    ts[k] = real ? tscores[(long long)b * T + t] : 0.0f;
-    count[k] = 0;
-    if constexpr (COUNTS) {
-      target_id[k] = real ? tids[(long long)b * T + t] : -1;
-      equal[k] = 0;
-    }
-  }
-  // Scoring ownership: items ti + 16 r, users tu + 16 c.
-  const int ti = tid / 16;
-  const int tu = tid % 16;
-
-  const int num_tiles = (N + kItems - 1) / kItems;
-  const int tile_begin = blockIdx.y * tiles_per_split;
-  const int tile_end = min(num_tiles, tile_begin + tiles_per_split);
-  __syncthreads();
-
-  for (int tile = tile_begin; tile < tile_end; ++tile) {
-    const int row0 = tile * kItems;
-    stage_transposed(si, items, row0, kItems, N, D, kIS);
-    for (int i = tid; i < kItems; i += kThreads)
-      sb[i] = row0 + i < N ? bias[row0 + i] : 0.0f;
-    __syncthreads();
-
-    float acc[4][RU];
-    mixture_score_block<4, RU, MAXM>(
-        acc, mixtures, D,
-        [&](int r, int d) { return si[d * kIS + ti + 16 * r]; },
-        [&](int c, int k, int d) {
-          return su[(k * D + d) * kUS + tu + 16 * c];
-        },
-        [&](int r) { return sb[ti + 16 * r]; });
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < RU; ++c)
-        ss[(ti + 16 * r) * kUS + tu + 16 * c] = acc[r][c];
-    __syncthreads();
-
-    // Rows past the catalogue end never count.
-    const int valid = min(kItems, N - row0);
-    for (int i = 0; i < valid; ++i) {
-      const float s = ss[i * kUS + cu];
-      if constexpr (COUNTS) {
-#pragma unroll
-        for (int k = 0; k < MAXP; ++k) {
-          const int other = row0 + i != target_id[k];
-          count[k] += other & (s > ts[k]);
-          equal[k] += other & (s == ts[k]);
-        }
-      } else {
-#pragma unroll
-        for (int k = 0; k < MAXP; ++k)
-          count[k] += 2 * (s > ts[k]) + (s == ts[k]);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int k = 0; k < MAXP; ++k) {
-    const int t = t0 + kRows * k;
-    if (b >= B || t >= T) continue;
-    if (count[k] != 0) atomicAdd(&out_a[(long long)b * T + t], count[k]);
-    if constexpr (COUNTS)
-      if (equal[k] != 0) atomicAdd(&out_b[(long long)b * T + t], equal[k]);
-  }
+// K1 (COUNTS = false: tids and out_b unused) or K5.
+template <typename Item, bool COUNTS>
+int dispatch(const float* users, const void* items, const float* bias,
+             const float* tscores, const int* tids, int* out_a, int* out_b,
+             int B, int N, int D, int T, int mixtures, int splits,
+             cudaStream_t stream) {
+  return with_shape(mixtures, [&](auto mp) {
+    return dispatch_rank<Item, decltype(mp)::value, COUNTS>(
+        users, items, bias, tscores, tids, out_a, out_b, B, N, D, T,
+        mixtures, splits, stream);
+  });
 }
 
 template <typename Item>
@@ -672,70 +668,6 @@ __global__ void candidate_scores_kernel(const float* __restrict__ users,
   out[idx] = acc[0][0];
 }
 
-size_t rank_mixture_smem_bytes(int D, int mixtures) {
-  const size_t K = 2 * (size_t)mixtures * D;
-  return sizeof(float) * (K * (kMixUsers + 1) + (size_t)D * kIS +
-                          (size_t)kItems * (kMixUsers + 1) + kItems);
-}
-
-template <typename Item, int MAXP, int MAXM, bool COUNTS>
-int launch_mixture(const float* users, const void* items, const float* bias,
-                   const float* tscores, const int* tids, int* out_a,
-                   int* out_b, int B, int N, int D, int T, int mixtures,
-                   int splits, cudaStream_t stream) {
-  const size_t smem = rank_mixture_smem_bytes(D, mixtures);
-  auto kernel = rank_weights_kernel<Item, MAXP, MAXM, COUNTS>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const int num_tiles = (N + kItems - 1) / kItems;
-  const int per_split = (num_tiles + splits - 1) / splits;
-  const int used_splits = (num_tiles + per_split - 1) / per_split;
-  dim3 grid((B + kMixUsers - 1) / kMixUsers, used_splits);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      users, static_cast<const Item*>(items), bias, tscores, tids, out_a,
-      out_b, B, N, D, T, mixtures, per_split);
-  return cudaGetLastError();
-}
-
-// At most 4 targets a thread (32 a launch), since each carries a score (and
-// for K5 an id and two counters) in registers beside the M weights a pair.
-template <typename Item, bool COUNTS>
-int dispatch_mixture(const float* users, const void* items, const float* bias,
-                     const float* tscores, const int* tids, int* out_a,
-                     int* out_b, int B, int N, int D, int T, int mixtures,
-                     int splits, cudaStream_t stream) {
-#define SPOTLIGHT_MIXTURE(MAXP, MAXM)                                      \
-  return launch_mixture<Item, MAXP, MAXM, COUNTS>(                         \
-      users, items, bias, tscores, tids, out_a, out_b, B, N, D, T,         \
-      mixtures, splits, stream)
-  constexpr int rows = kThreads / kMixUsers;
-  if (mixtures <= 4) {
-    if (T <= 1 * rows) SPOTLIGHT_MIXTURE(1, 4);
-    if (T <= 4 * rows) SPOTLIGHT_MIXTURE(4, 4);
-    return cudaErrorInvalidValue;
-  }
-  if (T <= 1 * rows) SPOTLIGHT_MIXTURE(1, kMaxMixtures);
-  if (T <= 4 * rows) SPOTLIGHT_MIXTURE(4, kMaxMixtures);
-  return cudaErrorInvalidValue;
-#undef SPOTLIGHT_MIXTURE
-}
-
-// K1 (COUNTS = false: tids and equal unused) or K5.
-template <typename Item, bool COUNTS>
-int dispatch(const float* users, const void* items, const float* bias,
-             const float* tscores, const int* tids, int* out_a, int* out_b,
-             int B, int N, int D, int T, int mixtures, int splits,
-             cudaStream_t stream) {
-  if (mixtures == 0)
-    return dispatch_dot<Item, COUNTS>(users, items, bias, tscores, tids,
-                                      out_a, out_b, B, N, D, T, splits,
-                                      stream);
-  return dispatch_mixture<Item, COUNTS>(users, items, bias, tscores, tids,
-                                        out_a, out_b, B, N, D, T, mixtures,
-                                        splits, stream);
-}
-
 }  // namespace
 
 extern "C" {
@@ -743,18 +675,23 @@ extern "C" {
 // Widest target block one K1 or K5 launch takes at width D; the wrapper
 // chunks wider ones.
 int spotlight_rank_max_targets(int D, int mixtures) {
-  return mixtures > 0 ? 4 * (kThreads / kMixUsers) : dot_max_targets(D);
+  return with_shape(mixtures, [&](auto mp) {
+    return max_targets<decltype(mp)::value>(D);
+  });
 }
 
-// Users per block of the rank kernels.
+// Users per block of the rank kernel.
 int spotlight_rank_block_users(int mixtures) {
-  return mixtures > 0 ? kMixUsers : kDotUsers;
+  return with_shape(mixtures, [](auto mp) {
+    return RankShape<decltype(mp)::value>::kUsers;
+  });
 }
 
 // Shared memory of the narrowest launch at width D.
 size_t spotlight_rank_smem_bytes(int D, int mixtures) {
-  return mixtures > 0 ? rank_mixture_smem_bytes(D, mixtures)
-                      : rank_dot_smem_bytes(D, 0);
+  return (size_t)with_shape(mixtures, [&](auto mp) {
+    return (int)rank_smem_bytes<decltype(mp)::value>(D, 0);
+  });
 }
 
 // half_units (B, T) int32 must be zeroed by the caller.  users are (B, D)

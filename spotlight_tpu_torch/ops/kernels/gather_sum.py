@@ -126,12 +126,21 @@ def gather_sum_cuda(table, rows, mask_row_zero, acc_table):
     return out
 
 
+def sort_rows(rows):
+    """``(sorted_rows, order)``: one stable sort of the flat (B, k) rows as
+    int32 keys (validated rows lie in ``[0, C)``, C < 2^31; a sort of int32
+    keys takes half the radix passes of int64), ``order`` int64, equal rows
+    in ascending flat index ``b * k + j``."""
+    return torch.sort(rows.reshape(-1).to(torch.int32), stable=True)
+
+
 def scatter_rows_cuda(grad, rows, num_rows, mask_row_zero, acc_table,
                       out_dtype):
     """Launch the scatter-by-row kernel: ``grad`` (B, D) in the table's
-    dtype, ``rows`` the validated (B, k) int32 or int64 rows.  The index
-    preparation (a stable sort of the flat rows and each row's offset) is
-    torch's; the sums are the kernel's."""
+    dtype, ``rows`` the validated (B, k) int32 or int64 rows.  A call is one
+    stable sort of the flat rows (:func:`sort_rows`) and one launch, which
+    reads the sort's two outputs as they are, with no host
+    synchronisation."""
     lib = _build.load('gather_sum')
     grad = grad.to(out_dtype).contiguous()
     dim = grad.shape[1]
@@ -140,14 +149,11 @@ def scatter_rows_cuda(grad, rows, num_rows, mask_row_zero, acc_table,
         return dtable
     if rows.numel() == 0:
         return dtable.zero_()
-    sorted_rows, order = torch.sort(rows.reshape(-1), stable=True)
-    offsets = torch.searchsorted(
-        sorted_rows, torch.arange(num_rows + 1, dtype=sorted_rows.dtype,
-                                  device=grad.device), out_int32=True)
-    order = order.to(torch.int32)
+    sorted_rows, order = sort_rows(rows)
     status = lib.spotlight_scatter_rows(
-        grad.data_ptr(), int(out_dtype == torch.bfloat16), order.data_ptr(),
-        offsets.data_ptr(), dtable.data_ptr(), num_rows, rows.shape[1], dim,
-        int(mask_row_zero), int(acc_table), stream_handle(grad.device))
+        grad.data_ptr(), int(out_dtype == torch.bfloat16),
+        sorted_rows.data_ptr(), order.data_ptr(), order.numel(),
+        dtable.data_ptr(), num_rows, rows.shape[1], dim, int(mask_row_zero),
+        int(acc_table), stream_handle(grad.device))
     _build.check(status, 'scatter_rows kernel')
     return dtable

@@ -43,10 +43,10 @@ CANDIDATE_SCORES_LAUNCHES = 0
 #: Most mixture components the kernels take (``kMaxMixtures``, common.cuh).
 MAX_MIXTURES = 8
 
-# Items per tile of the mixture rank kernel (csrc/ranking.cu).
+# Items per tile of the mixture top-k stage 1 (csrc/topk.cu).
 _TILE_ITEMS = 64
 _MAX_SHARED = 232448       # bytes of shared memory one H100 block may use
-_BLOCKS_PER_SM = 4         # mixture blocks in flight per SM the splits aim at
+_BLOCKS_PER_SM = 4         # its blocks in flight per SM the splits aim at
 
 
 def on_cuda(*tensors):
@@ -104,24 +104,22 @@ def catalogue_splits(user_blocks, num_items, device, cap=None):
     return min(splits, cap) if cap else splits
 
 
-def _rank_splits(lib, batch, num_items, device, mixtures):
-    """Catalogue splits per user block of a rank launch.  The dot kernel
+def _rank_splits(lib, batch, device, mixtures):
+    """Catalogue splits per user block of a rank launch.  The rank kernel
     runs one block an SM and its blocks cost the same, so it takes as many
     splits as fill one wave (rounded down: a second, partial wave would
     double the time; the kernel drops splits beyond the catalogue's tiles
-    and adds some where a split would hold more than its counts take); the
-    mixture kernel takes ``catalogue_splits``' several blocks an SM."""
+    and adds some where a split would hold more than its counts take)."""
     user_blocks = -(-batch // lib.spotlight_rank_block_users(mixtures))
-    if mixtures:
-        return catalogue_splits(user_blocks, num_items, device)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, sms // user_blocks)
 
 
 def _check_width(lib, dim, mixtures):
-    """The rank kernels hold their users and an item tile in shared memory:
+    """The rank kernel holds its users and two item slabs in shared memory:
     dot scoring takes D <= 768 (with fewer targets a launch past D = 383),
-    mixtures of M tastes narrower ones."""
+    mixtures of M <= 2, 4 or 8 tastes D <= 774, 387 or 193 (with fewer
+    targets a launch past D = 719, 359 or 179)."""
     if lib.spotlight_rank_smem_bytes(dim, mixtures) > _MAX_SHARED:
         raise ValueError('embedding width {} exceeds the rank kernel\'s '
                          'shared memory'.format(dim))
@@ -257,7 +255,7 @@ def _rank_weights_cuda(user_reprs, item_matrix, item_bias, target_scores,
     mixtures = num_mixtures or 0
     _check_width(lib, dim, mixtures)
     device = user_reprs.device
-    splits = _rank_splits(lib, batch, num_items, device, mixtures)
+    splits = _rank_splits(lib, batch, device, mixtures)
     chunk = lib.spotlight_rank_max_targets(dim, mixtures)
     stream = stream_handle(device)
     parts = []
@@ -353,7 +351,7 @@ def _rank_counts_cuda(user_reprs, item_matrix, item_bias, target_scores,
     target_ids = torch.where((target_ids >= 0) & (target_ids < num_items),
                              target_ids, -1).to(torch.int32)
     device = user_reprs.device
-    splits = _rank_splits(lib, batch, num_items, device, mixtures)
+    splits = _rank_splits(lib, batch, device, mixtures)
     chunk = lib.spotlight_rank_max_targets(dim, mixtures)
     stream = stream_handle(device)
     greater_parts, equal_parts = [], []

@@ -289,6 +289,84 @@ def test_mixture_rank_kernels_equal_plain_versions(cuda, batch, num_items,
     assert _ulp_gap(ts_plain, torch.gather(catalogue.T, 1, ids)) == 0
 
 
+def _mixture_rank_operands(seed, batch, num_items, dim, mixtures, dtype):
+    """Mixture operands with exact ties and signed zeros among the scores:
+    item 6 copies item 5, every seventh item has bias 0, and the first
+    users have all-zero tastes (their scores against those items are
+    +-0.0)."""
+    users, items, bias = _operands(seed, batch, num_items, dim,
+                                   item_dtype=dtype, mixtures=mixtures)
+    users = users / dim ** .5
+    items[6], bias[6] = items[5], bias[5]
+    bias[::7] = 0.0
+    users[:3, :mixtures * dim] = 0.0
+    return users, items, bias
+
+
+def _check_mixture_rank(users, items, bias, mixtures, width, seed):
+    """K1 and K5 with mixture scoring against their plain versions on the
+    same target scores, exactly: K1 on K4's target scores (each target
+    ties itself), K5 with target ids in and outside [0, N) and target
+    scores matched, drawn at random, -0.0 and +0.0."""
+    batch, num_items = users.shape[0], items.shape[0]
+    gen = torch.Generator().manual_seed(seed)
+    ids = torch.randint(0, num_items, (batch, width), generator=gen).to('cuda')
+    ids[:, 0] = 5
+    ts = ranking.matched_candidate_scores(users, items, bias, ids, mixtures)
+    weights = ranking.rank_weights(users, items, bias, ts, mixtures)
+    assert torch.equal(weights, ranking.rank_weights_plain(
+        users, items, bias, ts, mixtures))
+    assert bool((weights >= 0.5).all())   # every target tied itself
+    # Item 5's duplicate, item 6, ties it: item 5's weight counts it.
+    assert bool((weights[:, 0] >= 1.0).all())
+
+    tids = torch.randint(-3, num_items + 3, (batch, width),
+                         generator=gen).to('cuda')
+    ts = ranking.matched_candidate_scores(
+        users, items, bias, tids.clamp(0, num_items - 1), mixtures)
+    ts[:, 1::2] = torch.randn(batch, width // 2, generator=gen).to('cuda')
+    ts[::2, -1] = -0.0
+    ts[1::2, -1] = 0.0
+    greater, equal = ranking.rank_counts(users, items, bias, ts, tids,
+                                         mixtures)
+    want = ranking.rank_counts_plain(users, items, bias, ts, tids, mixtures)
+    assert torch.equal(greater, want[0]) and torch.equal(equal, want[1])
+
+
+@pytest.mark.parametrize('dim', [1, 33, 64])
+@pytest.mark.parametrize('mixtures', [1, 2, 3, 4, 8])
+def test_mixture_rank_pass_equals_plain_versions(cuda, mixtures, dim):
+    """K1 and K5 with mixture scoring (the register-tiled rank pass) for
+    every padding of M (1 and 2 in 4 columns a user, 3 and 4 in 8, 8 in
+    16), at T = 1 and 4 (targets in registers), 5 and 32 (sorted targets)
+    and 33 (two launches), bf16 items at odd widths, over catalogues that
+    end inside a 128-item tile."""
+    dtype = torch.bfloat16 if dim == 33 else torch.float32
+    users, items, bias = _mixture_rank_operands(
+        mixtures * 10 + dim, 37, 1000 + dim, dim, mixtures, dtype)
+    for width in (1, 4, 5, 32, 33):
+        _check_mixture_rank(users, items, bias, mixtures, width, width)
+
+
+@pytest.mark.parametrize('mixtures,widest', [(4, 387), (8, 193)])
+def test_mixture_rank_pass_widest_embedding(cuda, mixtures, widest):
+    """16 resident users of 2M columns fill a block's shared memory at
+    D = 387 (M <= 4) and 193 (M <= 8); a launch takes fewer targets there
+    (the sorted targets no longer fit), and one dimension more raises."""
+    users, items, bias = _mixture_rank_operands(
+        widest, 20, 300, widest + 1, mixtures, torch.float32)
+    ts = torch.zeros(20, 5, device=cuda)
+    ids = torch.zeros(20, 5, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match='shared memory'):
+        ranking.rank_weights(users, items, bias, ts, mixtures)
+    with pytest.raises(ValueError, match='shared memory'):
+        ranking.rank_counts(users, items, bias, ts, ids, mixtures)
+    users = users.reshape(20, 2 * mixtures, widest + 1)[:, :, :widest]
+    users = users.reshape(20, -1).contiguous()
+    items = items[:, :widest].contiguous()
+    _check_mixture_rank(users, items, bias, mixtures, 5, 11)
+
+
 @pytest.mark.parametrize('k', [1, 10, 64, 256, 300])
 @pytest.mark.parametrize('mixtures', [2, 4])
 def test_mixture_topk_kernel_equals_plain_version(cuda, k, mixtures):
@@ -669,6 +747,125 @@ def test_each_new_launch_counts_once(cuda):
     for dtype, want in ((torch.int64, torch.int64), (torch.int32, torch.int32),
                         (torch.int16, torch.int32)):
         assert gather_sum.check_operands(table, rows.to(dtype)).dtype == want
+
+
+def _scatter_operands(seed, batch, num_rows, dim, hashes, dtype, rows_dtype,
+                      fill=None):
+    """A cotangent (B, D) and rows (B, k) with a duplicated hash and some
+    row-0 contributions; every row ``fill`` when given."""
+    rs = np.random.RandomState(seed)
+    rows = rs.randint(0, num_rows, (batch, hashes))
+    if fill is not None:
+        rows[:] = fill
+    elif rows.size:
+        rows[0, :2] = min(3, num_rows - 1)
+        rows[1::5, 0] = 0
+    grad = rs.randn(batch, dim).astype(np.float32)
+    grad[2::7] = -0.0
+    return (torch.from_numpy(grad).to(device='cuda', dtype=dtype),
+            torch.from_numpy(rows).to(device='cuda', dtype=rows_dtype))
+
+
+def _check_scatter(grad, rows, num_rows, mask, acc_table):
+    """The backward kernel against its plain version bit for bit, and in
+    the same bits in two launches."""
+    acc_dtype = grad.dtype if acc_table else torch.float32
+    first = gather_sum.scatter_rows_cuda(grad, rows, num_rows, mask,
+                                         acc_table, grad.dtype)
+    again = gather_sum.scatter_rows_cuda(grad, rows, num_rows, mask,
+                                         acc_table, grad.dtype)
+    want = gather_sum.scatter_rows_plain(grad, rows, num_rows, mask,
+                                         acc_dtype, grad.dtype)
+    assert first.shape == (num_rows, grad.shape[1])
+    assert first.dtype == grad.dtype
+    assert torch.equal(_bits(first), _bits(want))
+    assert torch.equal(_bits(first), _bits(again))
+    if mask and num_rows:
+        assert not bool(_bits(first[0]).any())
+    return first
+
+
+@pytest.mark.parametrize('acc_table', [False, True])
+@pytest.mark.parametrize('mask', [False, True])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('rows_dtype', [torch.int64, torch.int32])
+def test_scatter_rows_kernel_equals_plain_version(cuda, rows_dtype, dtype,
+                                                  mask, acc_table):
+    """The gather-sum backward (K6's and K7b) from one stable sort and one
+    launch, in every instantiation: rows int32 and int64, float32 and
+    bfloat16, row 0 masked or not, the sum in float32 or in the table's
+    dtype."""
+    grad, rows = _scatter_operands(7, 700, 1500, 64, 4, dtype, rows_dtype)
+    _check_scatter(grad, rows, 1500, mask, acc_table)
+
+
+@pytest.mark.parametrize('case', [
+    dict(batch=300, num_rows=200, dim=64, hashes=4, fill=5),   # one row
+    dict(batch=300, num_rows=200, dim=64, hashes=4, fill=0),   # all row 0
+    dict(batch=64, num_rows=1, dim=32, hashes=3, fill=None),   # C = 1
+    dict(batch=500, num_rows=300, dim=64, hashes=1, fill=None),  # k = 1
+    dict(batch=90, num_rows=70, dim=30, hashes=4, fill=None),  # no vectors
+    dict(batch=90, num_rows=70, dim=12, hashes=4, fill=None,
+         dtype=torch.bfloat16),                                # bf16, D=12
+    dict(batch=40, num_rows=100000, dim=8, hashes=2, fill=None),  # sparse
+], ids=['one-row', 'row-zero', 'C1', 'k1', 'D30', 'bf16-D12', 'sparse'])
+@pytest.mark.parametrize('mask', [False, True])
+def test_scatter_rows_kernel_edges(cuda, case, mask):
+    case = dict(case)
+    dtype = case.pop('dtype', torch.float32)
+    grad, rows = _scatter_operands(8, case['batch'], case['num_rows'],
+                                   case['dim'], case['hashes'], dtype,
+                                   torch.int64, case['fill'])
+    got = _check_scatter(grad, rows, case['num_rows'], mask, False)
+    if case['fill'] == 0 and mask:
+        assert not bool(_bits(got).any())
+
+
+def test_scatter_rows_kernel_on_one_row_taking_every_contribution(cuda):
+    """A skewed bloom row: all B * k = 32,768 contributions land on row 7,
+    walked in ascending flat index by the threads of one row."""
+    grad, rows = _scatter_operands(9, 8192, 4096, 64, 4, torch.float32,
+                                   torch.int64, fill=7)
+    for acc_table in (False, True):
+        got = _check_scatter(grad, rows, 4096, False, acc_table)
+        assert bool(_bits(got[7]).any())
+        assert not bool(_bits(got[:7]).any())
+
+
+@pytest.mark.parametrize('batch,hashes', [(0, 4), (5, 0), (0, 0)])
+def test_scatter_rows_kernel_without_contributions(cuda, batch, hashes):
+    """B = 0 or k = 0: a zero table gradient."""
+    grad = torch.randn(batch, 16, device=cuda)
+    rows = torch.zeros(batch, hashes, dtype=torch.int64, device=cuda)
+    for mask in (False, True):
+        got = gather_sum.scatter_rows_cuda(grad, rows, 9, mask, False,
+                                           torch.float32)
+        assert got.shape == (9, 16) and not bool(_bits(got).any())
+
+
+@pytest.mark.parametrize('rows_dtype', [torch.int64, torch.int32])
+def test_scatter_rows_is_one_sort_and_one_launch(cuda, rows_dtype):
+    """A backward call on the card is the stable sort's device work (int64
+    rows cast to int32 keys first) and one scatter launch, nothing else, and
+    reads nothing back."""
+    table, rows, cotangent = _bloom_operands(3, 8192, 65536, 64, 4,
+                                             torch.float32)
+    rows = rows.to(rows_dtype)
+    grad = cotangent.contiguous()
+    gather_sum.scatter_rows_cuda(grad, rows, 65536, True, False,
+                                 torch.float32)                 # builds
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        gather_sum.scatter_rows_cuda(grad, rows, 65536, True, False,
+                                     torch.float32)
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    sort = _device_kernels(lambda: gather_sum.sort_rows(rows))
+    call = _device_kernels(lambda: gather_sum.scatter_rows_cuda(
+        grad, rows, 65536, True, False, torch.float32))
+    assert len(call) == len(sort) + 1
+    assert sum('scatter_rows_kernel' in name for name in call) == 1
 
 
 def _row_operands(seed, num_rows, width, n, dtype, device, deep=0):
