@@ -15,16 +15,18 @@ each of which exits non-zero when it fails:
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    card, on seeded inputs at D=64 over N=200,000 items, bit for bit (the
    mixture kernels: M=4, B=2,048 for K4 and B=256 for K1 and K2, counts
-   and ids exactly, scores within 2 ulp, the largest gap printed); the
-   median time of each, the plain version's, one PyTorch call's where one
-   computes the same function, and the card's bound for the work.
+   and ids exactly, K2's scores bit for bit, K4's within 2 ulp, the
+   largest gap printed); the median time of each, the plain version's, one
+   PyTorch call's where one computes the same function, and the card's
+   bound for the work.
 4. slice: the implicit-MF serving path at full width: 50,000 users x
    200,000 items, D=64, ``predict``, ``mrr_score`` over 20,000 test users
    with a train mask and ``precision_recall_score`` at k=10 with a train
-   mask holding a 120-item heavy user.  The launch counters are zeroed
-   just before and read just after; every kernel must have launched.  On
-   the first 2,048 users the streaming path must agree with the
-   materialize path.
+   mask holding a 120-item heavy user.  The launch counters and
+   ``evaluation.MATERIALIZE_ROUTES`` are zeroed just before and read just
+   after; every kernel must have launched and no metric call may have
+   taken the materialize route (so in phases 6 and 7).  On the first 2,048
+   users the streaming path must agree with the materialize path.
 5. profile: a warm call of each metric on the host clock, then where the
    device time of one more call goes, by kernel, and the host's
    preprocessing time.
@@ -35,7 +37,8 @@ each of which exits non-zero when it fails:
    ``exclude_preceding`` and ``sequence_precision_recall_score`` at k=10,
    with the launch counters zeroed just before and read just after; the
    mixture K1 and K2 once more at the main path's batch of 2,048 on its
-   own operands, against their plain versions in 256-sequence slices; on
+   own operands, against their plain versions in 256-sequence slices (K2's
+   scores bit for bit); on
    the first 256 sequences the streaming path against the materialize
    path, each rank that differs printed and held to the exact rank of the
    plain catalogue pass; then a duplicated-row tie check (every rank
@@ -88,6 +91,13 @@ each of which exits non-zero when it fails:
    ``fit`` and ``mrr_score`` on the card; one lazy step on the card against the same
    step on the CPU (gradients within rtol 1e-5, its P1 calls bit-equal to
    the plain version).
+10. routes (run after phase 5): models the kernels do not take go through
+   their metrics on the materialize path, chosen before any launch and
+   counted once a call in ``evaluation.MATERIALIZE_ROUTES``: a
+   ``BilinearNet`` of D=262 over phase 4's catalogue and first 2,048 test
+   users (the rank kernel takes it, the top-10 fetch's stage 1 takes
+   D <= 261), and phase 6's mixture model with 9 tastes (the kernels take
+   8) over 256 sequences; each metric equal to ``streaming=False``'s.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -151,6 +161,11 @@ BLOOM_ROWS = int(BLOOM_RATIO * BLOOM_ITEMS)
 #: scripts/bloom_kernel_bench.py's lookup shapes.
 LOOKUP_BATCH = 8_192
 LOOKUP_ROWS = (4_096, 65_536, 262_144)
+#: Phase 10, routes: a BilinearNet wider than the top-10 fetch's stage 1
+#: takes (D <= 261 at lists of up to 64 keys; the rank kernel takes
+#: D <= 768), and a mixture of more tastes than the kernels take (8).
+ROUTE_DIM = 262
+ROUTE_MIXTURES = 9
 #: Phase 9, training: scripts/bench_suite.py's bench_lazy_knobs (the lazy
 #: engine) and bench.py (the dense engine), not cut; the probe's P1 shapes.
 TRAIN_DIM = 64
@@ -249,6 +264,13 @@ def ulp_gap(torch, a, b):
         bits = x.contiguous().view(torch.int32).to(torch.int64)
         return torch.where(bits < 0, -(bits & 0x7fffffff), bits)
     return int((ordered(a) - ordered(b)).abs().max()) if a.numel() else 0
+
+
+def same_bits(torch, a, b):
+    """Whether two float32 tensors hold the same bits (signs of zeros
+    included)."""
+    return torch.equal(a.contiguous().view(torch.int32),
+                       b.contiguous().view(torch.int32))
 
 
 def card_line():
@@ -418,8 +440,8 @@ def check_mixture_kernels(torch, card, generator):
     """K4 at the main path's widths (B=2048 with T=1, the targets, and
     T=49, the ``exclude_preceding`` prefixes), and K1 and K2 with mixture
     scoring at B=256 (T=1 and k=10, and the k=59 of a P@10 fetch over 49
-    excluded ids).  Counts and ids must be equal, scores within 2 ulp.
-    Returns K4's kernel-table entry; those of K1, K2 and K3 with mixture
+    excluded ids).  Counts and ids must be equal, K2's scores bit for bit,
+    K4's within 2 ulp.  Returns K4's kernel-table entry; those of K1, K2 and K3 with mixture
     scoring come from the main path's operands (check_sequence_kernels)."""
     from spotlight_tpu_torch.ops.kernels import ranking, topk
 
@@ -496,7 +518,8 @@ def check_mixture_kernels(torch, card, generator):
         p_scores, p_top = topk.streaming_topk_plain(users, items, bias, k,
                                                     MIXTURES)
         gap = ulp_gap(torch, scores, p_scores)
-        if not torch.equal(top, p_top) or gap > 2:
+        if not (torch.equal(top, p_top) and same_bits(torch, scores,
+                                                      p_scores)):
             raise AssertionError(
                 'mixture streaming_topk differs from its plain version at '
                 'k={}: {} ids, {} ulp'.format(k, int((top != p_top).sum()),
@@ -523,8 +546,8 @@ def dyadic(values, step):
     return (np.round(values / step) * step).astype(np.float32)
 
 
-def parameter_tree(rs):
-    """A JAX-layout fused parameter tree for D=64.
+def parameter_tree(rs, dim=D):
+    """A JAX-layout fused parameter tree of width ``dim``.
 
     The factors are N(0, 1/D) draws (the JAX package's initialisation: a
     standard normal over D) rounded to multiples of 2^-12, and the biases
@@ -534,9 +557,9 @@ def parameter_tree(rs):
     streaming kernels and the materialize path (a cuBLAS product) must
     agree exactly, ties included."""
     def table(rows):
-        weight = np.empty((rows, D + 1), np.float32)
-        weight[:, :D] = dyadic(rs.randn(rows, D) / D, 2.0 ** -12)
-        weight[:, D] = dyadic(2.0 ** -9 * rs.randn(rows), 2.0 ** -16)
+        weight = np.empty((rows, dim + 1), np.float32)
+        weight[:, :dim] = dyadic(rs.randn(rows, dim) / dim, 2.0 ** -12)
+        weight[:, dim] = dyadic(2.0 ** -9 * rs.randn(rows), 2.0 ** -16)
         return {'weight': weight}
 
     return {'user_embeddings': table(NUM_USERS),
@@ -562,11 +585,24 @@ def counters():
 
 
 def reset_counters():
+    from spotlight_tpu_torch import evaluation
     from spotlight_tpu_torch.ops.kernels import ranking, topk
 
     ranking.RANK_WEIGHTS_LAUNCHES = 0
     ranking.MATCHED_SCORES_LAUNCHES = 0
     topk.STREAMING_TOPK_LAUNCHES = 0
+    evaluation.MATERIALIZE_ROUTES = 0
+
+
+def check_streamed(where):
+    """No metric call of a main path took the materialize route."""
+    from spotlight_tpu_torch import evaluation
+
+    routes = evaluation.MATERIALIZE_ROUTES
+    log(materialize_routes=routes, path=where)
+    if routes:
+        raise AssertionError('{} metric calls of the {} took the materialize '
+                             'route'.format(routes, where))
 
 
 def run_slice(torch, card):
@@ -626,6 +662,7 @@ def run_slice(torch, card):
         if count <= 0:
             raise AssertionError('{} never launched on the main path'
                                  .format(name))
+    check_streamed('main path')
 
     # predict against a float64 recomputation on the host.
     users64 = tree['user_embeddings']['weight'].astype(np.float64)
@@ -689,14 +726,19 @@ def sequence_counters():
             'matched_candidate_scores': ranking.CANDIDATE_SCORES_LAUNCHES}
 
 
+def sequence_rows():
+    """The sequences of mixture_catalog_eval_200k, seeded."""
+    return np.random.RandomState(42).randint(
+        1, NUM_ITEMS, (SEQ_ROWS, SEQ_LENGTH)).astype(np.int32)
+
+
 def sequence_model():
     """The untrained mixture model of mixture_catalog_eval_200k, seeded
     (its item biases are zero), and the sequences."""
     from spotlight_tpu_torch.data import SequenceInteractions
     from spotlight_tpu_torch.sequence import ImplicitSequenceModel
 
-    sequences = np.random.RandomState(42).randint(
-        1, NUM_ITEMS, (SEQ_ROWS, SEQ_LENGTH)).astype(np.int32)
+    sequences = sequence_rows()
     model = ImplicitSequenceModel(loss='bpr', representation='mixture',
                                   embedding_dim=D,
                                   random_state=np.random.RandomState(0))
@@ -706,6 +748,7 @@ def sequence_model():
 
 def run_sequence_slice(torch, card):
     """Returns (launch counts of the main path, model, test set)."""
+    from spotlight_tpu_torch import evaluation
     from spotlight_tpu_torch.data import SequenceInteractions
     from spotlight_tpu_torch.evaluation import (
         sequence_mrr_score, sequence_precision_recall_score)
@@ -722,6 +765,7 @@ def run_sequence_slice(torch, card):
     ranking.MIXTURE_RANK_WEIGHTS_LAUNCHES = 0
     ranking.CANDIDATE_SCORES_LAUNCHES = 0
     topk.MIXTURE_STREAMING_TOPK_LAUNCHES = 0
+    evaluation.MATERIALIZE_ROUTES = 0
     seconds = {}
     start = time.perf_counter()
     scores = model.predict(sequences[0])
@@ -744,6 +788,7 @@ def run_sequence_slice(torch, card):
         if count <= 0:
             raise AssertionError('{} never launched on the sequence path'
                                  .format(name))
+    check_streamed('sequence path')
 
     # predict against the plain K3 scores of the same representation.
     final, items, bias, mixtures = model._rank_factors_sequences(
@@ -870,7 +915,7 @@ def check_sequence_kernels(torch, card, model, test):
     ``sequence_mrr_score`` and of ``sequence_precision_recall_score`` at
     k=10), so the launch grid is the one the main path ran; their plain
     versions in MIX_BATCH-sequence slices.  Counts and ids must be equal,
-    scores within 2 ulp.  K3, which has no launch of its own, is held by
+    K2's scores bit for bit.  K3, which has no launch of its own, is held by
     K4's target scores and K2's top-k scores against the plain catalogue
     pass.  Returns the kernel-table entries of K1, K2 and K3 with mixture
     scoring."""
@@ -921,7 +966,7 @@ def check_sequence_kernels(torch, card, model, test):
     p_top = torch.cat([p[1] for p in pairs])
     # The plain top-k scores are the plain catalogue pass's.
     gap = ulp_gap(torch, scores, p_scores)
-    if not torch.equal(top, p_top) or gap > 2:
+    if not (torch.equal(top, p_top) and same_bits(torch, scores, p_scores)):
         raise AssertionError(
             'mixture streaming_topk at B={} k={} differs from its plain '
             'version: {} ids, {} ulp'.format(batch, SEQ_K,
@@ -1056,6 +1101,7 @@ def run_bloom_slice(torch, card):
         if count <= 0:
             raise AssertionError('{} never launched on the bloom path'
                                  .format(name))
+    check_streamed('bloom path')
 
     # predict against the plain catalogue pass of the same representation.
     final, items, bias, mixtures = model._rank_factors_sequences(
@@ -2259,6 +2305,103 @@ def profile_call(torch, card, name, call):
         top_kernels_ms=dict(top), card=card)
 
 
+# -- phase 10: the routes past the kernels -----------------------------------
+
+def routed(metric, *args, **kwargs):
+    """(metric result, materialize routes it counted, streaming=False's
+    result)."""
+    from spotlight_tpu_torch import evaluation
+
+    before = evaluation.MATERIALIZE_ROUTES
+    got = metric(*args, **kwargs)
+    routes = evaluation.MATERIALIZE_ROUTES - before
+    return got, routes, metric(*args, streaming=False, **kwargs)
+
+
+def check_routes(torch, card, test, train):
+    """A BilinearNet of D=ROUTE_DIM over phase 4's catalogue and its first
+    CHECK_USERS test users, and phase 6's mixture model with ROUTE_MIXTURES
+    tastes over SEQ_CHECK sequences, through their metrics with the
+    default ``streaming=True``: a call the kernels take streams (its
+    kernels launch), a call they do not take runs on the materialize path
+    and counts once in MATERIALIZE_ROUTES (its kernels do not launch).
+    Each metric equals streaming=False's: the BilinearNet's dyadic
+    factors (parameter_tree) score exactly in any order, and the mixture
+    model's calls all take the materialize path."""
+    from spotlight_tpu_torch import evaluation
+    from spotlight_tpu_torch.data import SequenceInteractions
+    from spotlight_tpu_torch.evaluation import (
+        mrr_score, precision_recall_score, sequence_mrr_score,
+        sequence_precision_recall_score)
+    from spotlight_tpu_torch.factorization import ImplicitFactorizationModel
+    from spotlight_tpu_torch.ops.kernels import ranking, topk
+    from spotlight_tpu_torch.sequence import (ImplicitSequenceModel,
+                                              MixtureLSTMNet)
+    from spotlight_tpu_torch.utils.convert import params_from_jax
+
+    def check(name, want_routes, launch_count, metric, *args, **kwargs):
+        before = launch_count()
+        got, routes, materialized = routed(metric, *args, **kwargs)
+        launched = launch_count() - before
+        if routes != want_routes or (launched > 0) != (want_routes == 0):
+            raise AssertionError(
+                '{}: {} materialize routes and {} kernel launches, want {} '
+                'routes'.format(name, routes, launched, want_routes))
+        if isinstance(got, tuple):
+            for got_part, want_part in zip(got, materialized):
+                np.testing.assert_array_equal(got_part, want_part)
+        else:
+            np.testing.assert_allclose(got, materialized, rtol=1e-6, atol=0)
+        log(route=name, materialize_routes=routes, kernel_launches=launched,
+            equals_streaming_false=True, card=card)
+
+    model = ImplicitFactorizationModel(
+        loss='bpr', embedding_dim=ROUTE_DIM,
+        random_state=np.random.RandomState(42))
+    model._initialize(train)
+    model._load_params(params_from_jax(
+        model._net, parameter_tree(np.random.RandomState(1), ROUTE_DIM)))
+    sub = restrict(test, CHECK_USERS)
+    # The call's widest top-10 fetch holds lists of at most 64 keys, where
+    # stage 1 takes D <= 261.
+    fetch = 10 + evaluation._eval_rows(sub, train)[2].shape[1]
+    if fetch > 64:
+        raise AssertionError('the route check\'s fetch is {}'.format(fetch))
+    check('mrr_score D={}'.format(ROUTE_DIM), 0,
+          lambda: ranking.RANK_WEIGHTS_LAUNCHES, mrr_score, model, sub,
+          train=train)
+    check('precision_recall_score D={} k=10'.format(ROUTE_DIM), 1,
+          lambda: topk.STREAMING_TOPK_LAUNCHES, precision_recall_score,
+          model, sub, train=train, k=10)
+    del model
+    torch.cuda.empty_cache()
+
+    sequences = sequence_rows()[:SEQ_CHECK]
+    net = MixtureLSTMNet(NUM_ITEMS, D, num_mixtures=ROUTE_MIXTURES,
+                         generator=torch.Generator().manual_seed(0),
+                         device=DEVICE)
+    model = ImplicitSequenceModel(loss='bpr', representation=net,
+                                  embedding_dim=D)
+    seq_test = SequenceInteractions(sequences, num_items=NUM_ITEMS)
+    model._initialize(seq_test)
+
+    def mixture_launches():
+        return (ranking.MIXTURE_RANK_WEIGHTS_LAUNCHES
+                + topk.MIXTURE_STREAMING_TOPK_LAUNCHES)
+
+    name = ' M={}'.format(ROUTE_MIXTURES)
+    check('sequence_mrr_score' + name, 1, mixture_launches,
+          sequence_mrr_score, model, seq_test)
+    check('sequence_mrr_score exclude_preceding' + name, 1,
+          mixture_launches, sequence_mrr_score, model, seq_test,
+          exclude_preceding=True)
+    check('sequence_precision_recall_score k={}'.format(SEQ_K) + name, 1,
+          mixture_launches, sequence_precision_recall_score, model,
+          seq_test, k=SEQ_K)
+    del model, net
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -2277,10 +2420,14 @@ def main():
     for name in _build.SOURCES:
         report = _build.library_path(name).with_suffix('.log')
         if report.exists():
+            lines = report.read_text().splitlines()
             log(ptxas=name, report=[
-                line.strip() for line in report.read_text().splitlines()
+                line.strip() for line in lines
                 if 'Used' in line or 'spill' in line
-                or 'Compiling entry' in line])
+                or 'Compiling entry' in line],
+                kernels=sum('Compiling entry' in line for line in lines),
+                spilling=sum('spill' in line and ' 0 bytes spill stores'
+                             not in line for line in lines))
 
     generator = torch.Generator(device='cuda')
     generator.manual_seed(0)
@@ -2290,8 +2437,10 @@ def main():
 
     launches, model, test, train, heavy = run_slice(torch, card)
     profile_metrics(torch, card, model, test, train, heavy)
-    del model, test, train, heavy
+    del model, heavy
     torch.cuda.empty_cache()
+    check_routes(torch, card, test, train)
+    del test, train
 
     seq_launches, seq_model, seq_test = run_sequence_slice(torch, card)
     launches.update(seq_launches)

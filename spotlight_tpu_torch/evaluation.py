@@ -17,17 +17,28 @@ device batches:
   catalogue with one matrix product, masks train items to -FLOAT_MAX and
   ranks by sorting, reproducing ``scipy.stats.rankdata``'s average ranks.
 
-Unlike the JAX package, nothing here catches a kernel failure to recompute
-on the materialize path: a failure raises.  Each metric reads its result
-back to the host once, after the last batch.
+Each metric call picks its path once, before any launch: it streams when
+the caller asks for it, the model exposes its factors, and the kernels
+take them (``ranking.streams``, ``topk.streams``: mixtures of at most
+``MAX_MIXTURES`` tastes and, on a card, the widths whose blocks fit in
+shared memory, the call's widest top-k fetch included).  A call that the
+kernels do not take runs whole on the materialize path, at its batch size,
+and counts once in :data:`MATERIALIZE_ROUTES`.  That is a route chosen up
+front, not the JAX package's fallback: nothing here catches a kernel
+failure to recompute on the materialize path, and a kernel that fails to
+build or launch raises.  Each metric reads its result back to the host
+once, after the last batch.
 """
 
 from __future__ import annotations
+
+import itertools
 
 import numpy as np
 import torch
 
 from spotlight_tpu_torch.factorization._base import resolve_device
+from spotlight_tpu_torch.ops.kernels import ranking, topk
 from spotlight_tpu_torch.ops.kernels.ranking import (
     matched_candidate_scores, matched_target_scores, rank_weights)
 from spotlight_tpu_torch.ops.kernels.topk import streaming_topk
@@ -36,7 +47,7 @@ FLOAT_MAX = np.finfo(np.float32).max
 
 #: Users per batch on the streaming path.  The JAX package derived its
 #: width from the TPU's 16 MB of VMEM; here shared memory sets no cap: the
-#: rank kernel keeps 64 users and the top-k kernel 32 users per block
+#: rank and top-k kernels keep 64 dot users (16 mixture users) per block
 #: resident, and a wider batch only adds blocks.  What the batch buys is
 #: fewer catalogue passes: every batch streams the whole item table once
 #: per kernel.  2048 users give the rank kernel 32 user blocks, which with
@@ -47,6 +58,10 @@ STREAMING_BATCH = 2048
 #: Users per batch on the materialize path, whose (B, N) score matrix and
 #: its sort grow with the batch.
 MATERIALIZE_BATCH = 256
+
+#: Metric calls that the route query sent to the materialize path because
+#: the streaming kernels do not take the model's factors (one per call).
+MATERIALIZE_ROUTES = 0
 
 
 def _padded_rows(csr_matrix, users, pad_value=-1):
@@ -281,13 +296,49 @@ def _score_user_batch(model, user_batch, device):
         dtype=torch.float32, device=device)
 
 
-def _resolve_batch_size(batch_size, streaming, model, kind='users'):
+def _factor_shape(model, kind, first_inputs):
+    """``(dim, mixtures)`` of the factors the model gives the streaming
+    kernels (``mixtures`` None for dot scoring), or None when it exposes
+    none.  Read from the model's network; from the factors of a first
+    batch only where no attribute carries them."""
+    if getattr(model, '_rank_factors_' + kind, None) is None:
+        return None
+    net = getattr(model, '_net', None)
+    dim = getattr(net, 'embedding_dim', None)
+    if dim is not None:
+        return dim, getattr(net, 'num_mixtures', None)
+    if len(first_inputs) == 0:
+        return None
+    factors = _rank_factors(model, kind, first_inputs)
+    return None if factors is None else (factors[1].shape[1], factors[3])
+
+
+def _route(model, kind, streaming, device, first_inputs, fetch=None):
+    """Whether one metric call streams: the caller asks for it, the model
+    exposes factors, and the kernels take them (``ranking.streams``, or
+    ``topk.streams`` for the call's widest top-``fetch``).  Decided once,
+    before any launch; a call the kernels refuse counts in
+    MATERIALIZE_ROUTES."""
+    global MATERIALIZE_ROUTES
+    if not streaming:
+        return False
+    shape = _factor_shape(model, kind, first_inputs)
+    if shape is None:
+        return False
+    dim, mixtures = shape
+    if fetch is None:
+        takes = ranking.streams(dim, mixtures, device)
+    else:
+        takes = topk.streams(fetch, dim, mixtures, device)
+    if not takes:
+        MATERIALIZE_ROUTES += 1
+    return takes
+
+
+def _resolve_batch_size(batch_size, streaming):
     if batch_size is not None:
         return batch_size
-    if streaming and getattr(model, '_rank_factors_' + kind,
-                             None) is not None:
-        return STREAMING_BATCH
-    return MATERIALIZE_BATCH
+    return STREAMING_BATCH if streaming else MATERIALIZE_BATCH
 
 
 def _model_device(model):
@@ -346,8 +397,9 @@ def mrr_score(model, test, train=None, batch_size=None, streaming=True):
     np.ndarray of shape (num_users_with_test_items,)
     """
     users, targets, train_rows = _eval_rows(test, train)
-    batch_size = _resolve_batch_size(batch_size, streaming, model)
     device = _model_device(model)
+    streaming = _route(model, 'users', streaming, device, users[:1])
+    batch_size = _resolve_batch_size(batch_size, streaming)
 
     mrrs = []
     for u, t, tr in _batches(users, targets, train_rows, batch_size,
@@ -398,8 +450,12 @@ def precision_recall_score(model, test, train=None, k=10, batch_size=None,
                          .format(max(k_values), test.num_items))
 
     users, targets, train_rows = _eval_rows(test, train)
-    batch_size = _resolve_batch_size(batch_size, streaming, model)
     device = _model_device(model)
+    # The call's widest fetch, k plus its widest train row (a batch's fetch
+    # is at most this, and at most the catalogue).
+    fetch = max(k_values) + (0 if train_rows is None else train_rows.shape[1])
+    streaming = _route(model, 'users', streaming, device, users[:1], fetch)
+    batch_size = _resolve_batch_size(batch_size, streaming)
 
     precisions, recalls = [], []
     for u, t, tr in _batches(users, targets, train_rows, batch_size,
@@ -467,15 +523,24 @@ def _sequence_final_scores(model, prefixes, exclude_preceding, device):
     return scores
 
 
-def _sequence_batches(prefixes, targets, exclude_preceding, batch_size,
-                      device):
-    """(prefixes, targets, masked rows) per batch: targets and the
-    deduplicated prefix rows (when ``exclude_preceding``) on ``device``."""
-    for prefix, t in zip(_batched(prefixes, batch_size),
-                         _batched(targets, batch_size)):
-        masked = (torch.as_tensor(_dedup_rows(prefix.astype(np.int64)),
-                                  device=device)
-                  if exclude_preceding else None)
+def _excluded_rows(prefixes, exclude_preceding):
+    """Each prefix's deduplicated items when ``exclude_preceding``, else
+    None."""
+    return (_dedup_rows(prefixes.astype(np.int64)) if exclude_preceding
+            else None)
+
+
+def _sequence_batches(prefixes, targets, excluded, batch_size, device):
+    """(prefixes, targets, masked rows) per batch: targets and the batch's
+    rows of ``excluded`` (None: nothing excluded), trimmed to the batch's
+    widest, on ``device``."""
+    excluded_batches = (_batched(excluded, batch_size)
+                        if excluded is not None else itertools.repeat(None))
+    for prefix, t, masked in zip(_batched(prefixes, batch_size),
+                                 _batched(targets, batch_size),
+                                 excluded_batches):
+        if masked is not None:
+            masked = torch.as_tensor(_trim_batch_rows(masked), device=device)
         yield prefix, torch.as_tensor(t.astype(np.int64),
                                       device=device), masked
 
@@ -503,14 +568,16 @@ def sequence_mrr_score(model, test, exclude_preceding=False, batch_size=None,
     -------
     np.ndarray of shape (num_sequences,)
     """
-    batch_size = _resolve_batch_size(batch_size, streaming, model,
-                                     'sequences')
+    prefixes = test.sequences[:, :-1]
     device = _model_device(model)
+    streaming = _route(model, 'sequences', streaming, device, prefixes[:1])
+    batch_size = _resolve_batch_size(batch_size, streaming)
 
     mrrs = []
     for prefix, t, masked in _sequence_batches(
-            test.sequences[:, :-1], test.sequences[:, -1:],
-            exclude_preceding, batch_size, device):
+            prefixes, test.sequences[:, -1:],
+            _excluded_rows(prefixes, exclude_preceding), batch_size,
+            device):
         target_mask = torch.ones_like(t, dtype=torch.bool)
         if streaming:
             rr = _streaming_ranks(model, 'sequences', prefix, t, target_mask,
@@ -548,14 +615,19 @@ def sequence_precision_recall_score(model, test, k=10,
     -------
     (precision, recall) : np.ndarrays of shape (num_sequences,)
     """
-    batch_size = _resolve_batch_size(batch_size, streaming, model,
-                                     'sequences')
+    prefixes = test.sequences[:, :-k]
+    excluded = _excluded_rows(prefixes, exclude_preceding)
     device = _model_device(model)
+    # The call's widest fetch, k plus its widest excluded row.
+    fetch = k + (0 if excluded is None else excluded.shape[1])
+    streaming = _route(model, 'sequences', streaming, device, prefixes[:1],
+                       fetch)
+    batch_size = _resolve_batch_size(batch_size, streaming)
 
     precisions, recalls = [], []
     for prefix, t, masked in _sequence_batches(
-            test.sequences[:, :-k], test.sequences[:, -k:],
-            exclude_preceding, batch_size, device):
+            prefixes, test.sequences[:, -k:], excluded, batch_size,
+            device):
         target_mask = torch.ones_like(t, dtype=torch.bool)
         if streaming:
             top_ids = _streaming_topk_hits(model, 'sequences', prefix, k,

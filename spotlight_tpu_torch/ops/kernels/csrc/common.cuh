@@ -1,4 +1,6 @@
-// Shared pieces of the evaluation kernels (ranking.cu, topk.cu).
+// Shared pieces of the evaluation kernels (ranking.cu, topk.cu): the
+// exact-tie arithmetic and the register-tiled catalogue pass's block shape,
+// user staging and item slabs.
 //
 // The exact-tie contract.  The rank kernel counts a target's own score as a
 // tie with itself (weight 0.5) instead of excluding the target by id, so
@@ -25,6 +27,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace spotlight {
 
@@ -139,10 +143,11 @@ __device__ __forceinline__ void score_block(float (&out)[RI][RU], int dim,
 // value of at most MAXM: the per-pair weights live in registers, indexed
 // by unrolled constants.  The combine (everything after the dots) is one
 // set of functions below, which every mixture kernel calls: mixture_combine
-// on a pair's 2M dots held in registers (the rank pass's register tile),
-// or its three steps in turn (mixture_score_block, which computes the
-// taste dots one component at a time), the same operations in the same
-// order either way.
+// on a pair's 2M dots held in registers (the catalogue pass's register
+// tile: K1 and K5 in ranking.cu, K2's stage 1 in topk.cu), or its three
+// steps in turn (mixture_score_block, K4's one pair a thread, which
+// computes the taste dots one component at a time), the same operations in
+// the same order either way.
 
 // The softmax weights of one pair, in place: w[m], the dot of attention m,
 // becomes w_m for m < mixtures; returns denom.
@@ -244,22 +249,126 @@ __device__ __forceinline__ void mixture_score_block(
 // Widest mixture count a kernel takes: its per-pair weights are registers.
 constexpr int kMaxMixtures = 8;
 
-// Stages rows [row0, row0 + rows) of a row-major (n, dim) table into shared
-// memory transposed, as dst[d * stride + r] in float32 (zeros past n).  The
-// stride is rows + 1 so the transposed stores fall in distinct banks.
-template <typename T>
-__device__ __forceinline__ void stage_transposed(float* dst, const T* src,
-                                                 long long row0, int rows,
-                                                 long long n, int dim,
-                                                 int stride) {
-  const int total = rows * dim;
-  for (int e = threadIdx.x; e < total; e += blockDim.x) {
-    const int r = e / dim;
-    const int d = e - r * dim;
-    const long long row = row0 + r;
-    dst[d * stride + r] =
-        row < n ? to_f32(src[row * (long long)dim + d]) : 0.0f;
+// ---- the register-tiled catalogue pass (ranking.cu, topk.cu) ---------------
+//
+// A block keeps its users resident in shared memory (transposed, rows
+// 16-byte aligned) and walks a contiguous split of the catalogue in 128-item
+// tiles, kSlabDepth dimensions a slab, double-buffered through registers
+// (SlabStage).  Each thread scores kRI items x kRU register columns with
+// dot_tile_accumulate.
+
+// Dimensions a staged item slab holds.
+constexpr int kSlabDepth = 32;
+
+// The shape of a catalogue-pass block whose users have MP mixture
+// components (MP = 0: dot scoring) and SLOTS user slots.  A thread owns kRI
+// items x kRU register columns: with dot scoring 4 users of one column each,
+// with mixture scoring one user's 2 MP columns, its tastes then its
+// attentions (MP is the user's M rounded up to 2, 4 or 8; the columns past
+// M hold zeros and are never combined).  A block scores 128-item tiles
+// with 32 threads a slot.
+template <int MP, int SLOTS = 16>
+struct RankShape {
+  static constexpr int kMixtures = MP;
+  static constexpr int kCols = MP == 0 ? 1 : 2 * MP;   // columns a user
+  static constexpr int kUPT = MP == 0 ? 4 : 1;         // users a thread
+  static constexpr int kRU = kUPT * kCols;             // columns a thread
+  static constexpr int kRI = 4;                        // items a thread
+  static constexpr int kUsers = SLOTS * kUPT;          // users a block
+  static constexpr int kThreads = 32 * SLOTS;
+  static constexpr int kUserWarps = SLOTS / 8;  // warps across the slots
+  static constexpr int kUserStride = kUsers * kCols;   // staged users' row
+  static constexpr int kItems = 128;                   // items a tile
+  static constexpr int kItemStride = kItems + 4;       // padded slab row
+  static constexpr int kSlab = kSlabDepth * kItemStride;
+  static constexpr int kScoreStride = kUsers + 4;      // padded score row
+  static_assert(kRU % 4 == 0, "register tiles are float4s");
+  static_assert((kItems / kRI) * SLOTS == kThreads, "one tile a block");
+};
+
+// Calls f(std::integral_constant<int, MP>()) with the MP of a launch of
+// mixtures components (0: dot scoring).
+template <class F>
+auto with_shape(int mixtures, F f) {
+  if (mixtures == 0) return f(std::integral_constant<int, 0>());
+  if (mixtures <= 2) return f(std::integral_constant<int, 2>());
+  if (mixtures <= 4) return f(std::integral_constant<int, 4>());
+  return f(std::integral_constant<int, kMaxMixtures>());
+}
+
+// Stages users [b0, b0 + S::kUsers) of the user operand into shared memory:
+// column k of user u, dimension d, at su[d * S::kUserStride + u * S::kCols
+// + k].  With dot scoring a user is its row of D; with mixtures its row
+// holds M tastes, then M attentions, of D each, and its 2 MP columns are
+// its tastes, then its attentions, zeros past M.  Users past B are zeros.
+template <class S>
+__device__ __forceinline__ void stage_users(float* su,
+                                            const float* __restrict__ users,
+                                            int b0, int B, int D,
+                                            int mixtures) {
+  constexpr int U = S::kUsers;
+  if constexpr (S::kMixtures == 0) {
+    for (int e = threadIdx.x; e < U * D; e += S::kThreads) {
+      const int u = e / D;
+      const int d = e - u * D;
+      su[d * U + u] = b0 + u < B ? users[(long long)(b0 + u) * D + d] : 0.0f;
+    }
+  } else {
+    constexpr int MP = S::kMixtures;
+    const int width = 2 * mixtures * D;  // a user's row: tastes, attentions
+    for (int e = threadIdx.x; e < U * S::kCols * D; e += S::kThreads) {
+      const int u = e / (S::kCols * D);
+      const int rest = e - u * S::kCols * D;
+      const int col = rest / D;
+      const int d = rest - col * D;
+      const int m = col < MP ? col : col - MP;    // the component's number
+      const int k = col < MP ? m : mixtures + m;  // its place in the row
+      su[d * S::kUserStride + u * S::kCols + col] =
+          b0 + u < B && m < mixtures
+              ? users[(long long)(b0 + u) * width + k * D + d] : 0.0f;
+    }
   }
 }
+
+// The item slabs of a block of shape S, from a row-major (N, D) table: slab
+// s of tile t is rows [128 t, 128 t + 128) x dimensions [32 s, 32 s + 32),
+// staged transposed in float32 (dst[d * S::kItemStride + row]; bf16 upcast,
+// zeros past N and D).  load() issues a slab's global loads into
+// registers, store() writes them out: the next slab is loaded before this
+// one is scored and stored after it, one barrier a slab (cp.async cannot
+// transpose the 2-byte elements of a bf16 table, and one path serves both
+// types).  A thread stages dimension sd of rows sr + kWarps j: a warp loads
+// 32-byte runs of 4 rows and stores them to 32 distinct banks.
+template <typename Item, class S>
+struct SlabStage {
+  static constexpr int kWarps = S::kThreads / 32;
+  static constexpr int kLoads = S::kItems * kSlabDepth / S::kThreads;
+  Item staged[kLoads];
+  int sd, sr;
+
+  __device__ __forceinline__ SlabStage() {
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    sd = 8 * (warp & 3) + (lane >> 2);
+    sr = 4 * (warp >> 2) + (lane & 3);
+  }
+
+  __device__ __forceinline__ void load(const Item* __restrict__ items,
+                                       int tile, int slab, int N, int D) {
+    const int d = slab * kSlabDepth + sd;
+    const long long row = (long long)tile * S::kItems + sr;
+#pragma unroll
+    for (int j = 0; j < kLoads; ++j) {
+      const long long r = row + kWarps * j;
+      staged[j] = d < D && r < N ? items[r * D + d] : Item(0.0f);
+    }
+  }
+
+  __device__ __forceinline__ void store(float* slab) const {
+#pragma unroll
+    for (int j = 0; j < kLoads; ++j)
+      slab[sd * S::kItemStride + sr + kWarps * j] = to_f32(staged[j]);
+  }
+};
 
 }  // namespace spotlight

@@ -34,15 +34,16 @@
 // 2 * B * N * D instructions at ~33.5e12 a second (132 SMs x 128 lanes x
 // ~1.98 GHz), half the data sheet's FMA rate.
 //
-// One kernel, rank_kernel, serves both scorings: K2's dot stage 1 (topk.cu)
-// with its filter replaced by counting.  One block of 512 threads an SM
-// keeps its users resident in shared memory (transposed, rows 16-byte
-// aligned) and walks its contiguous split of the catalogue in 128-item
-// tiles, 32 dimensions a slab.  The slabs are double-buffered
-// through registers: the next slab's global loads are issued before this
-// slab is scored and stored (transposed, bf16 upcast) after it, one
-// barrier a slab, no index division.  The scoring policy (RankShape) is the
-// only difference between the two:
+// One kernel, rank_kernel, serves both scorings: the register-tiled
+// catalogue pass of common.cuh (RankShape, stage_users, SlabStage), which
+// K2's stage 1 (topk.cu) runs with a filter and this kernel with counting.
+// One block of 512 threads an SM keeps its users resident in shared memory
+// (transposed, rows 16-byte aligned) and walks its contiguous split of the
+// catalogue in 128-item tiles, 32 dimensions a slab.  The slabs are
+// double-buffered through registers: the next slab's global loads are
+// issued before this slab is scored and stored (transposed, bf16 upcast)
+// after it, one barrier a slab, no index division.  The scoring policy
+// (RankShape) is the only difference between the two:
 // - dot scoring keeps 64 users a block; each thread scores 4 items x 4
 //   users with dot_tile_accumulate (two float4 shared loads feed 16
 //   products), then adds the bias: score_block's order, so the scores tie
@@ -85,8 +86,6 @@
 // mixture_score_block (the same dots, the same combine), so their scores
 // are bit-equal to the catalogue pass's.  The JAX K4 scored every gathered row against every user of the
 // batch and kept the diagonal; here only the B * T pairs are scored.
-#include <type_traits>
-
 #include "common.cuh"
 
 using namespace spotlight;
@@ -95,9 +94,6 @@ namespace {
 
 // ---- the rank pass (K1 and K5, dot and mixture scoring) -------------------
 
-constexpr int kRankThreads = 512;
-constexpr int kRankDepth = 32;   // dimensions a staged slab
-constexpr int kRankRI = 4;       // items a thread scores
 // Targets a narrow launch holds in registers; target slots of the widest
 // wide launch, with dot and with mixture scoring.
 constexpr int kNarrowTargets = 4;
@@ -112,36 +108,6 @@ __host__ __device__ constexpr int narrow_targets() {
 // Shared memory one H100 block may use.
 constexpr size_t kMaxSharedBytes = 232448;
 
-// The shape of a rank block whose users have MP mixture components (MP = 0:
-// dot scoring).  A thread owns kRankRI items x kRU register columns: with
-// dot scoring 4 users of one column each, with mixture scoring one user's
-// 2 MP columns, its tastes then its attentions (MP is the user's M rounded
-// up to 2, 4 or 8; the columns past M hold zeros and are never combined).
-// Either way a block has 16 user slots, scores 128-item tiles with 512
-// threads, and shares every other constant.
-template <int MP>
-struct RankShape {
-  static constexpr int kCols = MP == 0 ? 1 : 2 * MP;   // columns a user
-  static constexpr int kUPT = MP == 0 ? 4 : 1;         // users a thread
-  static constexpr int kRU = kUPT * kCols;             // columns a thread
-  static constexpr int kUsers = 16 * kUPT;             // users a block
-  static constexpr int kUserStride = kUsers * kCols;   // staged users' row
-  static constexpr int kItems = 128;                   // items a tile
-  static constexpr int kItemStride = kItems + 4;       // padded slab row
-  static constexpr int kScoreStride = kUsers + 4;      // padded score row
-  static_assert(kRU % 4 == 0, "register tiles are float4s");
-};
-
-// Calls f(std::integral_constant<int, MP>()) with the MP of a launch of
-// mixtures components (0: dot scoring).
-template <class F>
-int with_shape(int mixtures, F f) {
-  if (mixtures == 0) return f(std::integral_constant<int, 0>());
-  if (mixtures <= 2) return f(std::integral_constant<int, 2>());
-  if (mixtures <= 4) return f(std::integral_constant<int, 4>());
-  return f(std::integral_constant<int, kMaxMixtures>());
-}
-
 // Shared memory of a rank launch: the resident users and two item slabs,
 // then the narrow path's per-block counts or the wide path's score tile,
 // sorted targets and count bins (TP target slots, TP = 0 for narrow).
@@ -153,8 +119,7 @@ size_t rank_smem_bytes(int D, int TP) {
   const size_t extra =
       TP == 0 ? 2 * S::kUsers * kNarrowTargets
               : S::kItems * S::kScoreStride + (2 * (size_t)TP + 1) * S::kUsers;
-  return sizeof(float) * ((size_t)D * S::kUserStride +
-                          2 * kRankDepth * S::kItemStride + extra);
+  return sizeof(float) * ((size_t)D * S::kUserStride + 2 * S::kSlab + extra);
 }
 
 // The score of one (user, row) pair in the catalogue pass's order: each of
@@ -224,7 +189,7 @@ __device__ __forceinline__ uint32_t sort_key(float v) {
 //   count it, and at the end target j's count is the sum of the bins above
 //   its rank j, so a score costs log2(TP) + 2 shared loads, not T compares.
 template <typename Item, int MP, int TP, bool WIDE, bool COUNTS>
-__global__ void __launch_bounds__(kRankThreads, 1)
+__global__ void __launch_bounds__(RankShape<MP>::kThreads, 1)
 rank_kernel(const float* __restrict__ users, const Item* __restrict__ items,
             const float* __restrict__ bias, const float* __restrict__ tscores,
             const int* __restrict__ tids, int* __restrict__ out_a,
@@ -232,18 +197,16 @@ rank_kernel(const float* __restrict__ users, const Item* __restrict__ items,
             int mixtures, int tiles_per_split) {
   using S = RankShape<MP>;
   constexpr int U = S::kUsers;
-  constexpr int RI = kRankRI;
+  constexpr int RI = S::kRI;
   constexpr int RU = S::kRU;
   constexpr int UPT = S::kUPT;
   constexpr int US = S::kUserStride;
   constexpr int TI = S::kItems;
   constexpr int kIS = S::kItemStride;
   constexpr int kSS = S::kScoreStride;
-  constexpr int kT = kRankThreads;
-  constexpr int kWarps = kT / 32;
-  constexpr int kLoads = TI * kRankDepth / kT;  // slab loads a thread
-  constexpr int kUserWarps = U / UPT / 8;  // warps across the user slots
-  constexpr int kSlab = kRankDepth * kIS;
+  constexpr int kT = S::kThreads;
+  constexpr int kUserWarps = S::kUserWarps;
+  constexpr int kSlab = S::kSlab;
   constexpr int kRows = kT / U;            // wide: threads a user
   constexpr int kHeld = WIDE ? 1 : UPT * TP;  // narrow: targets in registers
   constexpr int GE = COUNTS ? 1 << 16 : 1;
@@ -253,7 +216,7 @@ rank_kernel(const float* __restrict__ users, const Item* __restrict__ items,
 
   extern __shared__ __align__(16) float rank_smem[];
   float* su = rank_smem;                    // [D][US] resident users
-  float* si = su + D * US;                  // [2][kRankDepth][kIS]
+  float* si = su + D * US;                  // [2][kSlabDepth][kIS]
   float* ss = si + 2 * kSlab;               // wide: [TI][kSS]
   float* st = ss + TI * kSS;                // wide: [TP][U] sorted targets
   int* bins = reinterpret_cast<int*>(st + TP * U);  // wide: [TP + 1][U]
@@ -264,26 +227,7 @@ rank_kernel(const float* __restrict__ users, const Item* __restrict__ items,
   const int warp = tid >> 5;
   const int b0 = blockIdx.x * U;
   // Column k of user u, dimension d, at su[d * US + u * kCols + k].
-  if constexpr (MP == 0) {
-    for (int e = tid; e < U * D; e += kT) {
-      const int u = e / D;
-      const int d = e - u * D;
-      su[d * U + u] = b0 + u < B ? users[(long long)(b0 + u) * D + d] : 0.0f;
-    }
-  } else {
-    const int width = 2 * mixtures * D;  // a user's row: tastes, attentions
-    for (int e = tid; e < U * S::kCols * D; e += kT) {
-      const int u = e / (S::kCols * D);
-      const int rest = e - u * S::kCols * D;
-      const int col = rest / D;
-      const int d = rest - col * D;
-      const int m = col < MP ? col : col - MP;    // the component's number
-      const int k = col < MP ? m : mixtures + m;  // its place in the row
-      su[d * US + u * S::kCols + col] =
-          b0 + u < B && m < mixtures
-              ? users[(long long)(b0 + u) * width + k * D + d] : 0.0f;
-    }
-  }
+  stage_users<S>(su, users, b0, B, D, mixtures);
 
   // Scoring ownership: items 4 ig + r, user slot ug (users kUPT ug + c); a
   // warp covers 4 item groups x 8 user slots, so its float4 reads of a
@@ -291,10 +235,6 @@ rank_kernel(const float* __restrict__ users, const Item* __restrict__ items,
   // the 4 lanes that differ in lane & 3 share users.
   const int ug = (warp % kUserWarps) * 8 + (lane >> 2);
   const int ig = (warp / kUserWarps) * 4 + (lane & 3);
-  // Staging ownership: dimension sd of rows sr + kWarps j; a warp loads
-  // 32-byte runs of 4 rows and stores them to 32 distinct banks.
-  const int sd = 8 * (warp & 3) + (lane >> 2);
-  const int sr = 4 * (warp >> 2) + (lane & 3);
   // Wide ownership: user cu, items trow + kRows k of a tile.
   const int cu = tid % U;
   const int trow = tid / U;
@@ -341,26 +281,11 @@ rank_kernel(const float* __restrict__ users, const Item* __restrict__ items,
   const int num_tiles = (N + TI - 1) / TI;
   const int tile_begin = blockIdx.y * tiles_per_split;
   const int tile_end = min(num_tiles, tile_begin + tiles_per_split);
-  const int slabs = (D + kRankDepth - 1) / kRankDepth;
+  const int slabs = (D + kSlabDepth - 1) / kSlabDepth;
 
-  Item staged[kLoads];
-  auto load_slab = [&](int tile, int slab) {
-    const int d = slab * kRankDepth + sd;
-    const long long row = (long long)tile * TI + sr;
-#pragma unroll
-    for (int j = 0; j < kLoads; ++j) {
-      const long long r = row + kWarps * j;
-      staged[j] = d < D && r < N ? items[r * D + d] : Item(0.0f);
-    }
-  };
-  auto store_slab = [&](float* slab) {
-#pragma unroll
-    for (int j = 0; j < kLoads; ++j)
-      slab[sd * kIS + sr + kWarps * j] = to_f32(staged[j]);
-  };
-
-  load_slab(tile_begin, 0);
-  store_slab(si);
+  SlabStage<Item, S> stage;
+  stage.load(items, tile_begin, 0, N, D);
+  stage.store(si);
   __syncthreads();
 
   float acc[RI][RU];
@@ -373,7 +298,7 @@ rank_kernel(const float* __restrict__ users, const Item* __restrict__ items,
       ++next_tile;
     }
     const bool more = next_tile < tile_end;
-    if (more) load_slab(next_tile, next_slab);
+    if (more) stage.load(items, next_tile, next_slab, N, D);
 
     const int row0 = tile * TI;
     if (slab == 0) {
@@ -385,11 +310,11 @@ rank_kernel(const float* __restrict__ users, const Item* __restrict__ items,
         for (int c = 0; c < RU; ++c) acc[r][c] = -0.0f;
       }
     }
-    const int d0 = slab * kRankDepth;
+    const int d0 = slab * kSlabDepth;
     const float* slab_items = si + buf * kSlab + 4 * ig;
     const float* slab_users = su + d0 * US + RU * ug;
-    if (D - d0 >= kRankDepth)  // a full slab: a constant trip count
-      dot_tile_accumulate<RI, RU>(acc, kRankDepth, slab_items, kIS, 0,
+    if (D - d0 >= kSlabDepth)  // a full slab: a constant trip count
+      dot_tile_accumulate<RI, RU>(acc, kSlabDepth, slab_items, kIS, 0,
                                   slab_users, US, 4);
     else
       dot_tile_accumulate<RI, RU>(acc, D - d0, slab_items, kIS, 0,
@@ -436,7 +361,7 @@ rank_kernel(const float* __restrict__ users, const Item* __restrict__ items,
               count[c * TP + t] += compare<GE>(s[r][c], ts[c * TP + t]);
       }
     }
-    if (more) store_slab(si + (buf ^ 1) * kSlab);
+    if (more) stage.store(si + (buf ^ 1) * kSlab);
     __syncthreads();
     if constexpr (WIDE) {
       if (last) {
@@ -558,13 +483,13 @@ int launch_rank(const float* users, const void* items, const float* bias,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int num_tiles = (N + S::kItems - 1) / S::kItems;
-  // K5 counts in half words: a narrow thread meets kRankRI rows of each
+  // K5 counts in half words: a narrow thread meets S::kRI rows of each
   // tile, a wide block's bin all of them, and neither may pass 65,535 rows.
-  constexpr int kMaxTiles = 65535 / (WIDE ? S::kItems : kRankRI);
+  constexpr int kMaxTiles = 65535 / (WIDE ? S::kItems : S::kRI);
   const int per_split = min(kMaxTiles, (num_tiles + splits - 1) / splits);
   const int used_splits = (num_tiles + per_split - 1) / per_split;
   dim3 grid((B + S::kUsers - 1) / S::kUsers, used_splits);
-  kernel<<<grid, kRankThreads, smem, stream>>>(
+  kernel<<<grid, S::kThreads, smem, stream>>>(
       users, static_cast<const Item*>(items), bias, tscores, tids, out_a,
       out_b, B, N, D, T, mixtures, per_split);
   return cudaGetLastError();

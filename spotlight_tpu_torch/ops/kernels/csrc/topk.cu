@@ -9,60 +9,58 @@
 // the (B, N) score matrix.  Items at or before a per-user resume key
 // (resume_score, resume_id) in that order are skipped, so the wrapper can
 // fetch a wide top-k in rounds.  Scores are bit-identical to the plain
-// PyTorch version's, the sign of a zero included: dot scores come from
-// dot_tile_accumulate, mixture scores from mixture_score_block
-// (common.cuh), both in the exact-tie contract's order.
+// PyTorch version's, the sign of a zero included: every score comes from
+// dot_tile_accumulate, then the bias (dots) or mixture_combine (mixtures)
+// in registers (common.cuh), the exact-tie contract's order, so a K2 score
+// has the bits of the rank pass's (K1, K5) and of K1c's or K4's.
 //
-// What bounds it on an H100: the float32 catalogue scoring, 2 * B * N * D
-// operations for dots (2M times that for mixtures).  The contract bars
-// FMA, so each multiply and each add is its own instruction: the floor is
-// 2 * B * N * D instructions over 132 SMs x 128 lanes x ~1.98 GHz, about
-// 33.5e12 a second, half the 67 TFLOP/s the data sheet counts with FMA.
-// Selection adds about k * ln(N / k) list updates per user and split over
-// a randomly ordered catalogue, not N.
+// What bounds it on an H100: the float32 catalogue scoring, 2 * B * N * K
+// operations with K the user width (D for dots, 2 M D for a mixture of M
+// tastes).  The contract bars FMA, so each multiply and each add is its own
+// instruction: the floor is 2 * B * N * K instructions over 132 SMs x 128
+// lanes x ~1.98 GHz, about 33.5e12 a second, half the 67 TFLOP/s the data
+// sheet counts with FMA.  Selection adds about k * ln(N / k) list updates
+// per user and split over a randomly ordered catalogue, not N.
 //
 // Keys: each kept item is one 64-bit key, the order-preserving bits of the
 // score in the high word (-0.0 made +0.0 first, since == treats them as a
 // tie), and in the low word the inverted id shifted up by one over a bit
 // that records a -0.0 score, so that one unsigned comparison is the
 // (score desc, id asc) order and the score comes back with its sign.  Per
-// user, stage 1 keeps a sorted list of its best keys so far (k of them in
-// dot stage 1; KP, k rounded up to a power of two, in mixture stage 1)
-// and a candidate buffer behind it in shared memory.  A key joins the
-// buffer only if it beats the list's last key as of the last merge.
-// Buffers merge into lists when some buffer could overflow on the next
-// tile, and once at the end: a warp per row with candidates sorts list and
-// buffer in its registers (bitonic, through shuffles).  Stage 2 runs one
-// block per user and sorts the S split lists in shared memory.  The
-// TPU kernel walked its grid in order with one running list; here the
-// catalogue splits run in parallel and meet in stage 2.
+// user, stage 1 keeps a sorted list of its best k keys so far and a
+// candidate buffer behind it in shared memory.  A key joins the buffer only
+// if it beats the list's last key as of the last merge.  Buffers merge into
+// lists when some buffer could overflow on the next tile, and once at the
+// end: a warp per row with candidates sorts list and buffer in its
+// registers (bitonic, through shuffles).  Stage 2 runs one block per user
+// and sorts the S split lists in shared memory.  The TPU kernel walked its
+// grid in order with one running list; here the catalogue splits run in
+// parallel and meet in stage 2.
 //
-// Dot stage 1 (topk_dot_stage1), one block per (U users, catalogue
-// split), one block an SM:
-// - scoring is register-tiled: each thread owns 4 items x 4 users and per
-//   dimension reads them as two float4s from transposed shared tiles, so
-//   the loop is bound by the float32 pipes rather than by shared-memory
-//   issue; 512 threads (16 warps an SM) at U = 64, 256 at U = 32.  The
-//   U users stay resident for the whole split; items stream through in
-//   128-item tiles, 32 dimensions a slab, double-buffered through
-//   registers: the next slab's global loads are issued before this slab
-//   is scored and stored after it (cp.async cannot transpose the 2-byte
-//   elements of a bf16 table, and one path serves both types);
+// Stage 1 (topk_stage1<T, KP, MP>), one block per (users, catalogue split),
+// one block an SM, is the rank pass's block (RankShape, common.cuh) with
+// its counting replaced by a filter:
+// - scoring is register-tiled: the block's users stay resident in shared
+//   memory for the whole split, items stream through in 128-item tiles, 32
+//   dimensions a slab, double-buffered through registers (SlabStage), and
+//   each thread scores 4 items with one dot_tile_accumulate call a slab:
+//   with dot scoring (MP = 0) against 4 users of one column each, from two
+//   float4 shared loads a dimension; with mixtures against one user's 2 MP
+//   adjacent columns (tastes, then attentions; M rounded up to 2, 4 or 8,
+//   zero columns past M), then mixture_combine turns each item's 2M dots
+//   into its score in registers;
 // - the filter runs in registers on the thread's own scores: a float
-//   compare against the user's threshold score rejects almost every item,
-//   then the resume test and the key compare; the overflow flag rides on
-//   the slab's barrier (__syncthreads_or);
+//   compare against its user's threshold score rejects almost every item,
+//   then the resume test and the key compare, and an atomicAdd into the
+//   user's buffer; the overflow flag rides on the slab's barrier
+//   (__syncthreads_or);
 // - the split's first tile is merged at once (warm start), so thresholds
 //   are real k-th keys from the second tile on;
-// - U = 64 users at KP <= 64 and 32 above, so that rows of 256 or 512
-//   keys (list and buffer, the buffer at least 64 keys more than a tile)
-//   and the tiles fit the 227 KB a block may use.
-//
-// Mixture stage 1 (topk_mixture_stage1): one block per (32 users, split)
-// scores 64-item tiles with mixture_score_block (a block holds its users'
-// 2M vectors each: 67 KB at M = 4, D = 64, beside 128 KB of keys at
-// KP = 256) through a shared score tile, then filters and merges as above
-// with a threshold that starts cold.
+// - rows of 256 keys at KP <= 64 and 512 above (list and buffer, the buffer
+//   at least 64 keys more than a tile); a block holds 64 dot users at
+//   KP <= 64 and 32 above (512 and 256 threads), or 16 mixture users (512
+//   threads), so that the rows, the users' columns and the slabs fit the
+//   227 KB a block may use.
 #include "common.cuh"
 
 using namespace spotlight;
@@ -71,22 +69,7 @@ namespace {
 
 typedef unsigned long long u64;
 
-constexpr int kThreads = 256;
 constexpr int kStage2Threads = 1024;
-
-// Dot stage 1: items per tile, dimensions per staged slab, the padded row
-// stride of a transposed slab (a multiple of 4 floats for float4 reads; 4
-// mod 32 makes the staging stores conflict-free).
-constexpr int kDotItems = 128;
-constexpr int kDotDepth = 32;
-constexpr int kDotStride = kDotItems + 4;
-
-// Mixture stage 1: users per block, items per tile, padded strides.
-constexpr int kMixUsers = 32;
-constexpr int kMixItems = 64;
-constexpr int kMixUS = kMixUsers + 1;
-constexpr int kMixIS = kMixItems + 1;
-constexpr int kMixRows = kThreads / kMixUsers;  // candidate rows per pass
 
 __device__ __forceinline__ uint32_t ordered_bits(float s) {
   s = (s == 0.0f) ? 0.0f : s;  // -0.0 and +0.0 tie
@@ -216,61 +199,54 @@ __device__ __forceinline__ void write_lists(const u64* keys, int b0, int B,
   }
 }
 
-// ---- dot stage 1 ----------------------------------------------------------
+// ---- stage 1 ---------------------------------------------------------------
 
-template <int KP>
-__host__ __device__ constexpr int dot_users() {
-  return KP <= 64 ? 64 : 32;
-}
-
-template <int KP>
-__host__ __device__ constexpr int dot_threads() {
-  return KP <= 64 ? 512 : 256;
-}
+// The block of a stage 1 at list width KP with MP mixture components (0:
+// dot scoring): the rank pass's 16 user slots, 8 for dot lists past 64 keys.
+template <int KP, int MP>
+using Stage1Shape = RankShape<MP, (MP == 0 && KP > 64) ? 8 : 16>;
 
 // Keys per user row: the list (k <= KP keys) and a buffer of at least
-// kDotItems + 64 keys, a power of two for the warp sort.
+// 128 + 64 keys (a tile and more), a power of two for the warp sort.
 template <int KP>
-__host__ __device__ constexpr int dot_row_len() {
+__host__ __device__ constexpr int row_len() {
   return KP <= 64 ? 256 : 512;
 }
 
-template <int KP>
-size_t dot_smem_bytes(int D) {
-  constexpr int U = dot_users<KP>();
-  return sizeof(u64) * ((size_t)U * dot_row_len<KP>() + U) +
-         sizeof(int) * U + sizeof(float) * ((size_t)D * U +
-                                            2 * kDotDepth * kDotStride);
+// Shared memory of a stage-1 block: the key rows, thresholds and candidate
+// counts, the resident users and two item slabs.
+template <int KP, int MP>
+size_t stage1_smem_bytes(int D) {
+  using S = Stage1Shape<KP, MP>;
+  return sizeof(u64) * ((size_t)S::kUsers * row_len<KP>() + S::kUsers) +
+         sizeof(int) * S::kUsers +
+         sizeof(float) * ((size_t)D * S::kUserStride + 2 * S::kSlab);
 }
 
-template <typename T, int KP>
-__global__ void __launch_bounds__(dot_threads<KP>(), 1)
-topk_dot_stage1(const float* __restrict__ users, const T* __restrict__ items,
-                const float* __restrict__ bias,
-                const float* __restrict__ resume_scores,
-                const int* __restrict__ resume_ids, int B, int N, int D,
-                int keep, int tiles_per_split, int splits,
-                u64* __restrict__ partial) {
-  constexpr int U = dot_users<KP>();
-  constexpr int L = dot_row_len<KP>();
-  constexpr int kT = dot_threads<KP>();
-  constexpr int kWarps = kT / 32;
-  constexpr int kLoads = kDotItems * kDotDepth / kT;  // slab loads a thread
-  constexpr int RU = 4;
-  constexpr int RI = kDotItems * U / (kT * RU);
-  // Item r of a thread is (r / 4) * kItemGap + 4 * ig + r % 4: the two
-  // float4s of an 8-item tile lie half a tile apart.
-  constexpr int kItemGap = kDotItems * 4 / RI;
-  constexpr int kUserWarps = U / RU / 8;  // warps across the user groups
-  constexpr int kSlab = kDotDepth * kDotStride;
-  static_assert((kDotItems / RI) * (U / RU) == kT, "one tile a block");
+template <typename T, int KP, int MP>
+__global__ void __launch_bounds__(Stage1Shape<KP, MP>::kThreads, 1)
+topk_stage1(const float* __restrict__ users, const T* __restrict__ items,
+            const float* __restrict__ bias,
+            const float* __restrict__ resume_scores,
+            const int* __restrict__ resume_ids, int B, int N, int D,
+            int mixtures, int keep, int tiles_per_split, int splits,
+            u64* __restrict__ partial) {
+  using S = Stage1Shape<KP, MP>;
+  constexpr int U = S::kUsers;
+  constexpr int L = row_len<KP>();
+  constexpr int kT = S::kThreads;
+  constexpr int RI = S::kRI;
+  constexpr int RU = S::kRU;
+  constexpr int UPT = S::kUPT;
+  constexpr int US = S::kUserStride;
+  constexpr int TI = S::kItems;
 
-  extern __shared__ __align__(16) unsigned char dot_smem[];
-  u64* keys = reinterpret_cast<u64*>(dot_smem);   // [U][L]
-  u64* thr = keys + U * L;                        // [U] KP-th key, last merge
+  extern __shared__ __align__(16) unsigned char stage1_smem[];
+  u64* keys = reinterpret_cast<u64*>(stage1_smem);  // [U][L]
+  u64* thr = keys + U * L;                        // [U] keep-th key, last merge
   int* cand = reinterpret_cast<int*>(thr + U);    // [U] buffered candidates
-  float* su = reinterpret_cast<float*>(cand + U);  // [D][U]
-  float* si = su + D * U;                         // [2][kDotDepth][kDotStride]
+  float* su = reinterpret_cast<float*>(cand + U);  // [D][US] resident users
+  float* si = su + D * US;                        // [2][kSlabDepth][kIS]
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -281,63 +257,46 @@ topk_dot_stage1(const float* __restrict__ users, const T* __restrict__ items,
     thr[e] = 0;
     cand[e] = 0;
   }
-  for (int e = tid; e < U * D; e += kT) {
-    const int u = e / D;
-    const int d = e - u * D;
-    su[d * U + u] = b0 + u < B ? users[(long long)(b0 + u) * D + d] : 0.0f;
-  }
+  stage_users<S>(su, users, b0, B, D, mixtures);
 
-  // Scoring ownership: a warp covers 4 item groups x 8 user groups, so its
-  // float4 reads of a dimension touch 64 and 128 contiguous bytes.
-  const int ug = (warp % kUserWarps) * 8 + (lane >> 2);
-  const int ig = (warp / kUserWarps) * 4 + (lane & 3);
-  // Staging ownership: dimension sd of rows sr + kWarps j; a warp loads
-  // 32-byte runs of 4 rows and stores them to 32 distinct banks.
-  const int sd = 8 * (warp & 3) + (lane >> 2);
-  const int sr = 4 * (warp >> 2) + (lane & 3);
+  // Scoring ownership: items 4 ig + r, user slot ug (users UPT ug + c); a
+  // warp covers 4 item groups x 8 user slots, so its float4 reads of a
+  // dimension touch 64 contiguous bytes of items and 8 slots of users.
+  const int ug = (warp % S::kUserWarps) * 8 + (lane >> 2);
+  const int ig = (warp / S::kUserWarps) * 4 + (lane & 3);
 
   const bool resume = resume_scores != nullptr;
-  bool live[RU];
-  float rs[RU], thr_score[RU];
-  int rid[RU];
-  u64 thr_key[RU];
+  bool live[UPT];
+  float thr_score[UPT];
+  u64 thr_key[UPT];
 #pragma unroll
-  for (int c = 0; c < RU; ++c) {
-    const int b = b0 + 4 * ug + c;
-    live[c] = b < B;
-    rs[c] = resume && live[c] ? resume_scores[b] : 0.0f;
-    rid[c] = resume && live[c] ? resume_ids[b] : 0;
+  for (int c = 0; c < UPT; ++c) {
+    live[c] = b0 + UPT * ug + c < B;
     thr_key[c] = 0;
     thr_score[c] = key_score(0);
   }
 
-  const int num_tiles = (N + kDotItems - 1) / kDotItems;
+  const int num_tiles = (N + TI - 1) / TI;
   const int tile_begin = blockIdx.y * tiles_per_split;
   const int tile_end = min(num_tiles, tile_begin + tiles_per_split);
-  const int slabs = (D + kDotDepth - 1) / kDotDepth;
+  const int slabs = (D + kSlabDepth - 1) / kSlabDepth;
 
-  T staged[kLoads];
-  auto load_slab = [&](int tile, int slab) {
-    const int d = slab * kDotDepth + sd;
-    const long long row = (long long)tile * kDotItems + sr;
-#pragma unroll
-    for (int j = 0; j < kLoads; ++j) {
-      const long long r = row + kWarps * j;
-      staged[j] = d < D && r < N ? items[r * D + d] : T(0.0f);
-    }
-  };
-  auto store_slab = [&](float* slab) {
-#pragma unroll
-    for (int j = 0; j < kLoads; ++j)
-      slab[sd * kDotStride + sr + kWarps * j] = to_f32(staged[j]);
-  };
-
-  load_slab(tile_begin, 0);
-  store_slab(si);
+  SlabStage<T, S> stage;
+  stage.load(items, tile_begin, 0, N, D);
+  stage.store(si);
   __syncthreads();
 
+  // Registers are tight at MP = 8 (64 accumulators a thread), so nothing
+  // is held longer than it must be: acc enters each tile holding -0.0
+  // (dot_tile_accumulate's start) and is reset after the tile's filter and
+  // merge, the next slab is stored before the filter, the item biases are
+  // loaded after the tile's last slab is scored, and the resume keys are
+  // read only for a score that passes its threshold.
   float acc[RI][RU];
-  float item_bias[RI];
+#pragma unroll
+  for (int r = 0; r < RI; ++r)
+#pragma unroll
+    for (int c = 0; c < RU; ++c) acc[r][c] = -0.0f;
   int tile = tile_begin, slab = 0, buf = 0;
   for (;;) {
     int next_tile = tile, next_slab = slab + 1;
@@ -346,64 +305,76 @@ topk_dot_stage1(const float* __restrict__ users, const T* __restrict__ items,
       ++next_tile;
     }
     const bool more = next_tile < tile_end;
-    if (more) load_slab(next_tile, next_slab);
+    const bool last = slab == slabs - 1;
+    if (more) stage.load(items, next_tile, next_slab, N, D);
 
-    const int row0 = tile * kDotItems;
-    if (slab == 0) {
+    const int row0 = tile * TI;
+    const int d0 = slab * kSlabDepth;
+    const float* slab_items = si + buf * S::kSlab + 4 * ig;
+    const float* slab_users = su + d0 * US + RU * ug;
+    if (D - d0 >= kSlabDepth)  // a full slab: a constant trip count
+      dot_tile_accumulate<RI, RU>(acc, kSlabDepth, slab_items,
+                                  S::kItemStride, 0, slab_users, US, 4);
+    else
+      dot_tile_accumulate<RI, RU>(acc, D - d0, slab_items, S::kItemStride,
+                                  0, slab_users, US, 4);
+    // The other buffer was last read before the previous barrier.
+    if (more) stage.store(si + (buf ^ 1) * S::kSlab);
+
+    if (last) {
+      float item_bias[RI];
 #pragma unroll
       for (int r = 0; r < RI; ++r) {
-        const int id = row0 + (r >> 2) * kItemGap + 4 * ig + (r & 3);
+        const int id = row0 + 4 * ig + r;
         item_bias[r] = id < N ? bias[id] : 0.0f;
-#pragma unroll
-        for (int c = 0; c < RU; ++c) acc[r][c] = -0.0f;
       }
-    }
-    const int d0 = slab * kDotDepth;
-    const float* slab_items = si + buf * kSlab + 4 * ig;
-    const float* slab_users = su + d0 * U + 4 * ug;
-    if (D - d0 >= kDotDepth)  // a full slab: a constant trip count
-      dot_tile_accumulate<RI, RU>(acc, kDotDepth, slab_items, kDotStride,
-                                  kItemGap, slab_users, U, 0);
-    else
-      dot_tile_accumulate<RI, RU>(acc, D - d0, slab_items, kDotStride,
-                                  kItemGap, slab_users, U, 0);
-
-    // The filter: append each key above its user's threshold to the
-    // user's buffer, the L - keep slots behind its list.  A buffer holds
-    // at most L - keep - kDotItems keys before a tile, so one tile cannot
-    // overflow it; a buffer that passes that mark asks for a merge.
-    int merge = 0;
-    if (slab == slabs - 1) {
-      merge = tile == tile_begin;  // warm start
+      // The filter: append each key above its user's threshold to the
+      // user's buffer, the L - keep slots behind its list.  A buffer
+      // holds at most L - keep - TI keys before a tile, so one tile
+      // cannot overflow it; a buffer that passes that mark asks for a
+      // merge.
+      int merge = tile == tile_begin;  // warm start
 #pragma unroll
-      for (int c = 0; c < RU; ++c) {
+      for (int c = 0; c < UPT; ++c) {
         if (!live[c]) continue;
-        const int u = 4 * ug + c;
+        const int u = UPT * ug + c;
 #pragma unroll
         for (int r = 0; r < RI; ++r) {
-          const int id = row0 + (r >> 2) * kItemGap + 4 * ig + (r & 3);
-          const float s = __fadd_rn(acc[r][c], item_bias[r]);
+          const int id = row0 + 4 * ig + r;
+          float s;
+          if constexpr (MP == 0)
+            s = __fadd_rn(acc[r][c], item_bias[r]);
+          else
+            s = mixture_combine<MP>(acc[r], mixtures, item_bias[r]);
           // s below the threshold's score means its key is below too.
           if (id >= N || s < thr_score[c]) continue;
-          if (resume && (s > rs[c] || (s == rs[c] && id <= rid[c])))
-            continue;
+          if (resume) {  // read here, on the rare path, not held
+            const float rs = resume_scores[b0 + u];
+            if (s > rs || (s == rs && id <= resume_ids[b0 + u])) continue;
+          }
           const u64 key = make_key(s, id);
           if (key <= thr_key[c]) continue;
           const int pos = atomicAdd(&cand[u], 1);
           keys[u * L + keep + pos] = key;
-          merge |= pos >= L - keep - kDotItems;
+          merge |= pos >= L - keep - TI;
         }
       }
-    }
-    if (more) store_slab(si + (buf ^ 1) * kSlab);
-    merge = __syncthreads_or(merge);
-    if (merge) {
-      merge_candidates<U, L>(keys, thr, cand, keep);
+      // The slab's barrier, which also tells every thread whether some
+      // buffer asks for a merge.
+      if (__syncthreads_or(merge)) {
+        merge_candidates<U, L>(keys, thr, cand, keep);
 #pragma unroll
-      for (int c = 0; c < RU; ++c) {
-        thr_key[c] = thr[4 * ug + c];
-        thr_score[c] = key_score(thr_key[c]);
+        for (int c = 0; c < UPT; ++c) {
+          thr_key[c] = thr[UPT * ug + c];
+          thr_score[c] = key_score(thr_key[c]);
+        }
       }
+#pragma unroll
+      for (int r = 0; r < RI; ++r)
+#pragma unroll
+        for (int c = 0; c < RU; ++c) acc[r][c] = -0.0f;
+    } else {
+      __syncthreads();
     }
     if (!more) break;
     tile = next_tile;
@@ -412,126 +383,6 @@ topk_dot_stage1(const float* __restrict__ users, const T* __restrict__ items,
   }
   merge_candidates<U, L>(keys, thr, cand, keep);
   write_lists<U, L, KP>(keys, b0, B, splits, partial);
-}
-
-// ---- mixture stage 1 ------------------------------------------------------
-
-// Keys per user row: the list (KP) and a buffer of several tiles'
-// candidates (at least 2 x kMixItems below KP = 256), so the threshold
-// goes stale between merges but the merges stay rare.
-template <int KP>
-__host__ __device__ constexpr int mix_row_len() {
-  return KP >= 256 ? 2 * KP : (4 * KP > 128 ? 4 * KP : 128);
-}
-
-// K is the user operand's width, 2 * mixtures * D.
-template <int KP>
-size_t mix_smem_bytes(int D, int K) {
-  return sizeof(u64) * ((size_t)kMixUsers * mix_row_len<KP>() + kMixUsers) +
-         sizeof(float) * ((size_t)K * kMixUS + (size_t)D * kMixIS +
-                          kMixItems * kMixUS + kMixItems) +
-         sizeof(int) * (kMixUsers + 1);
-}
-
-// Mixtures of at most MAXM tastes.
-template <typename T, int KP, int MAXM>
-__global__ void __launch_bounds__(kThreads)
-topk_mixture_stage1(const float* __restrict__ users,
-                    const T* __restrict__ items,
-                    const float* __restrict__ bias,
-                    const float* __restrict__ resume_scores,
-                    const int* __restrict__ resume_ids, int B, int N, int D,
-                    int mixtures, int tiles_per_split, int splits,
-                    u64* __restrict__ partial) {
-  constexpr int kLen = mix_row_len<KP>();
-  constexpr int kBuf = kLen - KP;
-  const int K = 2 * mixtures * D;  // user operand width
-  extern __shared__ u64 mix_smem[];
-  u64* keys = mix_smem;                       // [kMixUsers][kLen]
-  u64* thr = keys + kMixUsers * kLen;         // [kMixUsers] KP-th key
-  float* su = reinterpret_cast<float*>(thr + kMixUsers);  // [K][kMixUS]
-  float* si = su + K * kMixUS;                // [D][kMixIS]
-  float* ss = si + D * kMixIS;                // [kMixItems][kMixUS]
-  float* sb = ss + kMixItems * kMixUS;        // [kMixItems]
-  int* cand = reinterpret_cast<int*>(sb + kMixItems);  // [kMixUsers]
-  int* full = cand + kMixUsers;               // [1] some buffer nearly full
-
-  const int tid = threadIdx.x;
-  const int b0 = blockIdx.x * kMixUsers;
-  for (int e = tid; e < kMixUsers * kLen; e += kThreads) keys[e] = 0;
-  for (int e = tid; e < kMixUsers; e += kThreads) {
-    thr[e] = 0;
-    cand[e] = 0;
-  }
-  if (tid == 0) *full = 0;
-  stage_transposed(su, users, b0, kMixUsers, B, K, kMixUS);
-
-  // Candidate ownership: one user, rows r0, r0 + 8, ... of each tile.
-  const int cu = tid % kMixUsers;
-  const int r0 = tid / kMixUsers;
-  const int b = b0 + cu;
-  const bool resume = resume_scores != nullptr && b < B;
-  const float rs = resume ? resume_scores[b] : 0.0f;
-  const int rid = resume ? resume_ids[b] : 0;
-  // Scoring ownership: items ti + 16 r, users tu + 16 c.
-  const int ti = tid / 16;
-  const int tu = tid % 16;
-
-  const int num_tiles = (N + kMixItems - 1) / kMixItems;
-  const int tile_begin = blockIdx.y * tiles_per_split;
-  const int tile_end = min(num_tiles, tile_begin + tiles_per_split);
-  __syncthreads();
-
-  for (int tile = tile_begin; tile < tile_end; ++tile) {
-    const int row0 = tile * kMixItems;
-    stage_transposed(si, items, row0, kMixItems, N, D, kMixIS);
-    for (int i = tid; i < kMixItems; i += kThreads)
-      sb[i] = row0 + i < N ? bias[row0 + i] : 0.0f;
-    __syncthreads();
-
-    float acc[4][2];
-    mixture_score_block<4, 2, MAXM>(
-        acc, mixtures, D,
-        [&](int r, int d) { return si[d * kMixIS + ti + 16 * r]; },
-        [&](int c, int k, int d) {
-          return su[(k * D + d) * kMixUS + tu + 16 * c];
-        },
-        [&](int r) { return sb[ti + 16 * r]; });
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 2; ++c)
-        ss[(ti + 16 * r) * kMixUS + tu + 16 * c] = acc[r][c];
-    __syncthreads();
-
-    // Append every key above the user's threshold to its buffer.  A
-    // buffer holds at most kBuf - kMixItems keys before a tile, so the
-    // tile cannot overflow it; one that passes that mark asks for a merge.
-    if (b < B) {
-      const int valid = min(kMixItems, N - row0);
-      const u64 threshold = thr[cu];
-      for (int i = r0; i < valid; i += kMixRows) {
-        const float s = ss[i * kMixUS + cu];
-        const int id = row0 + i;
-        if (resume && (s > rs || (s == rs && id <= rid))) continue;
-        const u64 key = make_key(s, id);
-        if (key > threshold) {
-          const int pos = atomicAdd(&cand[cu], 1);
-          keys[cu * kLen + KP + pos] = key;
-          if (pos >= kBuf - kMixItems) *full = 1;
-        }
-      }
-    }
-    __syncthreads();
-    const int merge = *full;
-    __syncthreads();
-    if (merge) {
-      if (tid == 0) *full = 0;
-      merge_candidates<kMixUsers, kLen>(keys, thr, cand, KP);
-    }
-  }
-  merge_candidates<kMixUsers, kLen>(keys, thr, cand, KP);
-  write_lists<kMixUsers, kLen, KP>(keys, b0, B, splits, partial);
 }
 
 // ---- stage 2 and the launches ---------------------------------------------
@@ -574,47 +425,25 @@ int split_tiles(int num_tiles, int splits) {
   return (num_tiles + splits - 1) / splits;
 }
 
-template <typename T, int KP>
-int launch_dot(const float* users, const void* items, const float* bias,
-               const float* resume_scores, const int* resume_ids, int B,
-               int N, int D, int k, int splits, u64* partial,
-               float* out_scores, int* out_ids, cudaStream_t stream) {
-  const size_t smem = dot_smem_bytes<KP>(D);
-  auto stage1 = topk_dot_stage1<T, KP>;
+template <typename T, int KP, int MP>
+int launch_stage1(const float* users, const void* items, const float* bias,
+                  const float* resume_scores, const int* resume_ids, int B,
+                  int N, int D, int mixtures, int k, int splits,
+                  u64* partial, float* out_scores, int* out_ids,
+                  cudaStream_t stream) {
+  using S = Stage1Shape<KP, MP>;
+  const size_t smem = stage1_smem_bytes<KP, MP>(D);
+  auto stage1 = topk_stage1<T, KP, MP>;
   cudaError_t err = cudaFuncSetAttribute(
       stage1, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int num_tiles = (N + kDotItems - 1) / kDotItems;
+  const int num_tiles = (N + S::kItems - 1) / S::kItems;
   const int per_split = split_tiles(num_tiles, splits);
   const int used = (num_tiles + per_split - 1) / per_split;
-  constexpr int U = dot_users<KP>();
-  dim3 grid((B + U - 1) / U, used);
-  stage1<<<grid, dot_threads<KP>(), smem, stream>>>(
+  dim3 grid((B + S::kUsers - 1) / S::kUsers, used);
+  stage1<<<grid, S::kThreads, smem, stream>>>(
       users, static_cast<const T*>(items), bias, resume_scores, resume_ids, B,
-      N, D, k, per_split, used, partial);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_stage2(partial, B, used, KP, k, out_scores, out_ids, stream);
-}
-
-template <typename T, int KP, int MAXM>
-int launch_mixture(const float* users, const void* items, const float* bias,
-                   const float* resume_scores, const int* resume_ids, int B,
-                   int N, int D, int mixtures, int k, int splits,
-                   u64* partial, float* out_scores, int* out_ids,
-                   cudaStream_t stream) {
-  const size_t smem = mix_smem_bytes<KP>(D, 2 * mixtures * D);
-  auto stage1 = topk_mixture_stage1<T, KP, MAXM>;
-  cudaError_t err = cudaFuncSetAttribute(
-      stage1, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const int num_tiles = (N + kMixItems - 1) / kMixItems;
-  const int per_split = split_tiles(num_tiles, splits);
-  const int used = (num_tiles + per_split - 1) / per_split;
-  dim3 grid((B + kMixUsers - 1) / kMixUsers, used);
-  stage1<<<grid, kThreads, smem, stream>>>(
-      users, static_cast<const T*>(items), bias, resume_scores, resume_ids, B,
-      N, D, mixtures, per_split, used, partial);
+      N, D, mixtures, k, per_split, used, partial);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_stage2(partial, B, used, KP, k, out_scores, out_ids, stream);
@@ -625,15 +454,11 @@ int launch_topk(const float* users, const void* items, const float* bias,
                 const float* rs, const int* ri, int B, int N, int D,
                 int mixtures, int k, int splits, u64* partial, float* os,
                 int* oi, cudaStream_t s) {
-  if (mixtures == 0)
-    return launch_dot<T, KP>(users, items, bias, rs, ri, B, N, D, k, splits,
-                             partial, os, oi, s);
-  if (mixtures <= 4)
-    return launch_mixture<T, KP, 4>(users, items, bias, rs, ri, B, N, D,
-                                    mixtures, k, splits, partial, os, oi, s);
-  return launch_mixture<T, KP, kMaxMixtures>(users, items, bias, rs, ri, B,
-                                             N, D, mixtures, k, splits,
-                                             partial, os, oi, s);
+  return with_shape(mixtures, [&](auto mp) {
+    return launch_stage1<T, KP, decltype(mp)::value>(
+        users, items, bias, rs, ri, B, N, D, mixtures, k, splits, partial,
+        os, oi, s);
+  });
 }
 
 template <typename T>
@@ -657,31 +482,32 @@ int dispatch_kp(int kp, const float* users, const void* items,
 #undef SPOTLIGHT_TOPK
 }
 
-template <int KP>
-size_t stage1_smem_bytes(int D, int mixtures) {
-  return mixtures > 0 ? mix_smem_bytes<KP>(D, 2 * mixtures * D)
-                      : dot_smem_bytes<KP>(D);
-}
-
 }  // namespace
 
 extern "C" {
 
+// Shared memory of a stage-1 block at list width kp (0: no such width).
 size_t spotlight_topk_stage1_smem_bytes(int kp, int D, int mixtures) {
-  switch (kp) {
-    case 16: return stage1_smem_bytes<16>(D, mixtures);
-    case 32: return stage1_smem_bytes<32>(D, mixtures);
-    case 64: return stage1_smem_bytes<64>(D, mixtures);
-    case 128: return stage1_smem_bytes<128>(D, mixtures);
-    case 256: return stage1_smem_bytes<256>(D, mixtures);
-    default: return 0;
-  }
+  return with_shape(mixtures, [&](auto mp) -> size_t {
+    constexpr int MP = decltype(mp)::value;
+    switch (kp) {
+      case 16: return stage1_smem_bytes<16, MP>(D);
+      case 32: return stage1_smem_bytes<32, MP>(D);
+      case 64: return stage1_smem_bytes<64, MP>(D);
+      case 128: return stage1_smem_bytes<128, MP>(D);
+      case 256: return stage1_smem_bytes<256, MP>(D);
+      default: return 0;
+    }
+  });
 }
 
 // Users per stage-1 block of a fetch at kp.
 int spotlight_topk_block_users(int kp, int mixtures) {
-  return mixtures > 0 ? kMixUsers : (kp <= 64 ? dot_users<64>()
-                                              : dot_users<256>());
+  return with_shape(mixtures, [&](auto mp) {
+    constexpr int MP = decltype(mp)::value;
+    return kp <= 64 ? Stage1Shape<64, MP>::kUsers
+                    : Stage1Shape<256, MP>::kUsers;
+  });
 }
 
 // One top-k fetch: k <= kp, kp a power of two in [16, 256].  users are

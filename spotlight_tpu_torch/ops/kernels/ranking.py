@@ -43,10 +43,7 @@ CANDIDATE_SCORES_LAUNCHES = 0
 #: Most mixture components the kernels take (``kMaxMixtures``, common.cuh).
 MAX_MIXTURES = 8
 
-# Items per tile of the mixture top-k stage 1 (csrc/topk.cu).
-_TILE_ITEMS = 64
 _MAX_SHARED = 232448       # bytes of shared memory one H100 block may use
-_BLOCKS_PER_SM = 4         # its blocks in flight per SM the splits aim at
 
 
 def on_cuda(*tensors):
@@ -95,15 +92,6 @@ def require_contiguous(*tensors):
             raise ValueError('the CUDA kernels take contiguous tensors')
 
 
-def catalogue_splits(user_blocks, num_items, device, cap=None):
-    """Catalogue splits per user block: enough blocks to give every SM
-    ``_BLOCKS_PER_SM`` of them, no more splits than item tiles."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    tiles = -(-num_items // _TILE_ITEMS)
-    splits = max(1, min(tiles, -(-_BLOCKS_PER_SM * sms // user_blocks)))
-    return min(splits, cap) if cap else splits
-
-
 def _rank_splits(lib, batch, device, mixtures):
     """Catalogue splits per user block of a rank launch.  The rank kernel
     runs one block an SM and its blocks cost the same, so it takes as many
@@ -115,12 +103,33 @@ def _rank_splits(lib, batch, device, mixtures):
     return max(1, sms // user_blocks)
 
 
+def streams(dim, num_mixtures, device):
+    """Whether :func:`rank_weights` and :func:`rank_counts` take items of
+    width ``dim``, scored as dots (``num_mixtures`` None) or as mixtures of
+    M tastes, on ``device``.
+
+    Mixtures of more than :data:`MAX_MIXTURES` tastes never stream.  On the
+    CPU the plain versions take every other operand.  On a card the built
+    library says whether the rank kernel's narrowest launch fits in shared
+    memory (wider target blocks are chunked).
+    """
+    if num_mixtures is not None and num_mixtures > MAX_MIXTURES:
+        return False
+    if torch.device(device).type != 'cuda':
+        return True
+    return _fits(_build.load('ranking'), dim, num_mixtures or 0)
+
+
+def _fits(lib, dim, mixtures):
+    return lib.spotlight_rank_smem_bytes(dim, mixtures) <= _MAX_SHARED
+
+
 def _check_width(lib, dim, mixtures):
     """The rank kernel holds its users and two item slabs in shared memory:
     dot scoring takes D <= 768 (with fewer targets a launch past D = 383),
     mixtures of M <= 2, 4 or 8 tastes D <= 774, 387 or 193 (with fewer
     targets a launch past D = 719, 359 or 179)."""
-    if lib.spotlight_rank_smem_bytes(dim, mixtures) > _MAX_SHARED:
+    if not _fits(lib, dim, mixtures):
         raise ValueError('embedding width {} exceeds the rank kernel\'s '
                          'shared memory'.format(dim))
 

@@ -20,15 +20,19 @@ import torch
 
 from spotlight_tpu_torch.ops.kernels import _build
 from spotlight_tpu_torch.ops.kernels.ranking import (
-    _MAX_SHARED, catalogue_splits, check_factors, on_cuda, plain_scores,
+    _MAX_SHARED, MAX_MIXTURES, check_factors, on_cuda, plain_scores,
     require_contiguous, stream_handle)
 
-#: Widest fetch one launch takes.  Dot stage 1 keeps, for each of its U
-#: users (64 at KP <= 64, 32 above), a list and a candidate buffer of 256
-#: (512) 8-byte keys in shared memory: 128 KB beside 33 KB of item slabs
-#: and 4 U bytes a dimension of resident users, so it takes embedding
-#: widths up to 261 at KP <= 64 and up to 525 at KP = 128 or 256.  KP =
-#: 512 would need 256 KB of keys, beyond the 227 KB a block may use.
+#: Widest fetch one launch takes.  Stage 1 keeps, for each of its U users, a
+#: list and a candidate buffer of 256 8-byte keys at KP <= 64 (KP: the fetch
+#: rounded up to a power of two, at least 16) and 512 above, in shared
+#: memory beside 33 KB of item slabs and the users' columns, 4 bytes each a
+#: dimension.  With dot scoring U is 64 at KP <= 64 and 32 above (128 KB of
+#: keys), which takes embedding widths up to 261 and 525; with mixtures U
+#: is 16 users of 2 MP columns (M rounded up to MP = 2, 4 or 8), 32 KB of
+#: keys at KP <= 64 and 64 KB above, which takes widths up to 647, 323
+#: and 161 at KP <= 64 and 519, 259 and 129 above.  KP = 512 would need
+#: 256 KB of dot keys, beyond the 227 KB a block may use.
 SINGLE_LAUNCH_K = 256
 
 #: Kernel launches made by :func:`streaming_topk` (one per C call), dot
@@ -42,6 +46,16 @@ _STAGE2_KEYS = 8192        # stage 2 sorts at most this many keys per user
 
 def streaming_topk(user_reprs, item_matrix, item_bias, k, num_mixtures=None):
     """Exact top-k catalogue items per user without materialising scores.
+
+    On a card each fetch is two launches (``csrc/topk.cu``).  Stage 1 runs
+    one block an SM, each over a contiguous split of the catalogue for 64
+    dot users (32 at fetches past 64) or 16 mixture users held in shared
+    memory; it scores 128-item tiles in registers as the rank pass does
+    (``dot_tile_accumulate``, then the bias, or ``mixture_combine`` over a
+    user's 2M dots), so every score has the bits of
+    :func:`~.ranking.rank_weights`' and of the matched scores', and keeps
+    the keys that beat each user's running k-th key in a list and buffer
+    of 64-bit keys.  Stage 2 sorts each user's split lists into its top k.
 
     Parameters
     ----------
@@ -82,6 +96,34 @@ def streaming_topk(user_reprs, item_matrix, item_bias, k, num_mixtures=None):
     return torch.cat(score_parts, dim=1), torch.cat(id_parts, dim=1)
 
 
+def streams(k, dim, num_mixtures, device):
+    """Whether :func:`streaming_topk` takes a top-``k`` fetch over items of
+    width ``dim``, scored as dots (``num_mixtures`` None) or as mixtures of
+    M tastes, on ``device``.
+
+    Mixtures of more than :data:`~.ranking.MAX_MIXTURES` tastes never
+    stream.  On the CPU the plain version takes every other operand.  On a
+    card the built library says whether the stage-1 block of the fetch's
+    widest launch fits in shared memory.
+    """
+    if num_mixtures is not None and num_mixtures > MAX_MIXTURES:
+        return False
+    if torch.device(device).type != 'cuda':
+        return True
+    return _fits(_build.load('topk'), _kp(min(k, SINGLE_LAUNCH_K)), dim,
+                 num_mixtures or 0)
+
+
+def _kp(k):
+    """The list width of a fetch of ``k``: a power of two, at least 16."""
+    return max(_MIN_KP, 1 << (k - 1).bit_length())
+
+
+def _fits(lib, kp, dim, mixtures):
+    return (lib.spotlight_topk_stage1_smem_bytes(kp, dim, mixtures)
+            <= _MAX_SHARED)
+
+
 def _topk_call(user_reprs, item_matrix, item_bias, k, num_mixtures=None,
                resume_score=None, resume_id=None):
     """One fetch of at most SINGLE_LAUNCH_K, optionally resuming strictly
@@ -119,15 +161,15 @@ def _topk_cuda(user_reprs, item_matrix, item_bias, k, num_mixtures=None,
     batch = user_reprs.shape[0]
     num_items, dim = item_matrix.shape
     mixtures = num_mixtures or 0
-    kp = max(_MIN_KP, 1 << (k - 1).bit_length())
-    if lib.spotlight_topk_stage1_smem_bytes(kp, dim, mixtures) > _MAX_SHARED:
+    kp = _kp(k)
+    if not _fits(lib, kp, dim, mixtures):
         raise ValueError('top-{} at embedding width {}{} exceeds the top-k '
                          'kernel\'s shared memory'.format(
                              k, dim, ' with {} mixtures'.format(mixtures)
                              if mixtures else ''))
     device = user_reprs.device
     user_blocks = -(-batch // lib.spotlight_topk_block_users(kp, mixtures))
-    splits = _splits(user_blocks, num_items, device, kp, mixtures)
+    splits = _splits(user_blocks, device, kp)
     partial = torch.empty(batch * splits * kp, dtype=torch.int64,
                           device=device)
     scores = torch.empty(batch, k, dtype=torch.float32, device=device)
@@ -154,15 +196,11 @@ def _topk_cuda(user_reprs, item_matrix, item_bias, k, num_mixtures=None,
     return scores, ids
 
 
-def _splits(user_blocks, num_items, device, kp, mixtures):
-    """Catalogue splits per user block.  Dot stage 1 runs one block an SM
-    and its blocks cost the same, so it takes as many splits as fill one
-    wave (rounded down: a second, partial wave would double the time; the
-    kernel drops splits beyond the catalogue's tiles); the mixture stage 1
-    takes ``catalogue_splits``' several blocks an SM.  Stage 2 sorts at
-    most ``_STAGE2_KEYS`` keys a user."""
-    if mixtures:
-        return catalogue_splits(user_blocks, num_items, device,
-                                cap=_STAGE2_KEYS // kp)
+def _splits(user_blocks, device, kp):
+    """Catalogue splits per user block.  Stage 1 runs one block an SM and
+    its blocks cost the same, so it takes as many splits as fill one wave
+    (rounded down: a second, partial wave would double the time; the kernel
+    drops splits beyond the catalogue's tiles).  Stage 2 sorts at most
+    ``_STAGE2_KEYS`` keys a user."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(sms // user_blocks, _STAGE2_KEYS // kp))

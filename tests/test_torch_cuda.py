@@ -10,9 +10,11 @@ Kernel and plain version share one score arithmetic (the exact-tie contract
 of ``csrc/common.cuh``), so every comparison of dot scores, counts and ids is
 exact.  Mixture scores also go through ``expf``: the kernels' and
 ``torch.exp``'s come from the CUDA math library and should agree bit for
-bit, but the two may be built from different CUDA versions, so mixture
+bit, but the two may be built from different CUDA versions, so K4's mixture
 scores are held to within 2 ulp, and the counts and ids they decide
-exactly.  The bloom gather-sums and their backward sum in one fixed order
+exactly.  The top-k kernel's mixture scores are held bit for bit: its
+stage 1 scores on the rank pass's register tile, whose counts are exact
+against the plain version's scores.  The bloom gather-sums and their backward sum in one fixed order
 in kernel and plain version alike, so they are held bit for bit, and the
 backward to the same bits in two launches.  So is P1, the row-Adam update
 (``ops/kernels/row_update.py``): its sums, products, quotients and square
@@ -31,7 +33,7 @@ from spotlight_tpu_torch.factorization import ImplicitFactorizationModel
 from spotlight_tpu_torch.ops.kernels import (bloom, gather_sum, multihot,
                                              ranking, row_update, topk)
 from spotlight_tpu_torch.ops.lazy_adam import sparse_adam_rows
-from spotlight_tpu_torch.sequence import ImplicitSequenceModel
+from spotlight_tpu_torch.sequence import ImplicitSequenceModel, MixtureLSTMNet
 from spotlight_tpu_torch.utils.convert import params_from_jax
 
 pytestmark = pytest.mark.cuda
@@ -375,7 +377,86 @@ def test_mixture_topk_kernel_equals_plain_version(cuda, k, mixtures):
     users = users / 8
     got = topk.streaming_topk(users, items, bias, k, mixtures)
     want = topk.streaming_topk_plain(users, items, bias, k, mixtures)
-    assert torch.equal(got[1], want[1]) and _ulp_gap(got[0], want[0]) <= 2
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+def _assert_same_topk(got, want, what):
+    assert torch.equal(got[1], want[1]), what
+    assert torch.equal(got[0].view(torch.int32),
+                       want[0].view(torch.int32)), what   # signs of zeros
+
+
+@pytest.mark.parametrize('dim', [16, 64, 100])
+@pytest.mark.parametrize('mixtures', [1, 2, 3, 4, 8])
+def test_mixture_topk_stage1_equals_plain_version(cuda, mixtures, dim):
+    """K2 with mixture scoring (stage 1 on the rank pass's register tile)
+    bit for bit: every padding of M (2, 4 or 8 columns a component), one
+    slab, a ragged second and a ragged fourth, lists of 16 to 256 keys and
+    300 in two rounds, float32 and bf16 tables, catalogues that end inside
+    a 128-item tile, user blocks that end inside 16 users; scores with exact
+    ties and signed zeros (_mixture_rank_operands)."""
+    num_items = 1000 + dim + mixtures
+    for dtype in (torch.float32, torch.bfloat16):
+        users, items, bias = _mixture_rank_operands(
+            mixtures * 100 + dim, 37, num_items, dim, mixtures, dtype)
+        for k in (1, 10, 59, 143, 256, 300):
+            _assert_same_topk(
+                topk.streaming_topk(users, items, bias, k, mixtures),
+                topk.streaming_topk_plain(users, items, bias, k, mixtures),
+                (dtype, k))
+
+
+def test_mixture_topk_kernel_on_an_all_equal_catalogue(cuda):
+    """Every mixture score ties, so the id alone orders the keys, through
+    warm starts, merges and a resumed round."""
+    users, _, _ = _operands(3, 40, 700, 8, mixtures=4)
+    items = torch.ones(700, 8, device=cuda)
+    bias = torch.full((700,), 0.5, device=cuda)
+    for k in (1, 34, 256, 300):
+        scores, ids = topk.streaming_topk(users, items, bias, k, 4)
+        want = torch.arange(k, dtype=torch.int32, device=cuda)
+        assert torch.equal(ids, want.expand(40, k))
+        assert torch.equal(scores, topk.streaming_topk_plain(
+            users, items, bias, k, 4)[0])
+
+
+def test_mixture_topk_kernel_resumes_and_repeats_its_bits(cuda):
+    """A fetch that resumes strictly after each user's 17th key, and the
+    same fetch twice in the same bits."""
+    users, items, bias = _mixture_rank_operands(8, 50, 2000, 32, 4,
+                                                torch.float32)
+    first = topk.streaming_topk(users, items, bias, 40, 4)
+    _assert_same_topk(first, topk.streaming_topk(users, items, bias, 40, 4),
+                      'repeat')
+    resume_score = first[0][:, 16].contiguous()
+    resume_id = first[1][:, 16].contiguous()
+    _assert_same_topk(
+        topk._topk_call(users, items, bias, 65, 4, resume_score, resume_id),
+        topk.streaming_topk_plain(users, items, bias, 65, 4, resume_score,
+                                  resume_id), 'resume')
+
+
+@pytest.mark.parametrize('k,mixtures,widest', [
+    (10, 2, 647), (64, 4, 323), (34, 8, 161),     # lists of 16-64 keys
+    (143, 2, 519), (256, 4, 259), (65, 8, 129),   # lists of 128-256 keys
+])
+def test_mixture_topk_kernel_widest_embedding(cuda, k, mixtures, widest):
+    """16 mixture users of 2 MP columns beside 256-key rows (512 past 64
+    keys) fill a block's shared memory at these widths: the widest runs
+    exact, one more raises in the wrapper and is refused by the route
+    query."""
+    users, items, bias = _mixture_rank_operands(
+        widest, 20, 300, widest + 1, mixtures, torch.float32)
+    assert topk.streams(k, widest, mixtures, cuda)
+    assert not topk.streams(k, widest + 1, mixtures, cuda)
+    with pytest.raises(ValueError, match='shared memory'):
+        topk.streaming_topk(users, items, bias, k, mixtures)
+    users = users.reshape(20, 2 * mixtures, widest + 1)[:, :, :widest]
+    users = users.reshape(20, -1).contiguous()
+    items = items[:, :widest].contiguous()
+    _assert_same_topk(topk.streaming_topk(users, items, bias, k, mixtures),
+                      topk.streaming_topk_plain(users, items, bias, k,
+                                                mixtures), 'widest')
 
 
 def test_mixture_duplicated_row_ties_exactly(cuda):
@@ -474,6 +555,71 @@ def test_metrics_on_the_card_equal_the_cpu(cuda):
             np.testing.assert_array_equal(got, want)
     np.testing.assert_allclose(on_card.predict(5), on_cpu.predict(5),
                                rtol=1e-6, atol=1e-7)
+
+
+def _routed(metric, model, test, **kwargs):
+    """(streamed result, its route count, streaming=False's result)."""
+    before = evaluation.MATERIALIZE_ROUTES
+    got = metric(model, test, **kwargs)
+    routes = evaluation.MATERIALIZE_ROUTES - before
+    return got, routes, metric(model, test, streaming=False, **kwargs)
+
+
+def _assert_metric(got, want):
+    if isinstance(got, tuple):
+        for got_part, want_part in zip(got, want):
+            np.testing.assert_array_equal(got_part, want_part)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize('dim,routes', [(262, (0, 1)), (526, (0, 1)),
+                                        (769, (1, 1))])
+def test_metrics_past_the_kernels_widths_route_to_materialize(cuda, dim,
+                                                              routes):
+    """A BilinearNet wider than the kernels take: the rank kernel takes
+    D <= 768, the top-10 fetch's stage 1 D <= 261.  A metric the kernels
+    refuse runs on the materialize path, counted once; every metric equals
+    streaming=False's (the dyadic weights score exactly in any order)."""
+    (model, _), train, test = _models(dim=dim)
+    mrr = _routed(evaluation.mrr_score, model, test, train=train)
+    pr = _routed(evaluation.precision_recall_score, model, test, k=10)
+    assert (mrr[1], pr[1]) == routes
+    for got, _, want in (mrr, pr):
+        _assert_metric(got, want)
+
+
+def _sequence_model(dim, mixtures, num_items=500):
+    """An untrained mixture model of M tastes on the card, and 64 test
+    sequences."""
+    rs = np.random.RandomState(dim + mixtures)
+    sequences = rs.randint(1, num_items, (64, 12))
+    sequences[:5, :4] = 0
+    test = SequenceInteractions(sequences, num_items=num_items)
+    net = MixtureLSTMNet(num_items, dim, num_mixtures=mixtures,
+                         generator=torch.Generator().manual_seed(0))
+    model = ImplicitSequenceModel(representation=net, embedding_dim=dim,
+                                  device='cuda')
+    model._initialize(test)
+    return model, test
+
+
+@pytest.mark.parametrize('dim,mixtures,routes', [
+    (324, 4, (0, 1)),     # one past stage 1's M=4 width at a top-3 fetch
+    (16, 9, (1, 1)), (16, 12, (1, 1)),     # more tastes than the kernels
+    (16, 8, (0, 0)),
+])
+def test_sequence_metrics_route_past_the_kernels(cuda, dim, mixtures,
+                                                 routes):
+    model, test = _sequence_model(dim, mixtures)
+    for exclude in (False, True):
+        mrr = _routed(evaluation.sequence_mrr_score, model, test,
+                      exclude_preceding=exclude)
+        pr = _routed(evaluation.sequence_precision_recall_score, model,
+                     test, k=3, exclude_preceding=exclude)
+        assert (mrr[1], pr[1]) == routes
+        for got, _, want in (mrr, pr):
+            _assert_metric(got, want)
 
 
 @pytest.mark.parametrize('batch,num_items,dim,width,dtype,mixtures', [

@@ -21,9 +21,11 @@ import torch
 from spotlight_tpu import evaluation as jax_eval
 from spotlight_tpu_torch import evaluation
 from spotlight_tpu_torch.data import Interactions
-from spotlight_tpu_torch.ops.kernels import ranking
+from spotlight_tpu_torch.ops.kernels import ranking, topk
 
 from tests.test_torch_factorization import fitted_pair, to_port
+from tests.test_torch_sequence import _tests as sequence_tests
+from tests.test_torch_sequence import pair as sequence_pair
 
 MRR_RTOL = 1e-6
 
@@ -185,6 +187,62 @@ def test_kernel_failure_is_not_rerouted(monkeypatch):
     with pytest.raises(RuntimeError, match='kernel launch failed'):
         evaluation.precision_recall_score(port, ptest)
     assert not hasattr(evaluation, 'FALLBACK_COUNTS')
+
+
+def test_refused_route_runs_the_materialize_path(monkeypatch):
+    """Where the kernels do not take the model's factors (the route queries
+    refuse, as on a card past the kernels' shared memory), each metric call
+    runs whole on the materialize path at MATERIALIZE_BATCH rows a batch,
+    counts once in MATERIALIZE_ROUTES, and equals JAX's and
+    streaming=False's."""
+    jax_model, port, train, test, ptrain, ptest = _setup()
+    jax_seq, port_seq, sequences = sequence_pair('mixture', 4)
+    jax_seq_test, port_seq_test = sequence_tests(sequences)
+    refuse = lambda *args: False  # noqa: E731
+    monkeypatch.setattr(ranking, 'streams', refuse)
+    monkeypatch.setattr(topk, 'streams', refuse)
+    monkeypatch.setattr(evaluation, 'MATERIALIZE_BATCH', 7)
+    batches = []
+
+    def spy(name):
+        original = getattr(evaluation, name)
+
+        def scored(model, rows, *args):
+            batches.append(len(rows))
+            return original(model, rows, *args)
+        monkeypatch.setattr(evaluation, name, scored)
+
+    spy('_score_user_batch')
+    spy('_sequence_final_scores')
+    calls = (
+        (evaluation.mrr_score, jax_eval.mrr_score, port, jax_model, ptest,
+         test, {'train': ptrain}, {'train': train}),
+        (evaluation.precision_recall_score, jax_eval.precision_recall_score,
+         port, jax_model, ptest, test, {'train': ptrain, 'k': [1, 5]},
+         {'train': train, 'k': [1, 5]}),
+        (evaluation.sequence_mrr_score, jax_eval.sequence_mrr_score,
+         port_seq, jax_seq, port_seq_test, jax_seq_test,
+         {'exclude_preceding': True}, {'exclude_preceding': True}),
+        (evaluation.sequence_precision_recall_score,
+         jax_eval.sequence_precision_recall_score, port_seq, jax_seq,
+         port_seq_test, jax_seq_test, {'k': 3}, {'k': 3}))
+    for (metric, jax_metric, model, jax_model_, data, jax_data, kwargs,
+         jax_kwargs) in calls:
+        del batches[:]
+        before = evaluation.MATERIALIZE_ROUTES
+        got = metric(model, data, **kwargs)
+        assert evaluation.MATERIALIZE_ROUTES - before == 1, metric
+        assert max(batches) == 7, metric
+        materialized = metric(model, data, streaming=False, **kwargs)
+        want = jax_metric(jax_model_, jax_data, **jax_kwargs)
+        if isinstance(got, tuple):   # precision and recall: exactly
+            for got_part, mat_part, want_part in zip(got, materialized,
+                                                     want):
+                np.testing.assert_array_equal(got_part, mat_part)
+                np.testing.assert_array_equal(got_part, want_part)
+        else:
+            np.testing.assert_array_equal(got, materialized)
+            np.testing.assert_allclose(got, want, rtol=MRR_RTOL, atol=0)
 
 
 def test_padded_and_trimmed_rows_match_jax():

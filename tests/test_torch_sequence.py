@@ -340,6 +340,33 @@ def test_sequence_precision_recall_matches_jax(representation, mixtures,
         np.testing.assert_array_equal(got_part, want_part)
 
 
+@pytest.mark.parametrize('exclude', [False, True])
+@pytest.mark.parametrize('mixtures,routes', [(9, 1), (12, 1), (8, 0)])
+def test_mixtures_past_the_kernels_route_to_materialize(mixtures, routes,
+                                                        exclude):
+    """More tastes than the kernels take (``MAX_MIXTURES``): with the
+    default ``streaming=True`` each metric call runs on the materialize
+    path, counted once in ``MATERIALIZE_ROUTES``, and equals JAX's; M = 8
+    still streams."""
+    jax_model, port, sequences = pair('mixture', mixtures)
+    jax_test, port_test = _tests(sequences)
+    before = evaluation.MATERIALIZE_ROUTES
+    got = evaluation.sequence_mrr_score(port, port_test,
+                                        exclude_preceding=exclude)
+    assert evaluation.MATERIALIZE_ROUTES - before == routes
+    want = jax_eval.sequence_mrr_score(jax_model, jax_test,
+                                       exclude_preceding=exclude)
+    np.testing.assert_allclose(got, want, rtol=MRR_RTOL, atol=0)
+    before = evaluation.MATERIALIZE_ROUTES
+    got = evaluation.sequence_precision_recall_score(
+        port, port_test, k=3, exclude_preceding=exclude)
+    assert evaluation.MATERIALIZE_ROUTES - before == routes
+    want = jax_eval.sequence_precision_recall_score(
+        jax_model, jax_test, k=3, exclude_preceding=exclude)
+    for got_part, want_part in zip(got, want):
+        np.testing.assert_array_equal(got_part, want_part)
+
+
 @pytest.mark.parametrize('batch_size', [5, 13])
 def test_sequence_metrics_in_ragged_batches(batch_size):
     _, port, sequences = pair('mixture', 4)
