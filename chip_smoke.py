@@ -15,10 +15,10 @@ each of which exits non-zero when it fails:
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    card, on seeded inputs at D=64 over N=200,000 items, bit for bit (the
    mixture kernels: M=4, B=2,048 for K4 and B=256 for K1 and K2, counts
-   and ids exactly, K2's scores bit for bit, K4's within 2 ulp, the
-   largest gap printed); the median time of each, the plain version's, one
-   PyTorch call's where one computes the same function, and the card's
-   bound for the work.
+   and ids exactly, K2's and K4's scores bit for bit); the median time of
+   each but K1c and K4 (timed in phase 7, on the main paths' operands),
+   the plain version's, one PyTorch call's where one computes the same
+   function, and the card's bound for the work.
 4. slice: the implicit-MF serving path at full width: 50,000 users x
    200,000 items, D=64, ``predict``, ``mrr_score`` over 20,000 test users
    with a train mask and ``precision_recall_score`` at k=10 with a train
@@ -52,7 +52,14 @@ each of which exits non-zero when it fails:
    ``exclude_preceding`` and ``sequence_precision_recall_score`` at k=10,
    the launch counters of K1, K1c and K2 zeroed just before and read just
    after; streaming against materialize on the first 256 sequences as in
-   phase 6.
+   phase 6.  Then K1c and K4 on the operands that the metric calls of
+   phases 4, 6 and 7 handed them (recorded during those calls: each
+   batch's targets, and the train rows or ``exclude_preceding`` prefixes
+   that follow its rank pass), bit for bit against their plain versions,
+   every pair tied with its own catalogue score, each shape timed by CUDA
+   events and, in a fresh process on those ids, by ``torch.profiler``
+   (device time and device activities of a call) beside its bound, its
+   plain version and its launches.
 8. kernel entry points on the bloom model's operands, driven once with
    their launch counters zeroed just before and read just after:
    ``reciprocal_ranks_streaming`` (K1c, K5) on the metric's operands,
@@ -140,6 +147,8 @@ CHECK_USERS = 2_048
 MAIN_TOPK_K = 34
 KERNEL_REPS = 20
 PLAIN_REPS = 5
+#: Calls of a kernel profiled for its device time.
+DEVICE_REPS = 20
 
 #: The sequence slice: mixture_catalog_eval_200k.
 MIXTURES = 4
@@ -230,6 +239,32 @@ def interleaved_ms(torch, fns, reps, rounds=5):
     return {name: statistics.median(t) for name, t in times.items()}
 
 
+def device_events(torch, fn, reps=1):
+    """The device activities (kernels, copies, fills) of ``reps`` calls of
+    ``fn``, from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return [event for event in prof.events()
+            if event.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_work(torch, fn, reps=DEVICE_REPS):
+    """(device ms, device activities) of one call of ``fn`` over ``reps``
+    calls after one warm-up: the summed durations, and the number, of the
+    device activities the calls made."""
+    fn()
+    events = device_events(torch, fn, reps)
+    busy_us = sum(event.time_range.end - event.time_range.start
+                  for event in events)
+    return busy_us / 1e3 / reps, len(events) / reps
+
+
 def bound(ops, nbytes):
     """(bound_ms, bound_by): the larger of the operations over the float32
     peak and the bytes over the memory rate."""
@@ -294,8 +329,10 @@ def kernel_inputs(torch, batch, generator):
 
 def check_rank_kernels(torch, card, generator):
     """K1 and K1c at the main path's (B=2048, T=4) and a heavy target
-    width (B=256, T=128); K1's kernel_case lines carry the no-FMA floor.
-    Returns the kernel-table entries of the main path's case."""
+    width (B=256, T=128), K1c bit for bit (its times come from the main
+    paths' own operands, check_matched_kernels); K1's kernel_case lines
+    carry the no-FMA floor.  Returns the kernel-table entry of K1 at the
+    main path's case."""
     from spotlight_tpu_torch.ops.kernels import ranking
 
     entries = {}
@@ -306,7 +343,7 @@ def check_rank_kernels(torch, card, generator):
         ts = ranking.matched_target_scores(users, items, bias, ids)
         ts_plain = ranking.matched_target_scores_plain(users, items, bias,
                                                        ids)
-        if not torch.equal(ts, ts_plain):
+        if not same_bits(torch, ts, ts_plain):
             raise AssertionError('matched_target_scores differs from its '
                                  'plain version at B={} T={}'
                                  .format(batch, width))
@@ -323,37 +360,22 @@ def check_rank_kernels(torch, card, generator):
         if not bool((weights >= 0.5).all()):
             raise AssertionError('a target lost its self-tie')
 
-        shape = 'B={} N={} D={} T={}'.format(batch, NUM_ITEMS, D, width)
-        k1c_ops = 2 * batch * width * D
-        k1c_bytes = 4 * batch * D + batch * width * (4 * D + 12)
-        k1_ops = 2 * batch * NUM_ITEMS * D + 2 * batch * width * NUM_ITEMS
-        k1_bytes = (4 * NUM_ITEMS * D + 4 * NUM_ITEMS + 4 * batch * D
-                    + 8 * batch * width)
-        cases = (
-            ('matched_target_scores', 'ranking.cu',
-             'spotlight_tpu/ops/kernels/ranking.py:459',
-             lambda: ranking.matched_target_scores(users, items, bias, ids),
-             lambda: ranking.matched_target_scores_plain(users, items, bias,
-                                                         ids),
-             k1c_ops, k1c_bytes, 0.0),
-            ('rank_weights', 'ranking.cu',
-             'spotlight_tpu/ops/kernels/ranking.py:107',
-             lambda: ranking.rank_weights(users, items, bias, ts),
-             lambda: ranking.rank_weights_plain(users, items, bias, ts),
-             k1_ops, k1_bytes, 0.0),
-        )
-        for name, src, replaces, fn, plain_fn, ops, nbytes, err in cases:
-            entry = kernel_entry(name, src, replaces, shape,
-                                 median_ms(torch, fn, KERNEL_REPS),
-                                 median_ms(torch, plain_fn, PLAIN_REPS),
-                                 ops, nbytes, err)
-            if name == 'rank_weights':
-                log(kernel_case=dict(entry, no_fma_floor_ms=no_fma_floor_ms(
-                    batch, NUM_ITEMS)), card=card)
-            else:
-                log(kernel_case=entry, card=card)
-            if batch == 2048:
-                entries[name] = entry
+        entry = kernel_entry(
+            'rank_weights', 'ranking.cu',
+            'spotlight_tpu/ops/kernels/ranking.py:107',
+            'B={} N={} D={} T={}'.format(batch, NUM_ITEMS, D, width),
+            median_ms(torch,
+                      lambda: ranking.rank_weights(users, items, bias, ts),
+                      KERNEL_REPS),
+            median_ms(torch, lambda: ranking.rank_weights_plain(
+                users, items, bias, ts), PLAIN_REPS),
+            2 * batch * NUM_ITEMS * D + 2 * batch * width * NUM_ITEMS,
+            4 * NUM_ITEMS * D + 4 * NUM_ITEMS + 4 * batch * D
+            + 8 * batch * width, 0.0)
+        log(kernel_case=dict(entry, no_fma_floor_ms=no_fma_floor_ms(
+            batch, NUM_ITEMS)), card=card)
+        if batch == 2048:
+            entries['rank_weights'] = entry
         del users, items, bias, ts, weights, plain
         torch.cuda.empty_cache()
     return entries
@@ -438,11 +460,12 @@ def mixture_entry(torch, card, name, src, replaces, shape, fn, plain_fn,
 
 def check_mixture_kernels(torch, card, generator):
     """K4 at the main path's widths (B=2048 with T=1, the targets, and
-    T=49, the ``exclude_preceding`` prefixes), and K1 and K2 with mixture
-    scoring at B=256 (T=1 and k=10, and the k=59 of a P@10 fetch over 49
-    excluded ids).  Counts and ids must be equal, K2's scores bit for bit,
-    K4's within 2 ulp.  Returns K4's kernel-table entry; those of K1, K2 and K3 with mixture
-    scoring come from the main path's operands (check_sequence_kernels)."""
+    T=49, the ``exclude_preceding`` prefixes) bit for bit (its times come
+    from the main path's own operands, check_matched_kernels), and K1 and
+    K2 with mixture scoring at B=256 (T=1 and k=10, and the k=59 of a P@10
+    fetch over 49 excluded ids), counts and ids equal, K2's scores bit for
+    bit.  The kernel-table entries of K1, K2 and K3 with mixture scoring
+    come from the main path's operands (check_sequence_kernels)."""
     from spotlight_tpu_torch.ops.kernels import ranking, topk
 
     width = 2 * MIXTURES * D
@@ -456,7 +479,6 @@ def check_mixture_kernels(torch, card, generator):
     def entry(*args, **kwargs):
         return mixture_entry(torch, card, *args, **kwargs)
 
-    entries = {}
     users, items, bias = operands(2048)
     for width_t in (1, 49):
         ids = torch.randint(1, NUM_ITEMS, (2048, width_t),
@@ -465,25 +487,10 @@ def check_mixture_kernels(torch, card, generator):
                                                MIXTURES)
         want = ranking.matched_candidate_scores_plain(users, items, bias,
                                                       ids, MIXTURES)
-        gap = ulp_gap(torch, got, want)
-        if gap > 2:
-            raise AssertionError('matched_candidate_scores is {} ulp from '
-                                 'its plain version'.format(gap))
-        pairs = 2048 * width_t
-        case = entry(
-            'matched_candidate_scores', 'ranking.cu',
-            'spotlight_tpu/ops/kernels/ranking.py:527',
-            'B=2048 N={} D={} M={} T={}'.format(NUM_ITEMS, D, MIXTURES,
-                                                width_t),
-            lambda: ranking.matched_candidate_scores(users, items, bias,
-                                                     ids, MIXTURES),
-            lambda: ranking.matched_candidate_scores_plain(
-                users, items, bias, ids, MIXTURES),
-            mixture_ops(pairs, 1),
-            4 * 2048 * width + pairs * (4 * D + 12), gap,
-            float((got - want).abs().max()))
-        if width_t == 1:
-            entries['matched_candidate_scores'] = case
+        if not same_bits(torch, got, want):
+            raise AssertionError(
+                'matched_candidate_scores is {} ulp from its plain version '
+                'at T={}'.format(ulp_gap(torch, got, want), width_t))
     del users, items, bias
 
     users, items, bias = operands(MIX_BATCH)
@@ -536,7 +543,6 @@ def check_mixture_kernels(torch, card, generator):
               floor_ms=no_fma_floor_ms(MIX_BATCH, NUM_ITEMS, width))
     del users, items, bias, ts, ts_plain, weights, plain
     torch.cuda.empty_cache()
-    return entries
 
 
 # -- phase 4: the slice at full width ----------------------------------------
@@ -605,8 +611,9 @@ def check_streamed(where):
                              'route'.format(routes, where))
 
 
-def run_slice(torch, card):
-    """Returns (launch counts of the main path, model, data)."""
+def run_slice(torch, card, captured):
+    """Returns (launch counts of the main path, model, data); records the
+    K1c calls of its ``mrr_score`` into ``captured``."""
     from spotlight_tpu_torch.data import Interactions
     from spotlight_tpu_torch.evaluation import (mrr_score,
                                                 precision_recall_score)
@@ -649,7 +656,8 @@ def run_slice(torch, card):
     predict_s = time.perf_counter() - start
 
     start = time.perf_counter()
-    mrr = mrr_score(model, test, train=train)
+    with capture_matched(captured, 'implicit MF'):
+        mrr = mrr_score(model, test, train=train)
     mrr_s = time.perf_counter() - start
 
     start = time.perf_counter()
@@ -746,8 +754,9 @@ def sequence_model():
     return model, sequences
 
 
-def run_sequence_slice(torch, card):
-    """Returns (launch counts of the main path, model, test set)."""
+def run_sequence_slice(torch, card, captured):
+    """Returns (launch counts of the main path, model, test set); records
+    the K4 calls of its ``sequence_mrr_score`` calls into ``captured``."""
     from spotlight_tpu_torch import evaluation
     from spotlight_tpu_torch.data import SequenceInteractions
     from spotlight_tpu_torch.evaluation import (
@@ -770,13 +779,14 @@ def run_sequence_slice(torch, card):
     start = time.perf_counter()
     scores = model.predict(sequences[0])
     seconds['predict'] = time.perf_counter() - start
-    start = time.perf_counter()
-    mrr = sequence_mrr_score(model, test)
-    seconds['sequence_mrr_score'] = time.perf_counter() - start
-    start = time.perf_counter()
-    mrr_ex = sequence_mrr_score(model, test, exclude_preceding=True)
-    seconds['sequence_mrr_score exclude_preceding'] = (time.perf_counter()
-                                                       - start)
+    with capture_matched(captured, 'mixture sequences'):
+        start = time.perf_counter()
+        mrr = sequence_mrr_score(model, test)
+        seconds['sequence_mrr_score'] = time.perf_counter() - start
+        start = time.perf_counter()
+        mrr_ex = sequence_mrr_score(model, test, exclude_preceding=True)
+        seconds['sequence_mrr_score exclude_preceding'] = (
+            time.perf_counter() - start)
     start = time.perf_counter()
     precision, recall = sequence_precision_recall_score(model, test,
                                                         k=SEQ_K)
@@ -915,10 +925,10 @@ def check_sequence_kernels(torch, card, model, test):
     ``sequence_mrr_score`` and of ``sequence_precision_recall_score`` at
     k=10), so the launch grid is the one the main path ran; their plain
     versions in MIX_BATCH-sequence slices.  Counts and ids must be equal,
-    K2's scores bit for bit.  K3, which has no launch of its own, is held by
-    K4's target scores and K2's top-k scores against the plain catalogue
-    pass.  Returns the kernel-table entries of K1, K2 and K3 with mixture
-    scoring."""
+    K2's scores bit for bit.  K3, which has no launch of its own, is held,
+    bit for bit, by K4's target scores and K2's top-k scores against the
+    plain catalogue pass.  Returns the kernel-table entries of K1, K2 and
+    K3 with mixture scoring."""
     from spotlight_tpu_torch.ops.kernels import ranking, topk
 
     reprs, items, bias, mixtures = model._rank_factors_sequences(
@@ -936,13 +946,13 @@ def check_sequence_kernels(torch, card, model, test):
 
     ts = ranking.matched_candidate_scores(reprs, items, bias, targets,
                                           mixtures)
-    k3_gap = ulp_gap(torch, ts, torch.cat(sliced(catalogue_at, reprs,
-                                                 targets)))
+    catalogue = torch.cat(sliced(catalogue_at, reprs, targets))
+    k3_gap = ulp_gap(torch, ts, catalogue)
     weights = ranking.rank_weights(reprs, items, bias, ts, mixtures)
     plain = torch.cat(sliced(
         lambda u, t: ranking.rank_weights_plain(u, items, bias, t,
                                                 mixtures), reprs, ts))
-    if not torch.equal(weights, plain) or k3_gap > 2:
+    if not (torch.equal(weights, plain) and same_bits(torch, ts, catalogue)):
         raise AssertionError(
             'mixture rank_weights at B={} differs from its plain version: '
             '{} weights, K4 {} ulp from the catalogue pass'.format(
@@ -1061,9 +1071,10 @@ def bloom_model():
     return model, sequences
 
 
-def run_bloom_slice(torch, card):
+def run_bloom_slice(torch, card, captured):
     """Returns (launch counts of the main path, model, test set, the
-    per-sequence values of ``sequence_mrr_score``)."""
+    per-sequence values of ``sequence_mrr_score``); records the K1c calls of
+    its ``sequence_mrr_score`` calls into ``captured``."""
     from spotlight_tpu_torch.data import SequenceInteractions
     from spotlight_tpu_torch.evaluation import (
         sequence_mrr_score, sequence_precision_recall_score)
@@ -1083,13 +1094,14 @@ def run_bloom_slice(torch, card):
     start = time.perf_counter()
     scores = model.predict(sequences[0])
     seconds['predict'] = time.perf_counter() - start
-    start = time.perf_counter()
-    mrr = sequence_mrr_score(model, test)
-    seconds['sequence_mrr_score'] = time.perf_counter() - start
-    start = time.perf_counter()
-    mrr_ex = sequence_mrr_score(model, test, exclude_preceding=True)
-    seconds['sequence_mrr_score exclude_preceding'] = (time.perf_counter()
-                                                       - start)
+    with capture_matched(captured, 'bloom sequences'):
+        start = time.perf_counter()
+        mrr = sequence_mrr_score(model, test)
+        seconds['sequence_mrr_score'] = time.perf_counter() - start
+        start = time.perf_counter()
+        mrr_ex = sequence_mrr_score(model, test, exclude_preceding=True)
+        seconds['sequence_mrr_score exclude_preceding'] = (
+            time.perf_counter() - start)
     start = time.perf_counter()
     precision, recall = sequence_precision_recall_score(model, test,
                                                         k=SEQ_K)
@@ -1146,6 +1158,150 @@ def run_bloom_slice(torch, card):
     check_streaming_against_materialize(torch, model, sequences[:SEQ_CHECK],
                                         BLOOM_ITEMS)
     return launches, model, test, mrr
+
+
+# -- K1c and K4 on the main paths' own operands -------------------------------
+
+@contextlib.contextmanager
+def capture_matched(captured, path):
+    """Records the K1c and K4 calls that the metric calls inside the block
+    make, per (path, role): their number, and the operands of the widest.
+    A batch's first call scores its targets; a call on the same users
+    (the same tensor) scores the batch's train rows or
+    ``exclude_preceding`` prefixes.  Each call runs the wrapper once, as it
+    would have without the record."""
+    from spotlight_tpu_torch import evaluation
+
+    names = ('matched_target_scores', 'matched_candidate_scores')
+    originals = {name: getattr(evaluation, name) for name in names}
+    last_users = [None]
+
+    def recorded(name):
+        def call(users, items, bias, ids, *mixtures):
+            role = 'rows' if users is last_users[0] else 'targets'
+            last_users[0] = users
+            case = captured.setdefault((path, role), dict(
+                kernel=name, launches=0, operands=None))
+            case['launches'] += 1
+            if (case['operands'] is None
+                    or ids.shape[1] > case['operands'][3].shape[1]):
+                case['operands'] = (users, items, bias, ids) + mixtures
+            return originals[name](users, items, bias, ids, *mixtures)
+        return call
+
+    for name in names:
+        setattr(evaluation, name, recorded(name))
+    try:
+        yield
+    finally:
+        for name in names:
+            setattr(evaluation, name, originals[name])
+
+
+def matched_device_work(cases):
+    """Run in a fresh process (a long run's profiler record can drop
+    events): per case (wrapper name, users' shape, items' shape and dtype,
+    ids as numpy, mixtures), the device time and device activities of one
+    call (``device_work``) on seeded factors of those shapes with those
+    ids.  The factors' values move no time: what the kernel reads follows
+    from the ids and the shapes."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from spotlight_tpu_torch.ops.kernels import ranking
+
+    generator = torch.Generator(device=DEVICE)
+    generator.manual_seed(0)
+    out = []
+    for kernel, users_shape, items_shape, item_dtype, ids, mixtures in cases:
+        users = torch.randn(users_shape, generator=generator, device=DEVICE)
+        items = torch.randn(items_shape, generator=generator,
+                            device=DEVICE).to(getattr(torch, item_dtype))
+        bias = torch.randn(items_shape[0], generator=generator,
+                           device=DEVICE)
+        ids = torch.from_numpy(ids).to(DEVICE)
+        fn = getattr(ranking, kernel)
+        out.append(device_work(
+            torch, lambda: fn(users, items, bias, ids, *mixtures)))
+    return out
+
+
+def check_matched_kernels(torch, card, captured):
+    """K1c and K4 on the operands that the main paths handed them
+    (``capture_matched``): each case bit for bit against its plain version
+    on the same ids clipped into the catalogue, each pair tied with its own
+    catalogue score (``rank_weights`` >= 0.5), timed by CUDA events, and by
+    ``torch.profiler`` in a fresh process (``matched_device_work``), beside
+    its bound (the users once, each distinct item row and bias once, an id
+    in and a score out a pair) and its main-path launches.  Returns the
+    kernel-table entries of the implicit MF targets (K1c) and the mixture
+    targets (K4)."""
+    import multiprocessing
+
+    from spotlight_tpu_torch.ops.kernels import ranking
+
+    replaces = {'matched_target_scores':
+                    'spotlight_tpu/ops/kernels/ranking.py:459',
+                'matched_candidate_scores':
+                    'spotlight_tpu/ops/kernels/ranking.py:527'}
+    cases, specs = [], []
+    for (path, role), case in captured.items():
+        users, items, bias, ids, *mixtures = case['operands']
+        kernel = case['kernel']
+        wrapper = getattr(ranking, kernel)
+        plain = getattr(ranking, kernel + '_plain')
+        safe = ids.clamp(0, items.shape[0] - 1)
+
+        def call(wrapper=wrapper, users=users, items=items, bias=bias,
+                 ids=ids, mixtures=mixtures):
+            return wrapper(users, items, bias, ids, *mixtures)
+
+        def plain_call(plain=plain, users=users, items=items, bias=bias,
+                       safe=safe, mixtures=mixtures):
+            return plain(users, items, bias, safe, *mixtures)
+
+        got, want = call(), plain_call()
+        if not same_bits(torch, got, want):
+            raise AssertionError(
+                '{} differs from its plain version on the {} {}: {} ulp'
+                .format(kernel, path, role, ulp_gap(torch, got, want)))
+        weights = ranking.rank_weights(users, items, bias, got, *mixtures)
+        if not bool((weights >= 0.5).all()):
+            raise AssertionError('a pair of the {} {} lost its self-tie'
+                                 .format(path, role))
+        batch, width = ids.shape
+        num_items, dim = items.shape
+        pairs = batch * width
+        distinct = int(torch.unique(safe).numel())
+        ops = (mixture_ops(pairs, 1, mixtures[0]) if mixtures
+               else 2 * pairs * dim)
+        nbytes = (4 * users.numel()
+                  + distinct * (items.element_size() * dim + 4)
+                  + pairs * (ids.element_size() + 4))
+        shape = 'B={} N={} D={}{} T={}'.format(
+            batch, num_items, dim,
+            ' M={}'.format(mixtures[0]) if mixtures else '', width)
+        cases.append((path, role, kernel, kernel_entry(
+            kernel, 'ranking.cu', replaces[kernel], shape,
+            median_ms(torch, call, KERNEL_REPS),
+            median_ms(torch, plain_call, PLAIN_REPS), ops, nbytes, 0.0,
+            path=path, role=role, distinct_rows=distinct,
+            main_path_launches=case['launches'])))
+        specs.append((kernel, tuple(users.shape), tuple(items.shape),
+                      str(items.dtype).split('.')[-1], ids.cpu().numpy(),
+                      tuple(mixtures)))
+        del weights
+    with multiprocessing.get_context('spawn').Pool(1) as pool:
+        device = pool.apply(matched_device_work, (specs,))
+    entries = {}
+    for (path, role, kernel, entry), (device_ms, activities) in zip(
+            cases, device):
+        entry.update(device_ms=device_ms, device_activities=activities)
+        log(kernel_case=entry, card=card)
+        if role == 'targets' and path != 'bloom sequences':
+            entries[kernel] = entry
+    torch.cuda.empty_cache()
+    return entries
 
 
 # -- phase 8: the kernel entry points on the bloom model's operands ----------
@@ -1845,15 +2001,7 @@ def check_row_update(torch, card, shape, param, mu, nu, ids, grads, t, lr,
 def device_kernels(torch, call):
     """Names of the device activities (kernels, copies, fills) of one call
     of ``call``, from ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        call()
-        torch.cuda.synchronize()
-    return [event.name for event in prof.events()
-            if event.device_type == torch.autograd.DeviceType.CUDA]
+    return [event.name for event in device_events(torch, call)]
 
 
 def sparse_adam_device_work(ids, num_rows, width):
@@ -2433,16 +2581,18 @@ def main():
     generator.manual_seed(0)
     entries = check_rank_kernels(torch, card, generator)
     entries['streaming_topk'] = check_topk_kernel(torch, card, generator)
-    entries.update(check_mixture_kernels(torch, card, generator))
+    check_mixture_kernels(torch, card, generator)
 
-    launches, model, test, train, heavy = run_slice(torch, card)
+    captured = {}
+    launches, model, test, train, heavy = run_slice(torch, card, captured)
     profile_metrics(torch, card, model, test, train, heavy)
     del model, heavy
     torch.cuda.empty_cache()
     check_routes(torch, card, test, train)
     del test, train
 
-    seq_launches, seq_model, seq_test = run_sequence_slice(torch, card)
+    seq_launches, seq_model, seq_test = run_sequence_slice(torch, card,
+                                                           captured)
     launches.update(seq_launches)
     entries.update(check_sequence_kernels(torch, card, seq_model, seq_test))
     # K3 runs inside K1, K2 and K4 with mixture scoring.
@@ -2453,9 +2603,11 @@ def main():
     torch.cuda.empty_cache()
 
     bloom_launches, bloom_model_, bloom_test, bloom_mrr = run_bloom_slice(
-        torch, card)
+        torch, card, captured)
     for name, count in bloom_launches.items():
         launches[name] += count
+    entries.update(check_matched_kernels(torch, card, captured))
+    del captured
     kernel_launches, bloom_entries = check_bloom_kernels(
         torch, card, bloom_model_, bloom_test, bloom_mrr, seq_model,
         seq_test)

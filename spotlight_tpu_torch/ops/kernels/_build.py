@@ -38,10 +38,9 @@ _SIGNATURES = {
     'ranking': {
         'spotlight_rank_weights': (_I, [_P, _P, _I, _P, _P, _P, _I, _I, _I,
                                         _I, _I, _I, _P]),
-        'spotlight_matched_scores': (_I, [_P, _P, _I, _P, _P, _P, _I, _I, _I,
-                                          _P]),
-        'spotlight_candidate_scores': (_I, [_P, _P, _I, _P, _P, _P, _I, _I,
-                                            _I, _I, _P]),
+        'spotlight_matched_scores': (_I, [_P, _P, _I, _P, _P, _I, _P, _I, _I,
+                                          _I, _I, _I, _I, _I, _P]),
+        'spotlight_matched_pair_slots': (_I, [_I]),
         'spotlight_rank_counts': (_I, [_P, _P, _I, _P, _P, _P, _P, _P, _I,
                                        _I, _I, _I, _I, _I, _P]),
         'spotlight_rank_max_targets': (_I, [_I, _I]),

@@ -7,10 +7,10 @@
 // the target score computed on its own (matched scores, candidate scores)
 // must equal, bit for bit, the score the catalogue pass computes for the
 // same (user, item) pair.  Every score that is ever compared is therefore
-// produced in one fixed order: dot products by dot_block or its
-// register-tiled form dot_tile_accumulate, then the bias (score_block);
-// mixtures by 2M such dots and one combine (mixture_combine, or its steps in
-// mixture_score_block).  Every dot is dot_block's order:
+// produced in one fixed order: dot products, then the bias added; mixtures
+// by 2M such dots and one combine, mixture_combine.  Every dot is in this
+// order (dot_tile_accumulate on the catalogue pass's register tile, one dot
+// a thread in the matched-pair kernel):
 //
 //     acc = u[0] * float(i[0]); for d in 1..D-1: acc = acc + u[d] * float(i[d])
 //
@@ -37,36 +37,7 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// Dot products of an RI x RU block of (item, user) pairs: out[r][c] is
-// item r against user c.  item_at(r, d) and user_at(c, d) return float32
-// operands (from shared or global memory).  The order inside one element
-// is the contract above, whatever RI and RU.
-template <int RI, int RU, class ItemAt, class UserAt>
-__device__ __forceinline__ void dot_block(float (&out)[RI][RU], int dim,
-                                          ItemAt item_at, UserAt user_at) {
-  float iv[RI], uv[RU];
-  auto load = [&](int d) {
-#pragma unroll
-    for (int r = 0; r < RI; ++r) iv[r] = item_at(r, d);
-#pragma unroll
-    for (int c = 0; c < RU; ++c) uv[c] = user_at(c, d);
-  };
-  load(0);
-#pragma unroll
-  for (int r = 0; r < RI; ++r)
-#pragma unroll
-    for (int c = 0; c < RU; ++c) out[r][c] = __fmul_rn(uv[c], iv[r]);
-  for (int d = 1; d < dim; ++d) {
-    load(d);
-#pragma unroll
-    for (int r = 0; r < RI; ++r)
-#pragma unroll
-      for (int c = 0; c < RU; ++c)
-        out[r][c] = __fadd_rn(out[r][c], __fmul_rn(uv[c], iv[r]));
-  }
-}
-
-// The register-tiled form of dot_block, for operands staged in shared
+// The contract's dots on a register tile, for operands staged in shared
 // memory transposed ([d][row] float32, rows 16-byte aligned).  The thread
 // owns RI items x RU users (multiples of 4): item r = 4q + e is
 // items[d * item_stride + q * item_gap + e] and user c = 4q + e is
@@ -74,9 +45,9 @@ __device__ __forceinline__ void dot_block(float (&out)[RI][RU], int dim,
 // one float4, so one pass over d costs RI / 4 + RU / 4 shared loads for
 // RI * RU products.  acc carries the sum across calls (slabs of d in
 // order); it enters the first slab holding -0.0, and -0.0 + p == p for
-// every p, the signs of zeros included, so the result is dot_block's, bit
-// for bit: the products added one at a time in d order, each product and
-// each sum rounded on its own.
+// every p, the signs of zeros included, so the result is the contract's
+// dot, bit for bit: the products added one at a time in d order, each
+// product and each sum rounded on its own.
 template <int RI, int RU>
 __device__ __forceinline__ void dot_tile_accumulate(
     float (&acc)[RI][RU], int depth, const float* __restrict__ items,
@@ -112,26 +83,12 @@ __device__ __forceinline__ void dot_tile_accumulate(
   }
 }
 
-// Dot-product scores: dot_block plus the item's bias, bias_at(r).
-template <int RI, int RU, class ItemAt, class UserAt, class BiasAt>
-__device__ __forceinline__ void score_block(float (&out)[RI][RU], int dim,
-                                            ItemAt item_at, UserAt user_at,
-                                            BiasAt bias_at) {
-  dot_block<RI, RU>(out, dim, item_at, user_at);
-#pragma unroll
-  for (int r = 0; r < RI; ++r) {
-    const float b = bias_at(r);
-#pragma unroll
-    for (int c = 0; c < RU; ++c) out[r][c] = __fadd_rn(out[r][c], b);
-  }
-}
-
 // Mixture-of-tastes scores (replaces mixture_combine and
 // make_mixture_score_fn of spotlight_tpu/ops/kernels/ranking.py).  Each
 // user is 2M vectors of width D: tastes are components k = 0..M-1,
 // attentions k = M..2M-1.  For each (item, user) pair, in this order:
 //
-//     a_m = dot(attention_m, item), t_m = dot(taste_m, item)   (dot_block)
+//     a_m = dot(attention_m, item), t_m = dot(taste_m, item)
 //     amax = a_0, then amax = fmaxf(amax, a_m) for m = 1..M-1
 //     w_m = expf(a_m - amax)
 //     denom = w_0, then denom = denom + w_m
@@ -141,19 +98,22 @@ __device__ __forceinline__ void score_block(float (&out)[RI][RU], int dim,
 // each operation rounded on its own; expf is the accurate libdevice
 // function (no --use_fast_math, no __expf).  M = mixtures is a run-time
 // value of at most MAXM: the per-pair weights live in registers, indexed
-// by unrolled constants.  The combine (everything after the dots) is one
-// set of functions below, which every mixture kernel calls: mixture_combine
-// on a pair's 2M dots held in registers (the catalogue pass's register
-// tile: K1 and K5 in ranking.cu, K2's stage 1 in topk.cu), or its three
-// steps in turn (mixture_score_block, K4's one pair a thread, which
-// computes the taste dots one component at a time), the same operations in
-// the same order either way.
+// by unrolled constants.  The combine (everything after the dots) is
+// mixture_combine, on a pair's 2M dots held in registers, which every
+// mixture kernel calls: the catalogue pass's register tile (K1 and K5 in
+// ranking.cu, K2's stage 1 in topk.cu) and the matched-pair kernel (K4 in
+// ranking.cu, whose 2M lanes a pair bring their dots to one lane).
 
-// The softmax weights of one pair, in place: w[m], the dot of attention m,
-// becomes w_m for m < mixtures; returns denom.
+// The score of one pair from its dots: dots[m] is t_m and dots[MAXM + m]
+// is a_m (components past mixtures unused).  The weights are computed in
+// place over a copy of the attention dots, which keeps the live ranges as
+// short as the register tiles need (no spills at MAXM = 8).
 template <int MAXM>
-__device__ __forceinline__ float mixture_weights(float (&w)[MAXM],
-                                                 int mixtures) {
+__device__ __forceinline__ float mixture_combine(const float (&dots)[2 * MAXM],
+                                                 int mixtures, float bias) {
+  float w[MAXM];
+#pragma unroll
+  for (int m = 0; m < MAXM; ++m) w[m] = dots[MAXM + m];
   float amax = w[0];
 #pragma unroll
   for (int m = 1; m < MAXM; ++m)
@@ -165,85 +125,14 @@ __device__ __forceinline__ float mixture_weights(float (&w)[MAXM],
 #pragma unroll
   for (int m = 1; m < MAXM; ++m)
     if (m < mixtures) denom = __fadd_rn(denom, w[m]);
-  return denom;
-}
-
-// The weighted taste sum after component m's term (out is ignored at m = 0).
-__device__ __forceinline__ float mixture_term(float out, float w, float t,
-                                              int m) {
-  const float term = __fmul_rn(w, t);
-  return m == 0 ? term : __fadd_rn(out, term);
-}
-
-__device__ __forceinline__ float mixture_finish(float out, float denom,
-                                                float bias) {
-  return __fadd_rn(__fdiv_rn(out, denom), bias);
-}
-
-// The score of one pair from its dots: dots[m] is t_m and dots[MAXM + m]
-// is a_m (components past mixtures unused).
-template <int MAXM>
-__device__ __forceinline__ float mixture_combine(const float (&dots)[2 * MAXM],
-                                                 int mixtures, float bias) {
-  float w[MAXM];
-#pragma unroll
-  for (int m = 0; m < MAXM; ++m) w[m] = dots[MAXM + m];
-  const float denom = mixture_weights<MAXM>(w, mixtures);
   float out = 0.0f;
-#pragma unroll
-  for (int m = 0; m < MAXM; ++m)
-    if (m < mixtures) out = mixture_term(out, w[m], dots[m], m);
-  return mixture_finish(out, denom, bias);
-}
-
-// Mixture scores of an RI x RU block of pairs, each dot by dot_block, the
-// combine by mixture_weights, mixture_term and mixture_finish.
-// user_at(c, k, d) reads component k of user c.
-template <int RI, int RU, int MAXM, class ItemAt, class UserAt,
-          class BiasAt>
-__device__ __forceinline__ void mixture_score_block(
-    float (&out)[RI][RU], int mixtures, int dim, ItemAt item_at,
-    UserAt user_at, BiasAt bias_at) {
-  float w[MAXM][RI][RU];
-#pragma unroll
-  for (int m = 0; m < MAXM; ++m)
-    if (m < mixtures)
-      dot_block<RI, RU>(w[m], dim, item_at, [&](int c, int d) {
-        return user_at(c, mixtures + m, d);
-      });
-
-  float denom[RI][RU];
-#pragma unroll
-  for (int r = 0; r < RI; ++r)
-#pragma unroll
-    for (int c = 0; c < RU; ++c) {
-      float pair[MAXM];
-#pragma unroll
-      for (int m = 0; m < MAXM; ++m) pair[m] = w[m][r][c];
-      denom[r][c] = mixture_weights<MAXM>(pair, mixtures);
-#pragma unroll
-      for (int m = 0; m < MAXM; ++m) w[m][r][c] = pair[m];
-    }
-
 #pragma unroll
   for (int m = 0; m < MAXM; ++m) {
     if (m >= mixtures) continue;
-    float taste[RI][RU];
-    dot_block<RI, RU>(taste, dim, item_at,
-                      [&](int c, int d) { return user_at(c, m, d); });
-#pragma unroll
-    for (int r = 0; r < RI; ++r)
-#pragma unroll
-      for (int c = 0; c < RU; ++c)
-        out[r][c] = mixture_term(out[r][c], w[m][r][c], taste[r][c], m);
+    const float term = __fmul_rn(w[m], dots[m]);
+    out = m == 0 ? term : __fadd_rn(out, term);
   }
-#pragma unroll
-  for (int r = 0; r < RI; ++r) {
-    const float b = bias_at(r);
-#pragma unroll
-    for (int c = 0; c < RU; ++c)
-      out[r][c] = mixture_finish(out[r][c], denom[r][c], b);
-  }
+  return __fadd_rn(__fdiv_rn(out, denom), bias);
 }
 
 // Widest mixture count a kernel takes: its per-pair weights are registers.

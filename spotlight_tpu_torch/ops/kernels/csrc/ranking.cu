@@ -11,8 +11,8 @@
 // What it computes: for every user b and target t,
 //     half_units[b, t] = 2 * count(score > ts[b, t]) + count(score == ts[b, t])
 // over the whole catalogue, the target itself included (its exact self-tie
-// adds 1 half unit), where score is item . user + item_bias in
-// score_block's order (dot_tile_accumulate, then the bias) or is a
+// adds 1 half unit), where score is item . user + item_bias in the
+// contract's order (dot_tile_accumulate, then the bias) or is a
 // mixture of such dots (M tastes, M attentions) through mixture_combine
 // (common.cuh).  The wrapper returns half_units * 0.5.
 //
@@ -46,8 +46,8 @@
 // (RankShape) is the only difference between the two:
 // - dot scoring keeps 64 users a block; each thread scores 4 items x 4
 //   users with dot_tile_accumulate (two float4 shared loads feed 16
-//   products), then adds the bias: score_block's order, so the scores tie
-//   K1c's bit for bit;
+//   products), then adds the bias: the contract's order, so the scores
+//   tie K1c's bit for bit;
 // - mixture scoring keeps 16 users a block, each as 2M adjacent columns
 //   of the staged users (tastes, then attentions; M rounded up to 2, 4 or
 //   8, so the columns come in float4s), so one dot_tile_accumulate call
@@ -82,10 +82,32 @@
 // grid ran in sequence and accumulated in VMEM; here the splits run in
 // parallel.
 //
-// K1c and K4 score one (user, id) pair a thread through score_block /
-// mixture_score_block (the same dots, the same combine), so their scores
-// are bit-equal to the catalogue pass's.  The JAX K4 scored every gathered row against every user of the
-// batch and kept the diagonal; here only the B * T pairs are scored.
+// K1c and K4 are one kernel, matched_kernel<Item, Id, MP> (MP = 0: dots),
+// which scores only the B * T given pairs (the JAX K4 scored every gathered
+// row against every user of the batch and kept the diagonal).  What bounds
+// it: bytes, each pair's item row (256 bytes at D = 64 in float32) and each
+// user's row once, about 2 MB at B = 2048, T = 4 and 29 MB for K4 at
+// B = 2048, M = 4, T = 49; the arithmetic is one dot a pair (2M with
+// mixtures).  So the design is about the reads and about filling the card:
+// - one launch a call: the kernel reads the ids in their own type (int32 or
+//   int64) and clamps each into [0, N) itself, so the wrapper issues no
+//   clamp and no cast;
+// - user-major blocks: a block takes a group of users with their targets
+//   (a user's targets in chunks where T is wide, its row staged again for
+//   each chunk), stages each user's row once in shared memory, and gathers
+//   its pairs' item rows with coalesced 16-byte loads (a row a half-warp at
+//   D = 64) into rows of 65 floats, so the thread that owns a dot reads its
+//   row in d order without bank conflicts; D is walked in slabs of 64, so
+//   shared memory does not grow with D and every width the rank pass takes
+//   is taken here;
+// - the grid: the wrapper sizes a block's users from B, T and the SM count,
+//   about one wave of blocks (the rank pass's rule), not a fixed block;
+// - arithmetic: one dot a thread, in the contract's order from -0.0 (the
+//   catalogue pass's bits), then the bias; with mixtures a pair's 2M dots
+//   are 2M lanes of one warp (eight times the threads of one pair a thread
+//   at M = 4, T = 1), brought to the pair's first lane by warp shuffles,
+//   which are exact, and combined by mixture_combine, the function the
+//   catalogue pass calls: K4's scores equal the tile's by construction.
 #include "common.cuh"
 
 using namespace spotlight;
@@ -552,45 +574,217 @@ int dispatch(const float* users, const void* items, const float* bias,
   });
 }
 
-template <typename Item>
-__global__ void matched_scores_kernel(const float* __restrict__ users,
-                                      const Item* __restrict__ items,
-                                      const float* __restrict__ bias,
-                                      const int* __restrict__ ids,
-                                      float* __restrict__ out, int B, int T,
-                                      int D) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)B * T) return;
-  const long long b = idx / T;
-  const long long id = ids[idx];
-  const float* u = users + b * D;
-  const Item* row = items + id * D;
-  float acc[1][1];
-  score_block<1, 1>(
-      acc, D, [&](int, int d) { return to_f32(row[d]); },
-      [&](int, int d) { return u[d]; }, [&](int) { return bias[id]; });
-  out[idx] = acc[0][0];
+// ---- matched pairs (K1c and K4, dot and mixture scoring) ------------------
+
+// Threads a matched block holds at most; dimensions a staged slab holds, and
+// its padded row (a row of 65 floats puts dimension d of row r in bank
+// (r + d) % 32).
+constexpr int kMatchedThreads = 256;
+constexpr int kMatchedSlab = 64;
+constexpr int kMatchedStride = kMatchedSlab + 1;
+
+// Lanes a pair takes: one dot with dot scoring, one dot a column (2 MP)
+// with mixtures.
+template <int MP>
+__host__ __device__ constexpr int matched_lanes() {
+  return MP == 0 ? 1 : 2 * MP;
 }
 
+// Shared memory of a matched block of `users` users x `chunk` targets: the
+// users' columns and the pairs' item rows, one slab of each, and the
+// pairs' ids.
+template <int MP>
+size_t matched_smem_bytes(int users, int chunk) {
+  const size_t pairs = (size_t)users * chunk;
+  return sizeof(float) * (((size_t)users * matched_lanes<MP>() + pairs) *
+                              kMatchedStride + pairs);
+}
+
+// The elements of 16 bytes of item rows, upcast to float32: 4 floats, or
+// 8 bf16 (each the high half of its float32, the lower address first).
 template <typename Item>
-__global__ void candidate_scores_kernel(const float* __restrict__ users,
-                                        const Item* __restrict__ items,
-                                        const float* __restrict__ bias,
-                                        const int* __restrict__ ids,
-                                        float* __restrict__ out, int B, int T,
-                                        int D, int mixtures) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)B * T) return;
-  const long long b = idx / T;
-  const long long id = ids[idx];
-  const float* u = users + b * 2 * mixtures * D;
-  const Item* row = items + id * D;
-  float acc[1][1];
-  mixture_score_block<1, 1, kMaxMixtures>(
-      acc, mixtures, D, [&](int, int d) { return to_f32(row[d]); },
-      [&](int, int k, int d) { return u[k * D + d]; },
-      [&](int) { return bias[id]; });
-  out[idx] = acc[0][0];
+__device__ __forceinline__ void unpack_items(const uint4& raw, float* dst) {
+  const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if constexpr (std::is_same<Item, float>::value) {
+      dst[j] = __uint_as_float(words[j]);
+    } else {
+      dst[2 * j] = __uint_as_float(words[j] << 16);
+      dst[2 * j + 1] = __uint_as_float(words[j] & 0xffff0000u);
+    }
+  }
+}
+
+// K1c (MP = 0) and K4 (MP = 2, 4, 8: mixtures of mixtures <= MP
+// components): out[b, t] = the score of item ids[b, t], clamped into
+// [0, N), for user b.  Block (x, y) takes users [x U, x U + U) and targets
+// [y TC, y TC + TC) of each, U = block_users, TC = chunk; thread
+// p * lanes + col owns pair p (user p / TC, target p % TC) and its column
+// col, and all 256 threads stage.  Each slab of D, the block stages its
+// users' columns (tastes, then attentions, zeros past M) and its pairs'
+// item rows in shared memory (as 16-byte vectors where `vectors`, else an
+// element a lane; consecutive lanes on consecutive elements, four loads in
+// flight a thread), then each thread adds its column's products in d
+// order, each rounded on its own, from -0.0 (dot_tile_accumulate's order:
+// the catalogue pass's bits).  With dots the thread adds the bias; with
+// mixtures the pair's first lane takes its 2 MP dots by warp shuffles
+// (exact) and calls mixture_combine.
+template <typename Item, typename Id, int MP>
+__global__ void __launch_bounds__(kMatchedThreads)
+matched_kernel(const float* __restrict__ users, const Item* __restrict__ items,
+               const float* __restrict__ bias, const Id* __restrict__ ids,
+               float* __restrict__ out, int B, int N, int D, int T,
+               int mixtures, int block_users, int chunk, bool vectors) {
+  constexpr int C = matched_lanes<MP>();
+  extern __shared__ __align__(16) float matched_smem[];
+  const int pairs = block_users * chunk;
+  float* su = matched_smem;                           // [U * C][stride]
+  float* si = su + block_users * C * kMatchedStride;  // [pairs][stride]
+  int* sid = reinterpret_cast<int*>(si + pairs * kMatchedStride);
+
+  const int b0 = blockIdx.x * block_users;
+  const int t0 = blockIdx.y * chunk;
+  const int tid = threadIdx.x;
+  const int p = tid / C;
+  const int col = tid - p * C;
+  const int ul = p / chunk;
+  const int b = b0 + ul;
+  const int t = t0 + p - ul * chunk;
+  const bool owner = p < pairs;
+  const bool live = owner && b < B && t < T;
+  const int width = MP == 0 ? D : 2 * mixtures * D;  // a user's row
+
+  for (int e = tid; e < pairs; e += kMatchedThreads) {
+    const int eu = e / chunk;
+    const int et = t0 + e - eu * chunk;
+    long long id = 0;
+    if (b0 + eu < B && et < T) {
+      id = (long long)ids[(long long)(b0 + eu) * T + et];
+      id = id < 0 ? 0 : (id >= N ? N - 1 : id);
+    }
+    sid[e] = (int)id;
+  }
+
+  float acc = -0.0f;
+  for (int d0 = 0; d0 < D; d0 += kMatchedSlab) {
+    const int depth = min(kMatchedSlab, D - d0);
+    // Column c of user u of the block (its row u * C + c) from d0 on:
+    // tastes, then attentions; none past M or past the batch.
+    auto column = [&](int row) -> const float* {
+      const int u = row / C;
+      const int c = row - u * C;
+      const int m = c < MP ? c : c - MP;
+      if (b0 + u >= B || (MP != 0 && m >= mixtures)) return nullptr;
+      const int k = MP == 0 ? 0 : (c < MP ? m : mixtures + m);
+      return users + (long long)(b0 + u) * width + k * D + d0;
+    };
+    __syncthreads();  // the ids are staged; the last slab is scored
+    if (vectors) {
+      const int uvecs = depth / 4;
+#pragma unroll 4
+      for (int e = tid; e < block_users * C * uvecs; e += kMatchedThreads) {
+        const int row = e / uvecs;
+        const int v = e - row * uvecs;
+        const float* src = column(row);
+        const float4 x = src ? *reinterpret_cast<const float4*>(src + 4 * v)
+                             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        float* dst = su + row * kMatchedStride + 4 * v;
+        dst[0] = x.x;
+        dst[1] = x.y;
+        dst[2] = x.z;
+        dst[3] = x.w;
+      }
+      constexpr int V = 16 / sizeof(Item);
+      const int vecs = depth / V;
+#pragma unroll 4
+      for (int e = tid; e < pairs * vecs; e += kMatchedThreads) {
+        const int q = e / vecs;
+        const int v = e - q * vecs;
+        const uint4 raw = *reinterpret_cast<const uint4*>(
+            items + (long long)sid[q] * D + d0 + v * V);
+        unpack_items<Item>(raw, si + q * kMatchedStride + v * V);
+      }
+    } else {
+#pragma unroll 4
+      for (int e = tid; e < block_users * C * depth; e += kMatchedThreads) {
+        const int row = e / depth;
+        const int dd = e - row * depth;
+        const float* src = column(row);
+        su[row * kMatchedStride + dd] = src ? src[dd] : 0.0f;
+      }
+#pragma unroll 4
+      for (int e = tid; e < pairs * depth; e += kMatchedThreads) {
+        const int q = e / depth;
+        const int dd = e - q * depth;
+        si[q * kMatchedStride + dd] =
+            to_f32(items[(long long)sid[q] * D + d0 + dd]);
+      }
+    }
+    __syncthreads();
+    if (owner) {
+      const float* ur = su + (ul * C + col) * kMatchedStride;
+      const float* ir = si + p * kMatchedStride;
+#pragma unroll 8
+      for (int dd = 0; dd < depth; ++dd)
+        acc = __fadd_rn(acc, __fmul_rn(ur[dd], ir[dd]));
+    }
+  }
+
+  if constexpr (MP == 0) {
+    if (live) out[(long long)b * T + t] = __fadd_rn(acc, bias[sid[p]]);
+  } else {
+    // The pair's lanes are adjacent in one warp (C divides 32), and every
+    // lane of the block reaches the shuffles.
+    const int first = (tid & 31) - col;
+    float dots[C];
+#pragma unroll
+    for (int k = 0; k < C; ++k)
+      dots[k] = __shfl_sync(0xffffffffu, acc, first + k);
+    if (live && col == 0)
+      out[(long long)b * T + t] = mixture_combine<MP>(dots, mixtures,
+                                                      bias[sid[p]]);
+  }
+}
+
+template <typename Item, typename Id, int MP>
+int launch_matched(const float* users, const void* items, bool vectors,
+                   const float* bias, const void* ids, float* out, int B,
+                   int N, int D, int T, int mixtures, int block_users,
+                   int chunk, cudaStream_t stream) {
+  constexpr int C = matched_lanes<MP>();
+  if ((long long)block_users * chunk * C > kMatchedThreads)
+    return cudaErrorInvalidValue;
+  const size_t smem = matched_smem_bytes<MP>(block_users, chunk);
+  auto kernel = matched_kernel<Item, Id, MP>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((B + block_users - 1) / block_users,
+                  (T + chunk - 1) / chunk);
+  kernel<<<grid, kMatchedThreads, smem, stream>>>(
+      users, static_cast<const Item*>(items), bias,
+      static_cast<const Id*>(ids), out, B, N, D, T, mixtures, block_users,
+      chunk, vectors);
+  return cudaGetLastError();
+}
+
+template <typename Item, typename Id>
+int dispatch_matched(const float* users, const void* items, const float* bias,
+                     const void* ids, float* out, int B, int N, int D, int T,
+                     int mixtures, int block_users, int chunk,
+                     cudaStream_t stream) {
+  // 16-byte vectors need user and item rows that start on 16 bytes.
+  const bool vectors = D % (16 / sizeof(Item)) == 0 &&
+                       reinterpret_cast<uintptr_t>(items) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(users) % 16 == 0;
+  return with_shape(mixtures, [&](auto mp) {
+    return launch_matched<Item, Id, decltype(mp)::value>(
+        users, items, vectors, bias, ids, out, B, N, D, T, mixtures,
+        block_users, chunk, stream);
+  });
 }
 
 }  // namespace
@@ -660,48 +854,38 @@ int spotlight_rank_counts(const float* users, const void* items,
                                equal, B, N, D, T, mixtures, splits, s);
 }
 
-// out (B, T) float32 = dot score of item ids[b, t] for user b.
-int spotlight_matched_scores(const float* users, const void* items,
-                             int items_bf16, const float* bias,
-                             const int* ids, float* out, int B, int T, int D,
-                             void* stream) {
-  if (B <= 0 || T <= 0 || D <= 0) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long total = (long long)B * T;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  if (items_bf16)
-    matched_scores_kernel<<<blocks, threads, 0, s>>>(
-        users, static_cast<const __nv_bfloat16*>(items), bias, ids, out, B,
-        T, D);
-  else
-    matched_scores_kernel<<<blocks, threads, 0, s>>>(
-        users, static_cast<const float*>(items), bias, ids, out, B, T, D);
-  return cudaGetLastError();
+// Pair slots of one matched launch (its users x targets at most).
+int spotlight_matched_pair_slots(int mixtures) {
+  return with_shape(mixtures, [](auto mp) {
+    return kMatchedThreads / matched_lanes<decltype(mp)::value>();
+  });
 }
 
-// out (B, T) float32 = mixture score of item ids[b, t] for user b, whose
-// row of users (B, 2 * mixtures * D) holds its tastes, then attentions.
-int spotlight_candidate_scores(const float* users, const void* items,
-                               int items_bf16, const float* bias,
-                               const int* ids, float* out, int B, int T,
-                               int D, int mixtures, void* stream) {
-  if (B <= 0 || T <= 0 || D <= 0 || mixtures <= 0 ||
-      mixtures > kMaxMixtures)
+// K1c (mixtures = 0) and K4: out (B, T) float32 = the score of item
+// ids[b, t] (int32, or int64 where ids_int64; clamped into [0, N)) for user
+// b, whose row of users is (D) for dots, else (2 * mixtures * D): its
+// tastes, then attentions.  A launch's blocks take block_users users x
+// chunk targets (block_users * chunk <= spotlight_matched_pair_slots).
+// Returns a cudaError_t (0 on success).
+int spotlight_matched_scores(const float* users, const void* items,
+                             int items_bf16, const float* bias,
+                             const void* ids, int ids_int64, float* out,
+                             int B, int N, int D, int T, int mixtures,
+                             int block_users, int chunk, void* stream) {
+  if (B <= 0 || N <= 0 || D <= 0 || T <= 0 || mixtures < 0 ||
+      mixtures > kMaxMixtures || block_users <= 0 || chunk <= 0)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long total = (long long)B * T;
-  const int threads = 128;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  if (items_bf16)
-    candidate_scores_kernel<<<blocks, threads, 0, s>>>(
-        users, static_cast<const __nv_bfloat16*>(items), bias, ids, out, B,
-        T, D, mixtures);
-  else
-    candidate_scores_kernel<<<blocks, threads, 0, s>>>(
-        users, static_cast<const float*>(items), bias, ids, out, B, T, D,
-        mixtures);
-  return cudaGetLastError();
+#define SPOTLIGHT_MATCHED(ITEM, ID)                                        \
+  return dispatch_matched<ITEM, ID>(users, items, bias, ids, out, B, N, D, \
+                                    T, mixtures, block_users, chunk, s)
+  if (items_bf16) {
+    if (ids_int64) SPOTLIGHT_MATCHED(__nv_bfloat16, long long);
+    SPOTLIGHT_MATCHED(__nv_bfloat16, int);
+  }
+  if (ids_int64) SPOTLIGHT_MATCHED(float, long long);
+  SPOTLIGHT_MATCHED(float, int);
+#undef SPOTLIGHT_MATCHED
 }
 
 }  // extern "C"

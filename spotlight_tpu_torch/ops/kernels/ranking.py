@@ -26,13 +26,16 @@ each user's M taste vectors, then its M attention vectors, as
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from spotlight_tpu_torch.ops.kernels import _build
 
 #: Kernel launches made by :func:`rank_weights` and :func:`rank_counts`
 #: (dot and mixture scoring counted apart), :func:`matched_target_scores`
-#: and :func:`matched_candidate_scores` (one per C call).
+#: and :func:`matched_candidate_scores` (one per C call; the two are one
+#: kernel, counted apart by scoring).
 RANK_WEIGHTS_LAUNCHES = 0
 MIXTURE_RANK_WEIGHTS_LAUNCHES = 0
 RANK_COUNTS_LAUNCHES = 0
@@ -92,6 +95,11 @@ def require_contiguous(*tensors):
             raise ValueError('the CUDA kernels take contiguous tensors')
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _rank_splits(lib, batch, device, mixtures):
     """Catalogue splits per user block of a rank launch.  The rank kernel
     runs one block an SM and its blocks cost the same, so it takes as many
@@ -99,8 +107,7 @@ def _rank_splits(lib, batch, device, mixtures):
     double the time; the kernel drops splits beyond the catalogue's tiles
     and adds some where a split would hold more than its counts take)."""
     user_blocks = -(-batch // lib.spotlight_rank_block_users(mixtures))
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, sms // user_blocks)
+    return max(1, _sm_count(device) // user_blocks)
 
 
 def streams(dim, num_mixtures, device):
@@ -139,8 +146,8 @@ def stream_handle(device):
 
 
 def _plain_dot(item_at, user_at, dim):
-    """``dot_block`` of common.cuh: the first product, then one product
-    added at a time, in order."""
+    """The exact-tie contract's dot (common.cuh): the first product, then
+    one product added at a time, in order."""
     acc = item_at(0) * user_at(0)
     for d in range(1, dim):
         acc = acc + item_at(d) * user_at(d)
@@ -160,7 +167,7 @@ def _expf(x):
 
 
 def _plain_mixture(dot, num_mixtures, bias):
-    """``mixture_score_block`` of common.cuh over whole tensors: ``dot(k)``
+    """``mixture_combine`` of common.cuh over whole tensors: ``dot(k)``
     returns the dot products of user component k (tastes first, then
     attentions), in the shape of the result."""
     weights = [dot(num_mixtures + m) for m in range(num_mixtures)]
@@ -417,12 +424,11 @@ def reciprocal_ranks_streaming(user_reprs, item_matrix, item_bias, targets,
     return rr.sum(dim=1) / denom
 
 
-def _check_ids(ids, user_reprs, item_matrix):
-    """Validate (B, T) integer ids; returns them clipped into [0, N)."""
+def _check_ids(ids, user_reprs):
+    """Validate (B, T) integer ids."""
     if ids.dim() != 2 or ids.shape[0] != user_reprs.shape[0] or (
             ids.dtype.is_floating_point):
         raise ValueError('ids must be (B, T) integers')
-    return ids.clamp(0, item_matrix.shape[0] - 1)
 
 
 def matched_target_scores(user_reprs, item_matrix, item_bias, ids):
@@ -441,12 +447,12 @@ def matched_target_scores(user_reprs, item_matrix, item_bias, ids):
     (B, T) float32
     """
     check_factors(user_reprs, item_matrix, item_bias)
-    ids = _check_ids(ids, user_reprs, item_matrix)
+    _check_ids(ids, user_reprs)
     if not on_cuda(user_reprs, item_matrix, item_bias, ids):
-        return matched_target_scores_plain(user_reprs, item_matrix,
-                                            item_bias, ids)
-    return _matched_target_scores_cuda(user_reprs, item_matrix, item_bias,
-                                       ids)
+        return matched_target_scores_plain(
+            user_reprs, item_matrix, item_bias,
+            ids.clamp(0, item_matrix.shape[0] - 1))
+    return _matched_scores_cuda(user_reprs, item_matrix, item_bias, ids, 0)
 
 
 def matched_target_scores_plain(user_reprs, item_matrix, item_bias, ids):
@@ -456,25 +462,6 @@ def matched_target_scores_plain(user_reprs, item_matrix, item_bias, ids):
     dot = _plain_dot(lambda d: rows[:, :, d], lambda d: user_reprs[:, None, d],
                      rows.shape[2])
     return dot + item_bias[ids]
-
-
-def _matched_target_scores_cuda(user_reprs, item_matrix, item_bias, ids):
-    global MATCHED_SCORES_LAUNCHES
-    require_contiguous(user_reprs, item_matrix, item_bias)
-    lib = _build.load('ranking')
-    ids = ids.to(torch.int32).contiguous()
-    out = torch.empty(ids.shape, dtype=torch.float32, device=ids.device)
-    batch, num_targets = ids.shape
-    if batch * num_targets == 0:
-        return out
-    status = lib.spotlight_matched_scores(
-        user_reprs.data_ptr(), item_matrix.data_ptr(),
-        int(item_matrix.dtype == torch.bfloat16), item_bias.data_ptr(),
-        ids.data_ptr(), out.data_ptr(), batch, num_targets,
-        user_reprs.shape[1], stream_handle(ids.device))
-    _build.check(status, 'matched_target_scores kernel')
-    MATCHED_SCORES_LAUNCHES += 1
-    return out
 
 
 def matched_candidate_scores(user_reprs, item_matrix, item_bias, ids,
@@ -497,12 +484,13 @@ def matched_candidate_scores(user_reprs, item_matrix, item_bias, ids,
     (B, T) float32
     """
     check_factors(user_reprs, item_matrix, item_bias, num_mixtures)
-    ids = _check_ids(ids, user_reprs, item_matrix)
+    _check_ids(ids, user_reprs)
     if not on_cuda(user_reprs, item_matrix, item_bias, ids):
-        return matched_candidate_scores_plain(user_reprs, item_matrix,
-                                              item_bias, ids, num_mixtures)
-    return _matched_candidate_scores_cuda(user_reprs, item_matrix,
-                                          item_bias, ids, num_mixtures)
+        return matched_candidate_scores_plain(
+            user_reprs, item_matrix, item_bias,
+            ids.clamp(0, item_matrix.shape[0] - 1), num_mixtures)
+    return _matched_scores_cuda(user_reprs, item_matrix, item_bias, ids,
+                                num_mixtures)
 
 
 def matched_candidate_scores_plain(user_reprs, item_matrix, item_bias, ids,
@@ -519,21 +507,46 @@ def matched_candidate_scores_plain(user_reprs, item_matrix, item_bias, ids,
     return _plain_mixture(dot, num_mixtures, item_bias[ids])
 
 
-def _matched_candidate_scores_cuda(user_reprs, item_matrix, item_bias, ids,
-                                   num_mixtures):
-    global CANDIDATE_SCORES_LAUNCHES
+def matched_launch_shape(batch, num_targets, pair_slots, sms):
+    """(users, targets) a block of a matched-pair launch takes, at most
+    ``pair_slots`` pairs.  A user's targets are split into the fewest
+    chunks that fit, of equal width; then each block takes as many users as
+    spread the batch over about one wave of ``sms`` blocks (more blocks
+    where the chunks allow no more users a block)."""
+    chunks = -(-num_targets // pair_slots)
+    chunk = -(-num_targets // chunks)
+    users = min(pair_slots // chunk, -(-batch * chunks // sms))
+    return max(1, users), chunk
+
+
+def _matched_scores_cuda(user_reprs, item_matrix, item_bias, ids,
+                         mixtures):
+    """K1c (``mixtures`` 0) or K4: one launch, which reads int32 or int64 ids
+    as they are and clamps them itself; nothing is read back."""
+    global MATCHED_SCORES_LAUNCHES, CANDIDATE_SCORES_LAUNCHES
     require_contiguous(user_reprs, item_matrix, item_bias)
     lib = _build.load('ranking')
-    ids = ids.to(torch.int32).contiguous()
-    out = torch.empty(ids.shape, dtype=torch.float32, device=ids.device)
+    if ids.dtype not in (torch.int32, torch.int64):
+        ids = ids.to(torch.int32)
+    ids = ids.contiguous()
     batch, num_targets = ids.shape
+    out = torch.empty(ids.shape, dtype=torch.float32, device=ids.device)
     if batch * num_targets == 0:
         return out
-    status = lib.spotlight_candidate_scores(
+    users, chunk = matched_launch_shape(
+        batch, num_targets, lib.spotlight_matched_pair_slots(mixtures),
+        _sm_count(ids.device))
+    num_items, dim = item_matrix.shape
+    status = lib.spotlight_matched_scores(
         user_reprs.data_ptr(), item_matrix.data_ptr(),
         int(item_matrix.dtype == torch.bfloat16), item_bias.data_ptr(),
-        ids.data_ptr(), out.data_ptr(), batch, num_targets,
-        item_matrix.shape[1], num_mixtures, stream_handle(ids.device))
-    _build.check(status, 'matched_candidate_scores kernel')
-    CANDIDATE_SCORES_LAUNCHES += 1
+        ids.data_ptr(), int(ids.dtype == torch.int64), out.data_ptr(), batch,
+        num_items, dim, num_targets, mixtures, users, chunk,
+        stream_handle(ids.device))
+    if mixtures:
+        _build.check(status, 'matched_candidate_scores kernel')
+        CANDIDATE_SCORES_LAUNCHES += 1
+    else:
+        _build.check(status, 'matched_target_scores kernel')
+        MATCHED_SCORES_LAUNCHES += 1
     return out

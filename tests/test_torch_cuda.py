@@ -9,13 +9,10 @@ the JAX package, so it also runs where JAX is not installed::
 Kernel and plain version share one score arithmetic (the exact-tie contract
 of ``csrc/common.cuh``), so every comparison of dot scores, counts and ids is
 exact.  Mixture scores also go through ``expf``: the kernels' and
-``torch.exp``'s come from the CUDA math library and should agree bit for
-bit, but the two may be built from different CUDA versions, so K4's mixture
-scores are held to within 2 ulp, and the counts and ids they decide
-exactly.  The top-k kernel's mixture scores are held bit for bit: its
-stage 1 scores on the rank pass's register tile, whose counts are exact
-against the plain version's scores.  The bloom gather-sums and their backward sum in one fixed order
-in kernel and plain version alike, so they are held bit for bit, and the
+``torch.exp``'s come from the CUDA math library and agree bit for bit, so
+K4's and the top-k kernel's mixture scores are held bit for bit too.  The
+bloom gather-sums and their backward sum in one fixed order in kernel and
+plain version alike, so they are held bit for bit, and the
 backward to the same bits in two launches.  So is P1, the row-Adam update
 (``ops/kernels/row_update.py``): its sums, products, quotients and square
 roots are IEEE-rounded one by one in kernel and plain version alike.  A lazy
@@ -282,7 +279,7 @@ def test_mixture_rank_kernels_equal_plain_versions(cuda, batch, num_items,
     ts = ranking.matched_candidate_scores(users, items, bias, ids, mixtures)
     ts_plain = ranking.matched_candidate_scores_plain(users, items, bias,
                                                       ids, mixtures)
-    assert _ulp_gap(ts, ts_plain) <= 2
+    assert _same_bits(ts, ts_plain)
     weights = ranking.rank_weights(users, items, bias, ts, mixtures)
     assert torch.equal(weights, ranking.rank_weights_plain(
         users, items, bias, ts_plain, mixtures))
@@ -727,6 +724,125 @@ def test_reciprocal_ranks_streaming_equals_the_rank_weight_path(cuda):
     want = evaluation._streaming_ranks_device(users, items, bias, targets,
                                               mask, None)
     assert torch.equal(got, want)
+
+
+def _matched(users, items, bias, ids, mixtures, plain=False):
+    """K1c (``mixtures`` None) or K4, or their plain versions."""
+    if mixtures is None:
+        fn = (ranking.matched_target_scores_plain if plain
+              else ranking.matched_target_scores)
+        return fn(users, items, bias, ids)
+    fn = (ranking.matched_candidate_scores_plain if plain
+          else ranking.matched_candidate_scores)
+    return fn(users, items, bias, ids, mixtures)
+
+
+def _same_bits(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _raw_ids(seed, batch, width, num_items, device, dtype):
+    """Ids in [-3, N + 3), with the int32 extremes at two corners: the
+    kernel clamps each into [0, N)."""
+    ids = torch.randint(-3, num_items + 3, (batch, width),
+                        generator=torch.Generator().manual_seed(seed))
+    ids[0, 0] = -2 ** 31
+    ids[-1, -1] = 2 ** 31 - 1
+    return ids.to(device=device, dtype=dtype)
+
+
+# The matched-pair kernel's edges, (B, T, D): a batch that no block's users
+# divide, T of 1, 4, 49 and 130 (a user's targets in two chunks wherever a
+# block holds fewer than 130 pairs), D of 1 (rows read an element a lane),
+# 63 and 65 (no 16-byte rows; 65 in two slabs) and 64.
+MATCHED_SHAPES = [(37, 1, 64), (100, 4, 63), (33, 49, 65), (5, 130, 1),
+                  (130, 3, 64), (3, 130, 64)]
+
+
+@pytest.mark.parametrize('ids_dtype', [torch.int32, torch.int64])
+@pytest.mark.parametrize('item_dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('mixtures', [None, 1, 2, 3, 4, 8])
+def test_matched_kernel_equals_plain_version(cuda, mixtures, item_dtype,
+                                             ids_dtype):
+    """K1c and K4, one kernel, bit for bit against their plain versions on
+    the clamped ids, for dots and M = 1, 2, 3, 4 and 8, float32 and bf16
+    items, int32 and int64 ids."""
+    num_items = 500
+    for batch, width, dim in MATCHED_SHAPES:
+        users, items, bias = _operands(batch + width + dim, batch,
+                                       num_items, dim, item_dtype=item_dtype,
+                                       mixtures=mixtures)
+        if mixtures:
+            users = users / dim ** .5
+        ids = _raw_ids(width, batch, width, num_items, cuda, ids_dtype)
+        got = _matched(users, items, bias, ids, mixtures)
+        want = _matched(users, items, bias,
+                        ids.long().clamp(0, num_items - 1), mixtures,
+                        plain=True)
+        assert got.shape == (batch, width)
+        assert _same_bits(got, want), (batch, width, dim)
+
+
+@pytest.mark.parametrize('mixtures', [None, 2, 4, 8])
+def test_matched_kernel_widest_embedding(cuda, mixtures):
+    """The kernel walks D in slabs, so it takes the widest embedding the
+    rank pass streams (``ranking.streams``), bit for bit."""
+    widest = max(dim for dim in range(1, 1025)
+                 if ranking.streams(dim, mixtures, cuda))
+    users, items, bias = _operands(widest, 70, 300, widest,
+                                   mixtures=mixtures)
+    users = users / widest ** .5
+    ids = _raw_ids(1, 70, 5, 300, cuda, torch.int64)
+    got = _matched(users, items, bias, ids, mixtures)
+    want = _matched(users, items, bias, ids.clamp(0, 299), mixtures,
+                    plain=True)
+    assert _same_bits(got, want)
+
+
+@pytest.mark.parametrize('mixtures', [None, 4])
+def test_matched_targets_tie_themselves(cuda, mixtures):
+    """Each matched score is its pair's catalogue score bit for bit, so
+    every target ties itself in the rank pass (weight >= 0.5)."""
+    users, items, bias = _operands(11, 130, 3000, 64, mixtures=mixtures)
+    users = users / 8
+    ids = _raw_ids(2, 130, 49, 3000, cuda, torch.int64)
+    ts = _matched(users, items, bias, ids, mixtures)
+    catalogue = ranking.plain_scores(users, items, bias, mixtures).T
+    assert _same_bits(ts, torch.gather(catalogue, 1, ids.clamp(0, 2999)))
+    weights = ranking.rank_weights(users, items, bias, ts, mixtures)
+    assert bool((weights >= 0.5).all())
+
+
+def _matched_device_work(mixtures, ids_dtype):
+    """Run in a fresh process (a long run's profiler record can drop
+    events): one K1c or K4 call under ``set_sync_debug_mode('error')``,
+    then the device activities of another."""
+    users, items, bias = _operands(9, 2048, 5000, 64, mixtures=mixtures)
+    ids = _raw_ids(3, 2048, 4, 5000, 'cuda', ids_dtype)
+
+    def call():
+        return _matched(users, items, bias, ids, mixtures)
+
+    call()                                                  # builds
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        call()
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    return _device_kernels(call)
+
+
+@pytest.mark.parametrize('ids_dtype', [torch.int32, torch.int64])
+@pytest.mark.parametrize('mixtures', [None, 4])
+def test_matched_scores_are_one_launch(cuda, mixtures, ids_dtype):
+    """A K1c or K4 call on the card is one device kernel (no clamp, no
+    cast, no copy) and reads nothing back."""
+    import multiprocessing
+
+    with multiprocessing.get_context('spawn').Pool(1) as pool:
+        names = pool.apply(_matched_device_work, (mixtures, ids_dtype))
+    assert len(names) == 1 and 'matched_kernel' in names[0], names
 
 
 def _bloom_operands(seed, batch, num_rows, dim, hashes, dtype, skew=False):

@@ -177,6 +177,61 @@ def test_matched_scores_tie_the_catalogue_pass():
     assert bool((weights >= 0.5).all())
 
 
+def _out_of_range_ids(rs, batch, width, num_items):
+    """Ids in [-5, N + 5), with -1, the int32 extremes and N among them."""
+    ids = rs.randint(-5, num_items + 5, (batch, width))
+    ids[0, :4] = [-1, -2 ** 31, num_items, 2 ** 31 - 1]
+    return ids
+
+
+@pytest.mark.parametrize('item_dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('ids_dtype', [torch.int32, torch.int64])
+def test_matched_target_scores_clamp_ids_as_jax_clips_them(ids_dtype,
+                                                           item_dtype):
+    """K1c against the JAX function on ids outside [0, N): the port clamps
+    them (on the card inside the kernel) as the JAX callers clip them
+    before the call, and int32 and int64 ids give the same bits.  Dyadic
+    operands score exactly in any order, so the two packages agree
+    exactly."""
+    rs = np.random.RandomState(8)
+    num_items = 300
+    users, items, bias = _dyadic_catalogue(rs, 9, 24, num_items, 1)
+    ids = _out_of_range_ids(rs, 9, 13, num_items)
+    want = jax_ranking.matched_target_scores(
+        jnp.asarray(users), jnp.asarray(items).astype(
+            jnp.bfloat16 if item_dtype == torch.bfloat16 else jnp.float32),
+        jnp.asarray(bias), jnp.clip(jnp.asarray(ids), 0, num_items - 1))
+    args = (torch.from_numpy(users), torch.from_numpy(items).to(item_dtype),
+            torch.from_numpy(bias))
+    got = ranking.matched_target_scores(*args,
+                                        torch.from_numpy(ids).to(ids_dtype))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    other = torch.int64 if ids_dtype == torch.int32 else torch.int32
+    again = ranking.matched_target_scores(*args,
+                                          torch.from_numpy(ids).to(other))
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+@pytest.mark.parametrize('batch,num_targets,pair_slots', [
+    (2048, 4, 256), (2048, 24, 256), (2048, 1, 32), (2048, 49, 32),
+    (2048, 49, 256), (2048, 1, 16), (37, 130, 256), (5, 300, 16),
+    (1, 1, 256), (100_000, 1, 256), (3, 130, 32)])
+def test_matched_launch_shape_covers_every_pair(batch, num_targets,
+                                                pair_slots):
+    """The matched-pair grid: each block at most ``pair_slots`` pairs, a
+    user's targets in equal chunks that leave none empty, and about one
+    wave of 132 blocks where the batch has the pairs for it."""
+    users, chunk = ranking.matched_launch_shape(batch, num_targets,
+                                                pair_slots, 132)
+    assert users >= 1 and 1 <= chunk and users * chunk <= pair_slots
+    chunks = -(-num_targets // chunk)
+    assert (chunks - 1) * chunk < num_targets <= chunks * chunk
+    blocks = -(-batch // users) * chunks
+    assert blocks <= 132 + chunks or users * chunk * 2 > pair_slots
+    if (batch, num_targets, pair_slots) == (2048, 4, 256):
+        assert (users, blocks) == (16, 128)      # K1c's targets: one wave
+
+
 def _jax_topk(users, items, bias, k):
     scores, ids = jax_topk.streaming_topk(
         jnp.asarray(users), jnp.asarray(items), jnp.asarray(bias), k,

@@ -249,6 +249,32 @@ def test_candidate_scores_match_jax(mixtures):
                                          torch.from_numpy(ids)))
 
 
+@pytest.mark.parametrize('ids_dtype', [torch.int32, torch.int64])
+@pytest.mark.parametrize('mixtures', [2, 4])
+def test_candidate_scores_clamp_ids_as_jax_clips_them(mixtures, ids_dtype):
+    """K4 against the JAX kernel in interpret mode on ids outside
+    [0, N): the port clamps them (on the card inside the kernel) as the JAX
+    callers clip them before the call, and int32 and int64 ids give the
+    same bits."""
+    users, items, bias = _mixture_operands(40 + mixtures, 12, mixtures)
+    ids = np.random.RandomState(5).randint(-5, NUM_ITEMS + 5, (12, 6))
+    ids[0, :4] = [-1, -2 ** 31, NUM_ITEMS, 2 ** 31 - 1]
+    want = jax_ranking.matched_candidate_scores(
+        jnp.asarray(users), jnp.asarray(items), jnp.asarray(bias),
+        jnp.clip(jnp.asarray(ids), 0, NUM_ITEMS - 1),
+        jax_ranking.make_mixture_score_fn(mixtures, DIM), interpret=True)
+    args = (torch.from_numpy(users), torch.from_numpy(items),
+            torch.from_numpy(bias))
+    got = ranking.matched_candidate_scores(
+        *args, torch.from_numpy(ids).to(ids_dtype), mixtures)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+    other = torch.int64 if ids_dtype == torch.int32 else torch.int32
+    again = ranking.matched_candidate_scores(
+        *args, torch.from_numpy(ids).to(other), mixtures)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
 @pytest.mark.parametrize('mixtures', [2, 4])
 def test_mixture_rank_weights_match_jax(mixtures):
     """K1 with mixture scoring: counts exactly equal to the JAX kernel's,
