@@ -105,6 +105,29 @@ each of which exits non-zero when it fails:
    users (the rank kernel takes it, the top-10 fetch's stage 1 takes
    D <= 261), and phase 6's mixture model with 9 tastes (the kernels take
    8) over 256 sequences; each metric equal to ``streaming=False``'s.
+11. explicit MF: ``bench_explicit_mf`` of ``scripts/bench_suite.py``, not
+   cut (regression, D=64, 1e5 users x 2e4 items, 1e6 ratings uniform in
+   [1, 5], batch 8,192): the dense and the lazy engine, one warm fit, then
+   three timed fits of 10 epochs each (the P1 counter zeroed just before
+   the lazy fits and read just after: 2 launches a step), one epoch
+   profiled; ``rmse_score`` warm over the 1e6 pairs; P1 bit for bit
+   against its plain version on the lazy engine's captured user and item
+   calls (8,192 ids each, the positives alone), timed beside its sort and
+   ``SparseAdam``; a poisson and a logistic fit at that width with finite
+   losses; the JAX package's explicit gates through ``fit`` and
+   ``rmse_score`` on the card.
+12. sequence training: ``bench_sequence``'s width (20,000 random sequences
+   of 50 over 20,000 items, bpr, D=64, batch 256) for ``lstm`` and
+   ``mixture`` (M=4): one warm fit, three timed fits of 2 epochs (the
+   suite times 10; cut for the run's time limit), an epoch of 8 of those
+   batches profiled with its device calls a step; ``bench_sequence_large_catalog``: both models
+   trained one epoch on phase 6's sequences (200,000 items), then served
+   by ``sequence_mrr_score`` and ``sequence_precision_recall_score(k=10)``
+   over 2,048 sequences with the launch counters zeroed just before and
+   read just after (K1, K1c, K2; K1m, K2m, K4; no materialize route), and
+   streaming against materialize on 256; one in-batch epoch of the
+   mixture; 8 steps of phase 7's bloom LSTM; the JAX package's LSTM and
+   mixture gates on the card.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -192,6 +215,16 @@ PROBE_WIDTH, PROBE_IDS = 128, 24_576
 #: Model seeds whose mean the lazy bpr gate holds (one seed of a random
 #: stream other than JAX's is a coin toss at that gate).
 GATE_LAZY_SEEDS = (0, 1, 2, 3)
+#: Phase 11, explicit MF: scripts/bench_suite.py's bench_explicit_mf, not
+#: cut (phase 9's dense width and batch).
+EXPLICIT_EPOCHS = 10
+#: Phase 12, sequence training: bench_sequence's width (its 10 timed
+#: epochs cut to 2), then bench_sequence_large_catalog on phase 6's
+#: sequences, and phase 7's bloom LSTM for a few steps.
+SEQ_TRAIN_ROWS, SEQ_TRAIN_ITEMS, SEQ_TRAIN_BATCH = 20_000, 20_000, 256
+SEQUENCE_EPOCHS = 2
+PROFILED_STEPS = 8
+BLOOM_STEPS = 8
 #: Largest gap between the materialize path's scores and the plain
 #: catalogue pass's, relative to the row's largest score: float32
 #: rounding of other summation orders, far above it a wrong score.
@@ -2130,26 +2163,27 @@ def timed_fit(torch, model, interactions, epochs):
     return time.perf_counter() - start
 
 
-def log_training(torch, card, engine, model, interactions, num_users,
-                 num_items, epochs, warm_s, seconds):
-    """The training line: examples/s of each timed ``fit`` (their median,
-    least and largest), then one more epoch profiled for the idle share."""
-    rates = [epochs * FIT_PAIRS / s for s in seconds]
-    num_batches = -(-FIT_PAIRS // TRAIN_BATCH)
+def log_fit_rates(torch, card, name, config, rows, unit, model, data,
+                  epochs, steps, warm_s, seconds, profile_data=None):
+    """A training line: ``unit`` (rows a second) of each timed ``fit``,
+    their median, least and largest, then one more epoch profiled, on
+    ``profile_data`` where given (a few of the same batches: the
+    profiler's record of a long epoch of small launches takes minutes to
+    read).  Returns the profile's summary."""
+    rates = [epochs * rows / s for s in seconds]
     loss = model._last_epoch_loss
     if not np.isfinite(loss):
-        raise AssertionError('{} engine: epoch loss {}'.format(engine, loss))
-    log(training=engine, config='bpr D={} {}x{} n={} B={}'.format(
-        TRAIN_DIM, num_users, num_items, FIT_PAIRS, TRAIN_BATCH),
-        warm_epoch_s=warm_s, epochs=epochs, fits=len(seconds),
-        seconds=seconds, examples_per_s=statistics.median(rates),
-        examples_per_s_min=min(rates), examples_per_s_max=max(rates),
-        ms_per_step=statistics.median(seconds) * 1e3 / (epochs
-                                                        * num_batches),
+        raise AssertionError('{}: epoch loss {}'.format(name, loss))
+    log(training=name, config=config, warm_fit_s=warm_s, epochs=epochs,
+        fits=len(seconds), seconds=seconds,
+        **{unit: statistics.median(rates), unit + '_min': min(rates),
+           unit + '_max': max(rates)},
+        ms_per_step=statistics.median(seconds) * 1e3 / (epochs * steps),
         last_epoch_loss=loss, card=card)
     model._n_iter = 1
-    profile_call(torch, card, engine + ' training epoch',
-                 lambda: model.fit(interactions))
+    profiled = data if profile_data is None else profile_data
+    return profile_call(torch, card, name + ' epoch',
+                        lambda: model.fit(profiled))
 
 
 def run_lazy_training(torch, card):
@@ -2186,8 +2220,10 @@ def run_lazy_training(torch, card):
     if launches != expected:
         raise AssertionError('row_adam launched {} times, not {}'.format(
             launches, expected))
-    log_training(torch, card, 'lazy', model, interactions, LAZY_USERS,
-                 LAZY_ITEMS, LAZY_EPOCHS, warm_s, seconds)
+    log_fit_rates(torch, card, 'lazy', 'bpr D={} {}x{} n={} B={}'.format(
+        TRAIN_DIM, LAZY_USERS, LAZY_ITEMS, FIT_PAIRS, TRAIN_BATCH), FIT_PAIRS,
+        'examples_per_s', model, interactions, LAZY_EPOCHS, num_batches,
+        warm_s, seconds)
     del model
     torch.cuda.empty_cache()
     return launches, captured
@@ -2251,8 +2287,10 @@ def run_dense_training(torch, card):
         raise AssertionError('the dense engine did not run')
     seconds = [timed_fit(torch, model, interactions, DENSE_EPOCHS)
                for _ in range(TIMED_FITS)]
-    log_training(torch, card, 'dense', model, interactions, DENSE_USERS,
-                 DENSE_ITEMS, DENSE_EPOCHS, warm_s, seconds)
+    log_fit_rates(torch, card, 'dense', 'bpr D={} {}x{} n={} B={}'.format(
+        TRAIN_DIM, DENSE_USERS, DENSE_ITEMS, FIT_PAIRS, TRAIN_BATCH),
+        FIT_PAIRS, 'examples_per_s', model, interactions, DENSE_EPOCHS,
+        -(-FIT_PAIRS // TRAIN_BATCH), warm_s, seconds)
     del model
     torch.cuda.empty_cache()
 
@@ -2395,6 +2433,409 @@ def check_step_against_cpu(torch, card):
         loss_cpu=cpu_loss, grad_max_rel_gap=gaps, card=card)
 
 
+# -- phase 11: explicit matrix factorization ----------------------------------
+
+def explicit_interactions():
+    """``bench_explicit_mf``'s data: ``FIT_PAIRS`` ratings uniform in
+    [1, 5] over ``DENSE_USERS`` x ``DENSE_ITEMS``, from ``RandomState(42)``
+    as it draws them."""
+    from spotlight_tpu_torch.data import Interactions
+
+    rs = np.random.RandomState(42)
+    return Interactions(
+        rs.randint(0, DENSE_USERS, FIT_PAIRS).astype(np.int64),
+        rs.randint(0, DENSE_ITEMS, FIT_PAIRS).astype(np.int64),
+        ratings=rs.uniform(1.0, 5.0, FIT_PAIRS).astype(np.float32),
+        num_users=DENSE_USERS, num_items=DENSE_ITEMS)
+
+
+def run_explicit_training(torch, card):
+    """Phase 11: ``bench_explicit_mf`` not cut (regression, D=64, 1e5 users
+    x 2e4 items, 1e6 ratings, batch 8,192) on the dense and the lazy
+    engine: one warm fit (the lazy one's row updates at step
+    ``CAPTURE_STEP`` captured), then ``TIMED_FITS`` timed fits of
+    ``EXPLICIT_EPOCHS`` epochs, the P1 counter zeroed just before the lazy
+    fits and read just after (2 launches a step); ``rmse_score`` warm over
+    the 1e6 pairs.  Returns (P1 launches, the captured operands)."""
+    from spotlight_tpu_torch.evaluation import rmse_score
+    from spotlight_tpu_torch.factorization import ExplicitFactorizationModel
+    from spotlight_tpu_torch.ops.kernels import row_update
+
+    data = explicit_interactions()
+    steps = -(-FIT_PAIRS // TRAIN_BATCH)
+    config = 'regression D={} {}x{} n={} B={}'.format(
+        TRAIN_DIM, DENSE_USERS, DENSE_ITEMS, FIT_PAIRS, TRAIN_BATCH)
+    models = {}
+    for engine in ('dense', 'lazy'):
+        model = ExplicitFactorizationModel(
+            loss='regression', embedding_dim=TRAIN_DIM, n_iter=1,
+            batch_size=TRAIN_BATCH, sparse=engine == 'lazy',
+            random_state=np.random.RandomState(42))
+        if engine == 'lazy':
+            captured, undo = capture_row_updates(CAPTURE_STEP)
+            try:
+                warm_s = timed_fit(torch, model, data, 1)
+            finally:
+                undo()
+            if not model._lazy or len(captured) != 2:
+                raise AssertionError('the explicit lazy engine did not run')
+            # The main path, with the P1 counter zeroed just before it.
+            row_update.ROW_ADAM_LAUNCHES = 0
+            seconds = [timed_fit(torch, model, data, EXPLICIT_EPOCHS)
+                       for _ in range(TIMED_FITS)]
+            launches = row_update.ROW_ADAM_LAUNCHES
+            expected = 2 * steps * EXPLICIT_EPOCHS * TIMED_FITS
+            log(main_path_launches={'row_adam (P1, explicit)': launches},
+                expected=expected)
+            if launches != expected:
+                raise AssertionError('row_adam launched {} times, not {}'
+                                     .format(launches, expected))
+        else:
+            warm_s = timed_fit(torch, model, data, 1)
+            if model._lazy:
+                raise AssertionError('the explicit dense engine did not run')
+            seconds = [timed_fit(torch, model, data, EXPLICIT_EPOCHS)
+                       for _ in range(TIMED_FITS)]
+        log_fit_rates(torch, card, 'explicit ' + engine, config, FIT_PAIRS,
+                      'examples_per_s', model, data, EXPLICIT_EPOCHS, steps,
+                      warm_s, seconds)
+        models[engine] = model
+
+    model = models['dense']
+    first = float(rmse_score(model, data))
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    value = float(rmse_score(model, data))
+    elapsed = time.perf_counter() - start
+    log(explicit='rmse_score', pairs=FIT_PAIRS, warm_s=elapsed,
+        m_predictions_per_s=FIT_PAIRS / elapsed / 1e6, rmse=value,
+        card=card)
+    if not (np.isfinite(value) and value == first):
+        raise AssertionError('rmse_score: {} then {}'.format(first, value))
+    del models, model
+    torch.cuda.empty_cache()
+    return launches, captured
+
+
+def check_explicit_operands(torch, card, captured):
+    """P1 on the explicit lazy engine's own operands at step
+    ``CAPTURE_STEP`` (W=65, 8,192 ids each, the positives alone: the user
+    table's call, then the item table's), bit for bit against its plain
+    version and timed at the engine's l2 (0) beside its sort and
+    ``SparseAdam`` from the captured moments.  Returns the item call's
+    entry."""
+    entry = None
+    for table, operands in zip(('user', 'item'), captured):
+        ids = operands['ids']
+        if ids.numel() != TRAIN_BATCH:
+            raise AssertionError('the explicit step updated {} {} rows, not '
+                                 'the positives'.format(ids.numel(), table))
+        shape = ('{} table R={} W={} n={} float32 step={} t={} l2={} '
+                 '(explicit engine)').format(
+            table, operands['param'].shape[0], operands['param'].shape[1],
+            ids.numel(), operands['step'], operands['t'], operands['l2'])
+        entry = check_row_update(
+            torch, card, shape, operands['param'], operands['mu'],
+            operands['nu'], ids, operands['grads'].reshape(ids.numel(), -1),
+            operands['t'], operands['lr'], operands['l2'],
+            library=operands['l2'] == 0)
+    torch.cuda.empty_cache()
+    return entry
+
+
+def run_explicit_gates(torch, card):
+    """A poisson fit (dense) and a logistic fit (lazy) of one epoch at
+    ``bench_explicit_mf``'s width, with finite losses; then the JAX
+    package's gates of ``tests/factorization/test_explicit.py`` through
+    ``fit`` and ``rmse_score`` on the card: regression RMSE < 0.85 and
+    below 0.65 x the mean baseline's; poisson below the mean baseline,
+    with positive predictions; logistic accuracy above the base rate +
+    0.03, with probabilities."""
+    from spotlight_tpu_torch.data import Interactions, random_train_test_split
+    from spotlight_tpu_torch.data.synthetic import generate_factorization
+    from spotlight_tpu_torch.evaluation import rmse_score
+    from spotlight_tpu_torch.factorization import ExplicitFactorizationModel
+
+    data = explicit_interactions()
+    signed = Interactions(data.user_ids, data.item_ids,
+                          ratings=np.where(data.ratings >= 3, 1.0, -1.0)
+                          .astype(np.float32),
+                          num_users=DENSE_USERS, num_items=DENSE_ITEMS)
+    losses = {}
+    for loss, sparse, interactions in (('poisson', False, data),
+                                       ('logistic', True, signed)):
+        model = ExplicitFactorizationModel(
+            loss=loss, embedding_dim=TRAIN_DIM, n_iter=1,
+            batch_size=TRAIN_BATCH, sparse=sparse, learning_rate=1e-3,
+            random_state=np.random.RandomState(42)).fit(interactions)
+        losses[loss] = model._last_epoch_loss
+        if not np.isfinite(model._last_epoch_loss) or model._lazy != sparse:
+            raise AssertionError('explicit {}: loss {}'.format(
+                loss, model._last_epoch_loss))
+    del model
+    torch.cuda.empty_cache()
+
+    train, test = random_train_test_split(
+        generate_factorization(600, 400, 30000, rank=8, noise=0.15,
+                               explicit=True,
+                               random_state=np.random.RandomState(42)),
+        random_state=np.random.RandomState(0))
+    baseline = float(np.sqrt(((test.ratings - train.ratings.mean()) ** 2)
+                             .mean()))
+
+    def fitted(loss, learning_rate, interactions):
+        return ExplicitFactorizationModel(
+            loss=loss, embedding_dim=32, n_iter=10, batch_size=1024,
+            learning_rate=learning_rate, l2=1e-6,
+            random_state=np.random.RandomState(42)).fit(interactions)
+
+    def signs(part):
+        return Interactions(part.user_ids, part.item_ids,
+                            ratings=np.where(part.ratings >= 3, 1.0, -1.0)
+                            .astype(np.float32),
+                            num_users=part.num_users,
+                            num_items=part.num_items)
+
+    regression = float(rmse_score(fitted('regression', 1e-2, train), test))
+    poisson_model = fitted('poisson', 1e-3, train)
+    poisson = float(rmse_score(poisson_model, test))
+    positive = bool((poisson_model.predict(0) > 0).all())
+    signed_train, signed_test = signs(train), signs(test)
+    predictions = fitted('logistic', 1e-2, signed_train).predict(
+        signed_test.user_ids, signed_test.item_ids)
+    accuracy = float(((predictions > 0.5) == (signed_test.ratings > 0))
+                     .mean())
+    share = float((signed_train.ratings > 0).mean())
+    base_rate = max(share, 1 - share)
+    log(explicit_gates={'regression_rmse': regression,
+                        'poisson_rmse': poisson, 'mean_baseline': baseline,
+                        'logistic_accuracy': accuracy,
+                        'base_rate': base_rate},
+        full_width_losses=losses, card=card)
+    failed = [name for name, passed in (
+        ('regression', regression < 0.85 and regression < 0.65 * baseline),
+        ('poisson', poisson < baseline and positive),
+        ('logistic', accuracy > base_rate + 0.03
+         and bool(((predictions >= 0) & (predictions <= 1)).all())))
+        if not passed]
+    if failed:
+        raise AssertionError('explicit learning gates failed: {}'.format(
+            failed))
+
+
+# -- phase 12: sequence training --------------------------------------------
+
+def run_sequence_training(torch, card):
+    """``bench_sequence``'s training at full width: 20,000 random sequences
+    of 50 over 20,000 items, bpr, D=64, batch 256 (79 steps an epoch), for
+    ``lstm`` and ``mixture`` (M=4): one warm fit, then ``TIMED_FITS`` timed
+    fits of ``SEQUENCE_EPOCHS`` epochs (the suite times 10; cut to 2 for
+    the run's time limit), and an epoch of ``PROFILED_STEPS`` of those
+    batches profiled (its device calls a step too)."""
+    from spotlight_tpu_torch.data import SequenceInteractions
+    from spotlight_tpu_torch.sequence import ImplicitSequenceModel
+
+    sequences = np.random.RandomState(42).randint(
+        1, SEQ_TRAIN_ITEMS, (SEQ_TRAIN_ROWS, SEQ_LENGTH)).astype(np.int32)
+    data = SequenceInteractions(sequences, num_items=SEQ_TRAIN_ITEMS)
+    profiled = SequenceInteractions(
+        sequences[:PROFILED_STEPS * SEQ_TRAIN_BATCH],
+        num_items=SEQ_TRAIN_ITEMS)
+    steps = -(-SEQ_TRAIN_ROWS // SEQ_TRAIN_BATCH)
+    for representation in ('lstm', 'mixture'):
+        model = ImplicitSequenceModel(
+            loss='bpr', representation=representation, embedding_dim=D,
+            batch_size=SEQ_TRAIN_BATCH, n_iter=1,
+            random_state=np.random.RandomState(0))
+        warm_s = timed_fit(torch, model, data, 1)
+        seconds = [timed_fit(torch, model, data, SEQUENCE_EPOCHS)
+                   for _ in range(TIMED_FITS)]
+        summary = log_fit_rates(
+            torch, card, 'sequence ' + representation,
+            'bpr D={} {} sequences x {} over {} items B={}'.format(
+                D, SEQ_TRAIN_ROWS, SEQ_LENGTH, SEQ_TRAIN_ITEMS,
+                SEQ_TRAIN_BATCH), SEQ_TRAIN_ROWS, 'sequences_per_s', model,
+            data, SEQUENCE_EPOCHS, steps, warm_s, seconds, profiled)
+        log(sequence_step=representation, steps=PROFILED_STEPS,
+            device_calls_per_step=summary['device_calls'] / PROFILED_STEPS,
+            device_busy_ms_per_step=(summary['device_busy_ms']
+                                     / PROFILED_STEPS),
+            wall_ms_per_step=summary['wall_ms'] / PROFILED_STEPS,
+            device_idle_share=summary['device_idle_share'], card=card)
+        del model
+        torch.cuda.empty_cache()
+
+
+def reset_sequence_counters():
+    from spotlight_tpu_torch.ops.kernels import ranking, topk
+
+    reset_counters()
+    ranking.MIXTURE_RANK_WEIGHTS_LAUNCHES = 0
+    ranking.CANDIDATE_SCORES_LAUNCHES = 0
+    topk.MIXTURE_STREAMING_TOPK_LAUNCHES = 0
+
+
+def run_trained_serving(torch, card):
+    """``bench_sequence_large_catalog``: ``lstm`` and ``mixture`` models
+    trained one epoch (16 steps) on phase 6's 4,096 sequences of 50 over
+    200,000 items, then served: ``sequence_mrr_score`` and
+    ``sequence_precision_recall_score(k=10)`` over the first 2,048
+    sequences with the launch counters zeroed just before and read just
+    after (K1, K1c, K2 for the LSTM; K1m, K2m, K4 for the mixture; no
+    materialize route), and streaming against materialize on the first
+    256.  Then one epoch of the mixture model with in-batch negatives.
+    Returns the launch counts."""
+    from spotlight_tpu_torch.data import SequenceInteractions
+    from spotlight_tpu_torch.evaluation import (
+        sequence_mrr_score, sequence_precision_recall_score)
+    from spotlight_tpu_torch.sequence import ImplicitSequenceModel
+
+    sequences = sequence_rows()
+    data = SequenceInteractions(sequences, num_items=NUM_ITEMS)
+    test = SequenceInteractions(sequences[:SEQ_EVAL], num_items=NUM_ITEMS)
+    launches = {}
+    for representation in ('lstm', 'mixture'):
+        model = ImplicitSequenceModel(
+            loss='bpr', representation=representation, embedding_dim=D,
+            batch_size=SEQ_TRAIN_BATCH, n_iter=1,
+            random_state=np.random.RandomState(0))
+        fit_s = timed_fit(torch, model, data, 1)
+        if not np.isfinite(model._last_epoch_loss):
+            raise AssertionError('{}: epoch loss {}'.format(
+                representation, model._last_epoch_loss))
+
+        # The main path, with the launch counters zeroed just before it.
+        torch.cuda.synchronize()
+        reset_sequence_counters()
+        start = time.perf_counter()
+        mrr = sequence_mrr_score(model, test)
+        mrr_s = time.perf_counter() - start
+        start = time.perf_counter()
+        precision, recall = sequence_precision_recall_score(model, test,
+                                                            k=SEQ_K)
+        pr_s = time.perf_counter() - start
+        counts = (counters() if representation == 'lstm'
+                  else sequence_counters())
+        log(trained_path_launches=counts, representation=representation)
+        for name, count in counts.items():
+            if count <= 0:
+                raise AssertionError('{} never launched on the trained {} '
+                                     'path'.format(name, representation))
+            launches[name] = launches.get(name, 0) + count
+        if representation == 'mixture':
+            launches['mixture_score'] = sum(counts.values())
+        check_streamed('trained {} path'.format(representation))
+        if mrr.shape != (SEQ_EVAL,) or not (np.all(mrr > 0)
+                                            and np.all(mrr <= 1)):
+            raise AssertionError('trained {}: bad sequence_mrr_score'
+                                 .format(representation))
+        for name, values in (('precision', precision), ('recall', recall)):
+            if values.shape != (SEQ_EVAL,) or not (
+                    np.all(values >= 0) and np.all(values <= 1)):
+                raise AssertionError('trained {}: bad {}'.format(
+                    representation, name))
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        sequence_mrr_score(model, test)
+        mrr_warm_s = time.perf_counter() - start
+        start = time.perf_counter()
+        sequence_precision_recall_score(model, test, k=SEQ_K)
+        pr_warm_s = time.perf_counter() - start
+        log(trained_serving=representation, fit_s=fit_s,
+            last_epoch_loss=model._last_epoch_loss, sequences=SEQ_EVAL,
+            items=NUM_ITEMS, mrr_first_s=mrr_s, mrr_warm_s=mrr_warm_s,
+            precision_recall_first_s=pr_s,
+            precision_recall_warm_s=pr_warm_s,
+            mean_mrr=float(mrr.mean()),
+            mean_precision=float(precision.mean()), card=card)
+        check_streaming_against_materialize(torch, model,
+                                            sequences[:SEQ_CHECK],
+                                            NUM_ITEMS)
+        del model
+        torch.cuda.empty_cache()
+
+    model = ImplicitSequenceModel(
+        loss='bpr', representation='mixture', embedding_dim=D,
+        batch_size=SEQ_TRAIN_BATCH, n_iter=1, negative_sampling='in_batch',
+        random_state=np.random.RandomState(0))
+    seconds = timed_fit(torch, model, data, 1)
+    log(training='sequence mixture in-batch', epochs=1, seconds=seconds,
+        sequences_per_s=SEQ_ROWS / seconds,
+        last_epoch_loss=model._last_epoch_loss, card=card)
+    if not np.isfinite(model._last_epoch_loss):
+        raise AssertionError('in-batch mixture: epoch loss {}'.format(
+            model._last_epoch_loss))
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_bloom_training(torch, card):
+    """``BLOOM_STEPS`` steps of phase 7's bloom LSTM (1e6 items, 200,000
+    compressed rows of 64, 4 hashes) on its first sequences: finite
+    losses, the compressed table and the item biases move, and the
+    compressed padding row stays zero."""
+    from spotlight_tpu_torch.data import SequenceInteractions
+
+    model, sequences = bloom_model()
+    rows = BLOOM_STEPS * model._batch_size
+    data = SequenceInteractions(sequences[:rows], num_items=BLOOM_ITEMS)
+    before = {name: value.clone()
+              for name, value in model._net.state_dict().items()}
+    seconds = timed_fit(torch, model, data, 1)
+    table = model._net.item_embeddings.weight
+    moved = [name for name, value in model._net.state_dict().items()
+             if not torch.equal(value, before[name])]
+    log(training='bloom lstm', steps=model._opt_state['count'],
+        seconds=seconds, ms_per_step=seconds * 1e3 / BLOOM_STEPS,
+        last_epoch_loss=model._last_epoch_loss, moved=moved, card=card)
+    if (model._opt_state['count'] != BLOOM_STEPS
+            or not np.isfinite(model._last_epoch_loss)
+            or len(moved) != len(before) or bool(table[0].any())):
+        raise AssertionError('the bloom LSTM did not train as it should')
+    del model, before
+    torch.cuda.empty_cache()
+
+
+def run_sequence_gates(torch, card):
+    """The JAX package's gates of
+    ``tests/sequence/test_sequence_implicit.py`` (LSTM ``:64``, mixture
+    ``:115``) through ``fit`` and ``sequence_mrr_score`` on the card, on
+    the port's ``generate_sequential`` data (100 users, 100 items, 1e4
+    interactions, order 2; concentration 1e-3 and 1e2)."""
+    from spotlight_tpu_torch.data import user_based_train_test_split
+    from spotlight_tpu_torch.data.synthetic import generate_sequential
+    from spotlight_tpu_torch.evaluation import sequence_mrr_score
+    from spotlight_tpu_torch.sequence import ImplicitSequenceModel
+
+    results = {}
+    for randomness in (1e-3, 1e2):
+        train, test = user_based_train_test_split(
+            generate_sequential(
+                num_users=100, num_items=100, num_interactions=10000,
+                concentration_parameter=randomness, order=2,
+                random_state=np.random.RandomState(42)),
+            random_state=np.random.RandomState(42))
+        train = train.to_sequence(max_sequence_length=10)
+        test = test.to_sequence(max_sequence_length=10)
+        for representation, epochs, gate in (
+                ('lstm', 25, 0.61 if randomness < 1 else 0.03),
+                ('mixture', 50, 0.3 if randomness < 1 else 0.03)):
+            model = ImplicitSequenceModel(
+                loss='bpr', representation=representation, batch_size=128,
+                embedding_dim=32, learning_rate=1e-2, l2=1e-7,
+                n_iter=epochs, random_state=np.random.RandomState(42))
+            model.fit(train)
+            results['{} {:g}'.format(representation, randomness)] = (
+                float(sequence_mrr_score(model, test).mean()), gate)
+    log(sequence_gates={name: value for name, (value, _) in
+                        results.items()}, card=card)
+    for name, (value, gate) in results.items():
+        if not value > gate:
+            raise AssertionError('sequence gate {}: MRR {} is not > {}'
+                                 .format(name, value, gate))
+
+
 # -- phase 5: where the time goes --------------------------------------------
 
 def profile_metrics(torch, card, model, test, train, heavy):
@@ -2427,8 +2868,9 @@ def profile_metrics(torch, card, model, test, train, heavy):
 
 
 def profile_call(torch, card, name, call):
-    """Device time by kernel, and the idle share, of one call of ``call``
-    under ``torch.profiler``."""
+    """Device time by kernel, the idle share and the number of device
+    kernel calls of one call of ``call`` under ``torch.profiler``.  Returns
+    the logged summary."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2438,6 +2880,7 @@ def profile_call(torch, card, name, call):
         call()
         wall_ms = (time.perf_counter() - start) * 1e3
     by_kernel = {}
+    device_calls = 0
     for event in prof.key_averages():
         device_us = getattr(event, 'self_device_time_total', None)
         if device_us is None:
@@ -2446,11 +2889,15 @@ def profile_call(torch, card, name, call):
         # launched, which have rows of their own.
         if device_us > 0 and not event.key.startswith('aten::'):
             by_kernel[event.key[:80]] = device_us / 1e3
+            device_calls += event.count
     busy_ms = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
-    log(profile=name, wall_ms=wall_ms, device_busy_ms=busy_ms,
-        device_idle_share=(1 - busy_ms / wall_ms) if busy_ms else None,
-        top_kernels_ms=dict(top), card=card)
+    summary = dict(profile=name, wall_ms=wall_ms, device_busy_ms=busy_ms,
+                   device_idle_share=(1 - busy_ms / wall_ms) if busy_ms
+                   else None, device_calls=device_calls,
+                   top_kernels_ms=dict(top))
+    log(card=card, **summary)
+    return summary
 
 
 # -- phase 10: the routes past the kernels -----------------------------------
@@ -2562,7 +3009,7 @@ def main():
     card = card_line()
     print(card, flush=True)
 
-    start = time.perf_counter()
+    began = start = time.perf_counter()
     built = _build.build()
     log(phase='build', seconds=time.perf_counter() - start, built=built)
     for name in _build.SOURCES:
@@ -2629,16 +3076,41 @@ def main():
     run_learning_gates(torch, card)
     check_step_against_cpu(torch, card)
 
+    start = time.perf_counter()
+    explicit_launches, captured = run_explicit_training(torch, card)
+    launches['row_adam (P1, explicit)'] = explicit_launches
+    entries['row_adam (P1, explicit)'] = dict(
+        check_explicit_operands(torch, card, captured),
+        name='row_adam (P1, explicit)')
+    del captured
+    run_explicit_gates(torch, card)
+    log(phase='explicit', seconds=time.perf_counter() - start)
+
+    start = time.perf_counter()
+    run_sequence_training(torch, card)
+    log(phase='sequence training', seconds=time.perf_counter() - start)
+    start = time.perf_counter()
+    for name, count in run_trained_serving(torch, card).items():
+        launches[name] += count
+    log(phase='trained serving', seconds=time.perf_counter() - start)
+    start = time.perf_counter()
+    run_bloom_training(torch, card)
+    run_sequence_gates(torch, card)
+    log(phase='bloom steps and sequence gates',
+        seconds=time.perf_counter() - start)
+
     kernels = []
     for name in ('rank_weights', 'matched_target_scores', 'streaming_topk',
                  'rank_weights (mixture)', 'streaming_topk (mixture)',
                  'mixture_score', 'matched_candidate_scores', 'rank_counts',
                  'rank_counts (mixture)', 'bloom_gather_sum',
                  'bloom_gather_sum backward', 'multihot_gather_sum',
-                 'multihot_gather_sum backward', 'row_adam (P1)'):
+                 'multihot_gather_sum backward', 'row_adam (P1)',
+                 'row_adam (P1, explicit)'):
         entry = dict(entries[name])
         entry['launches'] = launches[name]
         kernels.append(entry)
+    log(phase='all', seconds=time.perf_counter() - began)
     print(card, flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {

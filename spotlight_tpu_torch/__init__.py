@@ -27,6 +27,7 @@ def __getattr__(name):
     from importlib import import_module
 
     homes = {
+        'ExplicitFactorizationModel': 'spotlight_tpu_torch.factorization',
         'ImplicitFactorizationModel': 'spotlight_tpu_torch.factorization',
         'BilinearNet': 'spotlight_tpu_torch.factorization',
         'ImplicitSequenceModel': 'spotlight_tpu_torch.sequence',

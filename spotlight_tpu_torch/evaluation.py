@@ -1,9 +1,10 @@
 """Ranking evaluation metrics.
 
-Counterpart of ``spotlight_tpu/evaluation.py`` for ``mrr_score``,
-``precision_recall_score``, ``sequence_mrr_score`` and
-``sequence_precision_recall_score``.  Users (or sequences) are processed in
-device batches:
+Counterpart of ``spotlight_tpu/evaluation.py``: ``mrr_score``,
+``precision_recall_score``, ``sequence_mrr_score``,
+``sequence_precision_recall_score`` and ``rmse_score`` (the last a mean
+over the model's own predictions, in float32 as the JAX package's).  Users
+(or sequences) are processed in device batches:
 
 - the streaming path (the default, on every device) never materialises the
   (batch, num_items) score matrix: MRR counts ranks with
@@ -650,3 +651,20 @@ def sequence_precision_recall_score(model, test, k=10,
     precision, recall = torch.stack(
         [torch.cat(precisions), torch.cat(recalls)]).cpu().numpy()
     return precision, recall
+
+
+def rmse_score(model, test):
+    """Root mean squared error of the model's rating predictions over the
+    test pairs, in float32 when the ratings are float32.
+
+    Parameters
+    ----------
+    model : fitted explicit model
+    test : :class:`~spotlight_tpu_torch.data.interactions.Interactions`
+
+    Returns
+    -------
+    float
+    """
+    predictions = model.predict(test.user_ids, test.item_ids)
+    return np.sqrt(((test.ratings - predictions) ** 2).mean())

@@ -1,5 +1,8 @@
-"""Factorization models (implicit feedback)."""
+"""Factorization models (explicit and implicit feedback)."""
 
+from spotlight_tpu_torch.factorization.explicit import (  # noqa: F401
+    ExplicitFactorizationModel,
+)
 from spotlight_tpu_torch.factorization.implicit import (  # noqa: F401
     ImplicitFactorizationModel,
 )

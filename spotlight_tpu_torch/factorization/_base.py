@@ -1,11 +1,11 @@
 """Shared plumbing for the factorization estimators.
 
 Counterpart of ``spotlight_tpu/factorization/_base.py``: representation
-construction, the choice of training engine and its optimizer state, input
-validation, prediction id broadcasting, and the catalogue factors the
-evaluation kernels consume.  PyTorch runs eagerly, so the JAX package's jit
-caches and bucket padding have no counterpart here; the results are the
-same.
+construction, the choice of training engine and its optimizer state, the
+epoch loop of ``fit``, input validation, prediction id broadcasting, and
+the catalogue factors the evaluation kernels consume.  PyTorch runs
+eagerly, so the JAX package's jit caches and bucket padding have no
+counterpart here; the results are the same.
 """
 
 from __future__ import annotations
@@ -141,6 +141,49 @@ class _FactorizationBase:
             raise RuntimeError('call _initialize before loading parameters')
         self._net.load_state_dict(state)
         self._params_version += 1
+
+    def _negatives_shape(self, num_batches):
+        """The shape of an epoch's sampled negatives, or None when the
+        steps draw none."""
+        return None
+
+    def _epoch_fn(self, num_batches):
+        """``epoch_fn(data, n_valid) -> device loss``: one epoch's draws
+        from the estimator's generator, then the steps of
+        ``self._step_fn()``."""
+        if num_batches not in self._epoch_fn_cache:
+            self._epoch_fn_cache[num_batches] = training.make_epoch_fn(
+                self._step_fn(), self._generator, num_batches,
+                self._batch_size, self._negatives_shape(num_batches),
+                self._num_items, self._device)
+        return self._epoch_fn_cache[num_batches]
+
+    def fit(self, interactions, verbose=False):
+        """Fit the model.
+
+        When called repeatedly, fitting resumes from the previous state
+        (parameters, optimizer state and the random stream).
+
+        Parameters
+        ----------
+        interactions : :class:`~spotlight_tpu_torch.data.Interactions`
+            With ratings, for the explicit estimator.
+        verbose : bool
+            Print each epoch's loss (read back one epoch late).
+
+        Returns
+        -------
+        self
+        """
+        if not self._initialized:
+            self._initialize(interactions)
+        data, n, num_batches = self._epoch_data(interactions)
+        epoch_fn = self._epoch_fn(num_batches)
+        self._params_version += 1
+        # The last epoch's loss, on the host (the verbose print's value).
+        self._last_epoch_loss = training.fit_epochs(epoch_fn, data, n,
+                                                    self._n_iter, verbose)
+        return self
 
     def _check_input(self, user_ids, item_ids, allow_items_none=False):
         if not self._initialized:

@@ -157,27 +157,12 @@ class ImplicitFactorizationModel(_FactorizationBase):
         return lambda batch, negatives: step(self._opt_state, batch,
                                              negatives)
 
-    def _epoch_fn(self, num_batches):
-        """``epoch_fn(data, n_valid) -> device loss``: one epoch's draws
-        from the estimator's generator, then the steps."""
-        if num_batches in self._epoch_fn_cache:
-            return self._epoch_fn_cache[num_batches]
-        step = self._step_fn()
-        batch_size = self._batch_size
-        padded = num_batches * batch_size
-        negatives_shape = (None if self._negative_sampling == 'in_batch'
-                           else (num_batches, self._num_step_negatives,
-                                 batch_size))
-
-        def epoch_fn(data, n_valid):
-            perm, negatives = training.epoch_draws(
-                self._generator, padded, negatives_shape, self._num_items,
-                self._device)
-            return training.run_epoch(step, data, n_valid, num_batches,
-                                      batch_size, perm, negatives)
-
-        self._epoch_fn_cache[num_batches] = epoch_fn
-        return epoch_fn
+    def _negatives_shape(self, num_batches):
+        """The epoch's negatives, ``(num_batches, n_neg, B)``; None for
+        in-batch negatives."""
+        if self._negative_sampling == 'in_batch':
+            return None
+        return (num_batches, self._num_step_negatives, self._batch_size)
 
     def _epoch_data(self, interactions):
         """(device data, n, num_batches): the padded id columns (and the
@@ -207,35 +192,6 @@ class ImplicitFactorizationModel(_FactorizationBase):
             data['negative_weight'] = torch.where(
                 valid, column, torch.zeros((), device=column.device))
         return data, n, num_batches
-
-    def fit(self, interactions, verbose=False):
-        """Fit the model.
-
-        When called repeatedly, fitting resumes from the previous state
-        (parameters, optimizer state and the random stream).
-
-        Parameters
-        ----------
-        interactions : :class:`~spotlight_tpu_torch.data.Interactions`
-        verbose : bool
-            Print each epoch's loss (read back one epoch late).
-
-        Returns
-        -------
-        self
-        """
-        if not self._initialized:
-            self._initialize(interactions)
-        data, n, num_batches = self._epoch_data(interactions)
-        epoch_fn = self._epoch_fn(num_batches)
-        self._params_version += 1
-        drain = training.EpochLossDrain(verbose)
-        for epoch_num in range(self._n_iter):
-            drain.push(epoch_num, epoch_fn(data, n))
-        drain.finish()
-        # The last epoch's loss, on the host (the verbose print's value).
-        self._last_epoch_loss = drain.last_loss
-        return self
 
     def predict(self, user_ids, item_ids=None):
         """Predict recommendation scores.

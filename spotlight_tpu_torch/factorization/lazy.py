@@ -19,7 +19,9 @@ coupled ``l2`` once per touched row.  A padded example's ids (user 0, item
 0 and its sampled negatives) carry zero gradient rows and still take a
 momentum step, as in JAX.  Selected with ``sparse=True`` on the
 factorization estimator (the fused ``BilinearNet`` layout, no custom
-optimizer).
+optimizer).  With ``explicit`` the step scores the positives alone
+against ``batch['ratings']`` (the explicit estimator's losses; no negative
+is drawn).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from __future__ import annotations
 import torch
 
 from spotlight_tpu_torch.ops.lazy_adam import sparse_adam_rows
-from spotlight_tpu_torch.ops.losses import IMPLICIT_LOSSES
+from spotlight_tpu_torch.ops.losses import EXPLICIT_LOSSES, IMPLICIT_LOSSES
 from spotlight_tpu_torch.ops.sampling import (inbatch_pair_weights,
                                               weighted_inbatch_elems)
 from spotlight_tpu_torch.utils.training import masked_mean
@@ -43,33 +45,40 @@ def _fused_pair_scores(u_rows, i_rows_stacked, dim):
             + u_rows[None, :, dim] + i_rows_stacked[..., dim])
 
 
-def _batch_item_ids(batch, negatives, in_batch):
-    """The flat item ids of one step: the positives alone (in-batch) or the
-    positives followed by the sampled negatives ``(n_neg, B)``."""
+def _batch_item_ids(batch, negatives, positives_only):
+    """The flat item ids of one step: the positives alone (explicit or
+    in-batch) or the positives followed by the sampled negatives
+    ``(n_neg, B)``."""
     items = batch['item_ids']
-    if in_batch:
+    if positives_only:
         return items
     return torch.cat([items[None], negatives], dim=0).reshape(-1)
 
 
 def build_lazy_step(net, loss, learning_rate, l2, num_negatives,
-                    negative_sampling='uniform'):
+                    negative_sampling='uniform', explicit=False):
     """The lazy engine's step for a fused-layout ``BilinearNet``:
     ``step(opt_state, batch, negatives) -> loss`` (a device scalar), with
     ``opt_state`` from :func:`~spotlight_tpu_torch.ops.lazy_adam.
     lazy_adam_init` (updated in place, ``t`` included) and ``negatives``
-    ``(n_neg, B)`` item ids (None for in-batch negatives).  Nothing is read
-    back to the host."""
+    ``(n_neg, B)`` item ids (None for in-batch negatives and for
+    ``explicit``, whose batch carries ``'ratings'``).  Nothing is read back
+    to the host."""
     dim = net.embedding_dim
-    loss_func = IMPLICIT_LOSSES[loss]
+    loss_func = (EXPLICIT_LOSSES if explicit else IMPLICIT_LOSSES)[loss]
     adaptive = loss == 'adaptive_hinge'
     n_neg = num_negatives if adaptive else 1
-    in_batch = negative_sampling == 'in_batch'
+    in_batch = (not explicit) and negative_sampling == 'in_batch'
 
     def stacked_scores(u_rows, i_rows, batch):
         """Loss elements, in-batch weights applied, from float32 fused
-        rows; ``i_rows`` is flat ``(S * B, D + 1)``, S = 1 (in-batch) or
-        1 + n_neg (uniform)."""
+        rows; ``i_rows`` is flat ``(S * B, D + 1)``, S = 1 (explicit and
+        in-batch) or 1 + n_neg (uniform)."""
+        if explicit:
+            predictions = _fused_pair_scores(u_rows, i_rows[None], dim)[0]
+            if loss == 'poisson':
+                predictions = torch.exp(predictions)
+            return loss_func(batch['ratings'], predictions, reduce=False)
         if in_batch:
             pos_rows = i_rows.reshape(-1, dim + 1)
             stacked = torch.stack(
@@ -94,7 +103,8 @@ def build_lazy_step(net, loss, learning_rate, l2, num_negatives,
         t = opt_state['t']
         u_table = net.user_embeddings.weight.data
         i_table = net.item_embeddings.weight.data
-        flat_items = _batch_item_ids(batch, negatives, in_batch)
+        flat_items = _batch_item_ids(batch, negatives,
+                                     explicit or in_batch)
 
         # Cast after the gather, outside autograd: a bfloat16 table keeps
         # bfloat16 gathers, the score and gradient math runs in float32.

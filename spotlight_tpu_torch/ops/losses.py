@@ -121,3 +121,9 @@ IMPLICIT_LOSSES = {
     'hinge': hinge_loss,
     'adaptive_hinge': adaptive_hinge_loss,
 }
+
+EXPLICIT_LOSSES = {
+    'regression': regression_loss,
+    'poisson': poisson_loss,
+    'logistic': logistic_loss,
+}

@@ -1,23 +1,40 @@
 """Implicit-feedback sequence model.
 
-Counterpart of ``spotlight_tpu/sequence/implicit.py``.  This module carries
-the serving side: construction, parameters, ``predict`` and the factors the
-evaluation kernels consume.  Training belongs to a later slice of the port,
-listed in ROADMAP.md; until then ``fit`` raises rather than pretend to
-train.
+Counterpart of ``spotlight_tpu/sequence/implicit.py``: construction,
+parameters, training, ``predict`` and the factors the evaluation kernels
+consume.
+
+``fit`` trains on the dense engine (:mod:`spotlight_tpu_torch.utils.
+training`): autograd through the whole representation, then Adam over every
+parameter.  Each step scores every position's target (the sequence itself,
+the representation being causal) against uniformly drawn negatives of the
+same shape, or against the targets of other batch rows
+(``negative_sampling='in_batch'``, importance-weighted back to the uniform
+objective); the loss is masked at padding positions and padded rows.  Each
+epoch draws its permutation and negatives from the estimator's CPU
+generator in one go and reads its loss back one epoch late.  The row-sparse
+sequence engine (``sparse=True`` where the JAX package would take it) and
+``mesh=`` are not ported and raise.
 """
 
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 import torch
 
+from spotlight_tpu_torch.data.interactions import PADDING_IDX
 from spotlight_tpu_torch.factorization._base import resolve_device
+from spotlight_tpu_torch.ops.losses import IMPLICIT_LOSSES
+from spotlight_tpu_torch.ops.sampling import (inbatch_importance_weight_table,
+                                              inbatch_pair_weights,
+                                              weighted_inbatch_elems)
 from spotlight_tpu_torch.sequence.representations import (LSTMNet,
                                                           MixtureLSTMNet)
 from spotlight_tpu_torch.utils import training
 
-_LOSSES = ('pointwise', 'bpr', 'hinge', 'adaptive_hinge')
+_LOSSES = tuple(IMPLICIT_LOSSES)
 _REPRESENTATIONS = {'lstm': LSTMNet, 'mixture': MixtureLSTMNet}
 
 
@@ -32,17 +49,30 @@ class ImplicitSequenceModel:
         protocol (``user_representation``, ``score``, ``score_catalog``).
         'pooling' and 'cnn' are not ported yet and raise.
     embedding_dim : int, optional
-    n_iter, batch_size, l2, learning_rate, optimizer_func : optional
-        Training settings, kept for the training slice of the port.
+    n_iter, batch_size, l2, learning_rate : optional
+        Training settings; ``l2`` is Adam's coupled weight decay.
+    optimizer_func : callable, optional
+        Overrides ``l2`` and ``learning_rate``; see
+        :func:`~spotlight_tpu_torch.utils.training.make_optimizer`.
     use_cuda : bool
         Accepted for API parity; ``device`` selects the device.
     sparse : bool
+        Where the JAX package would select its row-sparse sequence engine
+        (a built-in representation in the fused layout, no custom
+        optimizer), ``fit`` raises ``NotImplementedError``: that engine is
+        not ported yet.  Elsewhere it trains dense with the JAX package's
+        RuntimeWarning.
     random_state : np.random.RandomState, optional
     num_negative_samples : int, optional
+        Negatives per position for ``adaptive_hinge``.
     mesh : optional
         Distributed training is not ported yet; anything but None raises.
     exchange : str, 'psum' (default), 'alltoall' or 'alltoall_cf'
     negative_sampling : str, 'uniform' (default) or 'in_batch'
+        'in_batch' scores each position against the same position's
+        target in the batch rows 1..n before it, each pair weighted by
+        :func:`~spotlight_tpu_torch.ops.sampling.
+        inbatch_importance_weight_table` (the padding id weighs 0).
     device : str or torch.device, optional
         ``None`` (the default) means ``cuda`` and raises when no card is
         present; pass ``'cpu'`` to run on the CPU.
@@ -105,6 +135,10 @@ class ImplicitSequenceModel:
 
         self._num_items = None
         self._net = None
+        self._lazy = False
+        self._optimizer = None
+        self._opt_state = None
+        self._epoch_fn_cache = {}
         # Bumped whenever the parameters change; keys the item-factor cache.
         self._params_version = 0
         self._item_factor_cache = None
@@ -120,6 +154,35 @@ class ImplicitSequenceModel:
     def _initialized(self):
         return self._net is not None
 
+    def _lazy_fallback_reason(self):
+        """Why ``sparse=True`` cannot take the row-sparse engine here, or
+        None (the JAX package's conditions)."""
+        net = self._net
+        if not (hasattr(net, '_user_repr_from_emb')
+                and getattr(net, 'fused', False)):
+            return ('it requires a built-in representation with the fused '
+                    'table layout')
+        if self._optimizer_func is not None:
+            return ('a custom optimizer_func is set (row-sparse lazy Adam '
+                    'IS the item-table optimizer)')
+        return None
+
+    def _use_lazy_engine(self):
+        """Whether ``sparse=True`` selects the row-sparse engine; where a
+        configuration cannot use it, it trains dense with the JAX package's
+        warning."""
+        if not self._sparse:
+            return False
+        reason = self._lazy_fallback_reason()
+        if reason is not None:
+            warnings.warn(
+                'sparse=True falls back to the dense engine because {} — '
+                'training remains correct; above ~1M-item catalogs the '
+                'lazy engine would be faster.'.format(reason),
+                RuntimeWarning, stacklevel=3)
+            return False
+        return True
+
     def _initialize(self, interactions):
         self._num_items = interactions.num_items
         if isinstance(self._representation, str):
@@ -128,6 +191,12 @@ class ImplicitSequenceModel:
                 generator=self._generator, device=self._device)
         else:
             self._net = self._representation.to(self._device)
+        self._lazy = self._use_lazy_engine()
+        self._optimizer = training.make_optimizer(
+            self._learning_rate, self._l2, self._optimizer_func)
+        self._opt_state = self._optimizer.init(
+            dict(self._net.named_parameters()))
+        self._epoch_fn_cache = {}
         self._params_version += 1
 
     def _load_params(self, state):
@@ -151,12 +220,139 @@ class ImplicitSequenceModel:
             raise ValueError('Maximum item id greater '
                              'than number of items in model.')
 
+    @property
+    def _num_step_negatives(self):
+        """Negatives per position a step scores: ``num_negative_samples``
+        for ``adaptive_hinge``, else 1."""
+        if self._loss == 'adaptive_hinge':
+            return self._num_negative_samples
+        return 1
+
+    def _elems_fn(self):
+        """The dense engine's ``elems_fn(batch, negatives) -> (elementwise
+        loss, mask)``: ``negatives`` is ``(B, T)``, ``(n, B, T)`` for
+        ``adaptive_hinge``, None in-batch.  The mask is the targets'
+        non-padding positions of the batch's valid rows."""
+        net = self._net
+        loss = self._loss
+        loss_func = IMPLICIT_LOSSES[loss]
+        adaptive = loss == 'adaptive_hinge'
+        n_neg = self._num_step_negatives
+        in_batch = self._negative_sampling == 'in_batch'
+        if in_batch and not hasattr(net, 'score_inbatch_negatives'):
+            raise ValueError(
+                "negative_sampling='in_batch' needs a representation with "
+                'score_inbatch_negatives (the built-in representations '
+                'have it).')
+
+        def elems_fn(batch, negatives):
+            sequences = batch['sequences']
+            user_representations, _ = net.user_representation(sequences)
+            positive = net.score(user_representations, sequences)
+            if in_batch:
+                negative = net.score_inbatch_negatives(
+                    user_representations, sequences, num_negatives=n_neg)
+            elif adaptive:
+                negative = torch.stack([
+                    net.score(user_representations, items)
+                    for items in negatives], dim=0)
+            else:
+                negative = net.score(user_representations, negatives)
+            mask = ((sequences != PADDING_IDX)
+                    & (batch['mask'][:, None] > 0))
+            elems = loss_func(positive, negative, reduce=False)
+            if in_batch:
+                pair_weight = inbatch_pair_weights(batch['negative_weight'],
+                                                   negative, n_neg)
+                elems = weighted_inbatch_elems(loss, elems, negative,
+                                               pair_weight)
+            return elems, mask
+
+        return elems_fn
+
+    def _step_fn(self):
+        """``step(batch, negatives) -> loss`` on the estimator's own
+        parameters and optimizer state (the dense engine)."""
+        step = training.build_dense_step(self._net, self._elems_fn(),
+                                         self._optimizer)
+        return lambda batch, negatives: step(self._opt_state, batch,
+                                             negatives)
+
+    def _epoch_fn(self, num_batches, length):
+        """``epoch_fn(data, n_valid) -> device loss``: one epoch's draws
+        from the estimator's generator (negatives ``(num_batches, B, T)``,
+        ``(num_batches, n, B, T)`` for ``adaptive_hinge``, none in-batch),
+        then the steps."""
+        key = (num_batches, length)
+        if key not in self._epoch_fn_cache:
+            negatives_shape = None
+            if self._negative_sampling != 'in_batch':
+                negatives_shape = (num_batches, self._batch_size, length)
+                if self._loss == 'adaptive_hinge':
+                    negatives_shape = (num_batches,
+                                       self._num_negative_samples,
+                                       self._batch_size, length)
+            self._epoch_fn_cache[key] = training.make_epoch_fn(
+                self._step_fn(), self._generator, num_batches,
+                self._batch_size, negatives_shape, self._num_items,
+                self._device)
+        return self._epoch_fn_cache[key]
+
+    def _epoch_data(self, interactions):
+        """(device data, n, num_batches): the padded sequences (padding
+        rows are all the padding id) and, for in-batch negatives, their
+        weight column, placed on the device at each ``fit``."""
+        sequences = np.asarray(interactions.sequences).astype(np.int64)
+        self._check_input(sequences)
+        n = len(sequences)
+        padded, num_batches = training.pad_to_batches(n, self._batch_size)
+        arrays = {'sequences': training.pad_array(sequences, padded)}
+        in_batch = self._negative_sampling == 'in_batch'
+        if in_batch:
+            # Only the (num_items,) table crosses to the device; the
+            # (rows, T) column is one gather there.  The padding id, and so
+            # every padded row, weighs 0.
+            arrays['_weight_table'] = inbatch_importance_weight_table(
+                sequences, self._num_items, padding_idx=PADDING_IDX)
+        data = training.place_data(arrays, self._device)
+        if in_batch:
+            data['negative_weight'] = data.pop('_weight_table')[
+                data['sequences']]
+        return data, n, num_batches
+
     def fit(self, interactions, verbose=False):
-        """Training is not ported yet (see ROADMAP.md, Queue 1)."""
-        raise NotImplementedError(
-            'ImplicitSequenceModel.fit is not ported yet: sequence training '
-            'is a later slice of the port (ROADMAP.md, Queue 1). Load fitted '
-            'parameters with utils.convert.params_from_jax instead.')
+        """Fit the model.
+
+        The loss is taken at every position of the sequences: for a row
+        ``[1, 2, 3]`` it sums the losses of predicting 1 from nothing, 2
+        from ``[1]`` and 3 from ``[1, 2]``.  When called repeatedly,
+        fitting resumes from the previous state (parameters, optimizer
+        state and the random stream).
+
+        Parameters
+        ----------
+        interactions : :class:`~spotlight_tpu_torch.data.SequenceInteractions`
+        verbose : bool
+            Print each epoch's loss (read back one epoch late).
+
+        Returns
+        -------
+        self
+        """
+        if not self._initialized:
+            self._initialize(interactions)
+        if self._lazy:
+            raise NotImplementedError(
+                'sparse=True selects the row-sparse sequence engine, which '
+                'is not ported yet (ROADMAP.md, Queue 1); training dense in '
+                'its place would give another result. Pass sparse=False.')
+        data, n, num_batches = self._epoch_data(interactions)
+        epoch_fn = self._epoch_fn(num_batches, data['sequences'].shape[1])
+        self._params_version += 1
+        # The last epoch's loss, on the host (the verbose print's value).
+        self._last_epoch_loss = training.fit_epochs(epoch_fn, data, n,
+                                                    self._n_iter, verbose)
+        return self
 
     def _sequences(self, sequences):
         return torch.as_tensor(

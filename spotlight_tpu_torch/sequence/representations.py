@@ -8,9 +8,11 @@ Shared contract: ``user_representation(sequences)`` returns
 ``(per_step, final)`` where ``per_step[:, t]`` encodes the items *before*
 position ``t`` and ``final`` the whole sequence.  The causal alignment
 left-pads the embedded sequence with one zero step and drops the last output
-step.  ``score(per_step, targets)`` scores target items at every step;
-``score_catalog(final)`` scores the final representation against the whole
-catalogue (the materialize evaluation path).
+step.  ``score(per_step, targets)`` scores target items at every step,
+``score_inbatch_negatives(per_step, targets, n)`` the targets of other batch
+rows (training's in-batch negatives); ``score_catalog(final)`` scores the
+final representation against the whole catalogue (the materialize
+evaluation path).
 
 As in the JAX package, activations are ``(batch, time, features)``, and
 with the default layers the item bias lives in column ``D`` of one fused
@@ -48,17 +50,19 @@ class _ItemRepresentationBase(nn.Module):
     """The item layers and the scoring shared by the representations."""
 
     def __init__(self, num_items, embedding_dim, item_embedding_layer,
-                 item_bias_layer, fused, generator, device):
+                 item_bias_layer, fused, generator, device,
+                 table_dtype=torch.float32):
         super().__init__()
         self.num_items = num_items
         self.embedding_dim = embedding_dim
         if fused is None:
             fused = item_embedding_layer is None and item_bias_layer is None
         self.fused = fused
+        self.table_dtype = table_dtype
         if fused:
             self.item_embeddings = item_embedding_layer or FusedBiasEmbedding(
                 num_items, embedding_dim, padding_idx=PADDING_IDX,
-                generator=generator, device=device)
+                generator=generator, device=device, dtype=table_dtype)
             return
         self.item_embeddings = item_embedding_layer or ScaledEmbedding(
             num_items, embedding_dim, padding_idx=PADDING_IDX,
@@ -106,6 +110,26 @@ class _ItemRepresentationBase(nn.Module):
     def _score_vectors(self, user_representations, vectors, bias):
         return (user_representations * vectors).sum(dim=-1) + bias
 
+    def score_inbatch_negatives(self, user_representations, targets,
+                                num_negatives=1):
+        """Scores of in-batch negatives: the target rows of other batch
+        rows (rolled by 1..n along the batch), reusing the rows gathered
+        for the positives, so no negative is gathered and the rolled rows'
+        gradients fold into the positives' rows.  A rolled padding
+        position scores against the zero row.
+
+        Returns (B, T) scores for ``num_negatives == 1``, else
+        (num_negatives, B, T).
+        """
+        vectors, bias = self._target_rows(targets)
+        outs = [self._score_vectors(user_representations,
+                                    torch.roll(vectors, shift, dims=0),
+                                    torch.roll(bias, shift, dims=0))
+                for shift in range(1, num_negatives + 1)]
+        if num_negatives == 1:
+            return outs[0]
+        return torch.stack(outs, dim=0)
+
     def _catalog_matrix(self):
         """Dense ``(num_items, D)`` item matrix and ``(num_items,)`` bias:
         the inputs of catalogue scoring and of the evaluation kernels.  For
@@ -142,15 +166,21 @@ class LSTMNet(_ItemRepresentationBase):
     fused : bool, optional
         Force the fused layout on (True) or off (False).  Default (None):
         fused exactly when no custom layer is injected.
+    table_dtype : torch.dtype, optional
+        Storage dtype of the fused item table (float32 or bfloat16): rows
+        are gathered in it and cast to float32, so the scores, the LSTM
+        and the gradients compute in float32.  Only the fused layout
+        honours it.
     generator : torch.Generator, optional
     device : str or torch.device
     """
 
     def __init__(self, num_items, embedding_dim=32, item_embedding_layer=None,
                  sparse=False, item_bias_layer=None, fused=None,
-                 generator=None, device='cpu'):
+                 table_dtype=torch.float32, generator=None, device='cpu'):
         super().__init__(num_items, embedding_dim, item_embedding_layer,
-                         item_bias_layer, fused, generator, device)
+                         item_bias_layer, fused, generator, device,
+                         table_dtype=table_dtype)
         self.sparse = sparse
         dim = embedding_dim
         self.lstm = self._parameters_from(
@@ -196,12 +226,13 @@ class MixtureLSTMNet(LSTMNet):
 
     def __init__(self, num_items, embedding_dim=32, num_mixtures=4,
                  item_embedding_layer=None, sparse=False,
-                 item_bias_layer=None, fused=None, generator=None,
-                 device='cpu'):
+                 item_bias_layer=None, fused=None, table_dtype=torch.float32,
+                 generator=None, device='cpu'):
         super().__init__(num_items, embedding_dim,
                          item_embedding_layer=item_embedding_layer,
                          sparse=sparse, item_bias_layer=item_bias_layer,
-                         fused=fused, generator=generator, device=device)
+                         fused=fused, table_dtype=table_dtype,
+                         generator=generator, device=device)
         self.num_mixtures = num_mixtures
         out_dim = embedding_dim * num_mixtures * 2
         self.projection = self._parameters_from(

@@ -189,6 +189,34 @@ def run_epoch(step, data, n_valid, num_batches, batch_size, perm,
     return torch.stack(losses).mean()
 
 
+def make_epoch_fn(step, generator, num_batches, batch_size,
+                  negatives_shape, num_items, device):
+    """``epoch_fn(data, n_valid) -> device loss``: one epoch's draws from
+    ``generator`` (:func:`epoch_draws`, with ``negatives_shape`` or none),
+    then ``step(batch, negatives_b)`` over the shuffled batches
+    (:func:`run_epoch`)."""
+    padded = num_batches * batch_size
+
+    def epoch_fn(data, n_valid):
+        perm, negatives = epoch_draws(generator, padded, negatives_shape,
+                                      num_items, device)
+        return run_epoch(step, data, n_valid, num_batches, batch_size, perm,
+                         negatives)
+
+    return epoch_fn
+
+
+def fit_epochs(epoch_fn, data, n_valid, n_iter, verbose=False):
+    """``n_iter`` epochs of ``epoch_fn``, each epoch's loss read back one
+    epoch late and checked (:class:`EpochLossDrain`).  Returns the last
+    epoch's loss on the host."""
+    drain = EpochLossDrain(verbose)
+    for epoch_num in range(n_iter):
+        drain.push(epoch_num, epoch_fn(data, n_valid))
+    drain.finish()
+    return drain.last_loss
+
+
 def masked_mean(elems, mask):
     """``sum(elems * mask) / max(sum(mask), 1)``."""
     mask = mask.to(elems.dtype)

@@ -1374,3 +1374,248 @@ def test_fit_trains_on_the_card(cuda, loss, negative_sampling, sparse,
     for name, value in model._net.state_dict().items():
         assert value.dtype == table and value.is_cuda
         assert not torch.equal(value.cpu(), before[name])
+
+
+# -- explicit MF and sequence training ------------------------------------------
+
+def _explicit_model(device, sparse, loss='regression'):
+    from spotlight_tpu_torch.factorization import ExplicitFactorizationModel
+
+    rs = np.random.RandomState(2)
+    data = Interactions(rs.randint(0, 200, 1000), rs.randint(0, 150, 1000),
+                        ratings=rs.randint(1, 6, 1000).astype(np.float32),
+                        num_users=200, num_items=150)
+    if loss == 'logistic':
+        data.ratings = np.where(data.ratings > 3, 1.0, -1.0).astype(
+            np.float32)
+    model = ExplicitFactorizationModel(
+        loss=loss, embedding_dim=16, batch_size=256, sparse=sparse, l2=1e-6,
+        random_state=np.random.RandomState(4), device=device)
+    model._initialize(data)
+    return model, data
+
+
+def _captured_row_updates():
+    """Wrap the lazy engine's ``sparse_adam_rows``: each call's operands are
+    cloned before they update.  Returns (captured list, undo)."""
+    from spotlight_tpu_torch.factorization import lazy
+
+    original = lazy.sparse_adam_rows
+    captured = []
+
+    def wrapper(ids, param, mu, nu, grad_rows, t, lr, l2=0.0):
+        captured.append(dict(ids=ids.clone(), param=param.clone(),
+                             mu=mu.clone(), nu=nu.clone(),
+                             grads=grad_rows.clone(), t=t, lr=lr, l2=l2))
+        return original(ids, param, mu, nu, grad_rows, t, lr, l2)
+
+    lazy.sparse_adam_rows = wrapper
+
+    def undo():
+        lazy.sparse_adam_rows = original
+
+    return captured, undo
+
+
+def _first_batch(model, data, device, negatives_shape=None):
+    from spotlight_tpu_torch.utils import training
+
+    placed, n_valid, num_batches = model._epoch_data(data)
+    batch_size = model._batch_size
+    perm, negatives = training.epoch_draws(
+        model._generator, num_batches * batch_size, negatives_shape,
+        model._num_items, device)
+    return placed, n_valid, perm, negatives
+
+
+def _run_one_step(model, placed, n_valid, perm, negatives):
+    """One step of the model's engine on the first batch of ``perm``, with
+    CUDA's synchronisation check set to raise on the card."""
+    from spotlight_tpu_torch.utils import training
+
+    step = model._step_fn()
+    on_card = model._device.type == 'cuda'
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode('error')
+    try:
+        loss = training.run_epoch(step, placed, n_valid, 1,
+                                  model._batch_size,
+                                  perm[:model._batch_size],
+                                  None if negatives is None
+                                  else negatives[:1])
+    finally:
+        if on_card:
+            torch.cuda.set_sync_debug_mode('default')
+    return float(loss)
+
+
+def test_explicit_lazy_step_on_the_card_matches_the_cpu(cuda):
+    """One explicit lazy step: the same draws on both devices (the
+    generator is on the CPU), the card's step under the synchronisation
+    check; its occurrence gradients within rtol 1e-5 of the CPU's (torch
+    sums them in another order there), its two P1 calls bit-equal to the
+    plain version on the card's own gradients, two launches."""
+    steps = {}
+    for device in ('cpu', cuda):
+        model, data = _explicit_model(device, True)
+        placed, n_valid, perm, _ = _first_batch(model, data, device)
+        captured, undo = _captured_row_updates()
+        launches = row_update.ROW_ADAM_LAUNCHES
+        try:
+            loss = _run_one_step(model, placed, n_valid, perm, None)
+        finally:
+            undo()
+        steps[str(device)] = (loss, captured,
+                              row_update.ROW_ADAM_LAUNCHES - launches)
+    cpu_loss, cpu_calls, _ = steps['cpu']
+    card_loss, card_calls, card_launches = steps[str(cuda)]
+    assert card_launches == 2 and len(card_calls) == len(cpu_calls) == 2
+    np.testing.assert_allclose(card_loss, cpu_loss, rtol=1e-5)
+    for cpu, card in zip(cpu_calls, card_calls):
+        assert torch.equal(cpu['ids'], card['ids'].cpu())
+        assert card['ids'].numel() == 256
+        scale = float(cpu['grads'].abs().max())
+        torch.testing.assert_close(card['grads'].cpu(), cpu['grads'],
+                                   rtol=1e-5, atol=1e-7 * scale)
+        pair = row_update.sort_occurrences(card['ids'])
+        scalars = row_update.adam_scalars(card['t'], card['lr'], card['l2'])
+        grads = card['grads'].reshape(card['ids'].numel(), -1)
+        tables = []
+        for fn in (row_update.row_adam, row_update.row_adam_plain):
+            out = (card['param'].clone(), card['mu'].clone(),
+                   card['nu'].clone())
+            fn(*out, grads, *pair, scalars)
+            tables.append(out)
+        for a, b in zip(*tables):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _trainable_sequence_model(device, representation,
+                               negative_sampling='uniform', loss='bpr'):
+    rs = np.random.RandomState(3)
+    sequences = rs.randint(1, 300, (600, 12))
+    sequences[:40, :5] = 0
+    data = SequenceInteractions(sequences, num_items=300)
+    model = ImplicitSequenceModel(
+        loss=loss, representation=representation, embedding_dim=16,
+        batch_size=128, l2=1e-6, negative_sampling=negative_sampling,
+        random_state=np.random.RandomState(5), device=device)
+    model._initialize(data)
+    return model, data
+
+
+def _sequence_grads(model, placed, n_valid, perm, negatives):
+    """The loss and parameter gradients of the first batch."""
+    from spotlight_tpu_torch.utils import training
+
+    batched = training.shuffle_and_batch(perm, placed, n_valid,
+                                         len(perm) // model._batch_size,
+                                         model._batch_size)
+    batch = {name: value[0] for name, value in batched.items()}
+    params = dict(model._net.named_parameters())
+    elems, mask = model._elems_fn()(batch, None if negatives is None
+                                    else negatives[0])
+    loss = training.masked_mean(elems, mask)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return float(loss.detach()), {name: g.cpu()
+                                  for name, g in zip(params, grads)}
+
+
+#: The card's float32 LSTM and mixture gradients against the CPU's: the
+#: same function summed in other orders (matmuls, reductions, the embedding
+#: backward), without TF32.
+SEQUENCE_GRAD_RTOL = 1e-4
+
+
+@pytest.mark.parametrize('representation, negative_sampling', [
+    ('lstm', 'uniform'), ('mixture', 'uniform'), ('mixture', 'in_batch')])
+def test_sequence_step_on_the_card_matches_the_cpu(cuda, representation,
+                                                   negative_sampling):
+    """One LSTM or mixture step from the same parameters and draws on both
+    devices: the loss within rtol 1e-5 and every gradient within
+    ``SEQUENCE_GRAD_RTOL`` of its largest element; then the whole step on
+    the card under the synchronisation check."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.get_float32_matmul_precision() == 'highest'
+    results = {}
+    for device in ('cpu', cuda):
+        model, data = _trainable_sequence_model(
+            device, representation, negative_sampling)
+        shape = (None if negative_sampling == 'in_batch'
+                 else (len(data.sequences) // 128 + 1, 128, 12))
+        placed, n_valid, perm, negatives = _first_batch(model, data, device,
+                                                        shape)
+        results[str(device)] = _sequence_grads(model, placed, n_valid, perm,
+                                                negatives)
+        if device is cuda:
+            loss = _run_one_step(model, placed, n_valid, perm, negatives)
+            assert np.isfinite(loss) and model._opt_state['count'] == 1
+    cpu_loss, cpu_grads = results['cpu']
+    card_loss, card_grads = results[str(cuda)]
+    np.testing.assert_allclose(card_loss, cpu_loss, rtol=1e-5)
+    for name, want in cpu_grads.items():
+        scale = float(want.abs().max())
+        torch.testing.assert_close(card_grads[name], want, rtol=0,
+                                   atol=SEQUENCE_GRAD_RTOL * scale,
+                                   msg=name)
+
+
+@pytest.mark.parametrize('sparse', [False, True], ids=['dense', 'lazy'])
+@pytest.mark.parametrize('loss', ['regression', 'poisson', 'logistic'])
+def test_explicit_fit_trains_on_the_card(cuda, loss, sparse):
+    """``fit`` with the default device: the loss is finite, both tables
+    move, the lazy engine launches P1 twice a step, and the predictions
+    are rates (poisson) or probabilities (logistic)."""
+    from spotlight_tpu_torch.evaluation import rmse_score
+    from spotlight_tpu_torch.factorization import ExplicitFactorizationModel
+
+    _, data = _explicit_model('cpu', sparse, loss)
+    model = ExplicitFactorizationModel(
+        loss=loss, embedding_dim=16, n_iter=2, batch_size=256,
+        sparse=sparse, random_state=np.random.RandomState(1))
+    launches = row_update.ROW_ADAM_LAUNCHES
+    assert model.fit(data) is model
+    assert model._device.type == 'cuda' and model._lazy == sparse
+    assert row_update.ROW_ADAM_LAUNCHES == launches + (16 if sparse else 0)
+    assert np.isfinite(model._last_epoch_loss)
+    predictions = model.predict(data.user_ids, data.item_ids)
+    assert predictions.shape == (1000,) and np.isfinite(predictions).all()
+    if loss == 'poisson':
+        assert (predictions > 0).all()
+    if loss == 'logistic':
+        assert ((predictions >= 0) & (predictions <= 1)).all()
+    assert np.isfinite(rmse_score(model, data))
+
+
+@pytest.mark.parametrize('table', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('negative_sampling', ['uniform', 'in_batch'])
+@pytest.mark.parametrize('representation', ['lstm', 'mixture'])
+def test_sequence_fit_trains_on_the_card(cuda, representation,
+                                         negative_sampling, table):
+    """``fit`` with the default device: the loss is finite, every parameter
+    moves in its own dtype, and the trained model serves through the
+    streaming kernels."""
+    from spotlight_tpu_torch.sequence import LSTMNet
+
+    _, data = _trainable_sequence_model('cpu', 'lstm')
+    kind = LSTMNet if representation == 'lstm' else MixtureLSTMNet
+    net = kind(300, 16, table_dtype=table,
+               generator=torch.Generator().manual_seed(0))
+    before = {k: v.clone() for k, v in net.state_dict().items()}
+    model = ImplicitSequenceModel(
+        loss='adaptive_hinge', representation=net, n_iter=2, batch_size=128,
+        negative_sampling=negative_sampling,
+        random_state=np.random.RandomState(1))
+    assert model.fit(data) is model
+    assert model._device.type == 'cuda'
+    assert model._opt_state['count'] == 10
+    assert np.isfinite(model._last_epoch_loss)
+    for name, value in model._net.state_dict().items():
+        assert value.is_cuda and not torch.equal(value.cpu(), before[name])
+    assert model._net.item_embeddings.weight.dtype == table
+    assert not model._net.item_embeddings.weight[0].any()
+    routes = evaluation.MATERIALIZE_ROUTES
+    mrr = evaluation.sequence_mrr_score(model, data)
+    assert evaluation.MATERIALIZE_ROUTES == routes
+    assert ((mrr > 0) & (mrr <= 1)).all()

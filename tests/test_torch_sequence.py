@@ -494,9 +494,22 @@ def test_empty_sequence_test_set_matches_jax():
 # -- the model -----------------------------------------------------------------
 
 def test_fit_is_not_faked():
-    _, port, sequences = pair('lstm', None)
-    with pytest.raises(NotImplementedError, match='not ported'):
-        port.fit(SequenceInteractions(sequences))
+    """``fit`` trains (it raised before sequence training was ported): it
+    returns the model, counts its steps and moves every parameter."""
+    sequences = _sequences()
+    model = ImplicitSequenceModel(loss='bpr', representation='lstm',
+                                  embedding_dim=DIM, n_iter=2, batch_size=16,
+                                  random_state=np.random.RandomState(1),
+                                  device='cpu')
+    model._initialize(SequenceInteractions(sequences, num_items=NUM_ITEMS))
+    before = {name: value.clone()
+              for name, value in model._net.state_dict().items()}
+    assert model.fit(SequenceInteractions(sequences,
+                                          num_items=NUM_ITEMS)) is model
+    assert model._opt_state['count'] == 2 * NUM_SEQUENCES // 16
+    assert np.isfinite(model._last_epoch_loss)
+    for name, value in model._net.state_dict().items():
+        assert not torch.equal(value, before[name]), name
 
 
 @pytest.mark.parametrize('kwargs,error', [
