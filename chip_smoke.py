@@ -128,6 +128,23 @@ each of which exits non-zero when it fails:
    streaming against materialize on 256; one in-batch epoch of the
    mixture; 8 steps of phase 7's bloom LSTM; the JAX package's LSTM and
    mixture gates on the card.
+13. pooling, CNN and the sequence lazy engine: ``bench_sequence``'s width
+   for ``pooling`` and ``cnn`` (JAX's default ``CNNNet``: kernel width 3,
+   one layer, tanh, residual) as in phase 12, and
+   ``bench_sequence_large_catalog``'s serving of both (K1, K1c, K2 counted,
+   no materialize route, streaming ranks held to the plain pass's exact
+   ranks); the sequence lazy engine (``sparse=True``) at the bloom
+   study's exact-table width (``examples/bloom_embeddings/
+   performance.py``: ``LSTMNet``, D=64, 20,000 sequences of 50, batch
+   256, bpr) at 1e6 and 5e6 items beside the dense engine, in turns, one
+   warm and one timed epoch each, and one ``pooling`` lazy epoch at 1e6
+   (the P1 counter zeroed just before the timed epochs and read just
+   after; the padding row and its moments zero after each fit); P1 on
+   that engine's own item call (25,600 ids, W=65) bit for bit twice and
+   timed with and without its sort beside ``SparseAdam``; one lazy step
+   on the card against the CPU; the JAX package's pooling, CNN and lazy
+   gates on the card; a save and load of a lazy pooling and a dense CNN
+   model: the metric bit-equal, training resumed.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -225,6 +242,9 @@ SEQ_TRAIN_ROWS, SEQ_TRAIN_ITEMS, SEQ_TRAIN_BATCH = 20_000, 20_000, 256
 SEQUENCE_EPOCHS = 2
 PROFILED_STEPS = 8
 BLOOM_STEPS = 8
+#: Phase 13: the sequence lazy engine at the bloom scalability study's
+#: exact-table catalogue sizes (docs/performance.md, "Sequence models").
+LAZY_SEQ_ITEMS = (1_000_000, 5_000_000)
 #: Largest gap between the materialize path's scores and the plain
 #: catalogue pass's, relative to the row's largest score: float32
 #: rounding of other summation orders, far above it a wrong score.
@@ -1908,12 +1928,19 @@ def sparse_adam_yardstick(torch, param, mu, nu, ids, grads, t, lr):
     another rounding order (rtol 1e-5).  SparseAdam adds ``eps`` to
     ``sqrt(v)`` before the bias correction, P1 (as optax) to
     ``sqrt(v_hat)``: with its ``eps`` scaled by ``sqrt(1 - b2 ** t)`` the
-    steps are one function.  Returns (median ms of the function P1
+    steps are one function.  An id outside ``[0, R)`` (a padded batch
+    row's, in the sequence engine) updates nothing in P1, so it is left
+    out of SparseAdam's gradient.  Returns (median ms of the function P1
     computes: the sparse gradient built and coalesced from the occurrence
     ids, then the step; median ms of the step alone on a coalesced
     gradient; largest gap)."""
     from spotlight_tpu_torch.ops.lazy_adam import sparse_adam_rows
     from spotlight_tpu_torch.utils.training import B2, EPS
+
+    ours = param.clone()
+    sparse_adam_rows(ids, ours, mu.clone(), nu.clone(), grads, t, lr)
+    kept = (ids >= 0) & (ids < param.shape[0])
+    ids, grads = ids[kept], grads[kept]
 
     weight = torch.nn.Parameter(param.clone())
     optimizer = torch.optim.SparseAdam([weight], lr=lr,
@@ -1928,8 +1955,6 @@ def sparse_adam_yardstick(torch, param, mu, nu, ids, grads, t, lr):
         optimizer.step()
 
     step()
-    ours = param.clone()
-    sparse_adam_rows(ids, ours, mu.clone(), nu.clone(), grads, t, lr)
     torch.testing.assert_close(weight.detach(), ours, rtol=1e-5, atol=1e-6)
     gap = float((weight.detach() - ours).abs().max())
     ms = median_ms(torch, step, KERNEL_REPS)
@@ -2122,20 +2147,23 @@ def fit_interactions(num_users, num_items):
                         num_users=num_users, num_items=num_items)
 
 
-def capture_row_updates(*steps):
-    """Wrap the lazy engine's ``sparse_adam_rows`` so that the operands of
-    its two calls at each of ``steps`` (1-based; the user table, then the
-    item table) are cloned before they update.  Returns (captured list, in
-    call order, each with its ``step``; undo)."""
+def capture_row_updates(*steps, engine=None, calls_per_step=2):
+    """Wrap a lazy engine's ``sparse_adam_rows`` (``engine``, the module;
+    the factorization engine's by default) so that the operands of its
+    ``calls_per_step`` calls at each of ``steps`` (1-based; the
+    factorization engine's user table, then its item table; the sequence
+    engine's item table alone) are cloned before they update.  Returns
+    (captured list, in call order, each with its ``step``; undo)."""
     from spotlight_tpu_torch.factorization import lazy
 
+    lazy = engine or lazy
     original = lazy.sparse_adam_rows
     captured = []
     calls = [0]
 
     def wrapper(ids, param, mu, nu, grad_rows, t, lr, l2=0.0):
         calls[0] += 1
-        step = (calls[0] + 1) // 2
+        step = (calls[0] - 1) // calls_per_step + 1
         if step in steps:
             captured.append(dict(ids=ids.clone(), param=param.clone(),
                                  mu=mu.clone(), nu=nu.clone(),
@@ -2365,6 +2393,28 @@ def no_host_sync(torch, device):
         torch.cuda.set_sync_debug_mode('default')
 
 
+def check_captured_row_adam(torch, operands, what):
+    """A captured ``sparse_adam_rows`` call's P1 launch on the card, bit
+    for bit against the plain version on the same operands."""
+    from spotlight_tpu_torch.ops.kernels import row_update
+
+    pair = row_update.sort_occurrences(operands['ids'])
+    scalars = row_update.adam_scalars(operands['t'], operands['lr'],
+                                      operands['l2'])
+    grads = operands['grads'].reshape(operands['ids'].numel(), -1)
+    tables = []
+    for fn in (row_update.row_adam, row_update.row_adam_plain):
+        out = (operands['param'].clone(), operands['mu'].clone(),
+               operands['nu'].clone())
+        fn(*out, grads, *pair, scalars)
+        tables.append(out)
+    torch.cuda.synchronize()
+    for a, b in zip(*tables):
+        if not torch.equal(bits(torch, a), bits(torch, b)):
+            raise AssertionError('the {}\'s row_adam differs from its plain '
+                                 'version'.format(what))
+
+
 def check_step_against_cpu(torch, card):
     """One lazy step on the card against the same step on the CPU, from the
     same parameters (the estimator's generator is on the CPU), batch and
@@ -2374,7 +2424,6 @@ def check_step_against_cpu(torch, card):
     card's own gradients.  The card's step runs with CUDA's
     synchronisation check set to raise."""
     from spotlight_tpu_torch.factorization import ImplicitFactorizationModel
-    from spotlight_tpu_torch.ops.kernels import row_update
     from spotlight_tpu_torch.utils import training
 
     interactions = fit_interactions(DENSE_USERS, DENSE_ITEMS)
@@ -2413,21 +2462,8 @@ def check_step_against_cpu(torch, card):
                                    rtol=1e-5, atol=1e-7 * scale)
         gaps.append(float((gpu['grads'].cpu() - cpu['grads']).abs().max())
                     / scale)
-        pair = row_update.sort_occurrences(gpu['ids'])
-        scalars = row_update.adam_scalars(gpu['t'], gpu['lr'], gpu['l2'])
-        grads = gpu['grads'].reshape(gpu['ids'].numel(), -1)
-        tables = []
-        for fn in (row_update.row_adam, row_update.row_adam_plain):
-            out = (gpu['param'].clone(), gpu['mu'].clone(),
-                   gpu['nu'].clone())
-            fn(*out, grads, *pair, scalars)
-            tables.append(out)
-        torch.cuda.synchronize()
-        for a, b in zip(*tables):
-            if not torch.equal(bits(torch, a), bits(torch, b)):
-                raise AssertionError('the step\'s row_adam on the {} table '
-                                     'differs from its plain version'
-                                     .format(table))
+        check_captured_row_adam(torch, gpu, 'step\'s {} table'.format(
+            table))
     np.testing.assert_allclose(card_loss, cpu_loss, rtol=1e-5)
     log(check='lazy step: card against CPU', loss_card=card_loss,
         loss_cpu=cpu_loss, grad_max_rel_gap=gaps, card=card)
@@ -2625,10 +2661,12 @@ def run_explicit_gates(torch, card):
 
 # -- phase 12: sequence training --------------------------------------------
 
-def run_sequence_training(torch, card):
+def run_sequence_training(torch, card, representations):
     """``bench_sequence``'s training at full width: 20,000 random sequences
     of 50 over 20,000 items, bpr, D=64, batch 256 (79 steps an epoch), for
-    ``lstm`` and ``mixture`` (M=4): one warm fit, then ``TIMED_FITS`` timed
+    each of ``representations`` (the suite's ``reps``: ``lstm`` and
+    ``mixture`` (M=4) in phase 12, ``pooling`` and ``cnn``, JAX's default
+    ``CNNNet``, in phase 13): one warm fit, then ``TIMED_FITS`` timed
     fits of ``SEQUENCE_EPOCHS`` epochs (the suite times 10; cut to 2 for
     the run's time limit), and an epoch of ``PROFILED_STEPS`` of those
     batches profiled (its device calls a step too)."""
@@ -2642,7 +2680,7 @@ def run_sequence_training(torch, card):
         sequences[:PROFILED_STEPS * SEQ_TRAIN_BATCH],
         num_items=SEQ_TRAIN_ITEMS)
     steps = -(-SEQ_TRAIN_ROWS // SEQ_TRAIN_BATCH)
-    for representation in ('lstm', 'mixture'):
+    for representation in representations:
         model = ImplicitSequenceModel(
             loss='bpr', representation=representation, embedding_dim=D,
             batch_size=SEQ_TRAIN_BATCH, n_iter=1,
@@ -2675,16 +2713,16 @@ def reset_sequence_counters():
     topk.MIXTURE_STREAMING_TOPK_LAUNCHES = 0
 
 
-def run_trained_serving(torch, card):
-    """``bench_sequence_large_catalog``: ``lstm`` and ``mixture`` models
-    trained one epoch (16 steps) on phase 6's 4,096 sequences of 50 over
-    200,000 items, then served: ``sequence_mrr_score`` and
-    ``sequence_precision_recall_score(k=10)`` over the first 2,048
-    sequences with the launch counters zeroed just before and read just
-    after (K1, K1c, K2 for the LSTM; K1m, K2m, K4 for the mixture; no
-    materialize route), and streaming against materialize on the first
-    256.  Then one epoch of the mixture model with in-batch negatives.
-    Returns the launch counts."""
+def run_trained_serving(torch, card, representations):
+    """``bench_sequence_large_catalog``: a model of each of
+    ``representations`` trained one epoch (16 steps) on phase 6's 4,096
+    sequences of 50 over 200,000 items, then served:
+    ``sequence_mrr_score`` and ``sequence_precision_recall_score(k=10)``
+    over the first 2,048 sequences with the launch counters zeroed just
+    before and read just after (K1, K1c, K2 for dot scoring: ``pooling``,
+    ``lstm``, ``cnn``; K1m, K2m, K4 for the mixture; no materialize route),
+    and streaming against materialize on the first 256.  Returns the
+    launch counts."""
     from spotlight_tpu_torch.data import SequenceInteractions
     from spotlight_tpu_torch.evaluation import (
         sequence_mrr_score, sequence_precision_recall_score)
@@ -2694,7 +2732,7 @@ def run_trained_serving(torch, card):
     data = SequenceInteractions(sequences, num_items=NUM_ITEMS)
     test = SequenceInteractions(sequences[:SEQ_EVAL], num_items=NUM_ITEMS)
     launches = {}
-    for representation in ('lstm', 'mixture'):
+    for representation in representations:
         model = ImplicitSequenceModel(
             loss='bpr', representation=representation, embedding_dim=D,
             batch_size=SEQ_TRAIN_BATCH, n_iter=1,
@@ -2714,8 +2752,8 @@ def run_trained_serving(torch, card):
         precision, recall = sequence_precision_recall_score(model, test,
                                                             k=SEQ_K)
         pr_s = time.perf_counter() - start
-        counts = (counters() if representation == 'lstm'
-                  else sequence_counters())
+        counts = (sequence_counters() if representation == 'mixture'
+                  else counters())
         log(trained_path_launches=counts, representation=representation)
         for name, count in counts.items():
             if count <= 0:
@@ -2753,7 +2791,16 @@ def run_trained_serving(torch, card):
                                             NUM_ITEMS)
         del model
         torch.cuda.empty_cache()
+    return launches
 
+
+def run_inbatch_epoch(torch, card):
+    """One epoch of ``bench_sequence_large_catalog``'s mixture model with
+    in-batch negatives."""
+    from spotlight_tpu_torch.data import SequenceInteractions
+    from spotlight_tpu_torch.sequence import ImplicitSequenceModel
+
+    data = SequenceInteractions(sequence_rows(), num_items=NUM_ITEMS)
     model = ImplicitSequenceModel(
         loss='bpr', representation='mixture', embedding_dim=D,
         batch_size=SEQ_TRAIN_BATCH, n_iter=1, negative_sampling='in_batch',
@@ -2767,7 +2814,6 @@ def run_trained_serving(torch, card):
             model._last_epoch_loss))
     del model
     torch.cuda.empty_cache()
-    return launches
 
 
 def run_bloom_training(torch, card):
@@ -2797,27 +2843,35 @@ def run_bloom_training(torch, card):
     torch.cuda.empty_cache()
 
 
+def sequence_gate_data(randomness):
+    """``tests/sequence/test_sequence_implicit.py``'s gate data through the
+    port: ``generate_sequential`` (100 users, 100 items, 1e4 interactions,
+    order 2), split by user, sequences of 10."""
+    from spotlight_tpu_torch.data import user_based_train_test_split
+    from spotlight_tpu_torch.data.synthetic import generate_sequential
+
+    train, test = user_based_train_test_split(
+        generate_sequential(
+            num_users=100, num_items=100, num_interactions=10000,
+            concentration_parameter=randomness, order=2,
+            random_state=np.random.RandomState(42)),
+        random_state=np.random.RandomState(42))
+    return (train.to_sequence(max_sequence_length=10),
+            test.to_sequence(max_sequence_length=10))
+
+
 def run_sequence_gates(torch, card):
     """The JAX package's gates of
     ``tests/sequence/test_sequence_implicit.py`` (LSTM ``:64``, mixture
     ``:115``) through ``fit`` and ``sequence_mrr_score`` on the card, on
     the port's ``generate_sequential`` data (100 users, 100 items, 1e4
     interactions, order 2; concentration 1e-3 and 1e2)."""
-    from spotlight_tpu_torch.data import user_based_train_test_split
-    from spotlight_tpu_torch.data.synthetic import generate_sequential
     from spotlight_tpu_torch.evaluation import sequence_mrr_score
     from spotlight_tpu_torch.sequence import ImplicitSequenceModel
 
     results = {}
     for randomness in (1e-3, 1e2):
-        train, test = user_based_train_test_split(
-            generate_sequential(
-                num_users=100, num_items=100, num_interactions=10000,
-                concentration_parameter=randomness, order=2,
-                random_state=np.random.RandomState(42)),
-            random_state=np.random.RandomState(42))
-        train = train.to_sequence(max_sequence_length=10)
-        test = test.to_sequence(max_sequence_length=10)
+        train, test = sequence_gate_data(randomness)
         for representation, epochs, gate in (
                 ('lstm', 25, 0.61 if randomness < 1 else 0.03),
                 ('mixture', 50, 0.3 if randomness < 1 else 0.03)):
@@ -2834,6 +2888,289 @@ def run_sequence_gates(torch, card):
         if not value > gate:
             raise AssertionError('sequence gate {}: MRR {} is not > {}'
                                  .format(name, value, gate))
+
+
+# -- phase 13: pooling and CNN sequences, the sequence lazy engine -----------
+
+def lazy_sequence_data(num_items):
+    """The bloom scalability study's data at ``num_items``
+    (``examples/bloom_embeddings/performance.py``): ``SEQ_TRAIN_ROWS``
+    random sequences of ``SEQ_LENGTH``, from ``RandomState(42)``."""
+    from spotlight_tpu_torch.data import SequenceInteractions
+
+    sequences = np.random.RandomState(42).randint(
+        1, num_items, (SEQ_TRAIN_ROWS, SEQ_LENGTH)).astype(np.int32)
+    return SequenceInteractions(sequences, num_items=num_items)
+
+
+def lazy_sequence_model(representation, sparse, l2=0.0, device=DEVICE):
+    """A phase 13 training model: bpr, D=64, batch 256, model seed 42."""
+    from spotlight_tpu_torch.sequence import ImplicitSequenceModel
+
+    return ImplicitSequenceModel(
+        loss='bpr', representation=representation, embedding_dim=D,
+        batch_size=SEQ_TRAIN_BATCH, n_iter=1, sparse=sparse, l2=l2,
+        random_state=np.random.RandomState(42), device=device)
+
+
+def check_padding_row(model, where):
+    """The lazy engine's padding row and its moments are exactly zero."""
+    rows = [model._net.item_embeddings.weight[0],
+            model._opt_state['table']['mu'][0],
+            model._opt_state['table']['nu'][0]]
+    if any(bool(row.any()) for row in rows):
+        raise AssertionError('{}: the padding row or its moments moved'
+                             .format(where))
+
+
+def run_sequence_lazy_engine(torch, card):
+    """The sequence lazy engine at the bloom study's exact-table width:
+    ``LSTMNet``, D=64, 20,000 sequences of 50, batch 256 (79 steps an
+    epoch, the last padded), bpr, ``sparse=True``, at each of
+    ``LAZY_SEQ_ITEMS``; the dense engine beside it at the same N, in
+    turns: one warm epoch of each, then one timed epoch of each.  The
+    first warm lazy epoch captures P1's operands at step ``CAPTURE_STEP``.
+    Then one ``pooling`` lazy epoch at the first N.  The P1 counter is
+    zeroed just before the timed epochs and read just after (one launch a
+    step); after each lazy fit the padding row and its moments are zero.
+    Returns (launches, captured operands)."""
+    from spotlight_tpu_torch.ops.kernels import row_update
+    from spotlight_tpu_torch.sequence import lazy
+
+    steps = -(-SEQ_TRAIN_ROWS // SEQ_TRAIN_BATCH)
+    launches = 0
+    captured = []
+    for num_items in LAZY_SEQ_ITEMS:
+        data = lazy_sequence_data(num_items)
+        models = {engine: lazy_sequence_model('lstm', engine == 'lazy')
+                  for engine in ('lazy', 'dense')}
+        warm = {}
+        for engine, model in models.items():
+            undo = None
+            if engine == 'lazy' and not captured:
+                captured, undo = capture_row_updates(
+                    CAPTURE_STEP, engine=lazy, calls_per_step=1)
+            try:
+                warm[engine] = timed_fit(torch, model, data, 1)
+            finally:
+                if undo is not None:
+                    undo()
+            if model._lazy != (engine == 'lazy'):
+                raise AssertionError('the {} engine did not run'.format(
+                    engine))
+        # The main path of P1, with its counter zeroed just before it.
+        row_update.ROW_ADAM_LAUNCHES = 0
+        seconds = {engine: timed_fit(torch, model, data, 1)
+                   for engine, model in models.items()}
+        counted = row_update.ROW_ADAM_LAUNCHES
+        launches += counted
+        check_padding_row(models['lazy'], 'lazy lstm N={}'.format(num_items))
+        log(training='sequence lazy against dense', num_items=num_items,
+            config='lstm bpr D={} {} sequences x {} B={}'.format(
+                D, SEQ_TRAIN_ROWS, SEQ_LENGTH, SEQ_TRAIN_BATCH),
+            lazy_s_per_epoch=seconds['lazy'],
+            dense_s_per_epoch=seconds['dense'],
+            dense_over_lazy=seconds['dense'] / seconds['lazy'],
+            warm_s=warm, row_adam_launches=counted,
+            losses={engine: model._last_epoch_loss
+                    for engine, model in models.items()}, card=card)
+        if counted != steps or not all(
+                np.isfinite(model._last_epoch_loss)
+                for model in models.values()):
+            raise AssertionError('lazy N={}: {} P1 launches, not {}'.format(
+                num_items, counted, steps))
+        del models, data
+        torch.cuda.empty_cache()
+
+    data = lazy_sequence_data(LAZY_SEQ_ITEMS[0])
+    model = lazy_sequence_model('pooling', True)
+    row_update.ROW_ADAM_LAUNCHES = 0
+    seconds = timed_fit(torch, model, data, 1)
+    counted = row_update.ROW_ADAM_LAUNCHES
+    launches += counted
+    check_padding_row(model, 'lazy pooling')
+    log(training='sequence lazy pooling', num_items=LAZY_SEQ_ITEMS[0],
+        s_per_epoch=seconds, row_adam_launches=counted,
+        last_epoch_loss=model._last_epoch_loss, card=card)
+    if counted != steps or not model._lazy:
+        raise AssertionError('lazy pooling: {} P1 launches'.format(counted))
+    del model, data
+    torch.cuda.empty_cache()
+    if len(captured) != 1:
+        raise AssertionError('no P1 operands were captured')
+    return launches, captured
+
+
+def check_sequence_engine_operands(torch, card, captured):
+    """P1 on the sequence lazy engine's own item call at step
+    ``CAPTURE_STEP`` of the first warm epoch (25,600 ids: 12,800 positives
+    and as many negatives, a padded row's ids routed past the table; W=65,
+    float32, l2=0): bit for bit against its
+    plain version in two launches, timed with and without its sort beside
+    its bound, its plain version and ``SparseAdam`` from the captured
+    moments.  Returns the kernel-table entry."""
+    operands = captured[0]
+    ids = operands['ids']
+    param = operands['param']
+    expected = 2 * SEQ_TRAIN_BATCH * SEQ_LENGTH
+    if ids.numel() != expected:
+        raise AssertionError('the captured item call has {} ids, not {}'
+                             .format(ids.numel(), expected))
+    shape = ('item table R={} W={} n={} float32 step={} t={} l2={} '
+             '(sequence lazy engine, lstm)').format(
+        param.shape[0], param.shape[1], ids.numel(), operands['step'],
+        operands['t'], operands['l2'])
+    entry = check_row_update(
+        torch, card, shape, param, operands['mu'], operands['nu'], ids,
+        operands['grads'].reshape(ids.numel(), -1), operands['t'],
+        operands['lr'], operands['l2'], library=operands['l2'] == 0)
+    torch.cuda.empty_cache()
+    return dict(entry, name='row_adam (P1, sequence)')
+
+
+def check_sequence_step_against_cpu(torch, card):
+    """One sequence lazy step (``lstm``, bpr, D=64, batch 256 of 50 over
+    ``SEQ_TRAIN_ITEMS`` items, l2=1e-6) on the card against the same step
+    on the CPU, from the same parameters (drawn on the CPU) and draws: the
+    loss, the item rows' gradients and the tower's first moments (a tenth
+    of its gradients) within rtol 1e-5 of each one's largest element; the
+    card's P1 call bit-equal to the plain version on its own gradients.
+    The card's step runs with CUDA's synchronisation check set to raise."""
+    from spotlight_tpu_torch.sequence import lazy
+    from spotlight_tpu_torch.utils import training
+
+    data = lazy_sequence_data(SEQ_TRAIN_ITEMS)
+    results = {}
+    for device in ('cpu', DEVICE):
+        model = lazy_sequence_model('lstm', True, l2=1e-6, device=device)
+        model._initialize(data)
+        placed, n_valid, num_batches = model._epoch_data(data)
+        perm, negatives = training.epoch_draws(
+            model._generator, num_batches * SEQ_TRAIN_BATCH,
+            (1, SEQ_TRAIN_BATCH, SEQ_LENGTH), SEQ_TRAIN_ITEMS, device)
+        captured, undo = capture_row_updates(1, engine=lazy,
+                                             calls_per_step=1)
+        try:
+            with no_host_sync(torch, device):
+                loss = training.run_epoch(
+                    model._step_fn(), placed, n_valid, 1, SEQ_TRAIN_BATCH,
+                    perm[:SEQ_TRAIN_BATCH], negatives)
+        finally:
+            undo()
+        results[device] = (float(loss), captured[0], {
+            name: value.cpu()
+            for name, value in model._opt_state['tower']['mu'].items()})
+        check_padding_row(model, 'lazy step on ' + device)
+    cpu_loss, cpu, cpu_tower = results['cpu']
+    card_loss, gpu, card_tower = results[DEVICE]
+    if not torch.equal(cpu['ids'], gpu['ids'].cpu()):
+        raise AssertionError('the draws differ between the devices')
+    gaps = {}
+    for name, got, want in [('item rows', gpu['grads'].cpu(), cpu['grads'])] + [
+            (name, card_tower[name], want)
+            for name, want in cpu_tower.items()]:
+        scale = float(want.abs().max())
+        gaps[name] = float((got - want).abs().max()) / scale
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale,
+                                   msg=name)
+    check_captured_row_adam(torch, gpu, 'sequence step')
+    np.testing.assert_allclose(card_loss, cpu_loss, rtol=1e-5)
+    log(check='sequence lazy step: card against CPU', loss_card=card_loss,
+        loss_cpu=cpu_loss, max_gap_of_scale=gaps, card=card)
+
+
+def run_pool_cnn_gates(torch, card):
+    """The JAX package's pooling and CNN gates through ``fit`` and
+    ``sequence_mrr_score`` on the card: pooling at concentration 1e-3
+    (> 0.18, the mean over the model seeds 0-3 and 42, as
+    ``tests/test_torch_sequence_gates_pool_cnn.py`` holds it: the gate lies
+    inside both packages' seed spread) and 1e2 (> 0.03), the CNN (kernel
+    width 5, 40 epochs, > 0.65), and the lazy engine's pooling (> 0.18)
+    and CNN (> 0.5) gates of ``tests/test_lazy_adam.py``.  Returns the
+    lazy pooling and the dense CNN models with the gate test set."""
+    from spotlight_tpu_torch.evaluation import sequence_mrr_score
+    from spotlight_tpu_torch.sequence import CNNNet, ImplicitSequenceModel
+
+    def fitted(representation, n_iter, learning_rate, l2, train, seed=42,
+               sparse=False):
+        model = ImplicitSequenceModel(
+            loss='bpr', representation=representation, batch_size=128,
+            embedding_dim=32, learning_rate=learning_rate, l2=l2,
+            n_iter=n_iter, sparse=sparse,
+            random_state=np.random.RandomState(seed)).fit(train)
+        if model._lazy != sparse:
+            raise AssertionError('the {} engine did not run'.format(
+                'lazy' if sparse else 'dense'))
+        return model
+
+    def mrr(model, test):
+        return float(sequence_mrr_score(model, test).mean())
+
+    results = {}
+    train, test = sequence_gate_data(1e-3)
+    results['pooling 1e-3 (mean of seeds 0-3, 42)'] = (float(np.mean([
+        mrr(fitted('pooling', 8, 1e-1, 1e-9, train, seed), test)
+        for seed in (0, 1, 2, 3, 42)])), 0.18)
+    cnn_model = fitted(CNNNet(train.num_items, embedding_dim=32,
+                              kernel_width=5, num_layers=1,
+                              generator=torch.Generator().manual_seed(42)),
+                      40, 1e-2, 0.0, train)
+    results['cnn 1e-3'] = (mrr(cnn_model, test), 0.65)
+    lazy_models = {}
+    for representation, gate, learning_rate in (('pooling', 0.18, 1e-1),
+                                                ('cnn', 0.5, 1e-2)):
+        lazy_models[representation] = fitted(
+            representation, 40, learning_rate, 1e-7, train, sparse=True)
+        results['lazy ' + representation] = (
+            mrr(lazy_models[representation], test), gate)
+    near_random, near_test = sequence_gate_data(1e2)
+    results['pooling 1e2'] = (mrr(fitted('pooling', 8, 1e-1, 1e-9,
+                                         near_random), near_test), 0.03)
+    log(pool_cnn_gates={name: value for name, (value, _) in
+                        results.items()}, card=card)
+    for name, (value, gate) in results.items():
+        if not value > gate:
+            raise AssertionError('gate {}: MRR {} is not > {}'.format(
+                name, value, gate))
+    return lazy_models['pooling'], cnn_model, train, test
+
+
+def check_serialization(torch, card, models, train, test):
+    """``serialization.save`` and ``load`` of each of ``models`` (fitted on
+    the card): the loaded tensors on the card, ``sequence_mrr_score``
+    bit-equal, and a further epoch of each continues the step count and
+    ends in the same parameters."""
+    import io
+
+    from spotlight_tpu_torch.evaluation import sequence_mrr_score
+    from spotlight_tpu_torch.utils import serialization
+
+    for model in models:
+        buffer = io.BytesIO()
+        serialization.save(model, buffer)
+        buffer.seek(0)
+        loaded = serialization.load(buffer)
+        name = '{} {}'.format('lazy' if model._lazy else 'dense',
+                              type(model._net).__name__)
+        on_card = all(value.device.type == torch.device(DEVICE).type
+                      for value in loaded._net.state_dict().values())
+        equal = np.array_equal(sequence_mrr_score(loaded, test),
+                               sequence_mrr_score(model, test))
+        key = 't' if model._lazy else 'count'
+        steps = model._opt_state[key]
+        model._n_iter = loaded._n_iter = 1
+        model.fit(train)
+        loaded.fit(train)
+        resumed = loaded._opt_state[key] == model._opt_state[key] > steps
+        same = all(torch.equal(value, loaded._net.state_dict()[part])
+                   for part, value in model._net.state_dict().items())
+        log(check='serialization round trip', model=name, bytes=len(
+            buffer.getvalue()), on_card=on_card, metric_bit_equal=equal,
+            steps_before=steps, steps_after=loaded._opt_state[key],
+            resumed_equal=same, card=card)
+        if not (on_card and equal and resumed and same):
+            raise AssertionError('{}: the serialization round trip failed'
+                                 .format(name))
 
 
 # -- phase 5: where the time goes --------------------------------------------
@@ -3087,16 +3424,36 @@ def main():
     log(phase='explicit', seconds=time.perf_counter() - start)
 
     start = time.perf_counter()
-    run_sequence_training(torch, card)
+    run_sequence_training(torch, card, ('lstm', 'mixture'))
     log(phase='sequence training', seconds=time.perf_counter() - start)
     start = time.perf_counter()
-    for name, count in run_trained_serving(torch, card).items():
+    for name, count in run_trained_serving(torch, card,
+                                           ('lstm', 'mixture')).items():
         launches[name] += count
+    run_inbatch_epoch(torch, card)
     log(phase='trained serving', seconds=time.perf_counter() - start)
     start = time.perf_counter()
     run_bloom_training(torch, card)
     run_sequence_gates(torch, card)
     log(phase='bloom steps and sequence gates',
+        seconds=time.perf_counter() - start)
+
+    start = time.perf_counter()
+    run_sequence_training(torch, card, ('pooling', 'cnn'))
+    for name, count in run_trained_serving(torch, card,
+                                           ('pooling', 'cnn')).items():
+        launches[name] += count
+    p1_launches, captured = run_sequence_lazy_engine(torch, card)
+    launches['row_adam (P1, sequence)'] = p1_launches
+    entries['row_adam (P1, sequence)'] = check_sequence_engine_operands(
+        torch, card, captured)
+    del captured
+    check_sequence_step_against_cpu(torch, card)
+    lazy_pooling, dense_cnn, gate_train, gate_test = run_pool_cnn_gates(
+        torch, card)
+    check_serialization(torch, card, (lazy_pooling, dense_cnn), gate_train,
+                        gate_test)
+    log(phase='pooling, cnn, sequence lazy engine, serialization',
         seconds=time.perf_counter() - start)
 
     kernels = []
@@ -3106,7 +3463,7 @@ def main():
                  'rank_counts (mixture)', 'bloom_gather_sum',
                  'bloom_gather_sum backward', 'multihot_gather_sum',
                  'multihot_gather_sum backward', 'row_adam (P1)',
-                 'row_adam (P1, explicit)'):
+                 'row_adam (P1, explicit)', 'row_adam (P1, sequence)'):
         entry = dict(entries[name])
         entry['launches'] = launches[name]
         kernels.append(entry)

@@ -2,9 +2,9 @@
 
 Counterpart of ``spotlight_tpu/factorization/_base.py``: representation
 construction, the choice of training engine and its optimizer state, the
-epoch loop of ``fit``, input validation, prediction id broadcasting, and
-the catalogue factors the evaluation kernels consume.  PyTorch runs
-eagerly, so the JAX package's jit caches and bucket padding have no
+epoch loop of ``fit``, input validation, prediction id broadcasting, the
+catalogue factors the evaluation kernels consume, and pickling.  PyTorch
+runs eagerly, so the JAX package's jit caches and bucket padding have no
 counterpart here; the results are the same.
 """
 
@@ -18,6 +18,7 @@ import torch
 from spotlight_tpu_torch.factorization.representations import BilinearNet
 from spotlight_tpu_torch.ops.lazy_adam import lazy_adam_init
 from spotlight_tpu_torch.utils import training
+from spotlight_tpu_torch.utils.serialization import SerializableEstimatorMixin
 
 
 def resolve_device(device):
@@ -39,8 +40,9 @@ def _repr_model(model):
     return '<{}: {}>'.format(model.__class__.__name__, net_representation)
 
 
-class _FactorizationBase:
-    """State shared by the factorization estimators."""
+class _FactorizationBase(SerializableEstimatorMixin):
+    """State shared by the factorization estimators (picklable: see
+    :mod:`spotlight_tpu_torch.utils.serialization`)."""
 
     def __init__(self, embedding_dim, n_iter, batch_size, l2, learning_rate,
                  optimizer_func, representation, sparse, random_state,

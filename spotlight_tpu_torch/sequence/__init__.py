@@ -4,6 +4,8 @@ from spotlight_tpu_torch.sequence.implicit import (  # noqa: F401
     ImplicitSequenceModel,
 )
 from spotlight_tpu_torch.sequence.representations import (  # noqa: F401
+    CNNNet,
     LSTMNet,
     MixtureLSTMNet,
+    PoolNet,
 )

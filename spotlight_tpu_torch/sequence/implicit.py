@@ -5,16 +5,18 @@ parameters, training, ``predict`` and the factors the evaluation kernels
 consume.
 
 ``fit`` trains on the dense engine (:mod:`spotlight_tpu_torch.utils.
-training`): autograd through the whole representation, then Adam over every
-parameter.  Each step scores every position's target (the sequence itself,
+training`: autograd through the whole representation, then Adam over every
+parameter) or, with ``sparse=True`` where the JAX package takes it, on the
+row-sparse sequence engine (:mod:`spotlight_tpu_torch.sequence.lazy`: lazy
+Adam through the row-Adam kernel P1 on the item table, dense Adam on the
+tower).  Each step scores every position's target (the sequence itself,
 the representation being causal) against uniformly drawn negatives of the
 same shape, or against the targets of other batch rows
 (``negative_sampling='in_batch'``, importance-weighted back to the uniform
 objective); the loss is masked at padding positions and padded rows.  Each
 epoch draws its permutation and negatives from the estimator's CPU
-generator in one go and reads its loss back one epoch late.  The row-sparse
-sequence engine (``sparse=True`` where the JAX package would take it) and
-``mesh=`` are not ported and raise.
+generator in one go and reads its loss back one epoch late.  ``mesh=`` is
+not ported and raises.
 """
 
 from __future__ import annotations
@@ -30,24 +32,31 @@ from spotlight_tpu_torch.ops.losses import IMPLICIT_LOSSES
 from spotlight_tpu_torch.ops.sampling import (inbatch_importance_weight_table,
                                               inbatch_pair_weights,
                                               weighted_inbatch_elems)
-from spotlight_tpu_torch.sequence.representations import (LSTMNet,
-                                                          MixtureLSTMNet)
+from spotlight_tpu_torch.sequence.lazy import (build_lazy_step,
+                                               lazy_seq_adam_init)
+from spotlight_tpu_torch.sequence.representations import (CNNNet, LSTMNet,
+                                                          MixtureLSTMNet,
+                                                          PoolNet)
 from spotlight_tpu_torch.utils import training
+from spotlight_tpu_torch.utils.serialization import SerializableEstimatorMixin
 
 _LOSSES = tuple(IMPLICIT_LOSSES)
-_REPRESENTATIONS = {'lstm': LSTMNet, 'mixture': MixtureLSTMNet}
+#: Built with the JAX package's constructor defaults (the CNN: kernel width
+#: 3, one layer, tanh, residual connections).
+_REPRESENTATIONS = {'pooling': PoolNet, 'cnn': CNNNet, 'lstm': LSTMNet,
+                    'mixture': MixtureLSTMNet}
 
 
-class ImplicitSequenceModel:
+class ImplicitSequenceModel(SerializableEstimatorMixin):
     """Model for sequential recommendations using implicit feedback.
 
     Parameters
     ----------
     loss : str, one of ('pointwise', 'bpr', 'hinge', 'adaptive_hinge')
     representation : str or nn.Module
-        'lstm' or 'mixture', or any module with the sequence-representation
-        protocol (``user_representation``, ``score``, ``score_catalog``).
-        'pooling' and 'cnn' are not ported yet and raise.
+        'pooling', 'cnn', 'lstm' or 'mixture', or any module with the
+        sequence-representation protocol (``user_representation``,
+        ``score``, ``score_catalog``).
     embedding_dim : int, optional
     n_iter, batch_size, l2, learning_rate : optional
         Training settings; ``l2`` is Adam's coupled weight decay.
@@ -57,11 +66,11 @@ class ImplicitSequenceModel:
     use_cuda : bool
         Accepted for API parity; ``device`` selects the device.
     sparse : bool
-        Where the JAX package would select its row-sparse sequence engine
-        (a built-in representation in the fused layout, no custom
-        optimizer), ``fit`` raises ``NotImplementedError``: that engine is
-        not ported yet.  Elsewhere it trains dense with the JAX package's
-        RuntimeWarning.
+        Select the row-sparse sequence engine
+        (:mod:`spotlight_tpu_torch.sequence.lazy`): lazy Adam on the item
+        table, through P1, and dense Adam on the rest.  Needs a built-in
+        representation in the fused layout and no custom optimizer;
+        elsewhere it trains dense with the JAX package's RuntimeWarning.
     random_state : np.random.RandomState, optional
     num_negative_samples : int, optional
         Negatives per position for ``adaptive_hinge``.
@@ -107,10 +116,6 @@ class ImplicitSequenceModel:
                 ' (got {!r})'.format(exchange))
         if isinstance(representation, str) and (
                 representation not in _REPRESENTATIONS):
-            if representation in ('pooling', 'cnn'):
-                raise NotImplementedError(
-                    'the {!r} representation is not ported yet (ROADMAP.md, '
-                    'Queue 1); use lstm or mixture'.format(representation))
             raise ValueError('unknown representation {!r}'.format(
                 representation))
         if mesh is not None:
@@ -194,8 +199,11 @@ class ImplicitSequenceModel:
         self._lazy = self._use_lazy_engine()
         self._optimizer = training.make_optimizer(
             self._learning_rate, self._l2, self._optimizer_func)
-        self._opt_state = self._optimizer.init(
-            dict(self._net.named_parameters()))
+        if self._lazy:
+            self._opt_state = lazy_seq_adam_init(self._net, self._optimizer)
+        else:
+            self._opt_state = self._optimizer.init(
+                dict(self._net.named_parameters()))
         self._epoch_fn_cache = {}
         self._params_version += 1
 
@@ -271,10 +279,16 @@ class ImplicitSequenceModel:
         return elems_fn
 
     def _step_fn(self):
-        """``step(batch, negatives) -> loss`` on the estimator's own
-        parameters and optimizer state (the dense engine)."""
-        step = training.build_dense_step(self._net, self._elems_fn(),
-                                         self._optimizer)
+        """``step(batch, negatives) -> loss`` of the engine in use, on the
+        estimator's own parameters and optimizer state."""
+        if self._lazy:
+            step = build_lazy_step(
+                self._net, self._loss, self._learning_rate, self._l2,
+                self._num_negative_samples, self._optimizer,
+                self._negative_sampling)
+        else:
+            step = training.build_dense_step(self._net, self._elems_fn(),
+                                             self._optimizer)
         return lambda batch, negatives: step(self._opt_state, batch,
                                              negatives)
 
@@ -341,11 +355,6 @@ class ImplicitSequenceModel:
         """
         if not self._initialized:
             self._initialize(interactions)
-        if self._lazy:
-            raise NotImplementedError(
-                'sparse=True selects the row-sparse sequence engine, which '
-                'is not ported yet (ROADMAP.md, Queue 1); training dense in '
-                'its place would give another result. Pass sparse=False.')
         data, n, num_batches = self._epoch_data(interactions)
         epoch_fn = self._epoch_fn(num_batches, data['sequences'].shape[1])
         self._params_version += 1
@@ -370,7 +379,7 @@ class ImplicitSequenceModel:
         cached per parameter version, so a metric pays the catalogue gather
         once, not once per batch."""
         net = self._net
-        if not isinstance(net, LSTMNet):
+        if not isinstance(net, (PoolNet, LSTMNet, CNNNet)):
             return None
         cache = self._item_factor_cache
         if cache is None or cache[0] != self._params_version:

@@ -1,0 +1,148 @@
+"""Row-sparse (lazy) Adam engine for the sequence models.
+
+Counterpart of ``spotlight_tpu/sequence/lazy.py`` on one device: the
+sequence analogue of :mod:`spotlight_tpu_torch.factorization.lazy` (see
+there for torch-``SparseAdam`` semantics).  The item table's gradient is
+taken with respect to the gathered rows, and its Adam moments update only
+at the touched rows through
+:func:`~spotlight_tpu_torch.ops.lazy_adam.sparse_adam_rows` (P1 on the
+card, one launch a step), so the step's table cost does not grow with the
+catalogue.  The dense tower (the LSTM, convolution or projection
+parameters) keeps the dense engine's Adam.  The optimizer state is hybrid::
+
+    {'table': {'mu': (N, D + 1) float32, 'nu': (N, D + 1) float32},
+     'tower': the tower Adam's state (utils.training.Adam),
+     't': int}
+
+Above about 1M items the dense engine's whole-table Adam sweep dominates its
+step; this engine keeps the exact (uncompressed) table competitive there.
+It composes with ``table_dtype=bfloat16`` (bfloat16 storage, float32
+moments and update math) and ``negative_sampling='in_batch'`` (the
+negatives are batch rolls of the gathered positive rows: no negative
+gather).  Selected with ``sparse=True`` on the sequence estimator (a
+built-in representation in the fused layout, no custom optimizer).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from spotlight_tpu_torch.ops.embeddings import PADDING_IDX
+from spotlight_tpu_torch.ops.lazy_adam import sparse_adam_rows
+from spotlight_tpu_torch.ops.losses import IMPLICIT_LOSSES
+from spotlight_tpu_torch.ops.sampling import (inbatch_pair_weights,
+                                              weighted_inbatch_elems)
+from spotlight_tpu_torch.utils.training import masked_mean
+
+ITEM_TABLE = 'item_embeddings.weight'
+
+
+def tower_parameters(net):
+    """Every parameter of ``net`` but the fused item table, by name."""
+    return {name: p for name, p in net.named_parameters()
+            if name != ITEM_TABLE}
+
+
+def lazy_seq_adam_init(net, tower_optimizer):
+    """The hybrid optimizer state: float32 moments shaped like the item
+    table (float32 also for a bfloat16 table), the tower optimizer's state
+    and the global step ``t``."""
+    table = net.item_embeddings.weight
+
+    def zeros32():
+        return torch.zeros(table.shape, dtype=torch.float32,
+                           device=table.device)
+
+    return {'table': {'mu': zeros32(), 'nu': zeros32()},
+            'tower': tower_optimizer.init(tower_parameters(net)),
+            't': 0}
+
+
+def _masked_rows(table, ids):
+    """Fused rows of ``ids`` in float32, the padding id's rows zero (the
+    read-side semantics of the item layer).  The mask is outside autograd,
+    so the cotangents at padding positions are not zero: the step drops
+    those ids before the row update."""
+    rows = table[ids]
+    rows = torch.where((ids == PADDING_IDX)[..., None],
+                       torch.zeros((), dtype=rows.dtype, device=rows.device),
+                       rows)
+    return rows.float()
+
+
+def _drop_pad(ids, num_rows):
+    """The padding id routed to ``num_rows``, an id P1 skips, so the
+    padding row and its moments stay zero."""
+    return torch.where(ids == PADDING_IDX, num_rows, ids)
+
+
+def build_lazy_step(net, loss, learning_rate, l2, num_negatives,
+                    tower_optimizer, negative_sampling='uniform'):
+    """The lazy engine's step for a fused-layout sequence representation:
+    ``step(opt_state, batch, negatives) -> loss`` (a device scalar), with
+    ``opt_state`` from :func:`lazy_seq_adam_init` (updated in place, ``t``
+    included) and ``negatives`` the batch's ``(B, T)`` item ids
+    (``(n, B, T)`` for ``adaptive_hinge``; None in-batch).  Nothing is read
+    back to the host."""
+    dim = net.embedding_dim
+    loss_func = IMPLICIT_LOSSES[loss]
+    adaptive = loss == 'adaptive_hinge'
+    n_neg = num_negatives if adaptive else 1
+    in_batch = negative_sampling == 'in_batch'
+    tower = tower_parameters(net)
+
+    def step_elems(pos_rows, neg_rows, batch):
+        """Elementwise loss (B, T) from float32 fused rows; ``neg_rows``
+        ``(n, B, T, D + 1)``, None in-batch."""
+        reprs, _ = net._user_repr_from_emb(pos_rows[..., :dim])
+        positive = net._score_vectors(reprs, pos_rows[..., :dim],
+                                      pos_rows[..., dim])
+        if in_batch:
+            negative = [net._score_vectors(
+                reprs, torch.roll(pos_rows[..., :dim], s, dims=0),
+                torch.roll(pos_rows[..., dim], s, dims=0))
+                for s in range(1, n_neg + 1)]
+        else:
+            negative = [net._score_vectors(reprs, rows[..., :dim],
+                                           rows[..., dim])
+                        for rows in neg_rows]
+        negative = torch.stack(negative, dim=0) if adaptive else negative[0]
+        elems = loss_func(positive, negative, reduce=False)
+        if in_batch:
+            pair_weight = inbatch_pair_weights(batch['negative_weight'],
+                                               negative, n_neg)
+            elems = weighted_inbatch_elems(loss, elems, negative,
+                                           pair_weight)
+        return elems
+
+    def step(opt_state, batch, negatives):
+        sequences = batch['sequences']                          # (B, T)
+        opt_state['t'] += 1
+        table = net.item_embeddings.weight.data
+        pos_rows = _masked_rows(table, sequences).requires_grad_()
+        rows = [pos_rows]
+        ids = [sequences.reshape(-1)]
+        if not in_batch:
+            negatives = negatives.reshape((n_neg,) + sequences.shape)
+            rows.append(_masked_rows(table, negatives).requires_grad_())
+            ids.append(negatives.reshape(-1))
+        mask = (sequences != PADDING_IDX) & (batch['mask'][:, None] > 0)
+        with torch.enable_grad():
+            loss_value = masked_mean(
+                step_elems(pos_rows, None if in_batch else rows[1], batch),
+                mask)
+            grads = torch.autograd.grad(
+                loss_value, rows + list(tower.values()), allow_unused=True)
+        row_grads = torch.cat([g.reshape(-1, dim + 1)
+                               for g in grads[:len(rows)]])
+        sparse_adam_rows(_drop_pad(torch.cat(ids), table.shape[0]), table,
+                         opt_state['table']['mu'], opt_state['table']['nu'],
+                         row_grads, opt_state['t'], learning_rate, l2)
+        tower_optimizer.update(
+            tower, {name: torch.zeros_like(p) if g is None else g
+                    for (name, p), g in zip(tower.items(),
+                                            grads[len(rows):])},
+            opt_state['tower'])
+        return loss_value.detach()
+
+    return step

@@ -1,8 +1,9 @@
 """Sequence representations: users as functions of their interaction history.
 
-Counterpart of ``spotlight_tpu/sequence/representations.py`` for
-:class:`LSTMNet` and :class:`MixtureLSTMNet` (``PoolNet`` and ``CNNNet``
-belong to a later slice of the port).
+Counterpart of ``spotlight_tpu/sequence/representations.py``:
+:class:`PoolNet` (the causal running mean of the item embeddings),
+:class:`LSTMNet`, :class:`CNNNet` (stacked causal, optionally dilated,
+convolutions) and :class:`MixtureLSTMNet`.
 
 Shared contract: ``user_representation(sequences)`` returns
 ``(per_step, final)`` where ``per_step[:, t]`` encodes the items *before*
@@ -25,9 +26,13 @@ either.  The LSTM keeps JAX's ``(D, 4D)`` weight
 layout with gates in the order (i, f, g, o): one input-projection product for
 all steps, then a Python loop over ``h @ w_hh``.  (``nn.LSTM`` is not used:
 its layout is the transpose of JAX's, and cuDNN runs float32 RNNs in TF32 by
-default.)  Parameters are drawn on the CPU from the caller's
-``torch.Generator`` (torch's LSTM initialisation, U(-1/sqrt(D), 1/sqrt(D)))
-and then moved to ``device``.
+default.)  The CNN keeps JAX's ``(W, I, O)`` weight layout, a list of
+layers, and runs each layer as one product per tap (``F.conv1d`` is not used:
+cuDNN runs float32 convolutions in TF32 by default).  Parameters are drawn on
+the CPU from the caller's ``torch.Generator`` (torch's initialisation: the
+LSTM's U(-1/sqrt(D), 1/sqrt(D)), a convolution's U(-1/sqrt(fan_in),
+1/sqrt(fan_in)) with fan_in = D x kernel width) and then moved to
+``device``.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from spotlight_tpu_torch.ops.embeddings import (PADDING_IDX,
@@ -44,6 +50,13 @@ from spotlight_tpu_torch.ops.embeddings import (PADDING_IDX,
 
 def _uniform(shape, bound, generator):
     return (torch.rand(shape, generator=generator) * 2 - 1) * bound
+
+
+def _to_tuple(value, num):
+    """A per-layer setting: a tuple (or list) as given, an int repeated."""
+    if isinstance(value, (tuple, list)):
+        return tuple(value)
+    return (value,) * num
 
 
 class _ItemRepresentationBase(nn.Module):
@@ -70,9 +83,10 @@ class _ItemRepresentationBase(nn.Module):
         self.item_biases = item_bias_layer or ZeroEmbedding(
             num_items, 1, padding_idx=PADDING_IDX, device=device)
 
-    def _parameters_from(self, shapes, generator, device):
-        """A ``ParameterDict`` of U(-1/sqrt(D), 1/sqrt(D)) draws."""
-        bound = 1.0 / math.sqrt(self.embedding_dim)
+    def _parameters_from(self, shapes, generator, device, fan_in=None):
+        """A ``ParameterDict`` of U(-1/sqrt(fan_in), 1/sqrt(fan_in)) draws,
+        ``fan_in`` D unless given."""
+        bound = 1.0 / math.sqrt(fan_in or self.embedding_dim)
         return nn.ParameterDict({
             name: nn.Parameter(_uniform(shape, bound, generator).to(device))
             for name, shape in shapes.items()})
@@ -148,6 +162,47 @@ class _ItemRepresentationBase(nn.Module):
         return scores + bias[None, :]
 
 
+class PoolNet(_ItemRepresentationBase):
+    """Average pooling: the user at step t is the running mean of the
+    embeddings of the items before t.
+
+    The denominator is the running count of nonzero entries of each
+    channel, plus one (the reference's cumulative-sum formulation), so
+    padding positions, whose embeddings read as zeros, count for nothing.
+
+    Parameters
+    ----------
+    num_items : int
+    embedding_dim : int, optional
+    item_embedding_layer : nn.Module, optional
+        Custom item layer (a ``BloomEmbedding``, say); selects the classic
+        layout.
+    sparse : bool
+        Accepted for API parity.
+    item_bias_layer : nn.Module, optional
+    fused : bool, optional
+    table_dtype : torch.dtype, optional
+        As :class:`LSTMNet` takes them.
+    generator : torch.Generator, optional
+    device : str or torch.device
+    """
+
+    def __init__(self, num_items, embedding_dim=32, item_embedding_layer=None,
+                 sparse=False, item_bias_layer=None, fused=None,
+                 table_dtype=torch.float32, generator=None, device='cpu'):
+        super().__init__(num_items, embedding_dim, item_embedding_layer,
+                         item_bias_layer, fused, generator, device,
+                         table_dtype=table_dtype)
+        self.sparse = sparse
+
+    def _user_repr_from_emb(self, emb):
+        shifted = self._causal_shift(emb)                    # (B, T+1, D)
+        sums = torch.cumsum(shifted, dim=1)
+        counts = torch.cumsum((shifted != 0).to(shifted.dtype), dim=1)
+        representations = sums / (counts + 1.0)
+        return representations[:, :-1], representations[:, -1]
+
+
 class LSTMNet(_ItemRepresentationBase):
     """A single-layer LSTM over the (shifted) embedded sequence; the hidden
     state at each step is the user representation.
@@ -209,6 +264,88 @@ class LSTMNet(_ItemRepresentationBase):
     def _user_repr_from_emb(self, emb):
         hidden = self._run_lstm(self._causal_shift(emb))
         return hidden[:, :-1], hidden[:, -1]
+
+
+class CNNNet(_ItemRepresentationBase):
+    """Stacked causal (atrous) convolutions over the embedded sequence.
+
+    Causality comes from left padding, as in the JAX package: the first
+    layer pads by its whole receptive field ``kw + (kw - 1)(dil - 1)``,
+    which gives T + 1 output steps (step 0 has seen nothing) and its
+    residual is the input padded by one step; later layers pad by the
+    receptive field less one (length-preserving).  Each layer is
+    ``nonlinearity(sum_k x_pad[:, k dil : k dil + T + 1] @ W[k] + b)``, with
+    ``W`` of shape ``(kernel width, D, D)`` (JAX's ``(W, I, O)``), plus the
+    layer's input when ``residual_connections``.
+
+    Parameters
+    ----------
+    num_items : int
+    embedding_dim : int, optional
+    kernel_width, dilation : int or tuple of one per layer, optional
+    num_layers : int, optional
+        The number of layers when ``kernel_width`` is an int; a tuple
+        ``kernel_width`` gives one layer per entry.
+    nonlinearity : 'tanh' or 'relu'
+    residual_connections : bool
+    sparse, benchmark : bool
+        Accepted for API parity.
+    item_embedding_layer, item_bias_layer, fused, table_dtype, generator,
+    device : as :class:`LSTMNet` takes them.
+    """
+
+    def __init__(self, num_items, embedding_dim=32, kernel_width=3,
+                 dilation=1, num_layers=1, nonlinearity='tanh',
+                 residual_connections=True, sparse=False, benchmark=True,
+                 item_embedding_layer=None, item_bias_layer=None, fused=None,
+                 table_dtype=torch.float32, generator=None, device='cpu'):
+        if nonlinearity not in ('tanh', 'relu'):
+            raise ValueError('Nonlinearity must be one of (tanh, relu)')
+        super().__init__(num_items, embedding_dim, item_embedding_layer,
+                         item_bias_layer, fused, generator, device,
+                         table_dtype=table_dtype)
+        self.sparse = sparse
+        self.benchmark = benchmark
+        self.nonlinearity = nonlinearity
+        self.residual_connections = residual_connections
+        self.kernel_widths = _to_tuple(kernel_width, num_layers)
+        self.dilations = _to_tuple(dilation, num_layers)
+        dim = embedding_dim
+        self.cnn_layers = nn.ModuleList(
+            self._parameters_from({'weight': (kw, dim, dim), 'bias': (dim,)},
+                                  generator, device, fan_in=dim * kw)
+            for kw in self.kernel_widths)
+
+    def _activation(self, x):
+        return torch.tanh(x) if self.nonlinearity == 'tanh' else torch.relu(x)
+
+    @staticmethod
+    def _conv(x, layer, dilation, left_pad):
+        """Causal 1-D convolution (B, T, D) -> (B, T + left_pad - (kw - 1)
+        dilation, D): one product per tap."""
+        x = F.pad(x, (0, 0, left_pad, 0))
+        weight = layer['weight']
+        length = x.shape[1] - (weight.shape[0] - 1) * dilation
+        out = x[:, :length] @ weight[0]
+        for k in range(1, weight.shape[0]):
+            out = out + x[:, k * dilation:k * dilation + length] @ weight[k]
+        return out + layer['bias']
+
+    def _user_repr_from_emb(self, emb):
+        layers = self.cnn_layers
+        kw, dilation = self.kernel_widths[0], self.dilations[0]
+        x = self._activation(self._conv(emb, layers[0], dilation,
+                                        kw + (kw - 1) * (dilation - 1)))
+        if self.residual_connections:
+            x = x + F.pad(emb, (0, 0, 1, 0))
+        for layer, kw, dilation in zip(layers[1:], self.kernel_widths[1:],
+                                       self.dilations[1:]):
+            residual = x
+            x = self._activation(self._conv(x, layer, dilation,
+                                            (kw - 1) * dilation))
+            if self.residual_connections:
+                x = x + residual
+        return x[:, :-1], x[:, -1]
 
 
 class MixtureLSTMNet(LSTMNet):

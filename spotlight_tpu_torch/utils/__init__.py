@@ -1,1 +1,2 @@
-"""Shared utilities: generators, padding, parameter conversion."""
+"""Shared utilities: training machinery, parameter conversion,
+serialization."""

@@ -1160,6 +1160,10 @@ def _row_operands(seed, num_rows, width, n, dtype, device, deep=0):
     (70, 1, 40, torch.bfloat16, 1e-3, 1000, 0),
     (2000, 65, 8192, torch.float32, 1e-6, 60, 2000),   # a padded step
     (500, 64, 3000, torch.bfloat16, 0.0, 3, 2000),
+    # The sequence lazy engine's item call: B=256 x T=50 positives and as
+    # many negatives over 20,000 items, a padded batch's ids past the table.
+    (20000, 65, 25600, torch.float32, 0.0, 60, 0),
+    (20000, 65, 25600, torch.bfloat16, 1e-6, 79, 0),
 ])
 def test_row_adam_kernel_equals_plain_version(cuda, num_rows, width, n,
                                               dtype, l2, t, deep, ids_dtype):
@@ -1395,11 +1399,13 @@ def _explicit_model(device, sparse, loss='regression'):
     return model, data
 
 
-def _captured_row_updates():
-    """Wrap the lazy engine's ``sparse_adam_rows``: each call's operands are
+def _captured_row_updates(engine=None):
+    """Wrap a lazy engine's ``sparse_adam_rows`` (``engine``, the module;
+    the factorization engine's by default): each call's operands are
     cloned before they update.  Returns (captured list, undo)."""
     from spotlight_tpu_torch.factorization import lazy
 
+    lazy = engine or lazy
     original = lazy.sparse_adam_rows
     captured = []
 
@@ -1619,3 +1625,193 @@ def test_sequence_fit_trains_on_the_card(cuda, representation,
     mrr = evaluation.sequence_mrr_score(model, data)
     assert evaluation.MATERIALIZE_ROUTES == routes
     assert ((mrr > 0) & (mrr <= 1)).all()
+
+
+def _pool_cnn_nets(kind, device, dim=64, num_items=3000,
+                   table=torch.float32):
+    """A CPU network and its copy on ``device``."""
+    import copy
+
+    from spotlight_tpu_torch.sequence import CNNNet, PoolNet
+
+    generator = torch.Generator().manual_seed(11)
+    if kind == 'pooling':
+        net = PoolNet(num_items, dim, table_dtype=table, generator=generator)
+    else:
+        net = CNNNet(num_items, dim, kernel_width=3, dilation=(1, 2, 4),
+                     num_layers=3, table_dtype=table, generator=generator)
+    with torch.no_grad():
+        net.item_embeddings.weight[1:, dim] = 0.1 * torch.randn(
+            num_items - 1, generator=generator).to(table)
+    return net, copy.deepcopy(net).to(device)
+
+
+def _pool_cnn_outputs(net, sequences):
+    with torch.no_grad():
+        steps, final = net.user_representation(sequences)
+        return (steps, final, net.score(steps, sequences),
+                net.score_catalog(final))
+
+
+@pytest.mark.parametrize('table', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('kind', ['pooling', 'cnn'])
+def test_pool_and_cnn_on_the_card_match_the_cpu(cuda, kind, table):
+    """``PoolNet`` and a three-layer dilated ``CNNNet`` at D=64: per-step
+    and final representations, step and catalogue scores on the card
+    within rtol 1e-5 of the largest element of the CPU's."""
+    cpu_net, card_net = _pool_cnn_nets(kind, cuda, table=table)
+    sequences = torch.from_numpy(
+        np.random.RandomState(1).randint(0, 3000, (64, 50)))
+    sequences[:8, :20] = 0
+    for got, want in zip(_pool_cnn_outputs(card_net, sequences.to(cuda)),
+                         _pool_cnn_outputs(cpu_net, sequences)):
+        torch.testing.assert_close(got.cpu(), want, rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))
+
+
+def test_cnn_takes_no_tf32_path(cuda):
+    """cuDNN's TF32 switch is left at its default (on): the CNN, one
+    float32 product a tap, still equals the CPU within 1e-5 of the largest
+    element, where TF32's 10-bit mantissa would miss by about 1e-3."""
+    assert torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cpu_net, card_net = _pool_cnn_nets('cnn', cuda, dim=128)
+    sequences = torch.from_numpy(
+        np.random.RandomState(2).randint(1, 3000, (128, 50)))
+    got = _pool_cnn_outputs(card_net, sequences.to(cuda))[0].cpu()
+    want = _pool_cnn_outputs(cpu_net, sequences)[0]
+    gap = float((got - want).abs().max() / want.abs().max())
+    assert gap < 1e-5, gap
+
+
+def _lazy_sequence_model(device, representation, negative_sampling):
+    rs = np.random.RandomState(3)
+    sequences = rs.randint(1, 300, (600, 12))
+    sequences[:40, :5] = 0
+    data = SequenceInteractions(sequences, num_items=300)
+    model = ImplicitSequenceModel(
+        loss='bpr', representation=representation, embedding_dim=16,
+        batch_size=128, l2=1e-6, sparse=True,
+        negative_sampling=negative_sampling,
+        random_state=np.random.RandomState(5), device=device)
+    model._initialize(data)
+    return model, data
+
+
+@pytest.mark.parametrize('representation, negative_sampling', [
+    ('pooling', 'uniform'), ('cnn', 'in_batch'), ('lstm', 'uniform')])
+def test_sequence_lazy_step_on_the_card_matches_the_cpu(
+        cuda, representation, negative_sampling):
+    """One step of the row-sparse sequence engine from the same parameters
+    and draws on both devices, the card's under the synchronisation check:
+    the loss within rtol 1e-5, the item rows' gradients and the tower's
+    first moments (a tenth of its gradients) within
+    ``SEQUENCE_GRAD_RTOL`` of their largest element; one P1 launch,
+    bit-equal to the plain version on the card's own gradients; the padding
+    row stays zero."""
+    from spotlight_tpu_torch.sequence import lazy as sequence_lazy
+
+    steps = {}
+    for device in ('cpu', cuda):
+        model, data = _lazy_sequence_model(device, representation,
+                                           negative_sampling)
+        shape = (None if negative_sampling == 'in_batch'
+                 else (len(data.sequences) // 128 + 1, 128, 12))
+        placed, n_valid, perm, negatives = _first_batch(model, data, device,
+                                                        shape)
+        captured, undo = _captured_row_updates(sequence_lazy)
+        launches = row_update.ROW_ADAM_LAUNCHES
+        try:
+            loss = _run_one_step(model, placed, n_valid, perm, negatives)
+        finally:
+            undo()
+        assert model._lazy and model._opt_state['t'] == 1
+        assert not model._net.item_embeddings.weight[0].any()
+        tower = {name: value.cpu() for name, value in
+                 model._opt_state['tower']['mu'].items()}
+        steps[str(device)] = (loss, captured, tower,
+                              row_update.ROW_ADAM_LAUNCHES - launches)
+    cpu_loss, (cpu,), cpu_tower, _ = steps['cpu']
+    card_loss, (card,), card_tower, card_launches = steps[str(cuda)]
+    assert card_launches == 1
+    np.testing.assert_allclose(card_loss, cpu_loss, rtol=1e-5)
+    assert torch.equal(cpu['ids'], card['ids'].cpu())
+    assert set(card_tower) == set(cpu_tower)
+    for name, got, want in [('item rows', card['grads'].cpu(),
+                             cpu['grads'])] + [
+            (name, card_tower[name], want)
+            for name, want in cpu_tower.items()]:
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=SEQUENCE_GRAD_RTOL * scale, msg=name)
+    pair = row_update.sort_occurrences(card['ids'])
+    scalars = row_update.adam_scalars(card['t'], card['lr'], card['l2'])
+    tables = []
+    for fn in (row_update.row_adam, row_update.row_adam_plain):
+        out = (card['param'].clone(), card['mu'].clone(), card['nu'].clone())
+        fn(*out, card['grads'], *pair, scalars)
+        tables.append(out)
+    for a, b in zip(*tables):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize('representation, sparse', [('pooling', True),
+                                                    ('cnn', False)])
+def test_serialization_roundtrip_on_the_card(cuda, representation, sparse):
+    """A model fitted on the card (the default device) comes back on the
+    card with the same metric, bit for bit, and resumes: ``t`` (or the
+    dense Adam's count) continues, and a further fit of both ends in the
+    same parameters."""
+    import io
+
+    from spotlight_tpu_torch.utils import serialization
+
+    _, data = _lazy_sequence_model('cpu', representation, 'uniform')
+    model = ImplicitSequenceModel(
+        loss='bpr', representation=representation, embedding_dim=16,
+        batch_size=128, n_iter=2, sparse=sparse,
+        random_state=np.random.RandomState(5)).fit(data)
+    buffer = io.BytesIO()
+    serialization.save(model, buffer)
+    buffer.seek(0)
+    loaded = serialization.load(buffer)
+    assert loaded._device.type == 'cuda' and loaded._lazy == sparse
+    assert all(value.is_cuda for value in loaded._net.state_dict().values())
+    np.testing.assert_array_equal(evaluation.sequence_mrr_score(loaded, data),
+                                  evaluation.sequence_mrr_score(model, data))
+    key = 't' if sparse else 'count'
+    steps = loaded._opt_state[key]
+    model.fit(data)
+    loaded.fit(data)
+    assert loaded._opt_state[key] == model._opt_state[key] == 2 * steps
+    for name, value in model._net.state_dict().items():
+        assert torch.equal(value, loaded._net.state_dict()[name]), name
+
+
+def test_a_card_saved_model_needs_a_card_to_load(cuda, tmp_path):
+    """Loading a model saved from the card raises where no card is seen
+    (``CUDA_VISIBLE_DEVICES`` empty): nothing moves to the CPU on its
+    own."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    from spotlight_tpu_torch.utils import serialization
+
+    _, data = _lazy_sequence_model('cpu', 'pooling', 'uniform')
+    model = ImplicitSequenceModel(
+        loss='bpr', embedding_dim=16, batch_size=128, n_iter=1,
+        random_state=np.random.RandomState(5)).fit(data)
+    path = tmp_path / 'model.pkl'
+    serialization.save(model, str(path))
+    assert serialization.load(str(path))._device.type == 'cuda'
+    code = ('import sys; from spotlight_tpu_torch.utils import '
+            'serialization; serialization.load(sys.argv[1])')
+    result = subprocess.run(
+        [sys.executable, '-c', code, str(path)],
+        cwd=pathlib.Path(__file__).resolve().parents[1],
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=''), capture_output=True,
+        text=True, timeout=300)
+    assert result.returncode != 0
+    assert 'CUDA' in result.stderr, result.stderr[-2000:]

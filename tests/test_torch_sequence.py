@@ -39,8 +39,8 @@ from spotlight_tpu.sequence.representations import (
 from spotlight_tpu_torch import evaluation
 from spotlight_tpu_torch.data import Interactions, SequenceInteractions
 from spotlight_tpu_torch.ops.kernels import ranking, topk
-from spotlight_tpu_torch.sequence import (ImplicitSequenceModel, LSTMNet,
-                                          MixtureLSTMNet)
+from spotlight_tpu_torch.sequence import (CNNNet, ImplicitSequenceModel,
+                                          LSTMNet, MixtureLSTMNet, PoolNet)
 from spotlight_tpu_torch.utils.convert import params_from_jax
 
 NUM_ITEMS, DIM, LENGTH, NUM_SEQUENCES = 64, 8, 8, 32
@@ -517,13 +517,27 @@ def test_fit_is_not_faked():
     ({'negative_sampling': 'nope'}, ValueError),
     ({'exchange': 'nope'}, ValueError),
     ({'representation': 'nope'}, ValueError),
-    ({'representation': 'pooling'}, NotImplementedError),
-    ({'representation': 'cnn'}, NotImplementedError),
+    ({'representation': 'pooling'}, None),
+    ({'representation': 'cnn'}, None),
     ({'representation': 'lstm', 'mesh': object()}, NotImplementedError),
 ])
 def test_constructor_refusals(kwargs, error):
-    with pytest.raises(error):
-        ImplicitSequenceModel(device='cpu', **kwargs)
+    """Bad settings raise; 'pooling' and 'cnn' (refused until their slice
+    was ported) construct and build their network at the first ``fit``, and
+    so does the default, 'pooling'."""
+    if error is not None:
+        with pytest.raises(error):
+            ImplicitSequenceModel(device='cpu', **kwargs)
+        return
+    kinds = {'pooling': PoolNet, 'cnn': CNNNet}
+    models = [ImplicitSequenceModel(device='cpu', **kwargs)]
+    if kwargs['representation'] == 'pooling':
+        models.append(ImplicitSequenceModel(device='cpu'))
+    for model in models:
+        model._n_iter = 1
+        assert model.fit(SequenceInteractions(_sequences(),
+                                              num_items=NUM_ITEMS)) is model
+        assert type(model._net) is kinds[kwargs['representation']]
 
 
 def test_uninitialised_model_refuses_to_predict():
@@ -562,7 +576,9 @@ def test_same_random_state_same_parameters():
 
 SEQUENCE_MODULES = ['spotlight_tpu_torch.sequence',
                     'spotlight_tpu_torch.sequence.implicit',
+                    'spotlight_tpu_torch.sequence.lazy',
                     'spotlight_tpu_torch.sequence.representations',
+                    'spotlight_tpu_torch.utils.serialization',
                     'spotlight_tpu_torch.data.interactions',
                     'spotlight_tpu_torch.evaluation']
 
