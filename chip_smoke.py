@@ -145,6 +145,29 @@ each of which exits non-zero when it fails:
    on the card against the CPU; the JAX package's pooling, CNN and lazy
    gates on the card; a save and load of a lazy pooling and a dense CNN
    model: the metric bit-equal, training resumed.
+14. the ML-1M sweep: ``examples/movielens_sequence/movielens_sequence.py``
+   end to end on the ML-1M stand-in, not cut.  The port's
+   ``data.fixtures`` generates it (the native Markov walk must have
+   built); where ``h5py`` imports it is installed as the '1M' cache file
+   and read by ``get_movielens_dataset('1M')``, else built into
+   ``Interactions`` from the columns as the loader builds them (the route
+   is printed); two user-based splits of 0.2 from ``RandomState(42)`` and
+   ``to_sequence(200, 20, step 200)`` (5,139 / 1,287 / 1,637 sequences
+   over 3,707 items).  The best configuration by validation MRR of each
+   committed ``results/ml1m`` log (CNN, pooling, LSTM), read by the port's
+   ``Results`` (its hash equal to the log's); CNN and pooling fitted at
+   full width and epochs with three model seeds each, timed by the port's
+   ``ThroughputMeter`` (the first fit its warm-up), scored by
+   ``sequence_mrr_score`` on validation and test and
+   ``sequence_precision_recall_score(k=10)`` on test (warm calls timed),
+   each fit's row saved to a port ``Results`` log; an epoch of 8 of each
+   one's batches under ``utils.profiling.trace`` for device calls a step
+   and the idle share; one timed LSTM epoch and one of its steps traced.
+   The launch counters of K1, K1c and K2 are zeroed just before and read
+   just after; then K1, K1c and K2 bit for bit against their plain
+   versions on the last CNN's operands, and the gates: the mean test MRR
+   of the three seeds at least 0.9 (CNN) and 0.8 (pooling) of the log's
+   best.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -245,6 +268,19 @@ BLOOM_STEPS = 8
 #: Phase 13: the sequence lazy engine at the bloom scalability study's
 #: exact-table catalogue sizes (docs/performance.md, "Sequence models").
 LAZY_SEQ_ITEMS = (1_000_000, 5_000_000)
+#: Phase 14: examples/movielens_sequence/movielens_sequence.py on the ML-1M
+#: stand-in (spotlight_tpu_torch/data/fixtures.py), not cut: the committed
+#: sweep logs name the configurations, each fitted with these model seeds.
+SWEEP_LOG = os.path.join(ROOT, 'examples', 'movielens_sequence', 'results',
+                         'ml1m', '{}_results.jsonl')
+SWEEP_SEEDS = (0, 1, 2)
+#: Fractions of the committed best configuration's test MRR that the mean
+#: of SWEEP_SEEDS must reach on the card.
+SWEEP_GATES = {'cnn': 0.9, 'pooling': 0.8}
+#: Steps of each model's traced epoch (of its own batches): enough for calls
+#: a step and the idle share; the trace of a whole CNN epoch (81 steps,
+#: 88 MB) took 30 s to write and read on an H100 machine.
+SWEEP_PROFILED_STEPS = {'cnn': 8, 'pooling': 8, 'lstm': 1}
 #: Largest gap between the materialize path's scores and the plain
 #: catalogue pass's, relative to the row's largest score: float32
 #: rounding of other summation orders, far above it a wrong score.
@@ -3173,6 +3209,312 @@ def check_serialization(torch, card, models, train, test):
                                  .format(name))
 
 
+# -- phase 14: the ML-1M sequence sweep ---------------------------------------
+
+def ml1m_interactions_from_columns(columns):
+    """``Interactions`` from the ML-1M stand-in's columns, as
+    ``get_movielens_dataset`` builds them from the file."""
+    from spotlight_tpu_torch.data import Interactions
+
+    return Interactions(columns['user_id'], columns['item_id'],
+                        ratings=columns['rating'],
+                        timestamps=columns['timestamp'])
+
+
+def ml1m_interactions(columns, data_dir):
+    """``(Interactions, route)``: where ``h5py`` imports, the columns are
+    installed as the '1M' cache file under ``data_dir`` (as the
+    ``SPOTLIGHT_DATA_DIR`` the loader reads) and loaded by
+    ``get_movielens_dataset('1M')``, which must give the columns back;
+    else they are built into ``Interactions`` as the loader builds them."""
+    import importlib.util
+
+    from spotlight_tpu_torch.data import fixtures
+    from spotlight_tpu_torch.data.movielens import get_movielens_dataset
+
+    if importlib.util.find_spec('h5py') is None:
+        return ml1m_interactions_from_columns(columns), 'columns'
+    fixtures.install_movielens_1m_fixture(data_directory=data_dir,
+                                          columns=columns)
+    saved = os.environ.get('SPOTLIGHT_DATA_DIR')
+    os.environ['SPOTLIGHT_DATA_DIR'] = data_dir
+    try:
+        data = get_movielens_dataset('1M')
+    finally:
+        if saved is None:
+            del os.environ['SPOTLIGHT_DATA_DIR']
+        else:
+            os.environ['SPOTLIGHT_DATA_DIR'] = saved
+    for field, column in (('user_ids', 'user_id'), ('item_ids', 'item_id'),
+                          ('ratings', 'rating'),
+                          ('timestamps', 'timestamp')):
+        if not np.array_equal(getattr(data, field), columns[column]):
+            raise AssertionError('get_movielens_dataset: {} differ from '
+                                 'the installed columns'.format(field))
+    return data, 'get_movielens_dataset'
+
+
+def ml1m_sequences(data):
+    """``load_data`` of ``movielens_sequence.py``: two user-based splits of
+    0.2 from ``RandomState(42)``, then ``to_sequence(200, 20, step
+    200)``.  Returns the (train, validation, test) sequences."""
+    from spotlight_tpu_torch.data import user_based_train_test_split
+
+    random_state = np.random.RandomState(42)
+    rest, test = user_based_train_test_split(
+        data, test_percentage=0.2, random_state=random_state)
+    train, validation = user_based_train_test_split(
+        rest, test_percentage=0.2, random_state=random_state)
+    return tuple(part.to_sequence(max_sequence_length=200,
+                                  min_sequence_length=20, step_size=200)
+                 for part in (train, validation, test))
+
+
+def sweep_configurations():
+    """``{representation: (hyperparameters, committed row)}``: the best
+    configuration by validation MRR of each committed ML-1M log, read by
+    the port's ``Results``; the port's hash of the hyperparameters must be
+    the one the JAX package wrote."""
+    from spotlight_tpu_torch.utils.results import Results
+
+    configurations = {}
+    for representation in ('cnn', 'pooling', 'lstm'):
+        best = Results(SWEEP_LOG.format(representation)).best(
+            'validation_mrr')
+        hyperparameters = {
+            key: value for key, value in best.items()
+            if key not in ('hash', 'validation_mrr', 'test_mrr', 'elapsed')}
+        if Results._hash(hyperparameters) != best['hash']:
+            raise AssertionError('{}: the port\'s hash of the configuration '
+                                 'differs from the log\'s'.format(
+                                     representation))
+        configurations[representation] = (hyperparameters, best)
+    return configurations
+
+
+def sweep_model(torch, representation, h, num_items, seed):
+    """``build_model`` of ``movielens_sequence.py``, its network and stream
+    seeded with ``seed``."""
+    from spotlight_tpu_torch.sequence import CNNNet, ImplicitSequenceModel
+
+    if representation == 'cnn':
+        representation = CNNNet(
+            num_items, embedding_dim=h['embedding_dim'],
+            kernel_width=h['kernel_width'], dilation=tuple(h['dilation']),
+            num_layers=h['num_layers'], nonlinearity=h['nonlinearity'],
+            residual_connections=h['residual'],
+            generator=torch.Generator().manual_seed(seed), device=DEVICE)
+    return ImplicitSequenceModel(
+        loss=h['loss'], representation=representation,
+        embedding_dim=h['embedding_dim'], batch_size=h['batch_size'],
+        learning_rate=h['learning_rate'], l2=h['l2'], n_iter=h['n_iter'],
+        random_state=np.random.RandomState(seed), device=DEVICE)
+
+
+def traced_fit(torch, card, name, model, train, log_dir):
+    """One epoch of ``model`` over the first ``SWEEP_PROFILED_STEPS[name]``
+    of its batches of ``train`` under ``profiling.trace``: its device calls
+    and busy ms a step, the idle share, and the seconds of the whole trace
+    (the epoch, the trace's export and its summary)."""
+    from spotlight_tpu_torch.data import SequenceInteractions
+    from spotlight_tpu_torch.utils import profiling
+
+    steps = SWEEP_PROFILED_STEPS[name]
+    data = SequenceInteractions(
+        train.sequences[:steps * model._batch_size],
+        num_items=train.num_items)
+    model._n_iter = 1
+    began = time.perf_counter()
+    with profiling.trace(log_dir, device=DEVICE) as prof:
+        start = time.perf_counter()
+        model.fit(data)
+        wall_ms = (time.perf_counter() - start) * 1e3
+    summary = profile_summary(card, name, prof, wall_ms)
+    summary.update(steps=steps, traced_s=time.perf_counter() - began,
+                   device_calls_per_step=summary['device_calls'] / steps,
+                   device_busy_ms_per_step=(summary['device_busy_ms']
+                                            / steps),
+                   trace_bytes=os.path.getsize(os.path.join(log_dir,
+                                                            'trace.json')))
+    log(sweep_epoch=name, card=card, **{key: summary[key] for key in (
+        'steps', 'wall_ms', 'device_calls_per_step',
+        'device_busy_ms_per_step', 'device_idle_share', 'trace_bytes',
+        'traced_s')})
+    return summary
+
+
+def run_ml1m_sweep(torch, card):
+    """Phase 14: the ML-1M sequence sweep at its best configurations, end
+    to end; the launch counters zeroed just before and read just after.
+    Then K1, K1c and K2 on the last CNN's operands against their plain
+    versions, and the gates.  Returns the launch counts."""
+    import tempfile
+
+    from spotlight_tpu_torch import native
+    from spotlight_tpu_torch.data import fixtures
+    from spotlight_tpu_torch.evaluation import (
+        sequence_mrr_score, sequence_precision_recall_score)
+    from spotlight_tpu_torch.utils.profiling import ThroughputMeter
+    from spotlight_tpu_torch.utils.results import Results
+
+    torch.cuda.synchronize()
+    reset_counters()
+    work = tempfile.TemporaryDirectory(prefix='ml1m_sweep_')
+    start = time.perf_counter()
+    columns = fixtures.generate_movielens_1m_like()
+    generate_s = time.perf_counter() - start
+    library = native.load()
+    log(sweep_walk='native' if library is not None else 'python loop',
+        library=None if library is None else str(native.library_path()),
+        generate_s=generate_s)
+    if library is None:
+        raise AssertionError('the native Markov walk did not build')
+    data, route = ml1m_interactions(columns, work.name)
+    train, validation, test = ml1m_sequences(data)
+    log(sweep_data=route, interactions=len(data), users=data.num_users,
+        items=data.num_items, train=train.sequences.shape,
+        validation=validation.sequences.shape, test=test.sequences.shape)
+    configurations = sweep_configurations()
+    for representation, (h, best) in configurations.items():
+        log(sweep_configuration=representation, hyperparameters=h,
+            committed_validation_mrr=best['validation_mrr'],
+            committed_test_mrr=best['test_mrr'])
+
+    results = Results(os.path.join(work.name, 'sweep.jsonl'))
+    means, last_cnn = {}, None
+    for representation in ('cnn', 'pooling'):
+        h, best = configurations[representation]
+        meter = ThroughputMeter(warmup_steps=1, device=DEVICE)
+        rows = len(train.sequences)
+        steps = -(-rows // h['batch_size'])
+        test_mrrs = []
+        for seed in SWEEP_SEEDS:
+            model = sweep_model(torch, representation, h, train.num_items,
+                                seed)
+            torch.cuda.synchronize()
+            began = time.perf_counter()
+            with meter.step(rows * h['n_iter']):
+                model.fit(train)
+            fit_s = time.perf_counter() - began
+            validation_mrr = float(sequence_mrr_score(model,
+                                                      validation).mean())
+            mrr = sequence_mrr_score(model, test)
+            precision, recall = sequence_precision_recall_score(model, test,
+                                                                k=SEQ_K)
+            torch.cuda.synchronize()
+            began = time.perf_counter()
+            sequence_mrr_score(model, test)
+            mrr_ms = (time.perf_counter() - began) * 1e3
+            began = time.perf_counter()
+            sequence_precision_recall_score(model, test, k=SEQ_K)
+            pr_ms = (time.perf_counter() - began) * 1e3
+            config = dict(h, representation=representation, seed=seed)
+            row = results.save(
+                config, validation_mrr=validation_mrr,
+                test_mrr=float(mrr.mean()),
+                test_precision_at_10=float(precision.mean()),
+                test_recall_at_10=float(recall.mean()), fit_s=fit_s,
+                mrr_warm_ms=mrr_ms, precision_recall_warm_ms=pr_ms)
+            if config not in results:
+                raise AssertionError('the sweep log lost a row')
+            log(sweep_fit=representation, seed=seed, fit_s=fit_s,
+                epochs=h['n_iter'], steps_per_epoch=steps,
+                ms_per_step=fit_s * 1e3 / (steps * h['n_iter']),
+                last_epoch_loss=model._last_epoch_loss,
+                validation_mrr=validation_mrr, test_mrr=row['test_mrr'],
+                test_precision_at_10=row['test_precision_at_10'],
+                mrr_warm_ms=mrr_ms, precision_recall_warm_ms=pr_ms,
+                card=card)
+            test_mrrs.append(row['test_mrr'])
+            if seed == SWEEP_SEEDS[0]:
+                traced_fit(torch, card, representation, model, train,
+                           os.path.join(work.name, representation))
+            if representation == 'cnn':
+                last_cnn = model
+            else:
+                del model
+        means[representation] = (float(np.mean(test_mrrs)),
+                                 SWEEP_GATES[representation]
+                                 * best['test_mrr'])
+        log(sweep=representation, seeds=list(SWEEP_SEEDS),
+            test_mrr=test_mrrs, mean_test_mrr=means[representation][0],
+            gate=means[representation][1],
+            sequences_per_s=meter.examples_per_second(),
+            measured_fits=meter.measured_steps, card=card)
+
+    # The LSTM at the sweep's best configuration: one timed epoch, and one
+    # of its steps traced.
+    h, _ = configurations['lstm']
+    model = sweep_model(torch, 'lstm', h, train.num_items, SWEEP_SEEDS[0])
+    steps = -(-len(train.sequences) // h['batch_size'])
+    epoch_s = timed_fit(torch, model, train, 1)
+    summary = traced_fit(torch, card, 'lstm', model, train,
+                         os.path.join(work.name, 'lstm'))
+    log(sweep_lstm_epoch_s=epoch_s, steps=steps,
+        ms_per_step=epoch_s * 1e3 / steps,
+        sequences_per_s=len(train.sequences) / epoch_s,
+        device_calls_per_step=summary['device_calls_per_step'],
+        device_idle_share=summary['device_idle_share'],
+        last_epoch_loss=model._last_epoch_loss, card=card)
+    if not np.isfinite(model._last_epoch_loss):
+        raise AssertionError('lstm: epoch loss {}'.format(
+            model._last_epoch_loss))
+    del model
+
+    launches = counters()
+    log(sweep_launches=launches, results_rows=len(results))
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError('{} never launched on the ML-1M sweep'
+                                 .format(name))
+    check_streamed('ML-1M sweep')
+    work.cleanup()
+    check_sweep_kernels(torch, card, last_cnn, test)
+    for representation, (mean, gate) in means.items():
+        if not mean >= gate:
+            raise AssertionError(
+                'ML-1M gate {}: mean test MRR {} of seeds {} is under {}'
+                .format(representation, mean, SWEEP_SEEDS, gate))
+    return launches
+
+
+def check_sweep_kernels(torch, card, model, test):
+    """K1, K1c and K2 with dot scoring on the trained CNN's own operands:
+    the test prefixes of ``sequence_mrr_score`` (T=1) and of
+    ``sequence_precision_recall_score`` at k=10, bit for bit against their
+    plain versions."""
+    from spotlight_tpu_torch.ops.kernels import ranking, topk
+
+    reprs, items, bias, mixtures = model._rank_factors_sequences(
+        test.sequences[:, :-1])
+    if mixtures is not None:
+        raise AssertionError('the CNN scores by dots')
+    targets = torch.as_tensor(test.sequences[:, -1:].astype(np.int64),
+                              device=DEVICE)
+    ts = ranking.matched_target_scores(reprs, items, bias, targets)
+    ts_plain = ranking.matched_target_scores_plain(reprs, items, bias,
+                                                   targets)
+    weights = ranking.rank_weights(reprs, items, bias, ts)
+    plain = ranking.rank_weights_plain(reprs, items, bias, ts_plain)
+    reprs_k = model._rank_factors_sequences(test.sequences[:, :-SEQ_K])[0]
+    scores, top = topk.streaming_topk(reprs_k, items, bias, SEQ_K)
+    p_scores, p_top = topk.streaming_topk_plain(reprs_k, items, bias, SEQ_K)
+    shape = 'B={} N={} D={}'.format(reprs.shape[0], items.shape[0],
+                                    reprs.shape[1])
+    log(check='ML-1M sweep kernels on the trained CNN', shape=shape,
+        matched_target_scores_ulp=ulp_gap(torch, ts, ts_plain),
+        rank_weights_apart=int((weights != plain).sum()),
+        topk_ids_apart=int((top != p_top).sum()),
+        topk_scores_ulp=ulp_gap(torch, scores, p_scores), card=card)
+    if not (same_bits(torch, ts, ts_plain) and torch.equal(weights, plain)
+            and torch.equal(top, p_top)
+            and same_bits(torch, scores, p_scores)):
+        raise AssertionError('a kernel differs from its plain version on '
+                             'the trained CNN at ' + shape)
+    if not bool((weights >= 0.5).all()):
+        raise AssertionError('a target lost its self-tie')
+
+
 # -- phase 5: where the time goes --------------------------------------------
 
 def profile_metrics(torch, card, model, test, train, heavy):
@@ -3216,6 +3558,12 @@ def profile_call(torch, card, name, call):
         start = time.perf_counter()
         call()
         wall_ms = (time.perf_counter() - start) * 1e3
+    return profile_summary(card, name, prof, wall_ms)
+
+
+def profile_summary(card, name, prof, wall_ms):
+    """The logged summary of a profile: device ms by kernel, busy ms, the
+    idle share of ``wall_ms`` and the device kernel calls."""
     by_kernel = {}
     device_calls = 0
     for event in prof.key_averages():
@@ -3455,6 +3803,11 @@ def main():
                         gate_test)
     log(phase='pooling, cnn, sequence lazy engine, serialization',
         seconds=time.perf_counter() - start)
+
+    start = time.perf_counter()
+    for name, count in run_ml1m_sweep(torch, card).items():
+        launches[name] += count
+    log(phase='ML-1M sweep', seconds=time.perf_counter() - start)
 
     kernels = []
     for name in ('rank_weights', 'matched_target_scores', 'streaming_topk',

@@ -4,19 +4,32 @@ The port runs on an NVIDIA H100: plain tensor code is PyTorch, and every
 kernel the JAX package wrote in Pallas for the TPU becomes a kernel written
 by hand for Hopper (``ops/kernels/csrc``).  It mirrors the JAX package's
 module paths and is held against it; it never imports JAX or the JAX
-package.  Ported so far: the serving and evaluation paths of implicit
-matrix factorisation (``Interactions``, ``BilinearNet``,
-``ImplicitFactorizationModel.predict``, ``mrr_score`` and
-``precision_recall_score``) and of LSTM and mixture-of-tastes sequence
-models (``SequenceInteractions``, ``ImplicitSequenceModel.predict``,
-``sequence_mrr_score`` and ``sequence_precision_recall_score``), bloom
-embeddings (``ops.BloomEmbedding``, ``ops.ScaledEmbeddingBag``) as item
-layers of sequence models and user and item layers of ``BilinearNet``, and
-the kernel entry points ``rank_counts``, ``reciprocal_ranks_streaming``,
-``bloom_gather_sum`` and ``multihot_gather_sum`` (``ops.kernels``), and
-the training of implicit matrix factorisation
-(``ImplicitFactorizationModel.fit``: the dense engine and the row-sparse
-lazy-Adam engine, whose row update is the kernel ``row_adam``).
+package.  It covers the JAX package on one device:
+
+- data: ``Interactions`` and ``SequenceInteractions``, the splits, the
+  dataset loaders (MovieLens, goodbooks, Amazon) with their seeded
+  stand-ins (``data.fixtures``), the synthetic generators with the native
+  Markov walk (``native``, C++ built by ``g++`` at first use), and the
+  alias modules of the original library's paths (``datasets``,
+  ``interactions``, ``cross_validation``, ``layers``, ``losses``,
+  ``sampling``);
+- models: ``ImplicitFactorizationModel`` and
+  ``ExplicitFactorizationModel`` over ``BilinearNet`` (dense and row-sparse
+  lazy-Adam engines), ``ImplicitSequenceModel`` over pooling, CNN, LSTM and
+  mixture-of-tastes representations (dense and row-sparse engines), bloom
+  embeddings as item or user layers, the seven losses;
+- evaluation: ``mrr_score``, ``precision_recall_score``, their sequence
+  forms and ``rmse_score``, through the kernels ``rank_weights``,
+  ``matched_target_scores``, ``matched_candidate_scores`` and
+  ``streaming_topk``; the kernel entry points ``rank_counts``,
+  ``reciprocal_ranks_streaming``, ``bloom_gather_sum`` and
+  ``multihot_gather_sum``; the lazy engines' row update is the kernel
+  ``row_adam``;
+- utilities: serialization, resumable result logs (``utils.results``),
+  profiling (``utils.profiling``) and a single-device entry point
+  (``entry``).
+
+The distributed layer (``spotlight_tpu.parallel``) is not ported yet.
 """
 
 __version__ = '0.1.0'

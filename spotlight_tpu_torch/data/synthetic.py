@@ -10,9 +10,11 @@ Counterpart of ``spotlight_tpu/data/synthetic.py``:
   structure.
 
 Both are numpy, so the port keeps its own copy; the same ``RandomState``
-gives the same arrays as the JAX package's.  The Markov walk is the JAX
-package's Python loop (its native walk is documented bit-identical to it),
-one step at a time: a few seconds for 1e4 steps over 1e3 states.
+gives the same arrays as the JAX package's.  The Markov walk runs in
+:mod:`spotlight_tpu_torch.native` (C++, built by ``g++`` at first use),
+bit-identical to the Python loop it replaces, which runs where the library
+cannot be built: one step at a time, a few seconds for 1e4 steps over 1e3
+states.
 """
 
 from __future__ import annotations
@@ -49,6 +51,12 @@ def _generate_sequences(num_steps, transition_matrix, order, random_state):
 
     rvs = random_state.rand(num_steps)
     state = random_state.randint(num_states, size=order, dtype=np.int64)
+
+    from spotlight_tpu_torch import native
+
+    elements = native.markov_walk(cumulative, rvs, state)
+    if elements is not None:
+        return elements
 
     elements = np.empty(num_steps, dtype=np.int32)
     for step, rv in enumerate(rvs):

@@ -28,11 +28,13 @@ from __future__ import annotations
 
 import torch
 
-from spotlight_tpu_torch.ops.lazy_adam import sparse_adam_rows
+from spotlight_tpu_torch.ops.lazy_adam import lazy_adam_init, sparse_adam_rows
 from spotlight_tpu_torch.ops.losses import EXPLICIT_LOSSES, IMPLICIT_LOSSES
 from spotlight_tpu_torch.ops.sampling import (inbatch_pair_weights,
                                               weighted_inbatch_elems)
 from spotlight_tpu_torch.utils.training import masked_mean
+
+__all__ = ['build_lazy_step', 'lazy_adam_init', 'sparse_adam_rows']
 
 USER_TABLE = 'user_embeddings.weight'
 ITEM_TABLE = 'item_embeddings.weight'

@@ -4,6 +4,7 @@ from spotlight_tpu_torch.sequence.implicit import (  # noqa: F401
     ImplicitSequenceModel,
 )
 from spotlight_tpu_torch.sequence.representations import (  # noqa: F401
+    PADDING_IDX,
     CNNNet,
     LSTMNet,
     MixtureLSTMNet,

@@ -1,2 +1,2 @@
 """Shared utilities: training machinery, parameter conversion,
-serialization."""
+serialization, result logs and profiling."""

@@ -1815,3 +1815,109 @@ def test_a_card_saved_model_needs_a_card_to_load(cuda, tmp_path):
         text=True, timeout=300)
     assert result.returncode != 0
     assert 'CUDA' in result.stderr, result.stderr[-2000:]
+
+
+# -- the utilities and the ML-1M sweep ----------------------------------------
+
+def test_entry_runs_on_the_card(cuda):
+    """``entry()`` defaults to the card and agrees with the CPU's forward
+    on the same parameters to rtol 1e-5 (another summation order)."""
+    from spotlight_tpu_torch.entry import entry
+
+    fn, (net, sequences) = entry()
+    assert sequences.is_cuda and all(p.is_cuda for p in net.parameters())
+    cpu_fn, (cpu_net, cpu_sequences) = entry(device='cpu')
+    cpu_net.load_state_dict({name: value.cpu() for name, value
+                             in net.state_dict().items()})
+    with torch.no_grad():
+        predictions, catalog = fn(net, sequences)
+        want = cpu_fn(cpu_net, cpu_sequences)
+    assert predictions.shape == (128, 64) and catalog.shape == (128, 2048)
+    for got, expected in zip((predictions, catalog), want):
+        assert bool(torch.isfinite(got).all())
+        np.testing.assert_allclose(got.cpu().numpy(), expected.numpy(),
+                                   rtol=1e-5, atol=1e-6)
+
+
+def test_trace_records_cuda_kernels_in_a_fresh_process(cuda, tmp_path):
+    """``utils.profiling.trace`` on the card writes a Chrome trace holding
+    the card's kernels; run in a fresh process, since ``torch.profiler``
+    loses device events after several sessions in one."""
+    import json
+    import pathlib
+    import subprocess
+    import sys
+
+    script = (
+        'import sys, torch\n'
+        'from spotlight_tpu_torch.utils import profiling\n'
+        'x = torch.randn(512, 512, device="cuda")\n'
+        'with profiling.trace(sys.argv[1], device="cuda") as prof:\n'
+        '    for _ in range(3):\n'
+        '        x = torch.tanh(x @ x)\n'
+        'print(sum(e.count for e in prof.key_averages()\n'
+        '          if getattr(e, "self_device_time_total", 0) > 0\n'
+        '          and not e.key.startswith("aten::")))\n')
+    result = subprocess.run(
+        [sys.executable, '-c', script, str(tmp_path)],
+        cwd=pathlib.Path(__file__).resolve().parents[1], capture_output=True,
+        text=True, timeout=300)
+    assert result.returncode == 0, result.stderr[-2000:]
+    assert int(result.stdout.strip().splitlines()[-1]) >= 6
+    events = json.loads((tmp_path / 'trace.json').read_text())
+    kernels = [event for event in events['traceEvents']
+               if event.get('cat') == 'kernel']
+    assert len(kernels) >= 6
+
+
+def test_throughput_meter_waits_for_the_card(cuda):
+    """On the card a step's time includes its device work: a product
+    enqueued in the step counts, though the host returns at once."""
+    from spotlight_tpu_torch.utils.profiling import ThroughputMeter
+
+    x = torch.randn(4096, 4096, device='cuda')
+    meter = ThroughputMeter(warmup_steps=1, device='cuda')
+    for _ in range(3):
+        with meter.step(1):
+            for _ in range(20):
+                x = torch.tanh(x @ x)
+    assert meter.measured_steps == 2
+    # 20 products of 1.4e11 operations at most 67e12 a second: > 40 ms.
+    assert meter.examples_per_second() < 1 / 0.04
+
+
+def test_native_walk_builds_on_the_card_machine(cuda):
+    from spotlight_tpu_torch import native
+    from spotlight_tpu_torch.data import synthetic
+
+    assert native.load() is not None
+    assert native.library_path().parent.name == 'native'
+    rs = np.random.RandomState(3)
+    cumulative = np.cumsum(synthetic._build_transition_matrix(50, 0.1, rs),
+                           axis=1)
+    rvs, state = rs.rand(500), rs.randint(50, size=2).astype(np.int64)
+    got = native.markov_walk(cumulative, rvs, state)
+    window, want = state.copy(), []
+    for rv in rvs:
+        new = min(49, int(np.searchsorted(cumulative[window].mean(axis=0),
+                                          rv)))
+        window[:-1], window[-1] = window[1:], new
+        want.append(new)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_ml1m_cnn_gate_one_seed(cuda):
+    """One seed of ``chip_smoke.py`` phase 14's CNN gate: the committed
+    best CNN configuration, fitted on the card at full width, reaches 0.9
+    of the log's test MRR."""
+    import chip_smoke
+    from spotlight_tpu_torch.data import fixtures
+
+    train, _, test = chip_smoke.ml1m_sequences(
+        chip_smoke.ml1m_interactions_from_columns(
+            fixtures.generate_movielens_1m_like()))
+    h, best = chip_smoke.sweep_configurations()['cnn']
+    model = chip_smoke.sweep_model(torch, 'cnn', h, train.num_items, 0)
+    model.fit(train)
+    mrr = float(evaluation.sequence_mrr_score(model, test).mean())
+    assert mrr >= chip_smoke.SWEEP_GATES['cnn'] * best['test_mrr'], mrr

@@ -15,8 +15,8 @@ sigmoid) and ``rmse_score`` agree to 1e-6 on the same parameters.
 Whole fits draw from different generators, so the port is held to the JAX
 package's learning gates instead: ``tests/factorization/test_explicit.py``
 on the synthetic explicit data, and ``tests/test_ml100k_gates.py`` on the
-ML-100K stand-in (``spotlight_tpu.data.fixtures``) converted to the port's
-``Interactions``.
+ML-100K stand-in of the port's own ``data.fixtures`` (bit-equal to the JAX
+package's) in the port's ``Interactions``.
 """
 
 import functools
@@ -28,13 +28,13 @@ import pytest
 import torch
 
 from spotlight_tpu.data import Interactions as JaxInteractions
-from spotlight_tpu.data import fixtures
 from spotlight_tpu.evaluation import rmse_score as jax_rmse_score
 from spotlight_tpu.factorization import (
     ExplicitFactorizationModel as JaxExplicitModel)
 from spotlight_tpu.factorization.representations import (
     BilinearNet as JaxBilinearNet)
-from spotlight_tpu_torch.data import Interactions, random_train_test_split
+from spotlight_tpu_torch.data import (Interactions, fixtures,
+                                      random_train_test_split)
 from spotlight_tpu_torch.data.synthetic import generate_factorization
 from spotlight_tpu_torch.evaluation import rmse_score
 from spotlight_tpu_torch.factorization import (BilinearNet,
@@ -301,7 +301,7 @@ EPSILON = 0.005
 
 @functools.lru_cache(maxsize=None)
 def ml100k():
-    """The JAX package's ML-100K stand-in, its columns as
+    """The port's ML-100K stand-in, its columns as
     ``get_movielens_dataset('100K')`` hands them to ``Interactions``."""
     columns = fixtures.generate_movielens_100k_like()
     return Interactions(columns['user_id'], columns['item_id'],
@@ -311,7 +311,7 @@ def ml100k():
 
 def test_ml100k_stand_in_is_the_jax_loaders(tmp_path, monkeypatch):
     """The conversion equals what the JAX loader reads back from the
-    installed fixture."""
+    fixture the port installed."""
     from spotlight_tpu.data.movielens import get_movielens_dataset
 
     fixtures.install_movielens_100k_fixture(data_directory=str(tmp_path))
