@@ -168,6 +168,28 @@ each of which exits non-zero when it fails:
    versions on the last CNN's operands, and the gates: the mean test MRR
    of the three seeds at least 0.9 (CNN) and 0.8 (pooling) of the log's
    best.
+15. sharded evaluation (``spotlight_tpu_torch.parallel``): (a) four ranks
+   on the one card (``torch.multiprocessing.spawn``, a gloo group through
+   a ``file://`` store, ``make_mesh(devices=['cuda:0'] * 4)``), each
+   building phase 4's implicit-MF model (50,000 x 200,000, D=64; 20,000
+   test users, the 120-item heavy user), phase 6's mixture model (M=4,
+   2,048 sequences of 50) and an MF model over N=1,001 items (no multiple
+   of 4) from their seeds, at data=1 x model=4 and data=2 x model=2:
+   ``mrr_score`` and ``precision_recall_score(k=10)`` with and without the
+   train mask, ``sequence_mrr_score`` and
+   ``sequence_precision_recall_score(k=10)``, and the N=1,001 model's MRR
+   and P@10, each once warm and once timed, with the launch counters and
+   ``evaluation.MATERIALIZE_ROUTES`` zeroed just before and read just
+   after; every rank's every result bit-equal to the single-device call on
+   the card and no call on the materialize route; rank 0 holds K1, K2 and
+   K5 on its block of the MF catalogue and on the padded last block of the
+   N=1,001 one against their plain versions, bit for bit; each call's wall
+   ms per rank beside one device's (four ranks share one card: not a
+   scaling figure).  (b) A one-rank NCCL group: the four sharded functions
+   at the MF width (2,048 users, model axis 1), counted, exactly equal to
+   the single-device kernels.  The kernels are built before the ranks
+   start; the ranks only load them.  A rank's exception fails the run, and
+   a collective gives up after ``MESH_TIMEOUT_S``.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -641,7 +663,7 @@ def dyadic(values, step):
     return (np.round(values / step) * step).astype(np.float32)
 
 
-def parameter_tree(rs, dim=D):
+def parameter_tree(rs, dim=D, num_users=NUM_USERS, num_items=NUM_ITEMS):
     """A JAX-layout fused parameter tree of width ``dim``.
 
     The factors are N(0, 1/D) draws (the JAX package's initialisation: a
@@ -657,8 +679,8 @@ def parameter_tree(rs, dim=D):
         weight[:, dim] = dyadic(2.0 ** -9 * rs.randn(rows), 2.0 ** -16)
         return {'weight': weight}
 
-    return {'user_embeddings': table(NUM_USERS),
-            'item_embeddings': table(NUM_ITEMS)}
+    return {'user_embeddings': table(num_users),
+            'item_embeddings': table(num_items)}
 
 
 def restrict(interactions, num_users):
@@ -700,39 +722,59 @@ def check_streamed(where):
                              'route'.format(routes, where))
 
 
-def run_slice(torch, card, captured):
-    """Returns (launch counts of the main path, model, data); records the
-    K1c calls of its ``mrr_score`` into ``captured``."""
+def slice_data(num_users=NUM_USERS, num_items=NUM_ITEMS, eval_users=EVAL_USERS,
+               train_pairs=TRAIN_PAIRS, seed=7):
+    """(the generator, train, test, heavy): ``heavy`` is ``train`` with
+    HEAVY_EXTRA more items for user 0.  The generator goes on to draw the
+    rest of the slice's inputs."""
     from spotlight_tpu_torch.data import Interactions
-    from spotlight_tpu_torch.evaluation import (mrr_score,
-                                                precision_recall_score)
-    from spotlight_tpu_torch.factorization import ImplicitFactorizationModel
-    from spotlight_tpu_torch.utils.convert import params_from_jax
 
-    if torch.backends.cuda.matmul.allow_tf32:
-        raise AssertionError('float32 products must not run in TF32')
-    rs = np.random.RandomState(7)
+    rs = np.random.RandomState(seed)
     train = Interactions(
-        rs.randint(0, NUM_USERS, TRAIN_PAIRS).astype(np.int64),
-        rs.randint(0, NUM_ITEMS, TRAIN_PAIRS).astype(np.int64),
-        num_users=NUM_USERS, num_items=NUM_ITEMS)
+        rs.randint(0, num_users, train_pairs).astype(np.int64),
+        rs.randint(0, num_items, train_pairs).astype(np.int64),
+        num_users=num_users, num_items=num_items)
     test = Interactions(
-        np.repeat(np.arange(EVAL_USERS, dtype=np.int64), TEST_PER_USER),
-        rs.randint(0, NUM_ITEMS, TEST_PER_USER * EVAL_USERS).astype(
+        np.repeat(np.arange(eval_users, dtype=np.int64), TEST_PER_USER),
+        rs.randint(0, num_items, TEST_PER_USER * eval_users).astype(
             np.int64),
-        num_users=NUM_USERS, num_items=NUM_ITEMS)
+        num_users=num_users, num_items=num_items)
     heavy = Interactions(
         np.concatenate([np.zeros(HEAVY_EXTRA, dtype=np.int64),
                         train.user_ids]),
-        np.concatenate([rs.randint(0, NUM_ITEMS, HEAVY_EXTRA).astype(
+        np.concatenate([rs.randint(0, num_items, HEAVY_EXTRA).astype(
             np.int64), train.item_ids]),
-        num_users=NUM_USERS, num_items=NUM_ITEMS)
+        num_users=num_users, num_items=num_items)
+    return rs, train, test, heavy
+
+
+def slice_model(train, mesh=None, seed=0):
+    """(the implicit-MF model over ``train`` with ``parameter_tree``'s
+    weights, the tree), on ``mesh`` if one is given."""
+    from spotlight_tpu_torch.factorization import ImplicitFactorizationModel
+    from spotlight_tpu_torch.utils.convert import params_from_jax
 
     model = ImplicitFactorizationModel(
-        loss='bpr', embedding_dim=D, random_state=np.random.RandomState(42))
+        loss='bpr', embedding_dim=D, random_state=np.random.RandomState(42),
+        mesh=mesh)
     model._initialize(train)
-    tree = parameter_tree(np.random.RandomState(0))
+    tree = parameter_tree(np.random.RandomState(seed),
+                          num_users=train.num_users,
+                          num_items=train.num_items)
     model._load_params(params_from_jax(model._net, tree))
+    return model, tree
+
+
+def run_slice(torch, card, captured):
+    """Returns (launch counts of the main path, model, data); records the
+    K1c calls of its ``mrr_score`` into ``captured``."""
+    from spotlight_tpu_torch.evaluation import (mrr_score,
+                                                precision_recall_score)
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError('float32 products must not run in TF32')
+    rs, train, test, heavy = slice_data()
+    model, tree = slice_model(train)
 
     # The main path, with the launch counters zeroed just before it.
     torch.cuda.synchronize()
@@ -829,16 +871,18 @@ def sequence_rows():
         1, NUM_ITEMS, (SEQ_ROWS, SEQ_LENGTH)).astype(np.int32)
 
 
-def sequence_model():
+def sequence_model(mesh=None):
     """The untrained mixture model of mixture_catalog_eval_200k, seeded
-    (its item biases are zero), and the sequences."""
+    (its item biases are zero), on ``mesh`` if one is given, and the
+    sequences."""
     from spotlight_tpu_torch.data import SequenceInteractions
     from spotlight_tpu_torch.sequence import ImplicitSequenceModel
 
     sequences = sequence_rows()
     model = ImplicitSequenceModel(loss='bpr', representation='mixture',
                                   embedding_dim=D,
-                                  random_state=np.random.RandomState(0))
+                                  random_state=np.random.RandomState(0),
+                                  mesh=mesh)
     model._initialize(SequenceInteractions(sequences, num_items=NUM_ITEMS))
     return model, sequences
 
@@ -3325,16 +3369,16 @@ def traced_fit(torch, card, name, model, train, log_dir):
         num_items=train.num_items)
     model._n_iter = 1
     began = time.perf_counter()
-    with profiling.trace(log_dir, device=DEVICE) as prof:
+    with profiling.trace(log_dir, device=DEVICE) as traced:
         start = time.perf_counter()
         model.fit(data)
         wall_ms = (time.perf_counter() - start) * 1e3
-    summary = profile_summary(card, name, prof, wall_ms)
+    summary = profile_summary(card, name, traced.profiler, wall_ms)
     summary.update(steps=steps, traced_s=time.perf_counter() - began,
                    device_calls_per_step=summary['device_calls'] / steps,
                    device_busy_ms_per_step=(summary['device_busy_ms']
                                             / steps),
-                   trace_bytes=os.path.getsize(os.path.join(log_dir,
+                   trace_bytes=os.path.getsize(os.path.join(traced,
                                                             'trace.json')))
     log(sweep_epoch=name, card=card, **{key: summary[key] for key in (
         'steps', 'wall_ms', 'device_calls_per_step',
@@ -3682,6 +3726,331 @@ def check_routes(torch, card, test, train):
     torch.cuda.empty_cache()
 
 
+# -- phase 15: sharded evaluation on a mesh of ranks --------------------------
+
+#: Ranks of the gloo mesh, every one on the one card, and its two layouts.
+MESH_RANKS = 4
+MESH_LAYOUTS = ((1, 4), (2, 2))
+#: Seconds a collective or the group's start may wait before it raises.
+MESH_TIMEOUT_S = 120
+#: The catalogue that does not divide by 4 (padded to 1,004 rows).
+EDGE_USERS = 500
+EDGE_ITEMS = 1_001
+EDGE_EVAL_USERS = 300
+EDGE_TRAIN_PAIRS = 5_000
+
+
+def mesh_counters():
+    """The launch counters of the kernels of the mesh path."""
+    from spotlight_tpu_torch.ops.kernels import ranking
+
+    return {**counters(), **sequence_counters(),
+            'rank_counts': ranking.RANK_COUNTS_LAUNCHES}
+
+
+def reset_mesh_counters():
+    from spotlight_tpu_torch.ops.kernels import ranking
+
+    reset_counters()
+    reset_sequence_counters()
+    ranking.RANK_COUNTS_LAUNCHES = 0
+
+
+def mesh_inputs():
+    """The phase's data, made from seeds alike on every rank: phase 4's MF
+    interactions, phase 6's sequences and the N=1,001 catalogue's."""
+    from spotlight_tpu_torch.data import SequenceInteractions
+
+    _, train, test, heavy = slice_data()
+    _, edge_train, edge_test, _ = slice_data(
+        EDGE_USERS, EDGE_ITEMS, EDGE_EVAL_USERS, EDGE_TRAIN_PAIRS, seed=8)
+    sequences = SequenceInteractions(sequence_rows()[:SEQ_EVAL],
+                                     num_items=NUM_ITEMS)
+    return dict(train=train, test=test, heavy=heavy, sequences=sequences,
+                edge_train=edge_train, edge_test=edge_test)
+
+
+def mesh_models(inputs, mesh=None):
+    """(MF model, mixture model, N=1,001 MF model), from their seeds, on
+    ``mesh`` if one is given (else on the card)."""
+    mf, _ = slice_model(inputs['train'], mesh)
+    mixture, _ = sequence_model(mesh)
+    edge, _ = slice_model(inputs['edge_train'], mesh, seed=1)
+    return mf, mixture, edge
+
+
+def mesh_calls(torch, models, inputs):
+    """Every metric call of the phase, each once to warm up and once timed:
+    ({name: numpy result}, {name: wall ms of the timed call})."""
+    from spotlight_tpu_torch.evaluation import (
+        mrr_score, precision_recall_score, sequence_mrr_score,
+        sequence_precision_recall_score)
+
+    mf, mixture, edge = models
+    test, train, heavy = inputs['test'], inputs['train'], inputs['heavy']
+    sequences = inputs['sequences']
+    calls = {
+        'mrr_score (MF, train)': lambda: mrr_score(mf, test, train=train),
+        'mrr_score (MF)': lambda: mrr_score(mf, test),
+        'precision_recall_score (MF, heavy train)':
+            lambda: precision_recall_score(mf, test, train=heavy, k=10),
+        'precision_recall_score (MF)':
+            lambda: precision_recall_score(mf, test, k=10),
+        'sequence_mrr_score (mixture)':
+            lambda: sequence_mrr_score(mixture, sequences),
+        'sequence_precision_recall_score (mixture)':
+            lambda: sequence_precision_recall_score(mixture, sequences,
+                                                    k=SEQ_K),
+        'mrr_score (N=1,001, train)': lambda: mrr_score(
+            edge, inputs['edge_test'], train=inputs['edge_train']),
+        'precision_recall_score (N=1,001, train)':
+            lambda: precision_recall_score(edge, inputs['edge_test'],
+                                           train=inputs['edge_train'], k=10),
+    }
+    results, ms = {}, {}
+    for name, call in calls.items():
+        call()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        results[name] = call()
+        ms[name] = (time.perf_counter() - start) * 1e3
+    return results, ms
+
+
+def check_shard_kernels(torch, mesh, models, inputs):
+    """K1, K2 and K5 on two blocks of a 1 x 4 mesh against their plain
+    versions on the same operands: rank 0's block of the MF catalogue at
+    CHECK_USERS users, and the last block of the N=1,001 catalogue, which
+    holds the three pad rows (zero vectors, bias -FLOAT_MAX).  Targets are
+    global ids shifted into the block, most outside it.  Returns the
+    checked shapes."""
+    from spotlight_tpu_torch import evaluation
+    from spotlight_tpu_torch.ops.kernels import ranking, topk
+
+    checked = []
+    for name, model, test, block in (
+            ('MF, rank 0', models[0], inputs['test'], 0),
+            ('N=1,001, last block', models[2], inputs['edge_test'],
+             mesh.shape['model'] - 1)):
+        users, catalogue, catalogue_bias, _ = model._rank_factors_users(
+            np.arange(min(CHECK_USERS, test.num_users)))
+        targets = torch.as_tensor(np.random.RandomState(block).randint(
+            0, model._num_items, (users.shape[0], 4)), device=users.device)
+        scores = ranking.matched_target_scores(users, catalogue,
+                                               catalogue_bias, targets)
+        items, bias = evaluation._pad_catalog_for_shards(mesh, catalogue,
+                                                         catalogue_bias)
+        rows = items.shape[0] // mesh.shape['model']
+        first = block * rows
+        items, bias = items[first:first + rows], bias[first:first + rows]
+        got = ranking.rank_weights(users, items, bias, scores)
+        want = ranking.rank_weights_plain(users, items, bias, scores)
+        if not torch.equal(got, want):
+            raise AssertionError('rank_weights on {}'.format(name))
+        got = ranking.rank_counts(users, items, bias, scores,
+                                  targets - first)
+        want = ranking.rank_counts_plain(users, items, bias, scores,
+                                         targets - first)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError('rank_counts on {}'.format(name))
+        k = min(MAIN_TOPK_K, rows)
+        got = topk.streaming_topk(users, items, bias, k)
+        want = topk.streaming_topk_plain(users, items, bias, k)
+        if not (torch.equal(got[1], want[1])
+                and same_bits(torch, got[0], want[0])):
+            raise AssertionError('streaming_topk on {}'.format(name))
+        checked.append(dict(block=name, users=users.shape[0], rows=rows,
+                            first_row=first, targets=4, k=k))
+    return checked
+
+
+def mesh_rank(rank, world, store, out_dir):
+    """One rank of the gloo mesh on the card (started by
+    ``torch.multiprocessing.spawn``; an exception here fails the phase):
+    the metric calls on each layout, with the launch counters zeroed just
+    before and read just after, then rank 0's block checks."""
+    import datetime
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from spotlight_tpu_torch import evaluation
+    from spotlight_tpu_torch.parallel import make_mesh
+
+    torch.cuda.set_device(0)
+    # The ranks share the host's cores.
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    dist.init_process_group(
+        'gloo', init_method='file://' + store, world_size=world, rank=rank,
+        timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    inputs = mesh_inputs()
+    out = {}
+    for layout in MESH_LAYOUTS:
+        mesh = make_mesh(*layout, devices=['cuda:0'] * world)
+        models = mesh_models(inputs, mesh)
+        torch.cuda.synchronize()
+        reset_mesh_counters()
+        results, ms = mesh_calls(torch, models, inputs)
+        out[layout] = dict(results=results, ms=ms,
+                           launches=mesh_counters(),
+                           routes=evaluation.MATERIALIZE_ROUTES,
+                           device=str(models[0]._device))
+        if rank == 0 and layout == (1, 4):
+            out['shard_checks'] = check_shard_kernels(torch, mesh, models,
+                                                      inputs)
+    dist.destroy_process_group()
+    with open(os.path.join(out_dir, 'rank{}.pkl'.format(rank)), 'wb') as fh:
+        pickle.dump(out, fh)
+
+
+def same_arrays(got, want):
+    """Equal numpy results (a tuple of arrays or one), float32 bit for
+    bit."""
+    if isinstance(got, tuple):
+        return len(got) == len(want) and all(
+            same_arrays(a, b) for a, b in zip(got, want))
+    return (got.shape == want.shape and got.dtype == want.dtype
+            and np.array_equal(np.ascontiguousarray(got).view(np.uint8),
+                               np.ascontiguousarray(want).view(np.uint8)))
+
+
+def run_mesh_ranks(torch, card, inputs):
+    """(a) MESH_RANKS gloo ranks on the one card over both layouts: every
+    rank's every metric bit-equal to the single-device call, no call on the
+    materialize route, the path's kernels launched.  Returns the ranks'
+    summed launch counts."""
+    import pickle
+    import shutil
+
+    out_dir = os.path.join(ROOT, 'build', 'mesh_smoke')
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    models = mesh_models(inputs)
+    want, want_ms = mesh_calls(torch, models, inputs)
+    del models
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    torch.multiprocessing.spawn(
+        mesh_rank, args=(MESH_RANKS, os.path.join(out_dir, 'store'),
+                         out_dir), nprocs=MESH_RANKS, join=True)
+    spawn_s = time.perf_counter() - start
+    ranks = []
+    for rank in range(MESH_RANKS):
+        with open(os.path.join(out_dir, 'rank{}.pkl'.format(rank)),
+                  'rb') as fh:
+            ranks.append(pickle.load(fh))
+    launches = {}
+    for layout in MESH_LAYOUTS:
+        for rank, out in enumerate(ranks):
+            got = out[layout]
+            if got['routes']:
+                raise AssertionError('{} mesh calls took the materialize '
+                                     'route'.format(got['routes']))
+            if got['device'] != 'cuda:0':
+                raise AssertionError('rank {} ran on {}'.format(
+                    rank, got['device']))
+            for name, result in want.items():
+                if not same_arrays(got['results'][name], result):
+                    raise AssertionError('{} on rank {} of {} x {} differs '
+                                         'from one device'.format(
+                                             name, rank, *layout))
+            for name, count in got['launches'].items():
+                launches[name] = launches.get(name, 0) + count
+        for name in want:
+            log(mesh_call=name, layout='{} x {}'.format(*layout),
+                rank_ms=[out[layout]['ms'][name] for out in ranks],
+                one_device_ms=want_ms[name], bit_equal=True,
+                note='four ranks share one card: not a scaling figure',
+                card=card)
+    log(mesh_path_launches=launches, ranks=MESH_RANKS,
+        layouts=[list(layout) for layout in MESH_LAYOUTS],
+        spawn_s=spawn_s)
+    for name in ('rank_weights', 'matched_target_scores', 'streaming_topk',
+                 'rank_weights (mixture)', 'streaming_topk (mixture)',
+                 'matched_candidate_scores'):
+        if launches.get(name, 0) <= 0:
+            raise AssertionError('{} never launched on the mesh path'
+                                 .format(name))
+    log(mesh_shard_checks=ranks[0]['shard_checks'], bit_equal=True)
+    return launches
+
+
+def run_nccl_mesh(torch, card, inputs):
+    """(b) A one-rank NCCL group: the four sharded functions at the MF
+    width (model axis 1), with the launch counters zeroed just before and
+    read just after, each exactly equal to the single-device kernel.
+    Returns the launch counts."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from spotlight_tpu_torch.ops.kernels import ranking, topk
+    from spotlight_tpu_torch.parallel import evaluation as pe
+    from spotlight_tpu_torch.parallel import make_mesh
+
+    model, _ = slice_model(inputs['train'])
+    users, items, bias, _ = model._rank_factors_users(
+        np.arange(CHECK_USERS))
+    targets = torch.as_tensor(np.random.RandomState(9).randint(
+        0, NUM_ITEMS, (CHECK_USERS, TEST_PER_USER)), device=users.device)
+    store = os.path.join(ROOT, 'build', 'mesh_smoke', 'nccl_store')
+    dist.init_process_group(
+        'nccl', init_method='file://' + store, world_size=1, rank=0,
+        timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        mesh = make_mesh(data=1, model=1, devices=['cuda:0'])
+        torch.cuda.synchronize()
+        reset_mesh_counters()
+        start = time.perf_counter()
+        scores = pe.sharded_candidate_scores(mesh, users, items, bias,
+                                             targets)
+        weights = pe.sharded_rank_weights(mesh, users, items, bias, scores)
+        greater, equal = pe.sharded_rank_counts(mesh, users, items, bias,
+                                                scores, targets)
+        top = pe.sharded_topk(mesh, users, items, bias, MAIN_TOPK_K)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+        launches = mesh_counters()
+    finally:
+        dist.destroy_process_group()
+    checks = {
+        'sharded_candidate_scores': same_bits(
+            torch, scores, ranking.matched_target_scores(users, items, bias,
+                                                         targets)),
+        'sharded_rank_weights': torch.equal(
+            weights, ranking.rank_weights(users, items, bias, scores)),
+        'sharded_rank_counts': all(torch.equal(a, b) for a, b in zip(
+            (greater, equal),
+            ranking.rank_counts(users, items, bias, scores, targets))),
+        'sharded_topk': same_arrays(
+            tuple(t.cpu().numpy() for t in top),
+            tuple(t.cpu().numpy() for t in topk.streaming_topk(
+                users, items, bias, MAIN_TOPK_K)))}
+    log(nccl_one_rank=checks, users=CHECK_USERS, items=NUM_ITEMS, dim=D,
+        k=MAIN_TOPK_K, wall_ms=wall_ms, launches=launches, card=card)
+    if not all(checks.values()):
+        raise AssertionError('sharded functions under NCCL: {}'.format(
+            checks))
+    for name in ('rank_weights', 'matched_target_scores', 'streaming_topk',
+                 'rank_counts'):
+        if launches[name] <= 0:
+            raise AssertionError('{} never launched under NCCL'.format(name))
+    return launches
+
+
+def run_mesh_phase(torch, card):
+    """Phase 15: returns the launch counts of the mesh path, (a) and (b)
+    together, by kernel entry."""
+    inputs = mesh_inputs()
+    launches = run_mesh_ranks(torch, card, inputs)
+    for name, count in run_nccl_mesh(torch, card, inputs).items():
+        launches[name] = launches.get(name, 0) + count
+    launches['mixture_score'] = sum(
+        launches[name] for name in sequence_counters())
+    return launches
+
+
 def main():
     import torch
 
@@ -3808,6 +4177,11 @@ def main():
     for name, count in run_ml1m_sweep(torch, card).items():
         launches[name] += count
     log(phase='ML-1M sweep', seconds=time.perf_counter() - start)
+
+    start = time.perf_counter()
+    for name, count in run_mesh_phase(torch, card).items():
+        launches[name] += count
+    log(phase='sharded evaluation', seconds=time.perf_counter() - start)
 
     kernels = []
     for name in ('rank_weights', 'matched_target_scores', 'streaming_topk',

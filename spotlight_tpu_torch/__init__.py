@@ -29,7 +29,11 @@ package.  It covers the JAX package on one device:
   profiling (``utils.profiling``) and a single-device entry point
   (``entry``).
 
-The distributed layer (``spotlight_tpu.parallel``) is not ported yet.
+Of the distributed layer (``spotlight_tpu.parallel``), sharded evaluation
+is ported (``parallel``: ``make_mesh`` over ``torch.distributed`` ranks,
+the row layout, the sharded metric functions, and ``mesh=`` on the
+estimators for evaluation); sharded training, checkpoints and the
+multi-host helpers are not yet.
 """
 
 __version__ = '0.1.0'

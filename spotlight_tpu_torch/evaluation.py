@@ -18,6 +18,13 @@ over the model's own predictions, in float32 as the JAX package's).  Users
   catalogue with one matrix product, masks train items to -FLOAT_MAX and
   ranks by sorting, reproducing ``scipy.stats.rankdata``'s average ranks.
 
+On a model with a mesh whose model axis has more than one rank
+(:mod:`spotlight_tpu_torch.parallel`), the streaming path runs sharded:
+each rank streams its block of the catalogue (padded to a multiple of the
+axis with rows that never outrank an item) and the ranks' weights are
+summed or their top-k lists merged (``parallel.evaluation``).  Every rank
+calls the metric alike and returns the same result, equal to one device's.
+
 Each metric call picks its path once, before any launch: it streams when
 the caller asks for it, the model exposes its factors, and the kernels
 take them (``ranking.streams``, ``topk.streams``: mixtures of at most
@@ -43,6 +50,8 @@ from spotlight_tpu_torch.ops.kernels import ranking, topk
 from spotlight_tpu_torch.ops.kernels.ranking import (
     matched_candidate_scores, matched_target_scores, rank_weights)
 from spotlight_tpu_torch.ops.kernels.topk import streaming_topk
+from spotlight_tpu_torch.parallel.evaluation import (
+    sharded_candidate_scores, sharded_rank_weights, sharded_topk)
 
 FLOAT_MAX = np.finfo(np.float32).max
 
@@ -189,6 +198,83 @@ def _streaming_ranks_device(reprs, item_matrix, item_bias, targets,
     return _mean_reciprocal(ranks, target_mask)
 
 
+def _sharded_mesh(model):
+    """The model's mesh when its catalogue is sharded (a model axis of more
+    than one rank, the JAX package's test), else None.  Every rank holds the
+    same model, so every rank takes the same branch: a rank that took
+    another would leave the others waiting in a collective."""
+    mesh = getattr(model, '_mesh', None)
+    if mesh is not None and mesh.shape.get('model', 1) > 1:
+        return mesh
+    return None
+
+
+def _pad_catalog_for_shards(mesh, item_matrix, item_bias):
+    """The catalogue padded to a multiple of the model axis with rows that
+    never outrank a real item: zero vectors with bias -FLOAT_MAX."""
+    pad = -item_matrix.shape[0] % mesh.shape['model']
+    if pad:
+        item_matrix = torch.cat([item_matrix, item_matrix.new_zeros(
+            (pad, item_matrix.shape[1]))])
+        item_bias = torch.cat([item_bias, item_bias.new_full(
+            (pad,), float(-FLOAT_MAX))])
+    return item_matrix, item_bias
+
+
+def _shard_catalog(model, mesh, item_matrix, item_bias):
+    """The padded catalogue of :func:`_pad_catalog_for_shards`, kept on the
+    model beside its item factors: the model hands out the same item tensor
+    until its parameters change, so a metric pads once a parameter version,
+    not once a batch (each rank's block is a view of it).  A model moved
+    to a mesh of another model axis pads anew."""
+    shards = mesh.shape['model']
+    cache = getattr(model, '_shard_catalog_cache', None)
+    if cache is None or cache[0] is not item_matrix or cache[1] != shards:
+        cache = (item_matrix, shards,
+                 *_pad_catalog_for_shards(mesh, item_matrix, item_bias))
+        model._shard_catalog_cache = cache
+    return cache[2], cache[3]
+
+
+def _repeat_first(rows, pad):
+    return torch.cat([rows, rows[:1].expand(pad, *rows.shape[1:])])
+
+
+def _streaming_ranks_sharded(mesh, reprs, item_matrix, item_bias, targets,
+                             target_mask, train_rows, mixture, num_items):
+    """Per-row mean reciprocal ranks over a row-sharded catalogue: matched
+    target scores on their owning ranks, each rank's rank weights summed
+    (``parallel.evaluation``), then the train correction.  ``item_matrix``
+    is padded to a multiple of the model axis; ``num_items`` is the real
+    catalogue, which the ranks' semantics use.  The user batch is padded
+    to a multiple of the data axis by repeating its first row, so that it
+    splits over the data ranks, and sliced back."""
+    safe_targets = targets.clamp(0, num_items - 1)
+    batch = reprs.shape[0]
+    pad = -batch % mesh.shape.get('data', 1)
+    if pad:
+        reprs = _repeat_first(reprs, pad)
+        safe_targets = _repeat_first(safe_targets, pad)
+        if train_rows is not None:
+            train_rows = _repeat_first(train_rows, pad)
+
+    target_scores = sharded_candidate_scores(
+        mesh, reprs, item_matrix, item_bias, safe_targets, mixture=mixture)
+    weights = sharded_rank_weights(mesh, reprs, item_matrix, item_bias,
+                                   target_scores, mixture=mixture)
+    if train_rows is not None:
+        valid_train = train_rows >= 0
+        safe_train = train_rows.clamp(0, num_items - 1)
+        train_scores = sharded_candidate_scores(
+            mesh, reprs, item_matrix, item_bias, safe_train, mixture=mixture)
+        ranks = _ranks_with_train_correction(
+            weights, num_items, safe_targets, target_scores, valid_train,
+            safe_train, train_scores)
+    else:
+        ranks = weights + 0.5
+    return _mean_reciprocal(ranks[:batch], target_mask)
+
+
 def _rank_factors(model, kind, inputs):
     """``(reprs, item_matrix, item_bias, mixture)`` from the model's
     ``_rank_factors_users`` (kind 'users', inputs user ids) or
@@ -207,6 +293,14 @@ def _streaming_ranks(model, kind, inputs, targets, target_mask,
     if factors is None:
         return None
     reprs, item_matrix, item_bias, mixture = factors
+    mesh = _sharded_mesh(model)
+    if mesh is not None:
+        num_items = item_matrix.shape[0]
+        item_matrix, item_bias = _shard_catalog(model, mesh, item_matrix,
+                                                item_bias)
+        return _streaming_ranks_sharded(mesh, reprs, item_matrix, item_bias,
+                                        targets, target_mask, train_rows,
+                                        mixture, num_items)
     return _streaming_ranks_device(reprs, item_matrix, item_bias, targets,
                                    target_mask, train_rows, mixture)
 
@@ -282,8 +376,24 @@ def _streaming_topk_hits(model, kind, inputs, k_max, train_rows=None):
     fetch = k_max if train_rows is None else k_max + train_rows.shape[1]
     # A fetch of the whole catalogue already holds every unmasked item.
     fetch = min(fetch, num_items)
+    mesh = _sharded_mesh(model)
+    if mesh is not None:
+        return _sharded_topk_hits(
+            mesh, reprs, *_shard_catalog(model, mesh, item_matrix, item_bias),
+            train_rows, k_max, fetch, mixture)
     return _streaming_topk_device(reprs, item_matrix, item_bias, train_rows,
                                   k_max, fetch, mixture)
+
+
+def _sharded_topk_hits(mesh, reprs, item_matrix, item_bias, train_rows,
+                       k_max, fetch, mixture):
+    """The mesh form of :func:`_streaming_topk_device`: each rank's top
+    ``fetch`` merged over the model axis, then the train compaction."""
+    _, top_ids = sharded_topk(mesh, reprs, item_matrix, item_bias, fetch,
+                              mixture=mixture)
+    if train_rows is None:
+        return top_ids
+    return _compact_train_mask(top_ids, train_rows, k_max)
 
 
 def _score_user_batch(model, user_batch, device):

@@ -21,10 +21,12 @@ from spotlight_tpu_torch.utils import training
 from spotlight_tpu_torch.utils.serialization import SerializableEstimatorMixin
 
 
-def resolve_device(device):
-    """The device the estimator runs on: ``cuda`` unless the caller names
-    another.  Without a card the default raises; it never drops to the
-    CPU on its own."""
+def resolve_device(device, mesh=None):
+    """The device the estimator runs on: the caller's, else this rank's
+    device of ``mesh``, else ``cuda``.  Without a card the default raises;
+    it never drops to the CPU on its own."""
+    if device is None and mesh is not None:
+        return torch.device(mesh.device)
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -32,6 +34,34 @@ def resolve_device(device):
                 'the CPU')
         return torch.device('cuda')
     return torch.device(device)
+
+
+def check_mesh_settings(mesh, exchange, batch_size):
+    """The JAX package's checks of ``exchange`` and, on a mesh, of the batch
+    size against the batch-shard count."""
+    if exchange not in ('psum', 'alltoall', 'alltoall_cf'):
+        raise ValueError(
+            "exchange must be one of 'psum', 'alltoall', 'alltoall_cf'"
+            ' (got {!r})'.format(exchange))
+    if mesh is not None:
+        shards = mesh.shape['data']
+        if exchange == 'alltoall_cf':
+            # The capacity-factored exchange shards the batch over the
+            # model axis too.
+            shards *= mesh.shape['model']
+        if batch_size % shards:
+            raise ValueError(
+                'batch_size ({}) must be divisible by the batch-shard '
+                'count ({})'.format(batch_size, shards))
+
+
+def refuse_mesh_training(mesh):
+    """``fit`` on a mesh waits for the sharded training engines."""
+    if mesh is not None:
+        raise NotImplementedError(
+            'training on a mesh is not ported yet (ROADMAP.md, Queue 1 '
+            'item 2: sharded embeddings and data-parallel training); fit '
+            'without mesh=, then evaluate on the mesh')
 
 
 def _repr_model(model):
@@ -46,11 +76,8 @@ class _FactorizationBase(SerializableEstimatorMixin):
 
     def __init__(self, embedding_dim, n_iter, batch_size, l2, learning_rate,
                  optimizer_func, representation, sparse, random_state,
-                 device=None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                'mesh= is not ported yet: the distributed layer is the last '
-                'item of the port (ROADMAP.md, Queue 1). Train on one device.')
+                 mesh=None, exchange='psum', device=None):
+        check_mesh_settings(mesh, exchange, batch_size)
         self._embedding_dim = embedding_dim
         self._n_iter = n_iter
         self._batch_size = batch_size
@@ -60,7 +87,9 @@ class _FactorizationBase(SerializableEstimatorMixin):
         self._representation = representation
         self._sparse = sparse
         self._random_state = random_state or np.random.RandomState()
-        self._device = resolve_device(device)
+        self._mesh = mesh
+        self._exchange = exchange
+        self._device = resolve_device(device, mesh)
 
         self._num_users = None
         self._num_items = None
@@ -72,6 +101,7 @@ class _FactorizationBase(SerializableEstimatorMixin):
         # Bumped whenever the parameters change; keys the item-factor cache.
         self._params_version = 0
         self._item_factor_cache = None
+        self._shard_catalog_cache = None
         self._generator = training.generator_from_random_state(
             self._random_state)
 
@@ -177,6 +207,7 @@ class _FactorizationBase(SerializableEstimatorMixin):
         -------
         self
         """
+        refuse_mesh_training(self._mesh)
         if not self._initialized:
             self._initialize(interactions)
         data, n, num_batches = self._epoch_data(interactions)

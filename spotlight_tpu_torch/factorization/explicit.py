@@ -11,7 +11,8 @@ with ``sparse=True`` the row-sparse lazy-Adam engine
 positives only, no negative draw), whose row update is the kernel P1 on
 the card.  A poisson model predicts ``exp`` of the pair score and a
 logistic one its sigmoid, in training and in :meth:`predict` alike.
-``mesh=`` (the distributed engines) is not ported.
+On a ``mesh=`` (:mod:`spotlight_tpu_torch.parallel`) ``fit`` waits for the
+sharded training engines and raises.
 """
 
 from __future__ import annotations
@@ -52,8 +53,13 @@ class ExplicitFactorizationModel(_FactorizationBase):
         ``BilinearNet`` layout and no custom optimizer; elsewhere it trains
         dense with a RuntimeWarning.
     random_state : np.random.RandomState, optional
-    mesh : None
-        The distributed engines are not ported; anything else raises.
+    mesh : :class:`~spotlight_tpu_torch.parallel.mesh.Mesh`, optional
+        The model's mesh (every rank holds the whole tables); ``fit`` on a
+        mesh raises ``NotImplementedError`` until the sharded training
+        engines are ported.
+    exchange : str, 'psum' (default), 'alltoall' or 'alltoall_cf'
+        The collective of sharded table lookups; checked as the JAX package
+        checks it.
     device : str or torch.device, optional
         ``None`` (the default) means ``cuda`` and raises when no card is
         present; pass ``'cpu'`` to run on the CPU.
@@ -72,6 +78,7 @@ class ExplicitFactorizationModel(_FactorizationBase):
                  sparse=False,
                  random_state=None,
                  mesh=None,
+                 exchange='psum',
                  device=None):
         if loss not in _LOSSES:
             raise ValueError('loss must be one of {} (got {!r})'
@@ -79,7 +86,7 @@ class ExplicitFactorizationModel(_FactorizationBase):
         del use_cuda
         super().__init__(embedding_dim, n_iter, batch_size, l2, learning_rate,
                          optimizer_func, representation, sparse, random_state,
-                         device=device, mesh=mesh)
+                         mesh=mesh, exchange=exchange, device=device)
         self._loss = loss
 
     def _elems_fn(self):

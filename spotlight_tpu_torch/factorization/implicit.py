@@ -10,7 +10,10 @@ tables) by default, or with ``sparse=True`` the row-sparse lazy-Adam engine
 (:mod:`spotlight_tpu_torch.factorization.lazy`), whose row update is the
 hand-written kernel P1 on the card.  Each epoch draws its permutation and
 negatives from the estimator's CPU generator in one go and reads its loss
-back one epoch late.  ``mesh=`` (the distributed engines) is not ported.
+back one epoch late.  On a ``mesh=`` (:mod:`spotlight_tpu_torch.parallel`)
+the metrics run sharded and ``predict`` runs on the rank's device over the
+whole tables, which every rank holds; ``fit`` there waits for the sharded
+training engines and raises.
 """
 
 from __future__ import annotations
@@ -60,8 +63,15 @@ class ImplicitFactorizationModel(_FactorizationBase):
         back to the uniform objective
         (:func:`~spotlight_tpu_torch.ops.sampling.
         inbatch_importance_weight_table`).
-    mesh : None
-        The distributed engines are not ported; anything else raises.
+    mesh : :class:`~spotlight_tpu_torch.parallel.mesh.Mesh`, optional
+        Evaluate on a mesh: the metrics score each rank's block of the
+        catalogue and merge over ``torch.distributed``
+        (:mod:`spotlight_tpu_torch.parallel.evaluation`); every rank holds
+        the whole tables.  ``fit`` on a mesh raises ``NotImplementedError``
+        until the sharded training engines are ported.
+    exchange : str, 'psum' (default), 'alltoall' or 'alltoall_cf'
+        The collective of sharded table lookups (the sharded training
+        engines); checked as the JAX package checks it.
     device : str or torch.device, optional
         ``None`` (the default) means ``cuda`` and raises when no card is
         present; pass ``'cpu'`` to run on the CPU.
@@ -80,8 +90,9 @@ class ImplicitFactorizationModel(_FactorizationBase):
                  sparse=False,
                  random_state=None,
                  num_negative_samples=5,
-                 negative_sampling='uniform',
                  mesh=None,
+                 exchange='psum',
+                 negative_sampling='uniform',
                  device=None):
         if loss not in _LOSSES:
             raise ValueError('loss must be one of {} (got {!r})'
@@ -92,7 +103,7 @@ class ImplicitFactorizationModel(_FactorizationBase):
         del use_cuda
         super().__init__(embedding_dim, n_iter, batch_size, l2, learning_rate,
                          optimizer_func, representation, sparse, random_state,
-                         device=device, mesh=mesh)
+                         mesh=mesh, exchange=exchange, device=device)
         self._loss = loss
         self._num_negative_samples = num_negative_samples
         self._negative_sampling = negative_sampling

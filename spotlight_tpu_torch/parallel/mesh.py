@@ -1,0 +1,135 @@
+"""A ``(data, model)`` grid of ``torch.distributed`` ranks.
+
+Counterpart of ``spotlight_tpu/parallel/mesh.py``.  JAX drives every device
+of a mesh from one program; here each rank is a process of its own, and
+every rank runs the same code (SPMD): the same calls, the same collectives
+in the same order, and the same replicated result, as JAX's global view
+returns.  Ranks are laid out row-major, rank ``r`` at
+``(r // model, r % model)``, as ``np.asarray(devices).reshape(data, model)``
+lays out JAX's devices.  The ``model`` group of a rank holds its row of the
+grid (the ranks that share a user batch and split the catalogue), its
+``data`` group its column (the ranks that hold the same catalogue block).
+
+The collectives sum or gather along one axis, on the tensors' own device:
+NCCL takes the card's tensors, and gloo takes CPU tensors and, for
+``all_reduce`` and ``all_gather``, CUDA tensors too (it copies them
+through host memory itself), which is how several gloo ranks share one
+card (NCCL refuses two ranks on one GPU).  The payloads are small: (B, T)
+scores or counts and (B, k) candidate lists.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+
+class Mesh:
+    """This rank's place in a ``(data, model)`` grid of ranks.
+
+    Attributes
+    ----------
+    shape : dict
+        ``{'data': data, 'model': model}``, as ``jax.sharding.Mesh.shape``.
+    data_index, model_index : int
+        This rank's coordinates in the grid.
+    device : torch.device
+        The device of this rank's work.
+    groups : dict
+        The ``torch.distributed`` group of each axis that holds this rank.
+    """
+
+    def __init__(self, data, model, rank, device, groups):
+        self.shape = {'data': data, 'model': model}
+        self.rank = rank
+        self.data_index, self.model_index = divmod(rank, model)
+        self.device = device
+        self.groups = groups
+
+    def __repr__(self):
+        return 'Mesh(data={data}, model={model}, rank={rank}, {device})'.format(
+            rank=self.rank, device=self.device, **self.shape)
+
+    def index(self, axis):
+        """This rank's coordinate along ``axis``."""
+        return self.data_index if axis == 'data' else self.model_index
+
+    def all_reduce(self, tensor, axis):
+        """The sum of ``tensor`` over the ranks of ``axis``, on every one of
+        them (``jax.lax.psum``); ``tensor`` itself is left as it was."""
+        total = tensor.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(total, group=self.groups[axis])
+        return total
+
+    def all_gather(self, tensor, axis):
+        """The ``tensor`` of every rank of ``axis``, concatenated along the
+        first dimension in the order of the ranks' coordinates."""
+        tensor = tensor.contiguous()
+        parts = [torch.empty_like(tensor) for _ in range(self.shape[axis])]
+        dist.all_gather(parts, tensor, group=self.groups[axis])
+        return torch.cat(parts)
+
+
+def make_mesh(data=None, model=None, devices=None):
+    """Build a ``(data, model)`` mesh over the ranks of the default process
+    group.
+
+    Every rank must call it, with the same sizes: it makes the groups of
+    both axes with ``dist.new_group``, which every rank calls in one fixed
+    order.
+
+    Parameters
+    ----------
+    data, model : int, optional
+        Axis sizes.  If only one is given, the other is inferred from the
+        world size; if neither, every rank goes to the ``data`` axis.
+    devices : list of torch.device or str, optional
+        One device per rank, ``devices[rank]`` being this rank's.  By
+        default rank ``r`` works on ``cuda:{r % device_count}``.
+
+    Returns
+    -------
+    Mesh
+    """
+    if not dist.is_available() or not dist.is_initialized():
+        raise RuntimeError('make_mesh needs an initialised default process '
+                           'group (torch.distributed.init_process_group)')
+    n = dist.get_world_size()
+    rank = dist.get_rank()
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError('no CUDA device is available; pass devices= '
+                               "(for example ['cpu'] * world size)")
+        devices = ['cuda:{}'.format(r % torch.cuda.device_count())
+                   for r in range(n)]
+    if len(devices) != n:
+        raise ValueError('{} devices for a world of {} ranks'.format(
+            len(devices), n))
+
+    if data is None and model is None:
+        data, model = n, 1
+    elif data is None:
+        if n % model:
+            raise ValueError('Device count {} not divisible by model={}'
+                             .format(n, model))
+        data = n // model
+    elif model is None:
+        if n % data:
+            raise ValueError('Device count {} not divisible by data={}'
+                             .format(n, data))
+        model = n // data
+
+    if data * model != n:
+        raise ValueError('data * model = {} != {} devices'
+                         .format(data * model, n))
+
+    grid = np.arange(n).reshape(data, model)
+    groups = {}
+    # Every rank creates every group, rows then columns, in one order.
+    for axis, lines in (('model', grid), ('data', grid.T)):
+        for line in lines:
+            group = dist.new_group([int(r) for r in line])
+            if rank in line:
+                groups[axis] = group
+    return Mesh(data, model, rank, torch.device(devices[rank]), groups)

@@ -15,8 +15,9 @@ same shape, or against the targets of other batch rows
 (``negative_sampling='in_batch'``, importance-weighted back to the uniform
 objective); the loss is masked at padding positions and padded rows.  Each
 epoch draws its permutation and negatives from the estimator's CPU
-generator in one go and reads its loss back one epoch late.  ``mesh=`` is
-not ported and raises.
+generator in one go and reads its loss back one epoch late.  On a ``mesh=``
+(:mod:`spotlight_tpu_torch.parallel`) the metrics run sharded; ``fit``
+there waits for the sharded training engines and raises.
 """
 
 from __future__ import annotations
@@ -27,7 +28,9 @@ import numpy as np
 import torch
 
 from spotlight_tpu_torch.data.interactions import PADDING_IDX
-from spotlight_tpu_torch.factorization._base import resolve_device
+from spotlight_tpu_torch.factorization._base import (check_mesh_settings,
+                                                     refuse_mesh_training,
+                                                     resolve_device)
 from spotlight_tpu_torch.ops.losses import IMPLICIT_LOSSES
 from spotlight_tpu_torch.ops.sampling import (inbatch_importance_weight_table,
                                               inbatch_pair_weights,
@@ -74,8 +77,11 @@ class ImplicitSequenceModel(SerializableEstimatorMixin):
     random_state : np.random.RandomState, optional
     num_negative_samples : int, optional
         Negatives per position for ``adaptive_hinge``.
-    mesh : optional
-        Distributed training is not ported yet; anything but None raises.
+    mesh : :class:`~spotlight_tpu_torch.parallel.mesh.Mesh`, optional
+        Evaluate on a mesh: the metrics score each rank's block of the
+        catalogue and merge over ``torch.distributed``; every rank holds
+        the whole tables.  ``fit`` on a mesh raises ``NotImplementedError``
+        until the sharded training engines are ported.
     exchange : str, 'psum' (default), 'alltoall' or 'alltoall_cf'
     negative_sampling : str, 'uniform' (default) or 'in_batch'
         'in_batch' scores each position against the same position's
@@ -110,17 +116,11 @@ class ImplicitSequenceModel(SerializableEstimatorMixin):
         if negative_sampling not in ('uniform', 'in_batch'):
             raise ValueError("negative_sampling must be 'uniform' or "
                              "'in_batch' (got {!r})".format(negative_sampling))
-        if exchange not in ('psum', 'alltoall', 'alltoall_cf'):
-            raise ValueError(
-                "exchange must be one of 'psum', 'alltoall', 'alltoall_cf'"
-                ' (got {!r})'.format(exchange))
         if isinstance(representation, str) and (
                 representation not in _REPRESENTATIONS):
             raise ValueError('unknown representation {!r}'.format(
                 representation))
-        if mesh is not None:
-            raise NotImplementedError('distributed training is not ported '
-                                      'yet (ROADMAP.md, Queue 1)')
+        check_mesh_settings(mesh, exchange, batch_size)
         del use_cuda
 
         self._loss = loss
@@ -134,9 +134,10 @@ class ImplicitSequenceModel(SerializableEstimatorMixin):
         self._sparse = sparse
         self._random_state = random_state or np.random.RandomState()
         self._num_negative_samples = num_negative_samples
+        self._mesh = mesh
         self._exchange = exchange
         self._negative_sampling = negative_sampling
-        self._device = resolve_device(device)
+        self._device = resolve_device(device, mesh)
 
         self._num_items = None
         self._net = None
@@ -147,6 +148,7 @@ class ImplicitSequenceModel(SerializableEstimatorMixin):
         # Bumped whenever the parameters change; keys the item-factor cache.
         self._params_version = 0
         self._item_factor_cache = None
+        self._shard_catalog_cache = None
         self._generator = training.generator_from_random_state(
             self._random_state)
 
@@ -353,6 +355,7 @@ class ImplicitSequenceModel(SerializableEstimatorMixin):
         -------
         self
         """
+        refuse_mesh_training(self._mesh)
         if not self._initialized:
             self._initialize(interactions)
         data, n, num_batches = self._epoch_data(interactions)

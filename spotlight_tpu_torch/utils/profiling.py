@@ -4,7 +4,8 @@ Counterpart of ``spotlight_tpu/utils/profiling.py``:
 
 - :func:`trace`: a context manager around ``torch.profiler.profile`` that
   records the host's activity, and the card's when the caller's device is
-  the card, and writes a Chrome trace into ``log_dir``;
+  the card, writes a Chrome trace into ``log_dir`` and yields that
+  directory, as the JAX package's yields its own;
 - :class:`ThroughputMeter`: examples/s with warm-up steps excluded.  On the
   card it synchronises before each reading of the clock, so a step's time
   includes its device work.
@@ -26,15 +27,25 @@ def _on_card(device):
     return device is not None and torch.device(device).type == 'cuda'
 
 
+class TraceDir(str):
+    """The directory :func:`trace` writes into, which is what the JAX
+    package's ``trace`` yields, carrying the ``torch.profiler.profile``
+    object as :attr:`profiler` (``key_averages()`` sums its events by name
+    once the block has ended)."""
+
+    profiler = None
+
+
 @contextlib.contextmanager
-def trace(log_dir='spotlight_trace', device=None):
+def trace(log_dir='/tmp/spotlight_tpu_trace', device=None):
     """Profile the enclosed block and write ``<log_dir>/trace.json``.
 
-    Yields the ``torch.profiler.profile`` object (``key_averages()`` sums
-    the events by name).  ``device`` is the device of the traced work: on
-    the card (``'cuda'``) CUDA activity is recorded too, after a
-    synchronisation at each end of the block.  View the file in Perfetto or
-    ``chrome://tracing``.
+    Yields ``log_dir`` as a :class:`TraceDir`, whose ``profiler`` is the
+    ``torch.profiler.profile`` object.  ``device`` is the device of the
+    traced work: on the card (``'cuda'``) CUDA activity is recorded too,
+    after a synchronisation at each end of the block.  The profiler stops
+    and the trace is written when the block ends, also when it raises.
+    View the file in Perfetto or ``chrome://tracing``.
     """
     from torch.profiler import ProfilerActivity, profile
 
@@ -44,11 +55,17 @@ def trace(log_dir='spotlight_trace', device=None):
         activities.append(ProfilerActivity.CUDA)
         torch.cuda.synchronize()
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
+    traced = TraceDir(log_dir)
+    traced.profiler = profile(activities=activities)
+    traced.profiler.start()
+    try:
+        yield traced
         if on_card:
             torch.cuda.synchronize()
-    prof.export_chrome_trace(os.path.join(log_dir, 'trace.json'))
+    finally:
+        traced.profiler.stop()
+        traced.profiler.export_chrome_trace(os.path.join(log_dir,
+                                                         'trace.json'))
 
 
 class ThroughputMeter:

@@ -12,6 +12,8 @@ exactly as the saved one did and training resumes where it stopped.
   ``get_state()``.
 - The optimizer (a closure when ``optimizer_func`` made it), the cached
   epoch functions and the cached item factors are dropped and rebuilt.
+- The mesh is dropped: a loaded model has ``_mesh`` None, as in the JAX
+  package.
 
 Usage::
 
@@ -30,8 +32,11 @@ import torch
 
 from spotlight_tpu_torch.utils import training
 
-#: Runtime artefacts that are rebuilt rather than pickled.
-_DROPPED_FIELDS = ('_optimizer', '_epoch_fn_cache', '_item_factor_cache')
+#: Runtime artefacts that are rebuilt rather than pickled.  The mesh holds
+#: this process's ``torch.distributed`` groups: a loaded model has none
+#: (as in the JAX package); set ``_mesh`` again to evaluate on a new one.
+_DROPPED_FIELDS = ('_optimizer', '_epoch_fn_cache', '_item_factor_cache',
+                   '_shard_catalog_cache', '_mesh')
 
 
 class SerializableEstimatorMixin:
@@ -53,6 +58,8 @@ class SerializableEstimatorMixin:
         self._generator = generator
         self._epoch_fn_cache = {}
         self._item_factor_cache = None
+        self._shard_catalog_cache = None
+        self._mesh = None
         self._optimizer = None
         if had_optimizer:
             self._optimizer = training.make_optimizer(

@@ -1852,10 +1852,10 @@ def test_trace_records_cuda_kernels_in_a_fresh_process(cuda, tmp_path):
         'import sys, torch\n'
         'from spotlight_tpu_torch.utils import profiling\n'
         'x = torch.randn(512, 512, device="cuda")\n'
-        'with profiling.trace(sys.argv[1], device="cuda") as prof:\n'
+        'with profiling.trace(sys.argv[1], device="cuda") as traced:\n'
         '    for _ in range(3):\n'
         '        x = torch.tanh(x @ x)\n'
-        'print(sum(e.count for e in prof.key_averages()\n'
+        'print(sum(e.count for e in traced.profiler.key_averages()\n'
         '          if getattr(e, "self_device_time_total", 0) > 0\n'
         '          and not e.key.startswith("aten::")))\n')
     result = subprocess.run(
@@ -1921,3 +1921,118 @@ def test_ml1m_cnn_gate_one_seed(cuda):
     model.fit(train)
     mrr = float(evaluation.sequence_mrr_score(model, test).mean())
     assert mrr >= chip_smoke.SWEEP_GATES['cnn'] * best['test_mrr'], mrr
+
+
+# -- sharded evaluation: mesh ranks on the card --------------------------------
+
+def _mesh_dyadic(rs, shape):
+    return (rs.randint(-4, 5, shape) / 8).astype(np.float32)
+
+
+def _mesh_model_cases():
+    """A factorization case (dyadic tables: exact ties) and a mixture
+    sequence case (the port's seeded initialisation, seeded item biases)
+    over 203 items, as ``tests/test_torch_mesh_metrics.py`` builds them."""
+    from tests import torch_mesh_worker
+
+    rs = np.random.RandomState(11)
+    num_users, num_items, dim = 64, 203, 16
+    mf = {'num_users': num_users, 'num_items': num_items, 'dim': dim,
+          'k': 5, 'test': (np.repeat(np.arange(num_users), 3),
+                           rs.randint(0, num_items, 3 * num_users)),
+          'train': (np.concatenate([np.full(40, 5),
+                                    rs.randint(0, num_users, 600)]),
+                    np.concatenate([rs.choice(num_items, 40, replace=False),
+                                    rs.randint(0, num_items, 600)]))}
+    bare = ImplicitFactorizationModel(embedding_dim=dim, device='cpu')
+    bare._initialize(torch_mesh_worker.interactions(mf, 'train',
+                                                    Interactions))
+    mf['state'] = {name: _mesh_dyadic(rs, tuple(value.shape))
+                   for name, value in bare._net.state_dict().items()}
+    sequences = rs.randint(1, num_items, (64, 10)).astype(np.int32)
+    seq = {'num_items': num_items, 'dim': dim, 'mixtures': 2, 'k': 3,
+           'sequences': sequences}
+    bare = ImplicitSequenceModel(
+        representation=MixtureLSTMNet(num_items, dim, num_mixtures=2),
+        embedding_dim=dim, random_state=np.random.RandomState(13),
+        device='cpu')
+    bare._initialize(SequenceInteractions(sequences, num_items=num_items))
+    seq['state'] = {name: value.numpy().copy()
+                    for name, value in bare._net.state_dict().items()}
+    table = seq['state']['item_embeddings.weight']
+    table[1:, dim] = 0.1 * rs.randn(num_items - 1)
+    return mf, seq
+
+
+def test_mesh_metrics_of_four_gloo_ranks_on_one_card(cuda, tmp_path):
+    """Phase 15 (a) of ``chip_smoke.py`` at a small size: four gloo ranks
+    share the card, at data=1 x model=4 and data=2 x model=2; every metric
+    of the mesh models equals the single-device call on the card bit for
+    bit, no call takes the materialize route, and the rank kernels
+    launched in the ranks."""
+    from spotlight_tpu_torch.ops.kernels import _build
+    from tests import torch_mesh_worker
+
+    _build.build()
+    mf, seq = _mesh_model_cases()
+    ranks = torch_mesh_worker.run_ranks(
+        {'layouts': ((1, 4), (2, 2)), 'models': {'mf': mf,
+                                                 'sequence': seq}},
+        tmp_path, devices=['cuda:0'] * 4, timeout=600)
+    want = torch_mesh_worker.metrics(
+        torch_mesh_worker.factorization_model(mf, device='cuda'), mf,
+        torch_mesh_worker.sequence_model(seq, device='cuda'), seq)
+    for results in ranks:
+        for layout in ((1, 4), (2, 2)):
+            assert results[layout]['materialize_routes'] == 0
+            assert results[layout]['device'] == 'cuda:0'
+            torch_mesh_worker.assert_same(results[layout]['metrics'], want)
+
+
+def test_sharded_functions_on_a_one_rank_nccl_group(cuda, tmp_path):
+    """Phase 15 (b) at a small size: the four sharded functions under a
+    one-rank NCCL group equal the single-device kernels on the card
+    exactly (scores bit for bit), streaming and not."""
+    from spotlight_tpu_torch.ops.kernels import _build
+    from tests import torch_mesh_worker
+
+    _build.build()
+    rs = np.random.RandomState(12)
+    num_items, dim, mixtures, k = 1000, 32, 2, 7
+    case = {'users': _mesh_dyadic(rs, (96, dim)),
+            'mix_users': _mesh_dyadic(rs, (96, 2 * mixtures * dim)),
+            'items': _mesh_dyadic(rs, (num_items, dim)),
+            'bias': _mesh_dyadic(rs, (num_items,)) / 8,
+            'target_ids': rs.randint(0, num_items, (96, 3)),
+            'candidates': rs.randint(0, num_items, (96, 5)),
+            'k': k, 'mixtures': mixtures}
+    on = {name: torch.as_tensor(value, device=cuda)
+          for name, value in case.items() if isinstance(value, np.ndarray)}
+    for name, users, mixture in (('dot', on['users'], None),
+                                 ('mixture', on['mix_users'], mixtures)):
+        case['target_scores_' + name] = _matched(
+            users, on['items'], on['bias'], on['target_ids'],
+            mixture).cpu().numpy()
+    [rank] = torch_mesh_worker.run_ranks(
+        {'layouts': ((1, 1),), 'functions': case}, tmp_path, world=1,
+        backend='nccl', devices=['cuda:0'], timeout=600)
+    got = rank[(1, 1)]
+    for name, users, mixture in (('dot', on['users'], None),
+                                 ('mixture', on['mix_users'], mixtures)):
+        args = (on['items'], on['bias'])
+        ts = torch.as_tensor(case['target_scores_' + name], device=cuda)
+        want_topk = tuple(t.cpu().numpy() for t in topk.streaming_topk(
+            users, *args, k, mixture))
+        want_counts = tuple(t.cpu().numpy() for t in ranking.rank_counts(
+            users, *args, ts, on['target_ids'], mixture))
+        for streaming in (True, False):
+            torch_mesh_worker.assert_same(got['topk', name, streaming],
+                                          want_topk)
+            torch_mesh_worker.assert_same(got['counts', name, streaming],
+                                          want_counts)
+        torch_mesh_worker.assert_same(
+            got['weights', name],
+            ranking.rank_weights(users, *args, ts, mixture).cpu().numpy())
+        torch_mesh_worker.assert_same(
+            got['scores', name],
+            _matched(users, *args, on['candidates'], mixture).cpu().numpy())

@@ -20,6 +20,7 @@ package's) in the port's ``Interactions``.
 """
 
 import functools
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -395,10 +396,13 @@ def test_sparse_with_a_custom_optimizer_warns_and_trains_dense():
     assert not model._lazy and model._opt_state['count'] == 6
 
 
-@pytest.mark.parametrize('kwargs', [{'loss': 'bpr'}, {'mesh': object()}])
+@pytest.mark.parametrize('kwargs', [
+    {'loss': 'bpr'},
+    {'mesh': SimpleNamespace(shape={'data': 3, 'model': 1}, device='cpu')}])
 def test_constructor_refusals(kwargs):
-    error = NotImplementedError if 'mesh' in kwargs else ValueError
-    with pytest.raises(error):
+    """An unknown loss, and a batch size that the mesh's data axis does not
+    divide (256 over 3), raise as the JAX package's do."""
+    with pytest.raises(ValueError):
         ExplicitFactorizationModel(device='cpu', **kwargs)
 
 

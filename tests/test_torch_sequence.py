@@ -20,6 +20,7 @@ import functools
 import pathlib
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -519,12 +520,15 @@ def test_fit_is_not_faked():
     ({'representation': 'nope'}, ValueError),
     ({'representation': 'pooling'}, None),
     ({'representation': 'cnn'}, None),
-    ({'representation': 'lstm', 'mesh': object()}, NotImplementedError),
+    ({'representation': 'lstm',
+      'mesh': SimpleNamespace(shape={'data': 3, 'model': 1}, device='cpu')},
+     ValueError),
 ])
 def test_constructor_refusals(kwargs, error):
-    """Bad settings raise; 'pooling' and 'cnn' (refused until their slice
-    was ported) construct and build their network at the first ``fit``, and
-    so does the default, 'pooling'."""
+    """Bad settings raise (a batch size of 256 on a data axis of 3 among
+    them, as in the JAX package); 'pooling' and 'cnn' (refused until their
+    slice was ported) construct and build their network at the first
+    ``fit``, and so does the default, 'pooling'."""
     if error is not None:
         with pytest.raises(error):
             ImplicitSequenceModel(device='cpu', **kwargs)

@@ -12,6 +12,7 @@
 """
 
 import importlib
+import inspect
 import json
 import pathlib
 import time
@@ -22,6 +23,7 @@ import torch
 
 from spotlight_tpu import native as jax_native
 from spotlight_tpu.data import synthetic as jax_synthetic
+from spotlight_tpu.utils import profiling as jax_profiling
 from spotlight_tpu.utils.profiling import ThroughputMeter as JaxMeter
 from spotlight_tpu.utils.results import Results as JaxResults
 from spotlight_tpu_torch import native
@@ -135,13 +137,34 @@ def test_throughput_meter_before_any_measured_step():
 def test_trace_writes_a_trace_on_the_cpu(tmp_path):
     log_dir = tmp_path / 'trace'
     x = torch.randn(64, 64)
-    with profiling.trace(str(log_dir), device='cpu') as prof:
+    with profiling.trace(str(log_dir), device='cpu') as traced:
         for _ in range(3):
             x = torch.tanh(x @ x)
-    names = {event.key for event in prof.key_averages()}
+    assert traced == str(log_dir)
+    names = {event.key for event in traced.profiler.key_averages()}
     assert {'aten::mm', 'aten::tanh'} <= names
     events = json.loads((log_dir / 'trace.json').read_text())['traceEvents']
     assert sum(event.get('name') == 'aten::mm' for event in events) == 3
+
+
+def test_trace_defaults_and_yield_match_jax():
+    """JAX's ``trace`` defaults to /tmp/spotlight_tpu_trace and yields its
+    directory; so does the port's (a ``str``, with the profiler beside)."""
+    want = inspect.signature(jax_profiling.trace).parameters['log_dir']
+    got = inspect.signature(profiling.trace).parameters['log_dir']
+    assert got.default == want.default == '/tmp/spotlight_tpu_trace'
+    assert issubclass(profiling.TraceDir, str)
+
+
+def test_trace_is_written_when_the_block_raises(tmp_path):
+    log_dir = tmp_path / 'raised'
+    with pytest.raises(ZeroDivisionError):
+        with profiling.trace(str(log_dir), device='cpu') as traced:
+            torch.tanh(torch.ones(8, 8) @ torch.ones(8, 8))
+            raise ZeroDivisionError
+    events = json.loads((log_dir / 'trace.json').read_text())['traceEvents']
+    assert any(event.get('name') == 'aten::mm' for event in events)
+    assert traced.profiler is not None
 
 
 # -- native ----------------------------------------------------------------------
