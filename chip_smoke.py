@@ -105,10 +105,11 @@ each of which exits non-zero when it fails:
    users (the rank kernel takes it, the top-10 fetch's stage 1 takes
    D <= 261), and phase 6's mixture model with 9 tastes (the kernels take
    8) over 256 sequences; each metric equal to ``streaming=False``'s.
-11. explicit MF: ``bench_explicit_mf`` of ``scripts/bench_suite.py``, not
-   cut (regression, D=64, 1e5 users x 2e4 items, 1e6 ratings uniform in
+11. explicit MF: ``bench_explicit_mf`` of ``scripts/bench_suite.py`` at its
+   width (regression, D=64, 1e5 users x 2e4 items, 1e6 ratings uniform in
    [1, 5], batch 8,192): the dense and the lazy engine, one warm fit, then
-   three timed fits of 10 epochs each (the P1 counter zeroed just before
+   three timed fits of 5 epochs each (the suite times 10; cut for phase
+   16's room in the run's time; the P1 counter zeroed just before
    the lazy fits and read just after: 2 launches a step), one epoch
    profiled; ``rmse_score`` warm over the 1e6 pairs; P1 bit for bit
    against its plain version on the lazy engine's captured user and item
@@ -118,7 +119,7 @@ each of which exits non-zero when it fails:
    ``rmse_score`` on the card.
 12. sequence training: ``bench_sequence``'s width (20,000 random sequences
    of 50 over 20,000 items, bpr, D=64, batch 256) for ``lstm`` and
-   ``mixture`` (M=4): one warm fit, three timed fits of 2 epochs (the
+   ``mixture`` (M=4): one warm fit, three timed fits of 1 epoch (the
    suite times 10; cut for the run's time limit), an epoch of 8 of those
    batches profiled with its device calls a step; ``bench_sequence_large_catalog``: both models
    trained one epoch on phase 6's sequences (200,000 items), then served
@@ -189,7 +190,37 @@ each of which exits non-zero when it fails:
    at the MF width (2,048 users, model axis 1), counted, exactly equal to
    the single-device kernels.  The kernels are built before the ranks
    start; the ranks only load them.  A rank's exception fails the run, and
-   a collective gives up after ``MESH_TIMEOUT_S``.
+   a collective gives up after ``MESH_TIMEOUT_S``.  The models hold their
+   ranks' blocks of the tables (as a model trained on the mesh does); K1,
+   K2 and K5 are checked on the first block of the MF catalogue and on the
+   padded last block of N=1,001, each on the rank that holds it.
+16. mesh training (``spotlight_tpu_torch.parallel.training``): (a) four
+   gloo ranks on the one card, as phase 15's, at data=1 x model=4 and
+   data=2 x model=2: phase 4's implicit MF (50,000 x 200,000, D=64, fused,
+   dense engine, BPR, uniform negatives) takes 8 steps of batch 8,192
+   under each exchange ('psum', 'alltoall', 'alltoall_cf'), phase 6's
+   mixture LSTM (M=4, 200,000 items) 4 steps of 256 at 2 x 2 and phase
+   7's bloom LSTM (1e6 items, 200,000 compressed rows) 2 steps of 256 at
+   1 x 4, all under 'psum'; each from the initial tables and draws of a
+   one-device run of the same steps in this process.  Each rank's blocks
+   of tables and Adam moments are held to that run's, bit for bit where
+   they agree and within ``MESH_TRAIN_RTOL`` of each table's scale
+   elsewhere (the largest gap and the least bit-equal share printed by
+   run and layout); then ``mrr_score`` with the train mask and
+   ``precision_recall_score(k=10)`` (MF) or ``sequence_mrr_score`` on the
+   mesh, bit-equal to one device's metric of the tables gathered from the
+   ranks.  The launch counters, ``MATERIALIZE_ROUTES`` and
+   ``parallel.mesh.COLLECTIVE_BYTES`` are zeroed just before a run's
+   training and read just after its metrics: no materialize route, K1,
+   K1c, K2, K1m and K4 launched.  Ms a step per rank beside one device's,
+   of the first fit and of a second, warm fit of the same steps;
+   collective bytes a step by axis; for the sequence models, ms of one
+   metric batch's ``_rank_factors_sequences`` on the mesh (the rows through
+   the exchange) beside the gathered tables' (a plain gather).  (b) A
+   one-rank NCCL group: 4 MF steps under each exchange, tables and
+   moments bit-equal to one device's (an axis of one rank sends nothing),
+   then NCCL's all-reduce, all-gather and all-to-all on the group at the
+   step's shapes, each returning its input's bits.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -277,14 +308,16 @@ PROBE_WIDTH, PROBE_IDS = 128, 24_576
 #: Model seeds whose mean the lazy bpr gate holds (one seed of a random
 #: stream other than JAX's is a coin toss at that gate).
 GATE_LAZY_SEEDS = (0, 1, 2, 3)
-#: Phase 11, explicit MF: scripts/bench_suite.py's bench_explicit_mf, not
-#: cut (phase 9's dense width and batch).
-EXPLICIT_EPOCHS = 10
+#: Phase 11, explicit MF: scripts/bench_suite.py's bench_explicit_mf at its
+#: width (phase 9's dense width and batch), its 10 timed epochs a fit cut
+#: to 5 to make room for phase 16 in the run's time.
+EXPLICIT_EPOCHS = 5
 #: Phase 12, sequence training: bench_sequence's width (its 10 timed
-#: epochs cut to 2), then bench_sequence_large_catalog on phase 6's
-#: sequences, and phase 7's bloom LSTM for a few steps.
+#: epochs cut to 1 a fit, for the run's time: 2 until phase 16 came), then
+#: bench_sequence_large_catalog on phase 6's sequences, and phase 7's
+#: bloom LSTM for a few steps.
 SEQ_TRAIN_ROWS, SEQ_TRAIN_ITEMS, SEQ_TRAIN_BATCH = 20_000, 20_000, 256
-SEQUENCE_EPOCHS = 2
+SEQUENCE_EPOCHS = 1
 PROFILED_STEPS = 8
 BLOOM_STEPS = 8
 #: Phase 13: the sequence lazy engine at the bloom scalability study's
@@ -2747,7 +2780,7 @@ def run_sequence_training(torch, card, representations):
     each of ``representations`` (the suite's ``reps``: ``lstm`` and
     ``mixture`` (M=4) in phase 12, ``pooling`` and ``cnn``, JAX's default
     ``CNNNet``, in phase 13): one warm fit, then ``TIMED_FITS`` timed
-    fits of ``SEQUENCE_EPOCHS`` epochs (the suite times 10; cut to 2 for
+    fits of ``SEQUENCE_EPOCHS`` epochs (the suite times 10; cut to 1 for
     the run's time limit), and an epoch of ``PROFILED_STEPS`` of those
     batches profiled (its device calls a step too)."""
     from spotlight_tpu_torch.data import SequenceInteractions
@@ -3819,38 +3852,39 @@ def mesh_calls(torch, models, inputs):
 
 def check_shard_kernels(torch, mesh, models, inputs):
     """K1, K2 and K5 on two blocks of a 1 x 4 mesh against their plain
-    versions on the same operands: rank 0's block of the MF catalogue at
+    versions on the same operands: the first block of the MF catalogue at
     CHECK_USERS users, and the last block of the N=1,001 catalogue, which
-    holds the three pad rows (zero vectors, bias -FLOAT_MAX).  Targets are
-    global ids shifted into the block, most outside it.  Returns the
-    checked shapes."""
+    holds the three pad rows (zero vectors, bias -FLOAT_MAX), each on the
+    rank that holds it (the models hold their ranks' blocks).  Every rank
+    calls alike: the user rows come through the exchange.  Targets are
+    global ids shifted into the block, most outside it; their scores are
+    the matched scores of the block's rows they clamp to.  Returns the
+    shapes this rank checked."""
     from spotlight_tpu_torch import evaluation
     from spotlight_tpu_torch.ops.kernels import ranking, topk
 
     checked = []
     for name, model, test, block in (
-            ('MF, rank 0', models[0], inputs['test'], 0),
+            ('MF, first block', models[0], inputs['test'], 0),
             ('N=1,001, last block', models[2], inputs['edge_test'],
              mesh.shape['model'] - 1)):
         users, catalogue, catalogue_bias, _ = model._rank_factors_users(
             np.arange(min(CHECK_USERS, test.num_users)))
+        rows, items, bias, first = evaluation._shard_catalog(
+            model, mesh, catalogue, catalogue_bias)
+        if mesh.model_index != block:
+            continue
         targets = torch.as_tensor(np.random.RandomState(block).randint(
             0, model._num_items, (users.shape[0], 4)), device=users.device)
-        scores = ranking.matched_target_scores(users, catalogue,
-                                               catalogue_bias, targets)
-        items, bias = evaluation._pad_catalog_for_shards(mesh, catalogue,
-                                                         catalogue_bias)
-        rows = items.shape[0] // mesh.shape['model']
-        first = block * rows
-        items, bias = items[first:first + rows], bias[first:first + rows]
+        local = targets - first
+        scores = ranking.matched_target_scores(users, items, bias,
+                                               local.clamp(0, rows - 1))
         got = ranking.rank_weights(users, items, bias, scores)
         want = ranking.rank_weights_plain(users, items, bias, scores)
         if not torch.equal(got, want):
             raise AssertionError('rank_weights on {}'.format(name))
-        got = ranking.rank_counts(users, items, bias, scores,
-                                  targets - first)
-        want = ranking.rank_counts_plain(users, items, bias, scores,
-                                         targets - first)
+        got = ranking.rank_counts(users, items, bias, scores, local)
+        want = ranking.rank_counts_plain(users, items, bias, scores, local)
         if not all(torch.equal(a, b) for a, b in zip(got, want)):
             raise AssertionError('rank_counts on {}'.format(name))
         k = min(MAIN_TOPK_K, rows)
@@ -3859,8 +3893,8 @@ def check_shard_kernels(torch, mesh, models, inputs):
         if not (torch.equal(got[1], want[1])
                 and same_bits(torch, got[0], want[0])):
             raise AssertionError('streaming_topk on {}'.format(name))
-        checked.append(dict(block=name, users=users.shape[0], rows=rows,
-                            first_row=first, targets=4, k=k))
+        checked.append(dict(block=name, rank=mesh.rank, users=users.shape[0],
+                            rows=rows, first_row=first, targets=4, k=k))
     return checked
 
 
@@ -3868,7 +3902,7 @@ def mesh_rank(rank, world, store, out_dir):
     """One rank of the gloo mesh on the card (started by
     ``torch.multiprocessing.spawn``; an exception here fails the phase):
     the metric calls on each layout, with the launch counters zeroed just
-    before and read just after, then rank 0's block checks."""
+    before and read just after, then the block checks at 1 x 4."""
     import datetime
     import pickle
 
@@ -3896,7 +3930,7 @@ def mesh_rank(rank, world, store, out_dir):
                            launches=mesh_counters(),
                            routes=evaluation.MATERIALIZE_ROUTES,
                            device=str(models[0]._device))
-        if rank == 0 and layout == (1, 4):
+        if layout == (1, 4):
             out['shard_checks'] = check_shard_kernels(torch, mesh, models,
                                                       inputs)
     dist.destroy_process_group()
@@ -3972,7 +4006,10 @@ def run_mesh_ranks(torch, card, inputs):
         if launches.get(name, 0) <= 0:
             raise AssertionError('{} never launched on the mesh path'
                                  .format(name))
-    log(mesh_shard_checks=ranks[0]['shard_checks'], bit_equal=True)
+    checks = [check for out in ranks for check in out['shard_checks']]
+    if len(checks) != 2:
+        raise AssertionError('{} block checks ran'.format(len(checks)))
+    log(mesh_shard_checks=checks, bit_equal=True)
     return launches
 
 
@@ -4048,6 +4085,441 @@ def run_mesh_phase(torch, card):
         launches[name] = launches.get(name, 0) + count
     launches['mixture_score'] = sum(
         launches[name] for name in sequence_counters())
+    return launches
+
+
+# -- phase 16: mesh training ---------------------------------------------------
+
+MESH_EXCHANGES = ('psum', 'alltoall', 'alltoall_cf')
+#: Phase 4's implicit MF trained on the mesh: batch and steps (one epoch
+#: over the first steps x batch of phase 4's train pairs).
+MESH_TRAIN_BATCH = 8_192
+MESH_TRAIN_STEPS = 8
+NCCL_TRAIN_STEPS = 4
+#: Phase 6's mixture LSTM (at 2 x 2) and phase 7's bloom LSTM (at 1 x 4),
+#: trained by steps of 256 sequences.
+MESH_SEQ_BATCH = 256
+MESH_MIXTURE_STEPS = 4
+MESH_BLOOM_STEPS = 2
+#: Where a rank's block of a table or moment differs in its bits from one
+#: device's run, its largest gap over the largest |value| of that table or
+#: moment of the one-device run.
+MESH_TRAIN_RTOL = 1e-4
+
+
+def mesh_train_runs(layout):
+    """The runs of phase 16 on a layout (None: one device), each ``(name,
+    reference name, build(mesh) -> (model, data), metrics(model) ->
+    {name: numpy})``: phase 4's MF under each exchange, then phase 6's
+    mixture LSTM (psum) at 2 x 2 and phase 7's bloom LSTM (psum) at
+    1 x 4."""
+    from spotlight_tpu_torch.data import Interactions, SequenceInteractions
+    from spotlight_tpu_torch.evaluation import (
+        mrr_score, precision_recall_score, sequence_mrr_score)
+    from spotlight_tpu_torch.factorization import ImplicitFactorizationModel
+    from spotlight_tpu_torch.sequence import ImplicitSequenceModel
+
+    _, train, test, _ = slice_data()
+    pairs = MESH_TRAIN_STEPS * MESH_TRAIN_BATCH
+    mf_data = Interactions(train.user_ids[:pairs], train.item_ids[:pairs],
+                           num_users=NUM_USERS, num_items=NUM_ITEMS)
+
+    def mf(exchange):
+        def build(mesh):
+            return ImplicitFactorizationModel(
+                loss='bpr', embedding_dim=D, n_iter=1,
+                batch_size=MESH_TRAIN_BATCH, mesh=mesh, exchange=exchange,
+                random_state=np.random.RandomState(42)), mf_data
+        return build
+
+    def mf_metrics(model):
+        return {'mrr_score (train)': mrr_score(model, test, train=mf_data),
+                'precision_recall_score k=10': precision_recall_score(
+                    model, test, k=10)}
+
+    def mixture(mesh):
+        data = SequenceInteractions(
+            sequence_rows()[:MESH_MIXTURE_STEPS * MESH_SEQ_BATCH],
+            num_items=NUM_ITEMS)
+        return ImplicitSequenceModel(
+            loss='bpr', representation='mixture', embedding_dim=D, n_iter=1,
+            batch_size=MESH_SEQ_BATCH, mesh=mesh,
+            random_state=np.random.RandomState(0)), data
+
+    def bloom(mesh):
+        import torch
+
+        from spotlight_tpu_torch.ops.embeddings import BloomEmbedding
+        from spotlight_tpu_torch.sequence import LSTMNet
+
+        generator = torch.Generator().manual_seed(0)
+        net = LSTMNet(BLOOM_ITEMS, embedding_dim=D,
+                      item_embedding_layer=BloomEmbedding(
+                          BLOOM_ITEMS, D, compression_ratio=BLOOM_RATIO,
+                          num_hash_functions=BLOOM_HASHES,
+                          generator=generator),
+                      generator=generator)
+        data = SequenceInteractions(
+            bloom_sequences()[:MESH_BLOOM_STEPS * MESH_SEQ_BATCH],
+            num_items=BLOOM_ITEMS)
+        return ImplicitSequenceModel(
+            loss='bpr', representation=net, n_iter=1,
+            batch_size=MESH_SEQ_BATCH, mesh=mesh,
+            random_state=np.random.RandomState(0)), data
+
+    def sequence_metrics(rows, num_items):
+        def metrics(model):
+            test = SequenceInteractions(rows[:SEQ_EVAL], num_items=num_items)
+            return {'sequence_mrr_score': sequence_mrr_score(model, test)}
+        return metrics
+
+    # One device: the exchange plays no part, one run of each model.
+    exchanges = MESH_EXCHANGES if layout is not None else ('psum',)
+    runs = [('MF ' + exchange, 'MF', mf(exchange), mf_metrics)
+            for exchange in exchanges]
+    if layout in (None, (2, 2)):
+        runs.append(('mixture LSTM psum', 'mixture LSTM', mixture,
+                     sequence_metrics(sequence_rows(), NUM_ITEMS)))
+    if layout in (None, (1, 4)):
+        runs.append(('bloom LSTM psum', 'bloom LSTM', bloom,
+                     sequence_metrics(bloom_sequences(), BLOOM_ITEMS)))
+    return runs
+
+
+def train_steps(model, data):
+    """The steps of one epoch of ``model`` over ``data``."""
+    rows = len(getattr(data, 'sequences', data))
+    return -(-rows // model._batch_size)
+
+
+def bloom_sequences():
+    """Phase 7's sequences, seeded."""
+    return np.random.RandomState(42).randint(
+        1, BLOOM_ITEMS, (SEQ_ROWS, SEQ_LENGTH)).astype(np.int32)
+
+
+def training_state(model):
+    """A copy of a model's parameters and Adam moments, on the CPU."""
+    def copied(tensors):
+        return {name: t.detach().to('cpu', copy=True)
+                for name, t in tensors}
+    return {'params': copied(model._net.named_parameters()),
+            'mu': copied(model._opt_state['mu'].items()),
+            'nu': copied(model._opt_state['nu'].items())}
+
+
+def block_gaps(torch, model, reference):
+    """A rank's blocks of tables and moments against one device's: the
+    share of its values equal bit for bit, and the largest gap over the
+    largest |value| of that table or moment of the one-device run, by
+    (kind, parameter)."""
+    from spotlight_tpu_torch.parallel.sharding import held_part
+
+    state = training_state(model)
+    gaps = {}
+    for kind in ('params', 'mu', 'nu'):
+        for name, got in state[kind].items():
+            whole = reference[kind][name]
+            want = held_part(model._net, name, whole)
+            same = got.view(torch.int32) == want.contiguous().view(
+                torch.int32)
+            scale = float(whole.abs().max()) or 1.0
+            gaps[kind, name] = (float(same.float().mean()),
+                                float((got - want).abs().max()) / scale)
+    return gaps
+
+
+def sequence_factors_ms(torch, model, whole, rows):
+    """Median ms of 3 warm ``_rank_factors_sequences`` calls on ``rows``
+    (one metric batch): on the mesh, where the sequences' item rows come
+    through the exchange, and on ``whole``, the tables gathered from the
+    ranks, where they are a plain gather.  Every rank calls alike."""
+    prefix = rows.astype(np.int64)
+    times = {}
+    for label, estimator in (('mesh', model), ('gathered', whole)):
+        estimator._rank_factors_sequences(prefix)
+        laps = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            estimator._rank_factors_sequences(prefix)
+            torch.cuda.synchronize()
+            laps.append((time.perf_counter() - start) * 1e3)
+        times[label] = statistics.median(laps)
+    return times
+
+
+def mesh_train_rank(rank, world, store, out_dir):
+    """One rank of phase 16's gloo mesh on the card (started by
+    ``torch.multiprocessing.spawn``; an exception here fails the phase):
+    each run of ``mesh_train_runs`` on each layout, trained and scored on
+    the mesh with the launch counters, ``MATERIALIZE_ROUTES`` and the
+    collective byte counter zeroed just before and read just after; then
+    its blocks against the one-device run and its metrics against one
+    device's on the tables gathered from the ranks."""
+    import datetime
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from spotlight_tpu_torch import evaluation
+    from spotlight_tpu_torch.parallel import make_mesh
+    from spotlight_tpu_torch.parallel import mesh as pmesh
+    from spotlight_tpu_torch.utils import serialization
+
+    torch.cuda.set_device(0)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    dist.init_process_group(
+        'gloo', init_method='file://' + store, world_size=world, rank=rank,
+        timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    reference = torch.load(os.path.join(out_dir, 'one_device.pt'))
+    out = {}
+    for layout in MESH_LAYOUTS:
+        mesh = make_mesh(*layout, devices=['cuda:0'] * world)
+        for name, ref_name, build, metrics in mesh_train_runs(layout):
+            model, data = build(mesh)
+            torch.cuda.synchronize()
+            reset_mesh_counters()
+            pmesh.COLLECTIVE_BYTES = {}
+            start = time.perf_counter()
+            model.fit(data)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - start
+            train_bytes = dict(pmesh.COLLECTIVE_BYTES)
+            results = metrics(model)
+            torch.cuda.synchronize()
+            launches = mesh_counters()
+            routes = evaluation.MATERIALIZE_ROUTES
+            gaps = block_gaps(torch, model, reference[ref_name])
+            whole = serialization._gathered(model)
+            one = metrics(whole)
+            rows = {'mixture LSTM psum': sequence_rows,
+                    'bloom LSTM psum': bloom_sequences}.get(name)
+            factors_ms = (None if rows is None else sequence_factors_ms(
+                torch, model, whole, rows()[:SEQ_EVAL]))
+            # The same steps once more, warm (the state is not checked
+            # after them).
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            model.fit(data)
+            torch.cuda.synchronize()
+            out[layout, name] = dict(
+                reference=ref_name, steps=train_steps(model, data),
+                train_s=train_s, warm_s=time.perf_counter() - start,
+                factors_ms=factors_ms,
+                train_bytes=train_bytes, launches=launches, routes=routes,
+                gaps=gaps, device=str(model._device),
+                loss=model._last_epoch_loss,
+                equal={key: same_arrays(results[key], one[key])
+                       for key in results})
+            del model, whole
+            torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    with open(os.path.join(out_dir, 'rank{}.pkl'.format(rank)), 'wb') as fh:
+        pickle.dump(out, fh)
+
+
+def run_mesh_training_ranks(torch, card):
+    """(a) MESH_RANKS gloo ranks on the one card: every run of
+    ``mesh_train_runs`` on both layouts from the one-device run's initial
+    tables and draws; blocks bit-equal to one device's run where their bits
+    agree and within MESH_TRAIN_RTOL of each table's scale elsewhere,
+    metrics bit-equal to one device's on the gathered tables, no call on
+    the materialize route, the path's kernels launched.  Returns the
+    ranks' summed launch counts."""
+    import pickle
+    import shutil
+
+    out_dir = os.path.join(ROOT, 'build', 'mesh_train_smoke')
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    reference, one_ms, one_warm_ms = {}, {}, {}
+    for name, ref_name, build, _ in mesh_train_runs(None):
+        model, data = build(None)
+        model._initialize(data)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        model.fit(data)
+        torch.cuda.synchronize()
+        one_ms[ref_name] = ((time.perf_counter() - start) * 1e3
+                            / train_steps(model, data))
+        reference[ref_name] = training_state(model)
+        start = time.perf_counter()
+        model.fit(data)
+        torch.cuda.synchronize()
+        one_warm_ms[ref_name] = ((time.perf_counter() - start) * 1e3
+                                 / train_steps(model, data))
+        del model
+    torch.save(reference, os.path.join(out_dir, 'one_device.pt'))
+    del reference
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    torch.multiprocessing.spawn(
+        mesh_train_rank, args=(MESH_RANKS, os.path.join(out_dir, 'store'),
+                               out_dir), nprocs=MESH_RANKS, join=True)
+    spawn_s = time.perf_counter() - start
+    ranks = []
+    for rank in range(MESH_RANKS):
+        with open(os.path.join(out_dir, 'rank{}.pkl'.format(rank)),
+                  'rb') as fh:
+            ranks.append(pickle.load(fh))
+    launches, worst = {}, 0.0
+    for key in ranks[0]:
+        layout, name = key
+        runs = [out[key] for out in ranks]
+        for rank, got in enumerate(runs):
+            if got['routes']:
+                raise AssertionError('{} on rank {}: {} metric calls took '
+                                     'the materialize route'.format(
+                                         name, rank, got['routes']))
+            if got['device'] != 'cuda:0':
+                raise AssertionError('rank {} ran on {}'.format(
+                    rank, got['device']))
+            if not all(got['equal'].values()):
+                raise AssertionError('{} on rank {} of {} x {}: metrics '
+                                     'differ from one device\'s on the '
+                                     'gathered tables: {}'.format(
+                                         name, rank, *layout, got['equal']))
+            for count_name, count in got['launches'].items():
+                launches[count_name] = launches.get(count_name, 0) + count
+        gap = max(g[1] for got in runs for g in got['gaps'].values())
+        share = min(g[0] for got in runs for g in got['gaps'].values())
+        worst = max(worst, gap)
+        steps = runs[0]['steps']
+        by_axis = {'{} {}'.format(*op_axis): count / steps
+                   for op_axis, count in runs[0]['train_bytes'].items()}
+        log(mesh_training=name, layout='{} x {}'.format(*layout),
+            steps=steps, last_epoch_loss=runs[0]['loss'],
+            metrics_bit_equal_to_one_device=True,
+            largest_gap_over_table_scale=gap,
+            least_bit_equal_share=share, bound=MESH_TRAIN_RTOL,
+            ms_per_step_by_rank=[got['train_s'] * 1e3 / steps
+                                 for got in runs],
+            one_device_ms_per_step=one_ms[runs[0]['reference']],
+            warm_ms_per_step_by_rank=[got['warm_s'] * 1e3 / steps
+                                      for got in runs],
+            one_device_warm_ms_per_step=one_warm_ms[runs[0]['reference']],
+            sequence_factors_ms_by_rank=[got['factors_ms'] for got in runs],
+            collective_bytes_per_step_rank0=by_axis,
+            note='four ranks share one card: not a scaling figure; the '
+                 'first times are one fit of a fresh model, its first '
+                 'step included, the warm ones a second fit of the same '
+                 'steps', card=card)
+        if gap > MESH_TRAIN_RTOL:
+            raise AssertionError('{} at {} x {}: a block is {} of its '
+                                 'table\'s scale from one device\'s'
+                                 .format(name, *layout, gap))
+    log(mesh_training_launches=launches, spawn_s=spawn_s,
+        largest_gap_over_table_scale=worst)
+    for name in ('rank_weights', 'matched_target_scores', 'streaming_topk',
+                 'rank_weights (mixture)', 'matched_candidate_scores'):
+        if launches.get(name, 0) <= 0:
+            raise AssertionError('{} never launched on the mesh training '
+                                 'path'.format(name))
+    return launches
+
+
+def check_nccl_collectives(torch, card, group):
+    """The three collectives the mesh makes, called on the one-rank NCCL
+    ``group`` with the card's tensors at the MF step's shapes (a step's
+    flattened table gradients, its looked-up rows, their int32 ids): each
+    returns its input's bits.  ``Mesh`` itself sends nothing along an axis
+    of one rank, so the mesh path alone never reaches NCCL here."""
+    import torch.distributed as dist
+
+    generator = torch.Generator(device=DEVICE).manual_seed(3)
+    rows = 3 * MESH_TRAIN_BATCH
+    tensors = {
+        'all_reduce': torch.randn((NUM_USERS + NUM_ITEMS) * (D + 1),
+                                  device=DEVICE, generator=generator),
+        'all_gather': torch.randn(rows, D + 1, device=DEVICE,
+                                  generator=generator),
+        'all_to_all_single': torch.randint(
+            0, NUM_ITEMS, (rows,), dtype=torch.int32, device=DEVICE,
+            generator=generator)}
+    got = {}
+    total = tensors['all_reduce'].clone()
+    dist.all_reduce(total, group=group)
+    got['all_reduce'] = total
+    parts = [torch.empty_like(tensors['all_gather'])]
+    dist.all_gather(parts, tensors['all_gather'], group=group)
+    got['all_gather'] = parts[0]
+    out = torch.empty_like(tensors['all_to_all_single'])
+    dist.all_to_all_single(out, tensors['all_to_all_single'], group=group)
+    got['all_to_all_single'] = out
+    torch.cuda.synchronize()
+    checks = {name: same_bits(torch, got[name], tensor)
+              for name, tensor in tensors.items()}
+    log(nccl_one_rank_collectives=checks,
+        bytes={name: t.numel() * t.element_size()
+               for name, t in tensors.items()}, card=card)
+    if not all(checks.values()):
+        raise AssertionError('NCCL collectives on one rank: {}'.format(
+            checks))
+
+
+def run_nccl_training(torch, card):
+    """(b) A one-rank NCCL group: NCCL_TRAIN_STEPS steps of phase 4's MF
+    under each exchange, its tables and moments bit-equal to one device's
+    steps (every axis has one rank, so the mesh sends nothing), then the
+    three collectives on the group itself (``check_nccl_collectives``)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from spotlight_tpu_torch.data import Interactions
+    from spotlight_tpu_torch.factorization import ImplicitFactorizationModel
+    from spotlight_tpu_torch.parallel import make_mesh
+
+    _, train, _, _ = slice_data()
+    pairs = NCCL_TRAIN_STEPS * MESH_TRAIN_BATCH
+    data = Interactions(train.user_ids[:pairs], train.item_ids[:pairs],
+                        num_users=NUM_USERS, num_items=NUM_ITEMS)
+
+    def fit(mesh, exchange='psum'):
+        model = ImplicitFactorizationModel(
+            loss='bpr', embedding_dim=D, n_iter=1,
+            batch_size=MESH_TRAIN_BATCH, mesh=mesh, exchange=exchange,
+            random_state=np.random.RandomState(42))
+        model._initialize(data)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        model.fit(data)
+        torch.cuda.synchronize()
+        return model, (time.perf_counter() - start) * 1e3 / NCCL_TRAIN_STEPS
+
+    want, one_ms = fit(None)
+    want = training_state(want)
+    store = os.path.join(ROOT, 'build', 'mesh_train_smoke', 'nccl_store')
+    dist.init_process_group(
+        'nccl', init_method='file://' + store, world_size=1, rank=0,
+        timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        mesh = make_mesh(data=1, model=1, devices=['cuda:0'])
+        for exchange in MESH_EXCHANGES:
+            model, ms = fit(mesh, exchange)
+            got = training_state(model)
+            equal = all(same_bits(torch, got[kind][name], value)
+                        for kind in got for name, value in want[kind].items())
+            log(nccl_one_rank_training=exchange, steps=NCCL_TRAIN_STEPS,
+                tables_and_moments_bit_equal=equal, ms_per_step=ms,
+                one_device_ms_per_step=one_ms, card=card)
+            if not equal:
+                raise AssertionError('NCCL {} steps differ from one '
+                                     'device\'s'.format(exchange))
+            del model
+        check_nccl_collectives(torch, card, mesh.groups[('data', 'model')])
+    finally:
+        dist.destroy_process_group()
+
+
+def run_mesh_training_phase(torch, card):
+    """Phase 16: returns the launch counts of the mesh training path."""
+    launches = run_mesh_training_ranks(torch, card)
+    run_nccl_training(torch, card)
+    launches['mixture_score'] = sum(
+        launches.get(name, 0) for name in sequence_counters())
     return launches
 
 
@@ -4182,6 +4654,11 @@ def main():
     for name, count in run_mesh_phase(torch, card).items():
         launches[name] += count
     log(phase='sharded evaluation', seconds=time.perf_counter() - start)
+
+    start = time.perf_counter()
+    for name, count in run_mesh_training_phase(torch, card).items():
+        launches[name] += count
+    log(phase='mesh training', seconds=time.perf_counter() - start)
 
     kernels = []
     for name in ('rank_weights', 'matched_target_scores', 'streaming_topk',

@@ -22,8 +22,10 @@ On a model with a mesh whose model axis has more than one rank
 (:mod:`spotlight_tpu_torch.parallel`), the streaming path runs sharded:
 each rank streams its block of the catalogue (padded to a multiple of the
 axis with rows that never outrank an item) and the ranks' weights are
-summed or their top-k lists merged (``parallel.evaluation``).  Every rank
-calls the metric alike and returns the same result, equal to one device's.
+summed or their top-k lists merged (``parallel.evaluation``).  A model
+trained on the mesh hands each rank its own block of the catalogue, and
+no rank builds the whole.  Every rank calls the metric alike and returns
+the same result, equal to one device's.
 
 Each metric call picks its path once, before any launch: it streams when
 the caller asks for it, the model exposes its factors, and the kernels
@@ -51,7 +53,7 @@ from spotlight_tpu_torch.ops.kernels.ranking import (
     matched_candidate_scores, matched_target_scores, rank_weights)
 from spotlight_tpu_torch.ops.kernels.topk import streaming_topk
 from spotlight_tpu_torch.parallel.evaluation import (
-    sharded_candidate_scores, sharded_rank_weights, sharded_topk)
+    _block, candidate_scores_of_block, rank_weights_of_block, topk_of_block)
 
 FLOAT_MAX = np.finfo(np.float32).max
 
@@ -221,34 +223,61 @@ def _pad_catalog_for_shards(mesh, item_matrix, item_bias):
     return item_matrix, item_bias
 
 
+def _own_block(mesh, num_items, item_matrix, item_bias):
+    """This rank's block, as a mesh-trained model hands it out, with the
+    rows past the catalogue made pad rows: zero vectors, bias
+    -FLOAT_MAX."""
+    local_rows = item_matrix.shape[0]
+    first = mesh.index('model') * local_rows
+    real = min(max(num_items - first, 0), local_rows)
+    if real < local_rows:
+        item_matrix = item_matrix.clone()
+        item_matrix[real:] = 0
+        item_bias = item_bias.clone()
+        item_bias[real:] = float(-FLOAT_MAX)
+    return local_rows, item_matrix, item_bias, first
+
+
 def _shard_catalog(model, mesh, item_matrix, item_bias):
-    """The padded catalogue of :func:`_pad_catalog_for_shards`, kept on the
-    model beside its item factors: the model hands out the same item tensor
-    until its parameters change, so a metric pads once a parameter version,
-    not once a batch (each rank's block is a view of it).  A model moved
-    to a mesh of another model axis pads anew."""
+    """This rank's block ``(local rows, items, bias, first id)`` of the
+    catalogue padded as :func:`_pad_catalog_for_shards` pads it, kept on
+    the model beside its item factors: the model hands out the same item
+    tensor until its parameters change, so a metric pads once a parameter
+    version, not once a batch.  A model trained on the mesh, whose item
+    table is this rank's block (``_holds_blocks`` of its network), hands
+    out that block, whose padded rows are set.  A model that holds the
+    whole catalogue on every rank (a loaded model given a mesh again, or a
+    replicated item layer that ``sharded`` leaves as it is) is padded and
+    its block is a view.  A model moved to a mesh of another model axis
+    pads anew."""
     shards = mesh.shape['model']
     cache = getattr(model, '_shard_catalog_cache', None)
     if cache is None or cache[0] is not item_matrix or cache[1] != shards:
-        cache = (item_matrix, shards,
-                 *_pad_catalog_for_shards(mesh, item_matrix, item_bias))
+        if model._net._holds_blocks():
+            block = _own_block(mesh, model._num_items, item_matrix,
+                               item_bias)
+        else:
+            block = _block(mesh, 'model', *_pad_catalog_for_shards(
+                mesh, item_matrix, item_bias))
+        cache = (item_matrix, shards, block)
         model._shard_catalog_cache = cache
-    return cache[2], cache[3]
+    return cache[2]
 
 
 def _repeat_first(rows, pad):
     return torch.cat([rows, rows[:1].expand(pad, *rows.shape[1:])])
 
 
-def _streaming_ranks_sharded(mesh, reprs, item_matrix, item_bias, targets,
-                             target_mask, train_rows, mixture, num_items):
+def _streaming_ranks_sharded(mesh, reprs, block, targets, target_mask,
+                             train_rows, mixture, num_items):
     """Per-row mean reciprocal ranks over a row-sharded catalogue: matched
     target scores on their owning ranks, each rank's rank weights summed
-    (``parallel.evaluation``), then the train correction.  ``item_matrix``
-    is padded to a multiple of the model axis; ``num_items`` is the real
-    catalogue, which the ranks' semantics use.  The user batch is padded
-    to a multiple of the data axis by repeating its first row, so that it
-    splits over the data ranks, and sliced back."""
+    (``parallel.evaluation``), then the train correction.  ``block`` is
+    this rank's block of the catalogue padded to a multiple of the model
+    axis (:func:`_shard_catalog`); ``num_items`` is the real catalogue,
+    which the ranks' semantics use.  The user batch is padded to a multiple
+    of the data axis by repeating its first row, so that it splits over the
+    data ranks, and sliced back."""
     safe_targets = targets.clamp(0, num_items - 1)
     batch = reprs.shape[0]
     pad = -batch % mesh.shape.get('data', 1)
@@ -258,15 +287,15 @@ def _streaming_ranks_sharded(mesh, reprs, item_matrix, item_bias, targets,
         if train_rows is not None:
             train_rows = _repeat_first(train_rows, pad)
 
-    target_scores = sharded_candidate_scores(
-        mesh, reprs, item_matrix, item_bias, safe_targets, mixture=mixture)
-    weights = sharded_rank_weights(mesh, reprs, item_matrix, item_bias,
-                                   target_scores, mixture=mixture)
+    target_scores = candidate_scores_of_block(
+        mesh, reprs, block, safe_targets, mixture=mixture)
+    weights = rank_weights_of_block(mesh, reprs, block, target_scores,
+                                    mixture=mixture)
     if train_rows is not None:
         valid_train = train_rows >= 0
         safe_train = train_rows.clamp(0, num_items - 1)
-        train_scores = sharded_candidate_scores(
-            mesh, reprs, item_matrix, item_bias, safe_train, mixture=mixture)
+        train_scores = candidate_scores_of_block(
+            mesh, reprs, block, safe_train, mixture=mixture)
         ranks = _ranks_with_train_correction(
             weights, num_items, safe_targets, target_scores, valid_train,
             safe_train, train_scores)
@@ -295,12 +324,9 @@ def _streaming_ranks(model, kind, inputs, targets, target_mask,
     reprs, item_matrix, item_bias, mixture = factors
     mesh = _sharded_mesh(model)
     if mesh is not None:
-        num_items = item_matrix.shape[0]
-        item_matrix, item_bias = _shard_catalog(model, mesh, item_matrix,
-                                                item_bias)
-        return _streaming_ranks_sharded(mesh, reprs, item_matrix, item_bias,
-                                        targets, target_mask, train_rows,
-                                        mixture, num_items)
+        return _streaming_ranks_sharded(
+            mesh, reprs, _shard_catalog(model, mesh, item_matrix, item_bias),
+            targets, target_mask, train_rows, mixture, model._num_items)
     return _streaming_ranks_device(reprs, item_matrix, item_bias, targets,
                                    target_mask, train_rows, mixture)
 
@@ -372,25 +398,26 @@ def _streaming_topk_hits(model, kind, inputs, k_max, train_rows=None):
     if factors is None:
         return None
     reprs, item_matrix, item_bias, mixture = factors
-    num_items = item_matrix.shape[0]
+    mesh = _sharded_mesh(model)
+    num_items = (model._num_items if mesh is not None
+                 else item_matrix.shape[0])
     fetch = k_max if train_rows is None else k_max + train_rows.shape[1]
     # A fetch of the whole catalogue already holds every unmasked item.
     fetch = min(fetch, num_items)
-    mesh = _sharded_mesh(model)
     if mesh is not None:
         return _sharded_topk_hits(
-            mesh, reprs, *_shard_catalog(model, mesh, item_matrix, item_bias),
+            mesh, reprs, _shard_catalog(model, mesh, item_matrix, item_bias),
             train_rows, k_max, fetch, mixture)
     return _streaming_topk_device(reprs, item_matrix, item_bias, train_rows,
                                   k_max, fetch, mixture)
 
 
-def _sharded_topk_hits(mesh, reprs, item_matrix, item_bias, train_rows,
-                       k_max, fetch, mixture):
+def _sharded_topk_hits(mesh, reprs, block, train_rows, k_max, fetch,
+                       mixture):
     """The mesh form of :func:`_streaming_topk_device`: each rank's top
-    ``fetch`` merged over the model axis, then the train compaction."""
-    _, top_ids = sharded_topk(mesh, reprs, item_matrix, item_bias, fetch,
-                              mixture=mixture)
+    ``fetch`` of its ``block`` merged over the model axis, then the train
+    compaction."""
+    _, top_ids = topk_of_block(mesh, reprs, block, fetch, mixture=mixture)
     if train_rows is None:
         return top_ids
     return _compact_train_mask(top_ids, train_rows, k_max)

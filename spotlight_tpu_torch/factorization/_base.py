@@ -17,6 +17,8 @@ import torch
 
 from spotlight_tpu_torch.factorization.representations import BilinearNet
 from spotlight_tpu_torch.ops.lazy_adam import lazy_adam_init
+from spotlight_tpu_torch.parallel import training as ptraining
+from spotlight_tpu_torch.parallel.sharding import held_part
 from spotlight_tpu_torch.utils import training
 from spotlight_tpu_torch.utils.serialization import SerializableEstimatorMixin
 
@@ -55,13 +57,28 @@ def check_mesh_settings(mesh, exchange, batch_size):
                 'count ({})'.format(batch_size, shards))
 
 
-def refuse_mesh_training(mesh):
-    """``fit`` on a mesh waits for the sharded training engines."""
-    if mesh is not None:
+def refuse_lazy_on_mesh(mesh, lazy):
+    """The row-sparse (lazy) engines on a mesh wait for their port; where
+    ``sparse=True`` would take them, the JAX package takes its distributed
+    lazy engine, so the port raises rather than train otherwise."""
+    if mesh is not None and lazy:
         raise NotImplementedError(
-            'training on a mesh is not ported yet (ROADMAP.md, Queue 1 '
-            'item 2: sharded embeddings and data-parallel training); fit '
-            'without mesh=, then evaluate on the mesh')
+            'sparse=True on a mesh (the distributed lazy engine) is not '
+            'ported yet (ROADMAP.md, Queue 1 item 3: the lazy engines under '
+            'a mesh); train on the mesh with sparse=False')
+
+
+def refuse_unsharded_on_mesh(model):
+    """A model initialized without a mesh (or loaded from a file) holds
+    whole tables and an optimizer state of their shape; ``fit`` on a mesh
+    set afterwards would need them resharded, which is not ported
+    (ROADMAP.md, Queue 1 item 4: checkpoint restore across layouts)."""
+    if (model._mesh is not None
+            and getattr(model, '_param_specs', None) is None):
+        raise NotImplementedError(
+            'this model was initialized without its mesh; fit on a mesh '
+            'needs a model initialized on it (restoring a state onto '
+            'another layout: ROADMAP.md, Queue 1 item 4)')
 
 
 def _repr_model(model):
@@ -97,6 +114,8 @@ class _FactorizationBase(SerializableEstimatorMixin):
         self._lazy = False
         self._optimizer = None
         self._opt_state = None
+        self._param_specs = None
+        self._opt_specs = None
         self._epoch_fn_cache = {}
         # Bumped whenever the parameters change; keys the item-factor cache.
         self._params_version = 0
@@ -121,6 +140,13 @@ class _FactorizationBase(SerializableEstimatorMixin):
         if self._optimizer_func is not None:
             return ('a custom optimizer_func is set (row-sparse lazy Adam '
                     'IS the optimizer)')
+        if (self._mesh is not None and self._exchange == 'alltoall_cf'
+                and getattr(self, '_negative_sampling',
+                            'uniform') == 'in_batch'):
+            return ("exchange='alltoall_cf' shards the batch over the "
+                    'model axis too, which would change the in-batch '
+                    'negative roll width (use the psum/alltoall exchanges '
+                    "with negative_sampling='in_batch')")
         return None
 
     def _use_lazy_engine(self):
@@ -145,16 +171,24 @@ class _FactorizationBase(SerializableEstimatorMixin):
         self._num_users = interactions.num_users
         self._num_items = interactions.num_items
 
+        mesh = self._mesh
+        # On a mesh the tables are drawn whole on the CPU, as one device
+        # draws them, and only the rank's blocks go to its device.
+        build_device = 'cpu' if mesh is not None else self._device
         if self._representation is not None:
-            self._net = self._representation.to(self._device)
+            self._net = self._representation.to(build_device)
         else:
             self._net = BilinearNet(self._num_users,
                                     self._num_items,
                                     self._embedding_dim,
                                     sparse=self._sparse,
                                     generator=self._generator,
-                                    device=self._device)
+                                    device=build_device)
         self._lazy = self._use_lazy_engine()
+        refuse_lazy_on_mesh(mesh, self._lazy)
+        if mesh is not None:
+            self._net, self._param_specs = ptraining.shard_network(
+                self._net, mesh, self._exchange, self._device)
         params = dict(self._net.named_parameters())
         if self._lazy:
             self._opt_state = lazy_adam_init(params)
@@ -162,16 +196,22 @@ class _FactorizationBase(SerializableEstimatorMixin):
             self._optimizer = training.make_optimizer(
                 self._learning_rate, self._l2, self._optimizer_func)
             self._opt_state = self._optimizer.init(params)
+            if mesh is not None:
+                self._opt_specs = ptraining.opt_specs_like(
+                    self._opt_state, params, self._param_specs)
         self._epoch_fn_cache = {}
         self._params_version += 1
 
     def _load_params(self, state):
         """Install a ``state_dict`` (for example one made by
         :func:`~spotlight_tpu_torch.utils.convert.params_from_jax`) into the
-        initialized network."""
+        initialized network.  On a mesh, a whole table (padded or not)
+        gives the rank its block."""
         if not self._initialized:
             raise RuntimeError('call _initialize before loading parameters')
-        self._net.load_state_dict(state)
+        self._net.load_state_dict({
+            name: held_part(self._net, name, value)
+            for name, value in state.items()})
         self._params_version += 1
 
     def _negatives_shape(self, num_batches):
@@ -182,12 +222,16 @@ class _FactorizationBase(SerializableEstimatorMixin):
     def _epoch_fn(self, num_batches):
         """``epoch_fn(data, n_valid) -> device loss``: one epoch's draws
         from the estimator's generator, then the steps of
-        ``self._step_fn()``."""
+        ``self._step_fn()``, on a mesh each on the rank's slice of the
+        batch (its negatives, ``(n_neg, B)`` a batch, along their axis
+        1)."""
         if num_batches not in self._epoch_fn_cache:
+            shard = None if self._mesh is None else (ptraining.batch_rows(
+                self._mesh, self._batch_size, self._exchange), 1)
             self._epoch_fn_cache[num_batches] = training.make_epoch_fn(
                 self._step_fn(), self._generator, num_batches,
                 self._batch_size, self._negatives_shape(num_batches),
-                self._num_items, self._device)
+                self._num_items, self._device, shard=shard)
         return self._epoch_fn_cache[num_batches]
 
     def fit(self, interactions, verbose=False):
@@ -207,9 +251,9 @@ class _FactorizationBase(SerializableEstimatorMixin):
         -------
         self
         """
-        refuse_mesh_training(self._mesh)
         if not self._initialized:
             self._initialize(interactions)
+        refuse_unsharded_on_mesh(self)
         data, n, num_batches = self._epoch_data(interactions)
         epoch_fn = self._epoch_fn(num_batches)
         self._params_version += 1
@@ -253,7 +297,9 @@ class _FactorizationBase(SerializableEstimatorMixin):
 
         The user bias is dropped (it cannot change a rank).  The dense item
         matrix is cached per parameter version, so a metric pays the
-        catalogue gather once, not once per batch."""
+        catalogue gather once, not once per batch.  On a mesh-trained model
+        it is this rank's block of the catalogue (``item_factors``), and
+        the user rows come through the exchange: every rank calls alike."""
         if not isinstance(self._net, BilinearNet):
             return None
         cache = self._item_factor_cache

@@ -11,8 +11,8 @@ with ``sparse=True`` the row-sparse lazy-Adam engine
 positives only, no negative draw), whose row update is the kernel P1 on
 the card.  A poisson model predicts ``exp`` of the pair score and a
 logistic one its sigmoid, in training and in :meth:`predict` alike.
-On a ``mesh=`` (:mod:`spotlight_tpu_torch.parallel`) ``fit`` waits for the
-sharded training engines and raises.
+On a ``mesh=`` (:mod:`spotlight_tpu_torch.parallel`) the dense engine
+trains data-parallel with row-sharded tables.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ import torch
 from spotlight_tpu_torch.factorization._base import _FactorizationBase
 from spotlight_tpu_torch.factorization.lazy import build_lazy_step
 from spotlight_tpu_torch.ops.losses import EXPLICIT_LOSSES
+from spotlight_tpu_torch.parallel import training as ptraining
 from spotlight_tpu_torch.utils import training
 
 _LOSSES = tuple(EXPLICIT_LOSSES)
@@ -54,12 +55,19 @@ class ExplicitFactorizationModel(_FactorizationBase):
         dense with a RuntimeWarning.
     random_state : np.random.RandomState, optional
     mesh : :class:`~spotlight_tpu_torch.parallel.mesh.Mesh`, optional
-        The model's mesh (every rank holds the whole tables); ``fit`` on a
-        mesh raises ``NotImplementedError`` until the sharded training
-        engines are ported.
+        Train and evaluate on a mesh of ranks (every rank calls alike): the
+        embedding tables row-shard over the mesh's ``'model'`` axis, each
+        rank holding its block of every table and of its Adam moments, and
+        the batch shards over ``'data'``
+        (:mod:`spotlight_tpu_torch.parallel.training`, the dense engine;
+        ``sparse=True`` there raises ``NotImplementedError``).  The metrics
+        score each rank's block of the catalogue
+        (:mod:`spotlight_tpu_torch.parallel.evaluation`); ``predict``
+        returns the whole, replicated result.
     exchange : str, 'psum' (default), 'alltoall' or 'alltoall_cf'
-        The collective of sharded table lookups; checked as the JAX package
-        checks it.
+        The collective of sharded table lookups
+        (:mod:`spotlight_tpu_torch.parallel.sharding`); checked as the JAX
+        package checks it.
     device : str or torch.device, optional
         ``None`` (the default) means ``cuda`` and raises when no card is
         present; pass ``'cpu'`` to run on the CPU.
@@ -114,8 +122,7 @@ class ExplicitFactorizationModel(_FactorizationBase):
                                    self._learning_rate, self._l2, 0,
                                    explicit=True)
         else:
-            step = training.build_dense_step(self._net, self._elems_fn(),
-                                             self._optimizer)
+            step = ptraining.dense_step(self, self._elems_fn())
         return lambda batch, negatives: step(self._opt_state, batch,
                                              negatives)
 

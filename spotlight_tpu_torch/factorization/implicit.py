@@ -11,9 +11,8 @@ tables) by default, or with ``sparse=True`` the row-sparse lazy-Adam engine
 hand-written kernel P1 on the card.  Each epoch draws its permutation and
 negatives from the estimator's CPU generator in one go and reads its loss
 back one epoch late.  On a ``mesh=`` (:mod:`spotlight_tpu_torch.parallel`)
-the metrics run sharded and ``predict`` runs on the rank's device over the
-whole tables, which every rank holds; ``fit`` there waits for the sharded
-training engines and raises.
+the dense engine trains data-parallel with row-sharded tables, and the
+metrics score each rank's block of the catalogue.
 """
 
 from __future__ import annotations
@@ -27,6 +26,7 @@ from spotlight_tpu_torch.ops.losses import IMPLICIT_LOSSES
 from spotlight_tpu_torch.ops.sampling import (inbatch_importance_weight_table,
                                               inbatch_pair_weights,
                                               weighted_inbatch_elems)
+from spotlight_tpu_torch.parallel import training as ptraining
 from spotlight_tpu_torch.utils import training
 
 _LOSSES = tuple(IMPLICIT_LOSSES)
@@ -64,14 +64,19 @@ class ImplicitFactorizationModel(_FactorizationBase):
         (:func:`~spotlight_tpu_torch.ops.sampling.
         inbatch_importance_weight_table`).
     mesh : :class:`~spotlight_tpu_torch.parallel.mesh.Mesh`, optional
-        Evaluate on a mesh: the metrics score each rank's block of the
-        catalogue and merge over ``torch.distributed``
-        (:mod:`spotlight_tpu_torch.parallel.evaluation`); every rank holds
-        the whole tables.  ``fit`` on a mesh raises ``NotImplementedError``
-        until the sharded training engines are ported.
+        Train and evaluate on a mesh of ranks (every rank calls alike): the
+        embedding tables row-shard over the mesh's ``'model'`` axis, each
+        rank holding its block of every table and of its Adam moments, and
+        the batch shards over ``'data'``
+        (:mod:`spotlight_tpu_torch.parallel.training`, the dense engine;
+        ``sparse=True`` there raises ``NotImplementedError``).  The metrics
+        score each rank's block of the catalogue
+        (:mod:`spotlight_tpu_torch.parallel.evaluation`); ``predict``
+        returns the whole, replicated result.
     exchange : str, 'psum' (default), 'alltoall' or 'alltoall_cf'
-        The collective of sharded table lookups (the sharded training
-        engines); checked as the JAX package checks it.
+        The collective of sharded table lookups
+        (:mod:`spotlight_tpu_torch.parallel.sharding`); checked as the JAX
+        package checks it.
     device : str or torch.device, optional
         ``None`` (the default) means ``cuda`` and raises when no card is
         present; pass ``'cpu'`` to run on the CPU.
@@ -163,8 +168,7 @@ class ImplicitFactorizationModel(_FactorizationBase):
                 self._net, self._loss, self._learning_rate, self._l2,
                 self._num_negative_samples, self._negative_sampling)
         else:
-            step = training.build_dense_step(self._net, self._elems_fn(),
-                                             self._optimizer)
+            step = ptraining.dense_step(self, self._elems_fn())
         return lambda batch, negatives: step(self._opt_state, batch,
                                              negatives)
 

@@ -17,8 +17,12 @@ With the default layers each side keeps one fused table of width
 ``fused=False`` selects the four-table layout.  The training paths score
 positives with sampled negatives (:meth:`BilinearNet.apply_with_negatives`)
 or with in-batch negatives
-(:meth:`BilinearNet.apply_with_inbatch_negatives`).  Table sharding
-belongs to a later slice.
+(:meth:`BilinearNet.apply_with_inbatch_negatives`).
+:meth:`BilinearNet.sharded` wraps the tables in the row-sharded layers of
+:mod:`spotlight_tpu_torch.parallel.sharding` for training on a mesh; a
+network whose tables are this rank's blocks scores the rank's block of the
+catalogue (:meth:`BilinearNet.item_factors`) and gathers whole-catalogue
+scores over the model axis (:meth:`BilinearNet.score_catalog`).
 """
 
 from __future__ import annotations
@@ -26,8 +30,13 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from spotlight_tpu_torch.ops.embeddings import (FusedBiasEmbedding,
+from spotlight_tpu_torch.ops.embeddings import (BloomEmbedding,
+                                                FusedBiasEmbedding,
                                                 ScaledEmbedding, ZeroEmbedding)
+from spotlight_tpu_torch.parallel.sharding import (ShardedBloomEmbedding,
+                                                   ShardedEmbedding,
+                                                   holds_blocks,
+                                                   network_specs)
 
 
 class BilinearNet(nn.Module):
@@ -186,10 +195,65 @@ class BilinearNet(nn.Module):
             return positive, negatives[0]
         return positive, torch.stack(negatives, dim=0)
 
+    def sharded(self, axis='model', num_shards=1, exchange='psum', mesh=None):
+        """A variant of this network with every embedding table row-sharded
+        over the mesh axis ``axis`` of ``mesh``
+        (:mod:`spotlight_tpu_torch.parallel.sharding`), holding the whole
+        padded tables until the caller puts its blocks in their place.
+
+        The fused layout shards its two fused tables (one exchange per
+        side instead of two); the classic layout wraps each of its four
+        tables, bloom layers through their compressed table
+        (``ShardedBloomEmbedding``); other injected layers stay replicated.
+        """
+        def wrap(layer):
+            kind = (ShardedBloomEmbedding if isinstance(layer, BloomEmbedding)
+                    else ShardedEmbedding if isinstance(
+                        layer, (ScaledEmbedding, ZeroEmbedding,
+                                FusedBiasEmbedding))
+                    else None)
+            if kind is None:
+                return layer
+            return kind(layer, axis=axis, num_shards=num_shards,
+                        exchange=exchange, mesh=mesh)
+
+        layers = dict(user_embedding_layer=wrap(self.user_embeddings),
+                      item_embedding_layer=wrap(self.item_embeddings))
+        if not self.fused:
+            layers.update(user_bias_layer=wrap(self.user_biases),
+                          item_bias_layer=wrap(self.item_biases))
+        return BilinearNet(self.num_users, self.num_items,
+                           self.embedding_dim, sparse=self.sparse,
+                           fused=self.fused, table_dtype=self.table_dtype,
+                           **layers)
+
+    def param_specs(self):
+        """PartitionSpec of every parameter, by its name in
+        ``named_parameters()``: sharded tables' rows over their axis, the
+        rest replicated."""
+        return network_specs(self)
+
+    def _holds_blocks(self):
+        """Whether the item table is this rank's block of the catalogue
+        (trained on a mesh), not the whole padded table."""
+        return holds_blocks(self.item_embeddings)
+
     def item_factors(self):
         """Dense ``(num_items, dim)`` factor matrix and ``(num_items,)``
         float32 bias vector: the inputs of catalogue scoring and of the
-        evaluation kernels.  A bf16 fused table keeps its dtype here."""
+        evaluation kernels.  A bf16 fused table keeps its dtype here.
+
+        On a network whose tables are this rank's blocks (trained on a
+        mesh), this rank's block of the padded catalogue instead:
+        ``rows_per_shard`` rows from ``model index x rows_per_shard``, the
+        padded rows zero.  Every rank of the model axis calls alike."""
+        if self._holds_blocks():
+            rows = self.item_embeddings.block_rows()
+            if self.fused:
+                dim = self.embedding_dim
+                return rows[:, :dim].contiguous(), rows[:, dim].float()
+            bias = self.item_biases.block_rows()
+            return rows, bias[:, 0]
         all_items = torch.arange(self.num_items,
                                  device=self.item_embeddings.weight.device)
         if self.fused:
@@ -223,8 +287,12 @@ class BilinearNet(nn.Module):
 
         Returns
         -------
-        (batch, num_items) float32 tensor
+        (batch, num_items) float32 tensor.  On a network holding this
+        rank's blocks, each rank scores its block of the catalogue and the
+        blocks' scores are gathered over the model axis: every rank of the
+        axis calls alike and gets the whole, replicated.
         """
+        gather = item_matrix is None and self._holds_blocks()
         if item_matrix is None:
             item_matrix, item_bias_vector = self.item_factors()
 
@@ -237,4 +305,9 @@ class BilinearNet(nn.Module):
             u_bias = self.user_biases(user_ids)[..., 0]
 
         scores = torch.matmul(users, item_matrix.float().T)
-        return scores + u_bias[:, None] + item_bias_vector[None, :]
+        scores = scores + u_bias[:, None] + item_bias_vector[None, :]
+        if gather:
+            layer = self.item_embeddings
+            scores = layer.mesh.all_gather(scores.T, layer.axis).T[
+                :, :self.num_items]
+        return scores

@@ -1,13 +1,23 @@
 """The distributed layer on ``torch.distributed``.
 
-Counterpart of ``spotlight_tpu/parallel``: a ``(data, model)`` mesh of
-ranks (:mod:`~spotlight_tpu_torch.parallel.mesh`), the row layout of tables
-over it (:mod:`~spotlight_tpu_torch.parallel.sharding`) and full-catalogue
-evaluation over a row-sharded catalogue
-(:mod:`~spotlight_tpu_torch.parallel.evaluation`), through the same kernels
-as one device.  One process a rank: NCCL on cards, gloo for CPU process
-groups.  Sharded embedding tables, distributed training, checkpoints and
-the multi-host helpers are not ported yet (ROADMAP.md, Queue 1).
+Counterpart of ``spotlight_tpu/parallel``, one process a rank (NCCL on
+cards, gloo for CPU process groups), every rank making the same calls:
+
+- :mod:`~spotlight_tpu_torch.parallel.mesh`: a ``(data, model)`` grid of
+  ranks and its collectives;
+- :mod:`~spotlight_tpu_torch.parallel.sharding`: the row layout of tables
+  over the model axis, the row-sharded embedding layers
+  (:class:`ShardedEmbedding`, :class:`ShardedBloomEmbedding`) and their
+  three exchanges;
+- :mod:`~spotlight_tpu_torch.parallel.training`: data-parallel training of
+  the dense engine over the data axis, each rank holding its blocks of the
+  tables and of their Adam moments;
+- :mod:`~spotlight_tpu_torch.parallel.evaluation`: full-catalogue
+  evaluation over a row-sharded catalogue, through the same kernels as one
+  device.
+
+The lazy engines on a mesh, checkpoints and the multi-host helpers are not
+ported yet (ROADMAP.md, Queue 1).
 """
 
 from spotlight_tpu_torch.parallel.evaluation import (  # noqa: F401
@@ -17,4 +27,8 @@ from spotlight_tpu_torch.parallel.evaluation import (  # noqa: F401
     sharded_topk,
 )
 from spotlight_tpu_torch.parallel.mesh import make_mesh  # noqa: F401
-from spotlight_tpu_torch.parallel.sharding import shard_params  # noqa: F401
+from spotlight_tpu_torch.parallel.sharding import (  # noqa: F401
+    ShardedBloomEmbedding,
+    ShardedEmbedding,
+    shard_params,
+)

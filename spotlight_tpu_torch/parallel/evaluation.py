@@ -19,7 +19,9 @@ never the D contraction), and only small results cross between ranks:
 
 The functions are SPMD: every rank calls them with the same arguments (the
 whole ``(N, D)`` catalogue, N a multiple of the model axis' size) and gets
-the same, replicated, result.  Where the data axis divides the user batch,
+the same, replicated, result.  Their ``*_of_block`` forms take the rank's
+own block instead, as a model trained on the mesh holds it, so that no
+rank builds the whole catalogue.  Where the data axis divides the user batch,
 each data rank takes its slice of the users and the results are gathered
 over the data axis, as the JAX package shards the batch over ``'data'``.
 
@@ -50,7 +52,8 @@ def batch_scores(users, items, bias, mixture=None):
 
 def _block(mesh, axis, item_matrix, item_bias):
     """(local rows, this rank's rows of the catalogue, of its bias, the id
-    of its first row): views, no copy."""
+    of its first row): views, no copy.  The block the ``*_of_block``
+    functions take."""
     shards = mesh.shape[axis]
     if item_matrix.shape[0] % shards:
         raise ValueError('the catalogue ({} rows) must divide over the {} '
@@ -104,8 +107,16 @@ def sharded_topk(mesh, user_reprs, item_matrix, item_bias, k, axis='model',
     (scores, ids) : (B, k) float32 and (B, k) int32, the best k over the
         whole catalogue, score descending, ties by ascending id.
     """
-    local_rows, items, bias, first = _block(mesh, axis, item_matrix,
-                                            item_bias)
+    return topk_of_block(mesh, user_reprs,
+                         _block(mesh, axis, item_matrix, item_bias), k,
+                         axis, data_axis, mixture, streaming)
+
+
+def topk_of_block(mesh, user_reprs, block, k, axis='model', data_axis='data',
+                  mixture=None, streaming=True):
+    """:func:`sharded_topk` on this rank's ``block`` of the padded
+    catalogue, ``(local rows, items, bias, first id)``."""
+    local_rows, items, bias, first = block
     rows = _data_slice(mesh, user_reprs.shape[0], data_axis)
     users = _local(user_reprs, rows)
     # A rank can hold fewer than k rows; its list is padded so that every
@@ -199,7 +210,16 @@ def sharded_rank_weights(mesh, user_reprs, item_matrix, item_bias,
     -------
     (B, T) float32 weights, replicated; ``rank = weights + 0.5``.
     """
-    _, items, bias, _ = _block(mesh, axis, item_matrix, item_bias)
+    return rank_weights_of_block(
+        mesh, user_reprs, _block(mesh, axis, item_matrix, item_bias),
+        target_scores, axis, data_axis, mixture)
+
+
+def rank_weights_of_block(mesh, user_reprs, block, target_scores,
+                          axis='model', data_axis='data', mixture=None):
+    """:func:`sharded_rank_weights` on this rank's ``block`` of the padded
+    catalogue, ``(local rows, items, bias, first id)``."""
+    _, items, bias, _ = block
     rows = _data_slice(mesh, user_reprs.shape[0], data_axis)
     local = rank_weights(_local(user_reprs, rows), items, bias,
                          _local(target_scores, rows), mixture)
@@ -223,8 +243,16 @@ def sharded_candidate_scores(mesh, user_reprs, item_matrix, item_bias,
     -------
     (B, T) float32, replicated.
     """
-    local_rows, items, bias, first = _block(mesh, axis, item_matrix,
-                                            item_bias)
+    return candidate_scores_of_block(
+        mesh, user_reprs, _block(mesh, axis, item_matrix, item_bias),
+        candidates, axis, data_axis, mixture)
+
+
+def candidate_scores_of_block(mesh, user_reprs, block, candidates,
+                              axis='model', data_axis='data', mixture=None):
+    """:func:`sharded_candidate_scores` on this rank's ``block`` of the
+    padded catalogue, ``(local rows, items, bias, first id)``."""
+    local_rows, items, bias, first = block
     rows = _data_slice(mesh, user_reprs.shape[0], data_axis)
     users = _local(user_reprs, rows)
     local = _local(candidates, rows) - first

@@ -10,12 +10,17 @@ lays out JAX's devices.  The ``model`` group of a rank holds its row of the
 grid (the ranks that share a user batch and split the catalogue), its
 ``data`` group its column (the ranks that hold the same catalogue block).
 
-The collectives sum or gather along one axis, on the tensors' own device:
-NCCL takes the card's tensors, and gloo takes CPU tensors and, for
-``all_reduce`` and ``all_gather``, CUDA tensors too (it copies them
-through host memory itself), which is how several gloo ranks share one
-card (NCCL refuses two ranks on one GPU).  The payloads are small: (B, T)
-scores or counts and (B, k) candidate lists.
+The collectives sum, gather or exchange along one axis, or over the whole
+grid (``('data', 'model')``), on the tensors' own device: NCCL takes the
+card's tensors, and gloo takes CPU tensors and CUDA tensors too (it copies
+them through host memory itself), which is how several gloo ranks share
+one card (NCCL refuses two ranks on one GPU).  Evaluation sends small
+payloads ((B, T) scores or counts, (B, k) candidate lists); training sends
+the looked-up rows, their exchanged ids and the gradients of the rank's
+blocks.  :data:`COLLECTIVE_BYTES` counts what this rank hands each
+collective.  Along an axis of one rank every collective is the identity, as
+``jax.lax.psum`` over a one-device axis is: it returns its input, and
+nothing is copied, sent or counted.
 """
 
 from __future__ import annotations
@@ -23,6 +28,34 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.distributed as dist
+
+#: Bytes of the tensors this process handed its collectives, by ``(op,
+#: axis)``: ``op`` one of 'all_reduce', 'all_gather', 'all_to_all', ``axis``
+#: 'data', 'model' or 'data,model'.  Zero it by assigning ``{}``, as the
+#: kernels' launch counters are zeroed.
+COLLECTIVE_BYTES = {}
+
+#: The axes of the whole grid, the batch axes of the capacity-factored
+#: exchange.
+BOTH = ('data', 'model')
+
+
+def _axis_key(axis):
+    """A group's key in ``Mesh.groups``: an axis name, or BOTH."""
+    if isinstance(axis, (tuple, list)):
+        axis = tuple(axis)
+        if len(axis) == 1:
+            return axis[0]
+        if sorted(axis) != sorted(BOTH):
+            raise ValueError('unknown mesh axes {!r}'.format(axis))
+        return BOTH
+    return axis
+
+
+def _count(op, axis, tensor):
+    key = (op, axis if isinstance(axis, str) else ','.join(axis))
+    COLLECTIVE_BYTES[key] = (COLLECTIVE_BYTES.get(key, 0)
+                             + tensor.numel() * tensor.element_size())
 
 
 class Mesh:
@@ -37,7 +70,8 @@ class Mesh:
     device : torch.device
         The device of this rank's work.
     groups : dict
-        The ``torch.distributed`` group of each axis that holds this rank.
+        The ``torch.distributed`` group of each axis that holds this rank,
+        and of the whole grid under ``('data', 'model')``.
     """
 
     def __init__(self, data, model, rank, device, groups):
@@ -52,23 +86,63 @@ class Mesh:
             rank=self.rank, device=self.device, **self.shape)
 
     def index(self, axis):
-        """This rank's coordinate along ``axis``."""
+        """This rank's coordinate along ``axis``; along ``('data',
+        'model')``, its row-major position in the grid."""
+        axis = _axis_key(axis)
+        if axis == BOTH:
+            return self.rank
         return self.data_index if axis == 'data' else self.model_index
 
+    def size(self, axis):
+        """The number of ranks along ``axis`` (or both axes)."""
+        axis = _axis_key(axis)
+        if axis == BOTH:
+            return self.shape['data'] * self.shape['model']
+        return self.shape[axis]
+
     def all_reduce(self, tensor, axis):
-        """The sum of ``tensor`` over the ranks of ``axis``, on every one of
-        them (``jax.lax.psum``); ``tensor`` itself is left as it was."""
+        """The sum of ``tensor`` over the ranks of ``axis`` (an axis name or
+        ``('data', 'model')``), on every one of them (``jax.lax.psum``);
+        ``tensor`` itself is left as it was, and is what an axis of one rank
+        returns."""
+        axis = _axis_key(axis)
+        if self.size(axis) == 1:
+            return tensor
         total = tensor.clone(memory_format=torch.contiguous_format)
+        _count('all_reduce', axis, total)
         dist.all_reduce(total, group=self.groups[axis])
         return total
 
     def all_gather(self, tensor, axis):
         """The ``tensor`` of every rank of ``axis``, concatenated along the
         first dimension in the order of the ranks' coordinates."""
+        axis = _axis_key(axis)
+        if self.size(axis) == 1:
+            return tensor
         tensor = tensor.contiguous()
-        parts = [torch.empty_like(tensor) for _ in range(self.shape[axis])]
+        _count('all_gather', axis, tensor)
+        parts = [torch.empty_like(tensor) for _ in range(self.size(axis))]
         dist.all_gather(parts, tensor, group=self.groups[axis])
         return torch.cat(parts)
+
+    def all_to_all(self, tensor, axis):
+        """``jax.lax.all_to_all(tensor, axis, split_axis=0,
+        concat_axis=0)``: the first dimension is cut into one chunk per rank
+        of ``axis``, chunk ``j`` goes to the rank of coordinate ``j``, and
+        the chunks received are concatenated in the order of the senders'
+        coordinates.  One ``all_to_all_single``, on the tensor's device
+        under either backend."""
+        axis = _axis_key(axis)
+        if self.size(axis) == 1:
+            return tensor
+        tensor = tensor.contiguous()
+        if tensor.shape[0] % self.size(axis):
+            raise ValueError('{} rows do not split over the {} ranks of {}'
+                             .format(tensor.shape[0], self.size(axis), axis))
+        _count('all_to_all', axis, tensor)
+        out = torch.empty_like(tensor)
+        dist.all_to_all_single(out, tensor, group=self.groups[axis])
+        return out
 
 
 def make_mesh(data=None, model=None, devices=None):
@@ -126,10 +200,12 @@ def make_mesh(data=None, model=None, devices=None):
 
     grid = np.arange(n).reshape(data, model)
     groups = {}
-    # Every rank creates every group, rows then columns, in one order.
+    # Every rank creates every group, rows then columns, then the whole
+    # grid, in one order.
     for axis, lines in (('model', grid), ('data', grid.T)):
         for line in lines:
             group = dist.new_group([int(r) for r in line])
             if rank in line:
                 groups[axis] = group
+    groups[BOTH] = dist.new_group(list(range(n)))
     return Mesh(data, model, rank, torch.device(devices[rank]), groups)

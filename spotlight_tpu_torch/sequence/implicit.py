@@ -16,8 +16,11 @@ same shape, or against the targets of other batch rows
 objective); the loss is masked at padding positions and padded rows.  Each
 epoch draws its permutation and negatives from the estimator's CPU
 generator in one go and reads its loss back one epoch late.  On a ``mesh=``
-(:mod:`spotlight_tpu_torch.parallel`) the metrics run sharded; ``fit``
-there waits for the sharded training engines and raises.
+(:mod:`spotlight_tpu_torch.parallel`) the item tables are row-sharded over
+the model axis and the batch over the data axis
+(:mod:`spotlight_tpu_torch.parallel.training`, the dense engine; the lazy
+one raises there), and the metrics score each rank's block of the
+catalogue.
 """
 
 from __future__ import annotations
@@ -29,12 +32,15 @@ import torch
 
 from spotlight_tpu_torch.data.interactions import PADDING_IDX
 from spotlight_tpu_torch.factorization._base import (check_mesh_settings,
-                                                     refuse_mesh_training,
+                                                     refuse_lazy_on_mesh,
+                                                     refuse_unsharded_on_mesh,
                                                      resolve_device)
 from spotlight_tpu_torch.ops.losses import IMPLICIT_LOSSES
 from spotlight_tpu_torch.ops.sampling import (inbatch_importance_weight_table,
                                               inbatch_pair_weights,
                                               weighted_inbatch_elems)
+from spotlight_tpu_torch.parallel import training as ptraining
+from spotlight_tpu_torch.parallel.sharding import held_part
 from spotlight_tpu_torch.sequence.lazy import (build_lazy_step,
                                                lazy_seq_adam_init)
 from spotlight_tpu_torch.sequence.representations import (CNNNet, LSTMNet,
@@ -78,11 +84,19 @@ class ImplicitSequenceModel(SerializableEstimatorMixin):
     num_negative_samples : int, optional
         Negatives per position for ``adaptive_hinge``.
     mesh : :class:`~spotlight_tpu_torch.parallel.mesh.Mesh`, optional
-        Evaluate on a mesh: the metrics score each rank's block of the
-        catalogue and merge over ``torch.distributed``; every rank holds
-        the whole tables.  ``fit`` on a mesh raises ``NotImplementedError``
-        until the sharded training engines are ported.
+        Train and evaluate on a mesh of ranks (every rank calls alike): the
+        item tables row-shard over the mesh's ``'model'`` axis, each rank
+        holding its block of every table and of its Adam moments (the tower
+        replicated), and the batch shards over ``'data'``
+        (:mod:`spotlight_tpu_torch.parallel.training`, the dense engine;
+        ``sparse=True`` there raises ``NotImplementedError``).  The metrics
+        score each rank's block of the catalogue
+        (:mod:`spotlight_tpu_torch.parallel.evaluation`); ``predict``
+        returns the whole, replicated result.
     exchange : str, 'psum' (default), 'alltoall' or 'alltoall_cf'
+        The collective of sharded table lookups
+        (:mod:`spotlight_tpu_torch.parallel.sharding`); checked as the JAX
+        package checks it.
     negative_sampling : str, 'uniform' (default) or 'in_batch'
         'in_batch' scores each position against the same position's
         target in the batch rows 1..n before it, each pair weighted by
@@ -144,6 +158,8 @@ class ImplicitSequenceModel(SerializableEstimatorMixin):
         self._lazy = False
         self._optimizer = None
         self._opt_state = None
+        self._param_specs = None
+        self._opt_specs = None
         self._epoch_fn_cache = {}
         # Bumped whenever the parameters change; keys the item-factor cache.
         self._params_version = 0
@@ -192,30 +208,44 @@ class ImplicitSequenceModel(SerializableEstimatorMixin):
 
     def _initialize(self, interactions):
         self._num_items = interactions.num_items
+        mesh = self._mesh
+        # On a mesh the tables are drawn whole on the CPU, as one device
+        # draws them, and only the rank's blocks go to its device.
+        build_device = 'cpu' if mesh is not None else self._device
         if isinstance(self._representation, str):
             self._net = _REPRESENTATIONS[self._representation](
                 self._num_items, self._embedding_dim, sparse=self._sparse,
-                generator=self._generator, device=self._device)
+                generator=self._generator, device=build_device)
         else:
-            self._net = self._representation.to(self._device)
+            self._net = self._representation.to(build_device)
         self._lazy = self._use_lazy_engine()
+        refuse_lazy_on_mesh(mesh, self._lazy)
+        if mesh is not None:
+            self._net, self._param_specs = ptraining.shard_network(
+                self._net, mesh, self._exchange, self._device)
         self._optimizer = training.make_optimizer(
             self._learning_rate, self._l2, self._optimizer_func)
         if self._lazy:
             self._opt_state = lazy_seq_adam_init(self._net, self._optimizer)
         else:
-            self._opt_state = self._optimizer.init(
-                dict(self._net.named_parameters()))
+            params = dict(self._net.named_parameters())
+            self._opt_state = self._optimizer.init(params)
+            if mesh is not None:
+                self._opt_specs = ptraining.opt_specs_like(
+                    self._opt_state, params, self._param_specs)
         self._epoch_fn_cache = {}
         self._params_version += 1
 
     def _load_params(self, state):
         """Install a ``state_dict`` (for example one made by
         :func:`~spotlight_tpu_torch.utils.convert.params_from_jax`) into the
-        initialized network."""
+        initialized network.  On a mesh, a whole table (padded or not)
+        gives the rank its block."""
         if not self._initialized:
             raise RuntimeError('call _initialize before loading parameters')
-        self._net.load_state_dict(state)
+        self._net.load_state_dict({
+            name: held_part(self._net, name, value)
+            for name, value in state.items()})
         self._params_version += 1
 
     def _check_input(self, item_ids):
@@ -289,8 +319,7 @@ class ImplicitSequenceModel(SerializableEstimatorMixin):
                 self._num_negative_samples, self._optimizer,
                 self._negative_sampling)
         else:
-            step = training.build_dense_step(self._net, self._elems_fn(),
-                                             self._optimizer)
+            step = ptraining.dense_step(self, self._elems_fn())
         return lambda batch, negatives: step(self._opt_state, batch,
                                              negatives)
 
@@ -308,10 +337,14 @@ class ImplicitSequenceModel(SerializableEstimatorMixin):
                     negatives_shape = (num_batches,
                                        self._num_negative_samples,
                                        self._batch_size, length)
+            # A batch's negatives are (B, T), or (n, B, T).
+            shard = None if self._mesh is None else (ptraining.batch_rows(
+                self._mesh, self._batch_size, self._exchange),
+                len(negatives_shape or ()) - 3)
             self._epoch_fn_cache[key] = training.make_epoch_fn(
                 self._step_fn(), self._generator, num_batches,
                 self._batch_size, negatives_shape, self._num_items,
-                self._device)
+                self._device, shard=shard)
         return self._epoch_fn_cache[key]
 
     def _epoch_data(self, interactions):
@@ -355,9 +388,9 @@ class ImplicitSequenceModel(SerializableEstimatorMixin):
         -------
         self
         """
-        refuse_mesh_training(self._mesh)
         if not self._initialized:
             self._initialize(interactions)
+        refuse_unsharded_on_mesh(self)
         data, n, num_batches = self._epoch_data(interactions)
         epoch_fn = self._epoch_fn(num_batches, data['sequences'].shape[1])
         self._params_version += 1
@@ -380,7 +413,10 @@ class ImplicitSequenceModel(SerializableEstimatorMixin):
         A mixture's final representation (B, 2M, D) is flattened to
         (B, 2M * D), tastes first, then attentions.  The item matrix is
         cached per parameter version, so a metric pays the catalogue gather
-        once, not once per batch."""
+        once, not once per batch.  On a mesh-trained model it is this
+        rank's block of the catalogue (``_catalog_matrix``), and the
+        sequences' rows come through the exchange: every rank calls
+        alike."""
         net = self._net
         if not isinstance(net, (PoolNet, LSTMNet, CNNNet)):
             return None

@@ -37,15 +37,20 @@ LSTM's U(-1/sqrt(D), 1/sqrt(D)), a convolution's U(-1/sqrt(fan_in),
 
 from __future__ import annotations
 
+import copy
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from spotlight_tpu_torch.ops.embeddings import (PADDING_IDX,
+from spotlight_tpu_torch.ops.embeddings import (PADDING_IDX, BloomEmbedding,
                                                 FusedBiasEmbedding,
                                                 ScaledEmbedding, ZeroEmbedding)
+from spotlight_tpu_torch.parallel.sharding import (ShardedBloomEmbedding,
+                                                   ShardedEmbedding,
+                                                   holds_blocks,
+                                                   network_specs)
 
 
 def _uniform(shape, bound, generator):
@@ -144,22 +149,86 @@ class _ItemRepresentationBase(nn.Module):
             return outs[0]
         return torch.stack(outs, dim=0)
 
+    def sharded(self, axis='model', num_shards=1, exchange='psum',
+                mesh=None):
+        """A variant with the item tables row-sharded over the mesh axis
+        ``axis`` of ``mesh`` (:mod:`spotlight_tpu_torch.parallel.sharding`):
+        the fused table, or in the classic layout the item layer and the
+        bias layer, a bloom layer through its compressed table
+        (``ShardedBloomEmbedding``).  The tower (LSTM, mixture projection,
+        convolutions) stays replicated and is shared with this network."""
+        def wrap(layer):
+            kind = (ShardedBloomEmbedding if isinstance(layer, BloomEmbedding)
+                    else ShardedEmbedding if isinstance(
+                        layer, (ScaledEmbedding, ZeroEmbedding,
+                                FusedBiasEmbedding))
+                    else None)
+            if kind is None:
+                return layer
+            return kind(layer, axis=axis, num_shards=num_shards,
+                        exchange=exchange, mesh=mesh)
+
+        net = copy.copy(self)
+        net._parameters = dict(self._parameters)
+        net._buffers = dict(self._buffers)
+        net._modules = dict(self._modules)
+        net.item_embeddings = wrap(self.item_embeddings)
+        if not self.fused:
+            net.item_biases = wrap(self.item_biases)
+        return net
+
+    def param_specs(self):
+        """PartitionSpec of every parameter, by its name in
+        ``named_parameters()``: sharded item tables' rows over their axis,
+        the tower replicated."""
+        return network_specs(self)
+
+    def _holds_blocks(self):
+        """Whether the item table is this rank's block of the catalogue
+        (trained on a mesh), not the whole padded table."""
+        return holds_blocks(self.item_embeddings)
+
     def _catalog_matrix(self):
         """Dense ``(num_items, D)`` item matrix and ``(num_items,)`` bias:
         the inputs of catalogue scoring and of the evaluation kernels.  For
         a bloom item layer this is one lookup of the whole catalogue; the
         kernels score (and the matched scores gather from) this one matrix,
-        so a target's ties stay exact whatever order the lookup sums in."""
+        so a target's ties stay exact whatever order the lookup sums in.
+
+        On a network whose item tables are this rank's blocks (trained on a
+        mesh), this rank's block of the padded catalogue instead, its
+        padded rows' values unspecified; every rank of the model axis calls
+        alike (a bloom block is looked up through the exchange)."""
+        if self._holds_blocks():
+            rows = self.item_embeddings.block_rows()
+            if self.fused:
+                rows = rows.float()
+                dim = self.embedding_dim
+                return rows[:, :dim].contiguous(), rows[:, dim].contiguous()
+            bias = self.item_biases.block_rows()
+            return rows.contiguous(), bias[:, 0].contiguous()
         all_items = torch.arange(self.num_items,
                                  device=self.item_embeddings.weight.device)
         vectors, bias = self._target_rows(all_items)
         return vectors.contiguous(), bias.contiguous()
 
+    def _gathered_scores(self, scores):
+        """(B, num_items) scores from this rank's (B, block) scores: the
+        blocks' scores gathered over the model axis on a network holding
+        blocks, else as they are."""
+        if not self._holds_blocks():
+            return scores
+        layer = self.item_embeddings
+        return layer.mesh.all_gather(scores.T, layer.axis).T[
+            :, :self.num_items]
+
     def score_catalog(self, final_representations):
-        """(B, num_items) scores of final representations (B, D)."""
+        """(B, num_items) scores of final representations (B, D).  On a
+        network holding this rank's blocks, every rank of the model axis
+        calls alike and gets the whole, replicated."""
         weight, bias = self._catalog_matrix()
         scores = torch.matmul(final_representations, weight.T)
-        return scores + bias[None, :]
+        return self._gathered_scores(scores + bias[None, :])
 
 
 class PoolNet(_ItemRepresentationBase):
@@ -404,4 +473,5 @@ class MixtureLSTMNet(LSTMNet):
         taste_scores = torch.einsum('bmd,nd->bmn', components, weight)
         attention = torch.einsum('bmd,nd->bmn', mixture_vectors, weight)
         weights = torch.softmax(attention, dim=1)
-        return (weights * taste_scores).sum(dim=1) + bias[None, :]
+        return self._gathered_scores(
+            (weights * taste_scores).sum(dim=1) + bias[None, :])

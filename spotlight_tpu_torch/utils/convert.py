@@ -16,13 +16,18 @@ carries an optimizer state across the same way (the lazy engine's
 engine's optax Adam state), so a training step can be compared from one
 starting point.  A port parameter's dotted name is its path in the JAX tree
 (``cnn_layers.0.weight`` is ``tree['cnn_layers'][0]['weight']``); every
-layout is JAX's, so no leaf changes shape.  Nothing here imports JAX.
+layout is JAX's, so no leaf changes shape.  A network trained on a mesh
+holds this rank's block of each sharded table: of JAX's global padded
+table (and of its Adam moments) it takes that block
+(``parallel.sharding.held_part``).  Nothing here imports JAX.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from spotlight_tpu_torch.parallel.sharding import held_part
 
 #: The fused item table, which the sequence lazy engine updates row-sparsely.
 TABLE = 'item_embeddings.weight'
@@ -94,7 +99,8 @@ def params_from_jax(net, params_numpy):
                          .format(names, sorted(own)))
     state = {}
     for name, target in own.items():
-        tensor = _tensor(_leaf(params_numpy, name), target.dtype)
+        tensor = held_part(net, name, _tensor(_leaf(params_numpy, name),
+                                          target.dtype))
         if tensor.shape != target.shape:
             raise ValueError('{}: shape {} does not match the network\'s {}'
                              .format(name, tuple(tensor.shape),
@@ -116,8 +122,10 @@ def _find_adam_state(node):
     return None
 
 
-def _moment(name, array, param, dtype):
+def _moment(name, array, param, dtype, net=None):
     tensor = _tensor(array, dtype)
+    if net is not None:
+        tensor = held_part(net, name, tensor)
     if tensor.shape != param.shape:
         raise ValueError('{}: moment shape {} does not match the '
                          'parameter\'s {}'.format(name, tuple(tensor.shape),
@@ -125,8 +133,9 @@ def _moment(name, array, param, dtype):
     return tensor.to(param.device)
 
 
-def _moments(params, tree, dtype_of):
-    return {name: _moment(name, _leaf(tree, name), param, dtype_of(param))
+def _moments(params, tree, dtype_of, net=None):
+    return {name: _moment(name, _leaf(tree, name), param, dtype_of(param),
+                          net)
             for name, param in params.items()}
 
 
@@ -166,16 +175,17 @@ def opt_state_from_jax(net, opt_state_numpy):
                           for key in ('mu', 'nu')},
                 'tower': _adam_state(params, opt_state_numpy['tower']),
                 't': int(np.asarray(opt_state_numpy['t']))}
-    return _adam_state(params, opt_state_numpy)
+    return _adam_state(params, opt_state_numpy, net)
 
 
-def _adam_state(params, opt_state_numpy):
+def _adam_state(params, opt_state_numpy, net=None):
     """:class:`~spotlight_tpu_torch.utils.training.Adam`'s state over
-    ``params`` (name -> parameter) from an optax chain state."""
+    ``params`` (name -> parameter) from an optax chain state; the moments
+    of ``net``'s sharded blocks are the blocks of JAX's global ones."""
     adam = _find_adam_state(opt_state_numpy)
     if adam is None:
         raise ValueError('no lazy state and no Adam state (count, mu, nu) '
                          'found in the optimizer state')
     return {'count': int(np.asarray(adam.count)),
-            'mu': _moments(params, adam.mu, lambda p: p.dtype),
-            'nu': _moments(params, adam.nu, lambda p: p.dtype)}
+            'mu': _moments(params, adam.mu, lambda p: p.dtype, net),
+            'nu': _moments(params, adam.nu, lambda p: p.dtype, net)}

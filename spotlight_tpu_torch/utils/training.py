@@ -1,6 +1,6 @@
 """Training machinery shared by the estimators.
 
-Counterpart of ``spotlight_tpu/utils/training.py`` on one device.  The JAX
+Counterpart of ``spotlight_tpu/utils/training.py``.  The JAX
 package runs a jitted epoch: an on-device shuffle and a ``lax.scan`` over
 minibatches, with one loss readback per epoch.  The port keeps that shape
 without ``jit``:
@@ -13,7 +13,10 @@ without ``jit``:
   CPU and on the card;
 - the steps (:func:`run_epoch`) take the batch, its validity mask and its
   negatives as arguments and never read a value back to the host; the
-  epoch loss is read one epoch late (:class:`EpochLossDrain`).
+  epoch loss is read one epoch late (:class:`EpochLossDrain`);
+- on a mesh every rank draws the whole epoch alike and steps on its slice
+  of each batch (:func:`make_epoch_fn`'s ``shard``; the step is
+  ``parallel.training.build_step``).
 
 The default optimizer (:class:`Adam`) is optax's
 ``chain(add_decayed_weights(l2), adam(lr))``, the reference's coupled weight
@@ -190,12 +193,28 @@ def run_epoch(step, data, n_valid, num_batches, batch_size, perm,
 
 
 def make_epoch_fn(step, generator, num_batches, batch_size,
-                  negatives_shape, num_items, device):
+                  negatives_shape, num_items, device, shard=None):
     """``epoch_fn(data, n_valid) -> device loss``: one epoch's draws from
     ``generator`` (:func:`epoch_draws`, with ``negatives_shape`` or none),
     then ``step(batch, negatives_b)`` over the shuffled batches
-    (:func:`run_epoch`)."""
+    (:func:`run_epoch`).
+
+    On a mesh, ``shard`` is ``(rows, negatives_axis)``: every rank draws the
+    whole batch's permutation and negatives (its generator is seeded as
+    every other rank's), and ``step`` sees the rows ``rows`` of each batch
+    and of its negatives along ``negatives_axis``, the rank's slice
+    (``parallel.training.batch_rows``)."""
     padded = num_batches * batch_size
+    if shard is not None:
+        rows, negatives_axis = shard
+        whole_step = step
+
+        def step(batch, negatives):
+            batch = {name: value[rows] for name, value in batch.items()}
+            if negatives is not None:
+                negatives = negatives.narrow(negatives_axis, rows.start,
+                                             rows.stop - rows.start)
+            return whole_step(batch, negatives)
 
     def epoch_fn(data, n_valid):
         perm, negatives = epoch_draws(generator, padded, negatives_shape,

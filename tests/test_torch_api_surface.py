@@ -18,12 +18,8 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 JAX_ROOT = REPO / 'spotlight_tpu'
 PORT_ROOT = REPO / 'spotlight_tpu_torch'
 
-#: The distributed layer, module by module: ROADMAP.md Queue 1 items 2-5.
+#: The distributed layer, module by module: ROADMAP.md Queue 1 items 3-5.
 PARALLEL = 'the distributed layer is not ported yet (ROADMAP.md Queue 1, item 4)'
-#: Sharded embedding tables and their exchanges: Queue 1 item 2.
-SHARDED_TABLES = ('sharded embedding tables and their exchanges come with '
-                  'the sharded training engines (ROADMAP.md Queue 1, '
-                  'item 2)')
 #: JAX plumbing with no counterpart in eager PyTorch.
 SCAN = ('the JAX epoch is one compiled lax.scan; the port runs a Python '
         'loop of steps (utils.training.run_epoch, build_lazy_step)')
@@ -37,15 +33,9 @@ TPU_TILES = ('a Pallas tiling constant or backend probe of the TPU; the CUDA '
 EXEMPT = {
     'parallel/checkpoint.py': PARALLEL,
     'parallel/multihost.py': PARALLEL,
-    'parallel/training.py': PARALLEL,
     ('parallel/__init__.py', 'checkpoint'): PARALLEL,
     ('parallel/__init__.py', 'multihost'): PARALLEL,
-    ('parallel/__init__.py', 'ShardedEmbedding'): SHARDED_TABLES,
-    ('parallel/__init__.py', 'ShardedBloomEmbedding'): SHARDED_TABLES,
-    ('parallel/sharding.py', 'ShardedEmbedding'): SHARDED_TABLES,
-    ('parallel/sharding.py', 'ShardedBloomEmbedding'): SHARDED_TABLES,
-    ('parallel/sharding.py', 'alltoall_lookup'): SHARDED_TABLES,
-    ('parallel/sharding.py', 'alltoall_capacity_lookup'): SHARDED_TABLES,
+    ('parallel/training.py', 'epoch_scan_distributed'): SCAN,
     ('evaluation.py', 'FALLBACK_COUNTS'): (
         'deliberate: the port has no fallback from a failed kernel; a call '
         'the kernels do not take is routed before any launch and counted '

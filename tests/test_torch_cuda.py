@@ -2036,3 +2036,67 @@ def test_sharded_functions_on_a_one_rank_nccl_group(cuda, tmp_path):
         torch_mesh_worker.assert_same(
             got['scores', name],
             _matched(users, *args, on['candidates'], mixture).cpu().numpy())
+
+
+# -- mesh training: mesh ranks on the card ---------------------------------------
+
+def _mesh_step_case(steps):
+    """The implicit-MF step case of ``tests/test_torch_mesh_training.py``,
+    its state drawn by the port, run ``steps`` times on one batch."""
+    from spotlight_tpu_torch.factorization.representations import (
+        BilinearNet)
+
+    rs = np.random.RandomState(11)
+    users, items, dim, batch = 40, 103, 8, 32
+    net = BilinearNet(users, items, dim,
+                      generator=torch.Generator().manual_seed(2))
+    return {'loss': 'bpr', 'dim': dim, 'batch': batch, 'lr': 1e-2,
+            'l2': 1e-6, 'num_users': users, 'num_items': items,
+            'pairs': (rs.randint(0, users, batch),
+                      rs.randint(0, items, batch)),
+            'negatives': rs.randint(0, items, batch),
+            'negative_weight': np.ones(batch, np.float32), 'steps': steps,
+            'state': {name: value.detach().numpy()
+                      for name, value in net.state_dict().items()}}
+
+
+def test_mesh_training_steps_of_four_gloo_ranks_on_one_card(cuda, tmp_path):
+    """Phase 16 (a) of ``chip_smoke.py`` at a small size: four gloo ranks
+    share the card at data=2 x model=2 and take 2 steps under each
+    exchange; every rank's blocks of tables and moments equal the blocks
+    of one device's 2 steps on the card (parameters atol 1e-6, moments
+    1e-6 of the largest, as ``tests/test_torch_mesh_training.py`` holds
+    them on the CPU)."""
+    from tests import torch_mesh_worker
+
+    case = _mesh_step_case(steps=2)
+    ranks = torch_mesh_worker.run_ranks(
+        {'layouts': ((2, 2),), 'training': {'step': case}}, tmp_path,
+        devices=['cuda:0'] * 4, timeout=600)
+    want = torch_mesh_worker.one_step(
+        torch_mesh_worker.implicit_model(case, None, device='cuda'), case,
+        None, 'psum')
+    for rank, results in enumerate(ranks):
+        for exchange in torch_mesh_worker.EXCHANGES:
+            torch_mesh_worker.assert_step_close(
+                results[(2, 2)]['step', exchange], want, (2, 2), rank)
+
+
+def test_mesh_training_step_on_a_one_rank_nccl_group(cuda, tmp_path):
+    """Phase 16 (b) at a small size: a step under each exchange on the
+    mesh of a one-rank NCCL group (whose axes of one rank send nothing)
+    equals one device's on the card bit for bit."""
+    from tests import torch_mesh_worker
+
+    case = _mesh_step_case(steps=1)
+    [rank] = torch_mesh_worker.run_ranks(
+        {'layouts': ((1, 1),), 'training': {'step': case}}, tmp_path,
+        world=1, backend='nccl', devices=['cuda:0'], timeout=600)
+    want = torch_mesh_worker.one_step(
+        torch_mesh_worker.implicit_model(case, None, device='cuda'), case,
+        None, 'psum')
+    for exchange in torch_mesh_worker.EXCHANGES:
+        loss, params, moments = rank[(1, 1)]['step', exchange]
+        assert loss == want[0]
+        torch_mesh_worker.assert_same(params, want[1])
+        torch_mesh_worker.assert_same(moments, want[2])

@@ -386,12 +386,14 @@ def test_bfloat16_tables_train_in_their_dtype(sparse):
 
 
 def test_mesh_raises_naming_the_roadmap():
-    """A model takes a mesh (for evaluation); training on it raises until
-    the sharded engines are ported, naming the roadmap item."""
+    """A model trains on a mesh on the dense engine; ``sparse=True`` there,
+    where JAX takes its distributed lazy engine, raises before any table
+    is sharded, naming the roadmap item of the lazy engines."""
     mesh = SimpleNamespace(shape={'data': 1, 'model': 2}, device='cpu')
-    model = ImplicitFactorizationModel(mesh=mesh, device='cpu')
+    model = ImplicitFactorizationModel(mesh=mesh, sparse=True, device='cpu')
     assert model._mesh is mesh
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
+    with pytest.raises(NotImplementedError, match='ROADMAP.md, Queue 1 '
+                       'item 3'):
         model.fit(Interactions(np.arange(4), np.arange(4)))
 
 

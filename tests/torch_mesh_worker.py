@@ -13,7 +13,11 @@ The cases are a dict of numpy arrays (see ``tests/test_torch_mesh.py``):
 - ``functions``: operands of the four sharded functions (dot and mixture
   scoring), called directly, streaming and not;
 - ``models``: parameters and interactions of a factorization model and of
-  a mixture sequence model, whose four metrics run on the mesh.
+  a mixture sequence model, whose four metrics run on the mesh;
+- ``tables``: tables, ids and cotangents of the sharded embedding layers
+  and of the raw exchanges (``tests/test_torch_sharded_tables.py``);
+- ``training``: states, batches and datasets of mesh steps, fits and
+  gates (``tests/test_torch_mesh_training.py``).
 """
 
 from __future__ import annotations
@@ -116,6 +120,10 @@ def run_cases(mesh, cases):
         out.update(run_functions(mesh, cases['functions']))
     if 'models' in cases:
         out.update(run_metrics(mesh, cases['models']))
+    if 'tables' in cases:
+        out.update(run_tables(mesh, cases['tables']))
+    if 'training' in cases:
+        out.update(run_training(mesh, cases['training']))
     return out
 
 
@@ -267,3 +275,369 @@ def assert_same(got, want):
             np.testing.assert_array_equal(got, want)
     else:
         assert got == want
+
+
+# -- sharded tables -------------------------------------------------------------
+
+EXCHANGES = ('psum', 'alltoall', 'alltoall_cf')
+#: The bloom table case's compressed rows: int(0.5 x its ids).
+BLOOM_RATIO = 0.5
+
+
+def dense_layer(kind, weight, num_ids):
+    """The dense layer of a table case, its weight the case's."""
+    from spotlight_tpu_torch.ops import embeddings
+
+    dim = weight.shape[1]
+    layer = {'scaled': lambda: embeddings.ScaledEmbedding(
+                 num_ids, dim, padding_idx=0),
+             'zero': lambda: embeddings.ZeroEmbedding(num_ids, dim),
+             'fused': lambda: embeddings.FusedBiasEmbedding(
+                 num_ids, dim - 1, padding_idx=0),
+             'bloom': lambda: embeddings.BloomEmbedding(
+                 num_ids, dim, compression_ratio=BLOOM_RATIO,
+                 num_hash_functions=3)}[kind]()
+    layer.weight.data = torch.as_tensor(weight)
+    return layer
+
+
+def model_slice(mesh, n):
+    """This rank's contiguous slice of ``n`` rows over the model axis."""
+    rows = n // mesh.shape['model']
+    return slice(mesh.model_index * rows, (mesh.model_index + 1) * rows)
+
+
+def run_tables(mesh, case):
+    """Each layer kind x exchange: the rank's lookup of the case's ids
+    (its model slice of them for 'alltoall_cf') and the gradient of
+    ``sum(rows * cotangent)`` on its block (the loss divided by the model
+    size for 'alltoall', as the step divides it); then the raw exchanges
+    and the psum's backward."""
+    from spotlight_tpu_torch.parallel import sharding
+
+    shards = mesh.shape['model']
+    out = {}
+    ids = torch.as_tensor(case['ids'])
+    for kind in ('scaled', 'zero', 'fused', 'bloom'):
+        inner = dense_layer(kind, case[kind], case['num_ids'])
+        cls = (sharding.ShardedBloomEmbedding if kind == 'bloom'
+               else sharding.ShardedEmbedding)
+        for exchange in EXCHANGES:
+            layer = cls(inner, 'model', shards, exchange, mesh)
+            layer.weight = torch.nn.Parameter(sharding.shard_params(
+                {'weight': layer.weight.detach()}, layer.spec(),
+                mesh)['weight'].clone())
+            assert layer.holds_block or shards == 1
+            rows = (model_slice(mesh, len(ids)) if exchange == 'alltoall_cf'
+                    else slice(None))
+            vectors = layer(ids[rows])
+            loss = (vectors * torch.as_tensor(
+                case['cot_' + kind])[rows]).sum()
+            if exchange == 'alltoall':
+                loss = loss / shards
+            (grad,) = torch.autograd.grad(loss, [layer.weight])
+            out['table', kind, exchange] = _numpy((vectors.detach(), grad))
+    out.update(run_exchanges(mesh, case))
+    out['loaded'] = run_loads(mesh, case)
+    return out
+
+
+def run_loads(mesh, case):
+    """A mesh model's blocks after loading a JAX tree of whole tables
+    through ``params_from_jax`` and ``_load_params`` (each takes the
+    rank's block, the second of a block already taken)."""
+    from spotlight_tpu_torch.data import Interactions
+    from spotlight_tpu_torch.factorization import ImplicitFactorizationModel
+    from spotlight_tpu_torch.utils.convert import params_from_jax
+
+    tree = case['load_tree']
+    model = ImplicitFactorizationModel(embedding_dim=4, mesh=mesh)
+    model._initialize(Interactions(
+        np.arange(4), np.arange(4),
+        num_users=len(tree['user_embeddings']['weight']),
+        num_items=len(tree['item_embeddings']['weight'])))
+    model._load_params(params_from_jax(model._net, tree))
+    return {name: value.detach().numpy().copy()
+            for name, value in model._net.state_dict().items()}
+
+
+def run_exchanges(mesh, case):
+    """``alltoall_lookup`` on replicated ids, ``alltoall_capacity_lookup``
+    on the rank's model slice at the default and a reduced capacity:
+    rows, the block's gradient of ``sum(rows * cotangent)`` (JAX's
+    convention: no division) and the overflow count."""
+    from spotlight_tpu_torch.parallel import sharding
+
+    weight = torch.as_tensor(case['raw_weight'])
+    rows = weight.shape[0] // mesh.shape['model']
+    block = weight[mesh.model_index * rows:(mesh.model_index + 1) * rows]
+    out = {}
+    for name, ids, cot, call in (
+            ('alltoall', case['raw_ids'], case['raw_cot'],
+             lambda w, i: (sharding.alltoall_lookup(mesh, w, i), None)),
+            ('cf', case['raw_ids'], case['raw_cot'],
+             lambda w, i: sharding.alltoall_capacity_lookup(mesh, w, i)),
+            ('cf capacity 2', case['skewed_ids'], case['skewed_cot'],
+             lambda w, i: sharding.alltoall_capacity_lookup(
+                 mesh, w, i, capacity=2))):
+        local = block.clone().requires_grad_(True)
+        ids, cot = torch.as_tensor(ids), torch.as_tensor(cot)
+        if name != 'alltoall':
+            part = model_slice(mesh, len(ids))
+            ids, cot = ids[part], cot[part]
+        vectors, overflow = call(local, ids)
+        (grad,) = torch.autograd.grad((vectors * cot).sum(), [local])
+        out['exchange', name] = _numpy((vectors.detach(), grad)) + (
+            None if overflow is None else int(overflow),)
+    x = torch.as_tensor(case['raw_cot']).requires_grad_(True)
+    summed = sharding._SumOverAxis.apply(x, mesh, 'model')
+    (grad,) = torch.autograd.grad((summed * 3).sum(), [x])
+    out['psum backward'] = _numpy((summed.detach(), grad))
+    return out
+
+
+# -- mesh training ------------------------------------------------------------------
+
+MOMENT_SCALE, PARAM_ATOL, LOSS_RTOL = 1e-6, 1e-6, 1e-6
+
+
+def held(array, layout, rank):
+    """The block of a whole (or padded) table that ``rank`` holds."""
+    shards = layout[1]
+    rows = -(-array.shape[0] // shards)
+    padded = np.concatenate([array, np.zeros(
+        (rows * shards - array.shape[0],) + array.shape[1:], array.dtype)])
+    index = rank % shards
+    return padded[index * rows:(index + 1) * rows]
+
+
+def assert_step_close(got, want, layout, rank, param_atol=PARAM_ATOL):
+    """A rank's (loss, parameter blocks, moment blocks) against a whole
+    (loss, parameters, moments): parameters within ``param_atol``, moments
+    within MOMENT_SCALE of each table's largest, the loss within
+    LOSS_RTOL (``tests/test_torch_training.py``'s tolerances)."""
+    loss, params, moments = got
+    np.testing.assert_allclose(loss, want[0], rtol=LOSS_RTOL)
+    for name, value in want[1].items():
+        np.testing.assert_allclose(params[name],
+                                   held(value, layout, rank), rtol=0,
+                                   atol=param_atol, err_msg=name)
+        for key in ('mu', 'nu'):
+            moment = want[2][key][name]
+            np.testing.assert_allclose(
+                moments[key][name], held(moment, layout, rank), rtol=0,
+                atol=MOMENT_SCALE * np.abs(moment).max(),
+                err_msg='{} {}'.format(key, name))
+
+
+
+def implicit_model(case, mesh, exchange='psum', negative_sampling='uniform',
+                   device='cpu'):
+    """The step case's implicit model on ``mesh`` (or on ``device``), its
+    parameters the case's."""
+    from spotlight_tpu_torch.data import Interactions
+    from spotlight_tpu_torch.factorization import ImplicitFactorizationModel
+
+    model = ImplicitFactorizationModel(
+        loss=case['loss'], embedding_dim=case['dim'],
+        batch_size=case['batch'], learning_rate=case['lr'], l2=case['l2'],
+        mesh=mesh, exchange=exchange, negative_sampling=negative_sampling,
+        random_state=np.random.RandomState(0),
+        device=None if mesh is not None else device)
+    model._initialize(Interactions(
+        *case['pairs'], num_users=case['num_users'],
+        num_items=case['num_items']))
+    model._load_params({name: torch.as_tensor(value)
+                        for name, value in case['state'].items()})
+    return model
+
+
+def step_batch(case, device, in_batch=False):
+    """(batch, negatives) of the step case, as ``run_epoch`` hands them to
+    a step: columns in the case's (already permuted) order, the mask, and
+    ``(n_neg, B)`` negatives (none in-batch, which reads the weight
+    column)."""
+    users, items = case['pairs']
+    batch = {'user_ids': torch.as_tensor(users),
+             'item_ids': torch.as_tensor(items),
+             'mask': torch.ones(len(users))}
+    negatives = torch.as_tensor(case['negatives'])[None]
+    if in_batch:
+        batch['negative_weight'] = torch.as_tensor(case['negative_weight'])
+        negatives = None
+    batch = {name: value.to(device) for name, value in batch.items()}
+    return batch, None if negatives is None else negatives.to(device)
+
+
+def one_step(model, case, mesh, exchange, in_batch=False):
+    """``case['steps']`` steps (one by default) of ``model`` on the case's
+    batch, from the case's state, on the rank's slice: (last loss,
+    parameters, Adam moments), blocks on a mesh."""
+    from spotlight_tpu_torch.parallel import training as ptraining
+
+    batch, negatives = step_batch(case, model._device, in_batch)
+    if mesh is not None:
+        rows = ptraining.batch_rows(mesh, case['batch'], exchange)
+        batch = {name: value[rows] for name, value in batch.items()}
+        negatives = None if negatives is None else negatives[:, rows]
+    step = model._step_fn()
+    for _ in range(case.get('steps', 1)):
+        loss = step(batch, negatives)
+    state = model._opt_state
+    return (float(loss),
+            {name: p.detach().cpu().numpy()
+             for name, p in model._net.named_parameters()},
+            {key: {name: m.cpu().numpy() for name, m in state[key].items()}
+             for key in ('mu', 'nu')})
+
+
+def run_training(mesh, case):
+    """The steps, the fits and gates, the saved model and the collective
+    bytes a step that ``tests/test_torch_mesh_training.py`` holds."""
+    from spotlight_tpu_torch.parallel import mesh as pmesh
+
+    layout = (mesh.shape['data'], mesh.shape['model'])
+    out = {}
+    step = case['step']
+    for exchange in EXCHANGES:
+        model = implicit_model(step, mesh, exchange)
+        pmesh.COLLECTIVE_BYTES = {}
+        out['step', exchange] = one_step(model, step, mesh, exchange)
+        out['bytes', exchange] = dict(pmesh.COLLECTIVE_BYTES)
+    if layout == (2, 2) and 'gates' in case:
+        model = implicit_model(step, mesh, 'psum', 'in_batch')
+        out['step', 'in_batch'] = one_step(model, step, mesh, 'psum',
+                                           in_batch=True)
+        out.update(run_gates(mesh, case['gates']))
+    return out
+
+
+def run_loaded_on_mesh(mesh, path, train, test):
+    """The saved mesh model loaded (whole padded tables) and given the mesh
+    again: its metrics over the padded catalogue's blocks, and the message
+    of ``fit``, which waits for resharding."""
+    from spotlight_tpu_torch import evaluation
+    from spotlight_tpu_torch.utils import serialization
+
+    model = serialization.load(path)
+    model._mesh = mesh
+    out = {'loaded on the mesh': (
+        model._net._holds_blocks(),
+        evaluation.mrr_score(model, test).mean(),
+        evaluation.precision_recall_score(model, test, k=5)[0].mean(),
+        catalog_block(model))}
+    try:
+        model.fit(train)
+    except NotImplementedError as error:
+        out['loaded on the mesh', 'fit'] = str(error)
+    return out
+
+
+def run_replicated_item_layer(mesh, implicit, train, test, workdir):
+    """One epoch of a classic ``BilinearNet`` whose item layer is a plain
+    ``torch.nn.Embedding``, which ``sharded`` leaves replicated while the
+    user and bias tables shard; saved like the gate model.  Returns
+    (whether the item table is a block, whether the user table is, MRR,
+    P@5, the rank's block of the catalogue the metrics scored)."""
+    from spotlight_tpu_torch import evaluation
+    from spotlight_tpu_torch.factorization import ImplicitFactorizationModel
+    from spotlight_tpu_torch.factorization.representations import (
+        BilinearNet)
+    from spotlight_tpu_torch.utils import serialization
+
+    dim = implicit['config']['embedding_dim']
+    items = torch.nn.Embedding.from_pretrained(torch.as_tensor(
+        np.random.RandomState(3).normal(
+            0, 0.1, (implicit['num_items'], dim)).astype(np.float32)),
+        freeze=False)
+    net = BilinearNet(implicit['num_users'], implicit['num_items'], dim,
+                      item_embedding_layer=items,
+                      generator=torch.Generator().manual_seed(3))
+    config = dict(implicit['config'], n_iter=1)
+    model = ImplicitFactorizationModel(
+        representation=net, mesh=mesh,
+        random_state=np.random.RandomState(42), **config)
+    model.fit(train)
+    serialization.save(model, os.path.join(
+        workdir, 'replicated_item_layer.rank{}.pkl'.format(mesh.rank)))
+    return (model._net._holds_blocks(),
+            model._net.user_embeddings.holds_block,
+            evaluation.mrr_score(model, test).mean(),
+            evaluation.precision_recall_score(model, test, k=5)[0].mean(),
+            catalog_block(model))
+
+
+def catalog_block(model):
+    """(rows, first id) of the rank's block of the catalogue that the
+    model's last metric scored."""
+    rows, _, _, first = model._shard_catalog_cache[2]
+    return rows, first
+
+
+def run_gates(mesh, gates):
+    """The JAX package's mesh gates on this layout: each model's metric,
+    plus the explicit models' item tables (this rank's block)."""
+    from spotlight_tpu_torch import evaluation
+    from spotlight_tpu_torch.data import Interactions, SequenceInteractions
+    from spotlight_tpu_torch.factorization import (
+        ExplicitFactorizationModel, ImplicitFactorizationModel)
+    from spotlight_tpu_torch.sequence import ImplicitSequenceModel
+    from spotlight_tpu_torch.utils import serialization
+
+    out = {}
+    explicit = gates['explicit']
+    train, test = (Interactions(*explicit[which],
+                                num_users=explicit['num_users'],
+                                num_items=explicit['num_items'])
+                   for which in ('train', 'test'))
+    for exchange in ('psum', 'alltoall'):
+        model = ExplicitFactorizationModel(mesh=mesh, exchange=exchange,
+                                           random_state=np.random.RandomState(
+                                               42), **explicit['config'])
+        model.fit(train)
+        out['explicit', exchange] = (
+            evaluation.rmse_score(model, test),
+            model._net.item_embeddings.weight.detach().numpy().copy())
+    implicit = gates['implicit']
+    train, test = (Interactions(*implicit[which],
+                                num_users=implicit['num_users'],
+                                num_items=implicit['num_items'])
+                   for which in ('train', 'test'))
+    for exchange in ('psum', 'alltoall'):
+        model = ImplicitFactorizationModel(mesh=mesh, exchange=exchange,
+                                           random_state=np.random.RandomState(
+                                               42), **implicit['config'])
+        model.fit(train)
+        out['implicit', exchange] = evaluation.mrr_score(
+            model, test, train=train).mean()
+        if exchange == 'psum':
+            path = os.path.join(gates['workdir'],
+                                'mesh_model.rank{}.pkl'.format(mesh.rank))
+            serialization.save(model, path)
+            out['saved metrics'] = (
+                evaluation.mrr_score(model, test).mean(),
+                evaluation.precision_recall_score(model, test, k=5)[0].mean(),
+                model.predict(3), model.predict(np.arange(5), np.arange(5)))
+            out.update(run_loaded_on_mesh(mesh, path, train, test))
+    out['replicated item layer'] = run_replicated_item_layer(
+        mesh, implicit, train, test, gates['workdir'])
+    sequence = gates['sequence']
+    train, test = (SequenceInteractions(sequence[which],
+                                        num_items=sequence['num_items'])
+                   for which in ('train', 'test'))
+    model = ImplicitSequenceModel(mesh=mesh, random_state=np.random.RandomState(
+        42), **sequence['config'])
+    model.fit(train)
+    out['sequence'] = evaluation.sequence_mrr_score(model, test).mean()
+    families = gates['families']
+    data = SequenceInteractions(families['sequences'],
+                                num_items=families['num_items'])
+    for representation in ('pooling', 'cnn', 'mixture'):
+        model = ImplicitSequenceModel(
+            representation=representation, mesh=mesh,
+            random_state=np.random.RandomState(1), **families['config'])
+        model.fit(data)
+        out['family', representation] = (
+            model._last_epoch_loss,
+            model.predict(families['sequences'][0]))
+    return out
