@@ -221,6 +221,21 @@ each of which exits non-zero when it fails:
    moments bit-equal to one device's (an axis of one rank sends nothing),
    then NCCL's all-reduce, all-gather and all-to-all on the group at the
    step's shapes, each returning its input's bits.
+17. lazy mesh training (the row-sparse engines on a mesh, P1 on each
+   rank's rows): (a) four gloo ranks on the one card at 1 x 4 and 2 x 2:
+   phase 9's lazy MF (2e6 users x 5e5 items, D=64, BPR, batch 8,192) takes
+   8 steps under each exchange, its bfloat16 tables with in-batch
+   negatives under 'psum' at 1 x 4; the lazy explicit MF at phase 11's
+   width 8 steps under 'psum' and 'alltoall_cf' at 2 x 2; the lazy LSTM
+   at 1e6 items (batch 256, T=50) 2 steps under 'psum' (and 'alltoall'
+   at 2 x 2).  Each run is held as phase 16's are (blocks of tables and
+   moments, metrics on the gathered tables, routes, bytes, first and warm
+   ms a step per rank), every rank on the lazy engine with P1 launched
+   once a table a step.  (b) A one-rank NCCL group: 4 lazy MF steps, bit
+   for bit one device's.  (c) P1 on rank 0's captured item-table operands
+   of the 2 x 2 'psum' run (the step's global item stream, the ids it does
+   not own at the sentinel), bit for bit against its plain version and
+   timed: ``row_adam (P1, mesh)`` in the ``kernels`` line.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -2077,7 +2092,7 @@ def sparse_adam_yardstick(torch, param, mu, nu, ids, grads, t, lr):
 
 
 def check_row_update(torch, card, shape, param, mu, nu, ids, grads, t, lr,
-                     l2, library=False, timed=True):
+                     l2, library=False, timed=True, name='row_adam (P1)'):
     """P1 against its plain version on one operand set: ``param``, ``mu``
     and ``nu`` bit for bit, in two launches, for the occurrence form (one
     stable sort's ``(sorted_ids, order)``) and for the probe's
@@ -2095,8 +2110,12 @@ def check_row_update(torch, card, shape, param, mu, nu, ids, grads, t, lr,
     scalars = row_update.adam_scalars(t, lr, l2)
     distinct = int(segments.count)
     lengths = segments.offsets[1:distinct + 1] - segments.offsets[:distinct]
-    longest = int(lengths.max())
-    summed = row_update.segment_sums_plain(grads, segments, distinct)
+    # The longest run of a row of the table (a mesh rank's foreign ids and
+    # the sequence engine's padding ids form a run past it, which P1
+    # skips).
+    longest = int(lengths[segments.rows[:distinct] < param.shape[0]].max())
+    summed = row_update.segment_sums_plain(grads, segments, distinct,
+                                           param.shape[0])
     unique_ids = segments.rows[:distinct].contiguous()
     unique_order = torch.arange(distinct, device=ids.device)
 
@@ -2112,12 +2131,12 @@ def check_row_update(torch, card, shape, param, mu, nu, ids, grads, t, lr,
         for launch in range(2):
             got = run(row_update.row_adam, rows, pair)
             torch.cuda.synchronize()
-            for name, a, b in zip(('param', 'mu', 'nu'), got, want):
+            for part, a, b in zip(('param', 'mu', 'nu'), got, want):
                 if not torch.equal(bits(torch, a), bits(torch, b)):
                     raise AssertionError(
                         'row_adam ({}, launch {}) differs from its plain '
                         'version in {} at {}: {} elements'.format(
-                            form, launch, name, shape,
+                            form, launch, part, shape,
                             int((bits(torch, a) != bits(torch, b)).sum())))
             del got
     moved = float((want[0].float() - param.float()).abs().max())
@@ -2151,7 +2170,7 @@ def check_row_update(torch, card, shape, param, mu, nu, ids, grads, t, lr,
     size = param.element_size()
     id_size = ids.element_size()
     entry = kernel_entry(
-        'row_adam (P1)', 'row_update.cu', 'scripts/fused_rowupdate_probe.py:78',
+        name, 'row_update.cu', 'scripts/fused_rowupdate_probe.py:78',
         shape, fused_ms, plain_ms,
         row_update_ops(distinct, ids.numel(), width),
         row_update_bytes(distinct, ids.numel(), width, size, id_size,
@@ -4199,13 +4218,20 @@ def bloom_sequences():
 
 
 def training_state(model):
-    """A copy of a model's parameters and Adam moments, on the CPU."""
+    """A copy of a model's parameters and Adam moments, on the CPU: the
+    sequence lazy engine's hybrid state gives its table's moments under
+    the item table's name beside the tower's."""
     def copied(tensors):
         return {name: t.detach().to('cpu', copy=True)
                 for name, t in tensors}
+    state = model._opt_state
+    if 'table' in state:
+        state = {key: dict(state['tower'][key], **{
+            'item_embeddings.weight': state['table'][key]})
+            for key in ('mu', 'nu')}
     return {'params': copied(model._net.named_parameters()),
-            'mu': copied(model._opt_state['mu'].items()),
-            'nu': copied(model._opt_state['nu'].items())}
+            'mu': copied(state['mu'].items()),
+            'nu': copied(state['nu'].items())}
 
 
 def block_gaps(torch, model, reference):
@@ -4220,12 +4246,12 @@ def block_gaps(torch, model, reference):
     for kind in ('params', 'mu', 'nu'):
         for name, got in state[kind].items():
             whole = reference[kind][name]
-            want = held_part(model._net, name, whole)
-            same = got.view(torch.int32) == want.contiguous().view(
-                torch.int32)
+            want = held_part(model._net, name, whole).contiguous()
+            same = bits(torch, got) == bits(torch, want)
             scale = float(whole.abs().max()) or 1.0
             gaps[kind, name] = (float(same.float().mean()),
-                                float((got - want).abs().max()) / scale)
+                                float((got.float() - want.float()).abs()
+                                      .max()) / scale)
     return gaps
 
 
@@ -4523,6 +4549,498 @@ def run_mesh_training_phase(torch, card):
     return launches
 
 
+# -- phase 17: the lazy engines on a mesh ------------------------------------
+
+#: Phase 17: phase 9's lazy MF at ``bench_lazy_knobs``' width (2e6 x 5e5,
+#: D=64, batch 8,192), MESH_LAZY_STEPS steps under each exchange and
+#: layout, bfloat16 tables with in-batch negatives at 1 x 4; phase 11's
+#: explicit width at 2 x 2; phase 13's lazy LSTM at LAZY_SEQ_ITEMS[0]
+#: (batch 256, T=50) for MESH_LAZY_SEQ_STEPS steps.  The MF metrics score
+#: MESH_LAZY_EVAL users, the LSTM's MESH_LAZY_SEQ_EVAL sequences.
+MESH_LAZY_STEPS = 8
+MESH_LAZY_SEQ_STEPS = 2
+MESH_LAZY_EVAL = 2_048
+MESH_LAZY_SEQ_EVAL = 512
+#: The step of rank 0's 'MF psum' run at 2 x 2 whose item-table P1
+#: operands are captured.
+MESH_CAPTURE_STEP = 4
+
+
+def mesh_lazy_runs(layout):
+    """The runs of phase 17 on a layout (None: one device), each ``(name,
+    reference name, build(mesh) -> (model, data), metrics(model) ->
+    {name: numpy})``: the lazy MF under each exchange, its bfloat16
+    in-batch form under 'psum' at 1 x 4, the lazy explicit MF under 'psum'
+    and 'alltoall_cf' at 2 x 2, the lazy LSTM under 'psum' (and
+    'alltoall' at 2 x 2)."""
+    import torch
+
+    from spotlight_tpu_torch.data import Interactions, SequenceInteractions
+    from spotlight_tpu_torch.evaluation import (
+        mrr_score, precision_recall_score, sequence_mrr_score)
+    from spotlight_tpu_torch.factorization import (
+        BilinearNet, ExplicitFactorizationModel, ImplicitFactorizationModel)
+    from spotlight_tpu_torch.sequence import ImplicitSequenceModel
+
+    pairs = MESH_LAZY_STEPS * TRAIN_BATCH
+    full = fit_interactions(LAZY_USERS, LAZY_ITEMS)
+    mf_data = Interactions(full.user_ids[:pairs], full.item_ids[:pairs],
+                           num_users=LAZY_USERS, num_items=LAZY_ITEMS)
+    rs = np.random.RandomState(9)
+    test = Interactions(
+        np.repeat(rs.randint(0, LAZY_USERS, MESH_LAZY_EVAL), TEST_PER_USER),
+        rs.randint(0, LAZY_ITEMS, MESH_LAZY_EVAL * TEST_PER_USER),
+        num_users=LAZY_USERS, num_items=LAZY_ITEMS)
+    ratings = explicit_interactions()
+    explicit_data = Interactions(
+        ratings.user_ids[:pairs], ratings.item_ids[:pairs],
+        ratings=ratings.ratings[:pairs], num_users=DENSE_USERS,
+        num_items=DENSE_ITEMS)
+    sequences = lazy_sequence_data(LAZY_SEQ_ITEMS[0]).sequences
+    seq_data = SequenceInteractions(
+        sequences[:MESH_LAZY_SEQ_STEPS * SEQ_TRAIN_BATCH],
+        num_items=LAZY_SEQ_ITEMS[0])
+    seq_test = SequenceInteractions(sequences[-MESH_LAZY_SEQ_EVAL:],
+                                    num_items=LAZY_SEQ_ITEMS[0])
+
+    def mf(exchange, bf16_inbatch=False):
+        def build(mesh):
+            kwargs = {}
+            if bf16_inbatch:
+                kwargs = dict(negative_sampling='in_batch',
+                              representation=BilinearNet(
+                                  LAZY_USERS, LAZY_ITEMS, TRAIN_DIM,
+                                  table_dtype=torch.bfloat16,
+                                  generator=torch.Generator().manual_seed(
+                                      42)))
+            return ImplicitFactorizationModel(
+                loss='bpr', embedding_dim=TRAIN_DIM, n_iter=1,
+                batch_size=TRAIN_BATCH, learning_rate=1e-2, sparse=True,
+                mesh=mesh, exchange=exchange,
+                random_state=np.random.RandomState(42), **kwargs), mf_data
+        return build
+
+    def explicit(exchange):
+        def build(mesh):
+            return ExplicitFactorizationModel(
+                loss='regression', embedding_dim=TRAIN_DIM, n_iter=1,
+                batch_size=TRAIN_BATCH, sparse=True, mesh=mesh,
+                exchange=exchange,
+                random_state=np.random.RandomState(42)), explicit_data
+        return build
+
+    def lstm(exchange):
+        def build(mesh):
+            return ImplicitSequenceModel(
+                loss='bpr', representation='lstm', embedding_dim=D,
+                batch_size=SEQ_TRAIN_BATCH, n_iter=1, sparse=True, mesh=mesh,
+                exchange=exchange,
+                random_state=np.random.RandomState(42)), seq_data
+        return build
+
+    def mf_metrics(model):
+        return {'mrr_score (train)': mrr_score(model, test, train=mf_data),
+                'precision_recall_score k=10': precision_recall_score(
+                    model, test, k=10)}
+
+    def no_metrics(model):
+        return {}
+
+    def lstm_metrics(model):
+        return {'sequence_mrr_score': sequence_mrr_score(model, seq_test)}
+
+    if layout is None:
+        return [('MF', 'MF', mf('psum'), mf_metrics),
+                ('MF bf16 in-batch', 'MF bf16 in-batch', mf('psum', True),
+                 mf_metrics),
+                ('explicit', 'explicit', explicit('psum'), no_metrics),
+                ('LSTM', 'LSTM', lstm('psum'), lstm_metrics)]
+    runs = [('MF ' + exchange, 'MF', mf(exchange), mf_metrics)
+            for exchange in MESH_EXCHANGES]
+    if layout == (1, 4):
+        runs.append(('MF bf16 in-batch psum', 'MF bf16 in-batch',
+                     mf('psum', True), mf_metrics))
+        runs.append(('LSTM psum', 'LSTM', lstm('psum'), lstm_metrics))
+    else:
+        runs += [('explicit ' + exchange, 'explicit', explicit(exchange),
+                  no_metrics) for exchange in ('psum', 'alltoall_cf')]
+        runs += [('LSTM ' + exchange, 'LSTM', lstm(exchange), lstm_metrics)
+                 for exchange in ('psum', 'alltoall')]
+    return runs
+
+
+def gathered_tables(model):
+    """A one-device copy of a mesh-trained model that holds the whole padded
+    tables, gathered over the model axis (every rank calls alike), and no
+    optimizer state: what its metrics are held against."""
+    import copy
+
+    import torch
+
+    from spotlight_tpu_torch.parallel.sharding import gather_params
+
+    net = copy.deepcopy(model._net)
+    whole = gather_params({name: p.detach() for name, p in
+                           model._net.named_parameters()},
+                          model._param_specs, model._mesh)
+    with torch.no_grad():
+        for name, param in net.named_parameters():
+            param.data = whole[name]
+    gathered = object.__new__(type(model))
+    gathered.__dict__.update(model.__dict__)
+    gathered._net = net
+    gathered._opt_state = None
+    gathered._mesh = gathered._param_specs = gathered._opt_specs = None
+    gathered._item_factor_cache = gathered._shard_catalog_cache = None
+    gathered._epoch_fn_cache = {}
+    return gathered
+
+
+def mesh_lazy_rank(rank, world, store, out_dir):
+    """One rank of phase 17's gloo mesh on the card (started by
+    ``torch.multiprocessing.spawn``; an exception here fails the phase):
+    each run of ``mesh_lazy_runs`` on each layout, trained and scored on
+    the mesh with the launch counters (P1's too), ``MATERIALIZE_ROUTES``
+    and the collective byte counter zeroed just before and read just
+    after; then its blocks against the one-device run, its metrics against
+    one device's on the tables gathered from the ranks, and a second (warm)
+    fit of the same steps.  Rank 0 saves P1's operands of the item table at
+    step MESH_CAPTURE_STEP of 'MF psum' at 2 x 2."""
+    import datetime
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from spotlight_tpu_torch import evaluation
+    from spotlight_tpu_torch.ops.kernels import row_update
+    from spotlight_tpu_torch.parallel import make_mesh
+    from spotlight_tpu_torch.parallel import mesh as pmesh
+    from spotlight_tpu_torch.parallel import training as ptraining
+
+    torch.cuda.set_device(0)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    dist.init_process_group(
+        'gloo', init_method='file://' + store, world_size=world, rank=rank,
+        timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    reference = torch.load(os.path.join(out_dir, 'one_device.pt'),
+                           mmap=True)
+    out = {}
+    for layout in MESH_LAYOUTS:
+        mesh = make_mesh(*layout, devices=['cuda:0'] * world)
+        for name, ref_name, build, metrics in mesh_lazy_runs(layout):
+            model, data = build(mesh)
+            # The tables drawn whole on the CPU and cut into blocks, before
+            # the clock starts (as for the one-device run).
+            model._initialize(data)
+            undo = None
+            if rank == 0 and layout == (2, 2) and name == 'MF psum':
+                captured, undo = capture_row_updates(MESH_CAPTURE_STEP,
+                                                     engine=ptraining)
+            torch.cuda.synchronize()
+            reset_mesh_counters()
+            row_update.ROW_ADAM_LAUNCHES = 0
+            pmesh.COLLECTIVE_BYTES = {}
+            start = time.perf_counter()
+            try:
+                model.fit(data)
+                torch.cuda.synchronize()
+            finally:
+                if undo is not None:
+                    undo()
+            train_s = time.perf_counter() - start
+            train_bytes = dict(pmesh.COLLECTIVE_BYTES)
+            results = metrics(model)
+            torch.cuda.synchronize()
+            launches = dict(mesh_counters(), **{
+                'row_adam (P1, mesh)': row_update.ROW_ADAM_LAUNCHES})
+            routes = evaluation.MATERIALIZE_ROUTES
+            if undo is not None:
+                torch.save({key: value.cpu() if torch.is_tensor(value)
+                            else value for key, value in captured[1].items()},
+                           os.path.join(out_dir, 'mesh_p1.pt'))
+            gaps = block_gaps(torch, model, reference[ref_name])
+            one = {}
+            if results:
+                whole = gathered_tables(model)
+                one = metrics(whole)
+                del whole
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            model.fit(data)
+            torch.cuda.synchronize()
+            out[layout, name] = dict(
+                reference=ref_name, steps=train_steps(model, data),
+                lazy=model._lazy, train_s=train_s,
+                warm_s=time.perf_counter() - start, train_bytes=train_bytes,
+                launches=launches, routes=routes, gaps=gaps,
+                device=str(model._device), loss=model._last_epoch_loss,
+                equal={key: same_arrays(results[key], one[key])
+                       for key in results})
+            del model
+            torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    with open(os.path.join(out_dir, 'rank{}.pkl'.format(rank)), 'wb') as fh:
+        pickle.dump(out, fh)
+
+
+def run_mesh_lazy_ranks(torch, card):
+    """(a) MESH_RANKS gloo ranks on the one card: every run of
+    ``mesh_lazy_runs`` on both layouts from the one-device run's initial
+    tables and draws.  Every rank took the lazy engine; its blocks bit-equal
+    to one device's run where their bits agree and within MESH_TRAIN_RTOL
+    of each table's scale elsewhere; metrics bit-equal to one device's on
+    the gathered tables; no materialize route; the path's kernels
+    launched, P1 on every step.  Returns the ranks' summed launch counts
+    and the directory of the captured P1 operands."""
+    import pickle
+    import shutil
+
+    out_dir = os.path.join(ROOT, 'build', 'mesh_lazy_smoke')
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    reference, one_ms, one_warm_ms = {}, {}, {}
+    for name, ref_name, build, _ in mesh_lazy_runs(None):
+        model, data = build(None)
+        model._initialize(data)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        model.fit(data)
+        torch.cuda.synchronize()
+        steps = train_steps(model, data)
+        one_ms[ref_name] = (time.perf_counter() - start) * 1e3 / steps
+        if not model._lazy:
+            raise AssertionError('one device\'s {} did not take the lazy '
+                                 'engine'.format(name))
+        reference[ref_name] = training_state(model)
+        start = time.perf_counter()
+        model.fit(data)
+        torch.cuda.synchronize()
+        one_warm_ms[ref_name] = (time.perf_counter() - start) * 1e3 / steps
+        del model
+        torch.cuda.empty_cache()
+    torch.save(reference, os.path.join(out_dir, 'one_device.pt'))
+    del reference
+    start = time.perf_counter()
+    torch.multiprocessing.spawn(
+        mesh_lazy_rank, args=(MESH_RANKS, os.path.join(out_dir, 'store'),
+                              out_dir), nprocs=MESH_RANKS, join=True)
+    spawn_s = time.perf_counter() - start
+    ranks = []
+    for rank in range(MESH_RANKS):
+        with open(os.path.join(out_dir, 'rank{}.pkl'.format(rank)),
+                  'rb') as fh:
+            ranks.append(pickle.load(fh))
+    launches, worst = {}, 0.0
+    for key in ranks[0]:
+        layout, name = key
+        runs = [out[key] for out in ranks]
+        for rank, got in enumerate(runs):
+            if not got['lazy'] or got['device'] != 'cuda:0':
+                raise AssertionError('{} on rank {}: lazy {}, on {}'.format(
+                    name, rank, got['lazy'], got['device']))
+            if got['routes']:
+                raise AssertionError('{} on rank {}: {} metric calls took '
+                                     'the materialize route'.format(
+                                         name, rank, got['routes']))
+            if not all(got['equal'].values()):
+                raise AssertionError('{} on rank {} of {} x {}: metrics '
+                                     'differ from one device\'s on the '
+                                     'gathered tables: {}'.format(
+                                         name, rank, *layout, got['equal']))
+            steps = got['steps']
+            calls = (1 if name.startswith('LSTM') else 2) * steps
+            if got['launches']['row_adam (P1, mesh)'] != calls:
+                raise AssertionError('{} on rank {}: P1 launched {} times, '
+                                     'not {}'.format(
+                                         name, rank, got['launches'][
+                                             'row_adam (P1, mesh)'], calls))
+            for count_name, count in got['launches'].items():
+                launches[count_name] = launches.get(count_name, 0) + count
+        gap = max(g[1] for got in runs for g in got['gaps'].values())
+        share = min(g[0] for got in runs for g in got['gaps'].values())
+        worst = max(worst, gap)
+        steps = runs[0]['steps']
+        by_axis = {'{} {}'.format(*op_axis): count / steps
+                   for op_axis, count in runs[0]['train_bytes'].items()}
+        log(mesh_lazy_training=name, layout='{} x {}'.format(*layout),
+            steps=steps, last_epoch_loss=runs[0]['loss'],
+            metrics_bit_equal_to_one_device=True,
+            largest_gap_over_table_scale=gap,
+            least_bit_equal_share=share, bound=MESH_TRAIN_RTOL,
+            ms_per_step_by_rank=[got['train_s'] * 1e3 / steps
+                                 for got in runs],
+            one_device_ms_per_step=one_ms[runs[0]['reference']],
+            warm_ms_per_step_by_rank=[got['warm_s'] * 1e3 / steps
+                                      for got in runs],
+            one_device_warm_ms_per_step=one_warm_ms[runs[0]['reference']],
+            collective_bytes_per_step_rank0=by_axis,
+            note='four ranks share one card: not a scaling figure; the '
+                 'first times are one fit of a fresh model, its first '
+                 'step included, the warm ones a second fit of the same '
+                 'steps', card=card)
+        if gap > MESH_TRAIN_RTOL:
+            raise AssertionError('{} at {} x {}: a block is {} of its '
+                                 'table\'s scale from one device\'s'
+                                 .format(name, *layout, gap))
+    log(mesh_lazy_launches=launches, spawn_s=spawn_s,
+        largest_gap_over_table_scale=worst)
+    for name in ('rank_weights', 'matched_target_scores', 'streaming_topk'):
+        if launches.get(name, 0) <= 0:
+            raise AssertionError('{} never launched on the lazy mesh path'
+                                 .format(name))
+    return launches, out_dir
+
+
+def mesh_p1_device_work(path):
+    """Run in a fresh process (a long run's profiler record can drop
+    events): the device ms and activities of one ``sparse_adam_rows``
+    call on the captured mesh operands at ``path`` (its sort and P1), and
+    of P1 alone on their sort, over DEVICE_REPS calls each."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from spotlight_tpu_torch.ops.kernels import row_update
+    from spotlight_tpu_torch.ops.lazy_adam import sparse_adam_rows
+
+    operands = torch.load(path)
+    ids = operands['ids'].to(DEVICE)
+    grads = operands['grads'].to(DEVICE).reshape(ids.numel(), -1)
+    tables = [operands[name].to(DEVICE) for name in ('param', 'mu', 'nu')]
+    t, lr, l2 = operands['t'], operands['lr'], operands['l2']
+    pair = row_update.sort_occurrences(ids)
+    scalars = row_update.adam_scalars(t, lr, l2)
+    call = device_work(torch, lambda: sparse_adam_rows(ids, *tables, grads,
+                                                       t, lr, l2))
+    alone = device_work(torch, lambda: row_update.row_adam(
+        *tables, grads, *pair, scalars))
+    return call, alone
+
+
+def check_mesh_p1(torch, card, out_dir):
+    """P1 on rank 0's captured item-table operands of 'MF psum' at 2 x 2:
+    the global stream of the step's item occurrences (positives, then
+    negatives; the ids rank 0 does not own at the sentinel, its block's
+    row count), their gradient rows, its block of the table and moments.
+    Bit for bit against its plain version, timed as phase 9's rows (with
+    its sort, alone, the sort, the plain version, ``SparseAdam`` on the
+    owned rows), and its device ms by ``torch.profiler`` in a fresh
+    process.  The bound counts what this call needs: every id read, the
+    owned occurrences' gradient rows, the owned distinct rows.  Returns the
+    kernel-table entry."""
+    import multiprocessing
+
+    from spotlight_tpu_torch.ops.kernels import row_update
+
+    path = os.path.join(out_dir, 'mesh_p1.pt')
+    operands = torch.load(path)
+    ids = operands['ids'].to(DEVICE)
+    grads = operands['grads'].to(DEVICE).reshape(ids.numel(), -1).float()
+    param, mu, nu = (operands[name].to(DEVICE)
+                     for name in ('param', 'mu', 'nu'))
+    rows = param.shape[0]
+    owned = ids < rows
+    n_owned = int(owned.sum())
+    distinct = int(torch.unique(ids[owned]).numel())
+    shape = ('mesh item block R={} W={} n={} ({} owned, {} rows), rank 0 of '
+             '2 x 2 psum, f32, step={} t={} l2={}').format(
+        rows, param.shape[1], ids.numel(), n_owned, distinct,
+        MESH_CAPTURE_STEP, operands['t'], operands['l2'])
+    entry = check_row_update(
+        torch, card, shape, param, mu, nu, ids, grads, operands['t'],
+        operands['lr'], operands['l2'], library=operands['l2'] == 0,
+        name='row_adam (P1, mesh)')
+    width = param.shape[1]
+    bound_ms, bound_by = bound(
+        row_update_ops(distinct, n_owned, width),
+        distinct * width * 2 * (param.element_size() + 8)
+        + 4 * n_owned * width + ids.numel() * ids.element_size())
+    with multiprocessing.get_context('spawn').Pool(1) as pool:
+        call, alone = pool.apply(mesh_p1_device_work, (path,))
+    entry = dict(entry, bound_ms=bound_ms, bound_by=bound_by,
+                 owned_occurrences=n_owned, distinct_rows=distinct,
+                 device_ms=call[0], device_activities=call[1],
+                 kernel_only_device_ms=alone[0])
+    log(mesh_p1=entry, note='the bound counts the owned rows and '
+        'occurrences; device ms by torch.profiler', card=card)
+    if abs(alone[1] - 1) > 1e-9:
+        raise AssertionError('row_adam alone made {} device activities a '
+                             'call, not 1'.format(alone[1]))
+    return entry
+
+
+def run_nccl_lazy_training(torch, card):
+    """(b) A one-rank NCCL group: NCCL_TRAIN_STEPS steps of the lazy MF at
+    phase 9's width under 'psum', its tables and moments bit-equal to one
+    device's steps (every axis has one rank: the mesh sends nothing).
+    Returns its P1 launches."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from spotlight_tpu_torch.data import Interactions
+    from spotlight_tpu_torch.factorization import ImplicitFactorizationModel
+    from spotlight_tpu_torch.ops.kernels import row_update
+    from spotlight_tpu_torch.parallel import make_mesh
+
+    pairs = NCCL_TRAIN_STEPS * TRAIN_BATCH
+    full = fit_interactions(LAZY_USERS, LAZY_ITEMS)
+    data = Interactions(full.user_ids[:pairs], full.item_ids[:pairs],
+                        num_users=LAZY_USERS, num_items=LAZY_ITEMS)
+
+    def fit(mesh):
+        model = ImplicitFactorizationModel(
+            loss='bpr', embedding_dim=TRAIN_DIM, n_iter=1,
+            batch_size=TRAIN_BATCH, learning_rate=1e-2, sparse=True,
+            mesh=mesh, random_state=np.random.RandomState(42))
+        model._initialize(data)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        model.fit(data)
+        torch.cuda.synchronize()
+        return model, (time.perf_counter() - start) * 1e3 / NCCL_TRAIN_STEPS
+
+    want, one_ms = fit(None)
+    want = training_state(want)
+    torch.cuda.empty_cache()
+    store = os.path.join(ROOT, 'build', 'mesh_lazy_smoke', 'nccl_store')
+    dist.init_process_group(
+        'nccl', init_method='file://' + store, world_size=1, rank=0,
+        timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        mesh = make_mesh(data=1, model=1, devices=['cuda:0'])
+        row_update.ROW_ADAM_LAUNCHES = 0
+        model, ms = fit(mesh)
+        launches = row_update.ROW_ADAM_LAUNCHES
+        got = training_state(model)
+        equal = model._lazy and all(
+            torch.equal(bits(torch, got[kind][name]), bits(torch, value))
+            for kind in got for name, value in want[kind].items())
+        log(nccl_one_rank_lazy_training='psum', steps=NCCL_TRAIN_STEPS,
+            lazy=model._lazy, tables_and_moments_bit_equal=equal,
+            row_adam_launches=launches, ms_per_step=ms,
+            one_device_ms_per_step=one_ms, card=card)
+        if not equal or launches != 2 * NCCL_TRAIN_STEPS:
+            raise AssertionError('NCCL lazy steps differ from one device\'s '
+                                 '({} P1 launches)'.format(launches))
+        del model
+    finally:
+        dist.destroy_process_group()
+    del want, got
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_mesh_lazy_phase(torch, card):
+    """Phase 17: returns (the launch counts of the lazy mesh path, P1's
+    kernel-table entry on the mesh operands)."""
+    launches, out_dir = run_mesh_lazy_ranks(torch, card)
+    launches['row_adam (P1, mesh)'] += run_nccl_lazy_training(torch, card)
+    entry = check_mesh_p1(torch, card, out_dir)
+    torch.cuda.empty_cache()
+    return launches, entry
+
+
 def main():
     import torch
 
@@ -4660,6 +5178,13 @@ def main():
         launches[name] += count
     log(phase='mesh training', seconds=time.perf_counter() - start)
 
+    start = time.perf_counter()
+    mesh_launches, entries['row_adam (P1, mesh)'] = run_mesh_lazy_phase(
+        torch, card)
+    for name, count in mesh_launches.items():
+        launches[name] = launches.get(name, 0) + count
+    log(phase='lazy mesh training', seconds=time.perf_counter() - start)
+
     kernels = []
     for name in ('rank_weights', 'matched_target_scores', 'streaming_topk',
                  'rank_weights (mixture)', 'streaming_topk (mixture)',
@@ -4667,7 +5192,8 @@ def main():
                  'rank_counts (mixture)', 'bloom_gather_sum',
                  'bloom_gather_sum backward', 'multihot_gather_sum',
                  'multihot_gather_sum backward', 'row_adam (P1)',
-                 'row_adam (P1, explicit)', 'row_adam (P1, sequence)'):
+                 'row_adam (P1, explicit)', 'row_adam (P1, sequence)',
+                 'row_adam (P1, mesh)'):
         entry = dict(entries[name])
         entry['launches'] = launches[name]
         kernels.append(entry)

@@ -15,6 +15,7 @@ import warnings
 import numpy as np
 import torch
 
+from spotlight_tpu_torch.factorization.lazy import lazy_opt_specs
 from spotlight_tpu_torch.factorization.representations import BilinearNet
 from spotlight_tpu_torch.ops.lazy_adam import lazy_adam_init
 from spotlight_tpu_torch.parallel import training as ptraining
@@ -55,17 +56,6 @@ def check_mesh_settings(mesh, exchange, batch_size):
             raise ValueError(
                 'batch_size ({}) must be divisible by the batch-shard '
                 'count ({})'.format(batch_size, shards))
-
-
-def refuse_lazy_on_mesh(mesh, lazy):
-    """The row-sparse (lazy) engines on a mesh wait for their port; where
-    ``sparse=True`` would take them, the JAX package takes its distributed
-    lazy engine, so the port raises rather than train otherwise."""
-    if mesh is not None and lazy:
-        raise NotImplementedError(
-            'sparse=True on a mesh (the distributed lazy engine) is not '
-            'ported yet (ROADMAP.md, Queue 1 item 3: the lazy engines under '
-            'a mesh); train on the mesh with sparse=False')
 
 
 def refuse_unsharded_on_mesh(model):
@@ -185,13 +175,15 @@ class _FactorizationBase(SerializableEstimatorMixin):
                                     generator=self._generator,
                                     device=build_device)
         self._lazy = self._use_lazy_engine()
-        refuse_lazy_on_mesh(mesh, self._lazy)
         if mesh is not None:
             self._net, self._param_specs = ptraining.shard_network(
                 self._net, mesh, self._exchange, self._device)
         params = dict(self._net.named_parameters())
         if self._lazy:
+            # On a mesh, the moments of the rank's blocks.
             self._opt_state = lazy_adam_init(params)
+            if mesh is not None:
+                self._opt_specs = lazy_opt_specs(self._param_specs)
         else:
             self._optimizer = training.make_optimizer(
                 self._learning_rate, self._l2, self._optimizer_func)

@@ -11,7 +11,7 @@ with ``sparse=True`` the row-sparse lazy-Adam engine
 positives only, no negative draw), whose row update is the kernel P1 on
 the card.  A poisson model predicts ``exp`` of the pair score and a
 logistic one its sigmoid, in training and in :meth:`predict` alike.
-On a ``mesh=`` (:mod:`spotlight_tpu_torch.parallel`) the dense engine
+On a ``mesh=`` (:mod:`spotlight_tpu_torch.parallel`) either engine
 trains data-parallel with row-sharded tables.
 """
 
@@ -59,8 +59,9 @@ class ExplicitFactorizationModel(_FactorizationBase):
         embedding tables row-shard over the mesh's ``'model'`` axis, each
         rank holding its block of every table and of its Adam moments, and
         the batch shards over ``'data'``
-        (:mod:`spotlight_tpu_torch.parallel.training`, the dense engine;
-        ``sparse=True`` there raises ``NotImplementedError``).  The metrics
+        (:mod:`spotlight_tpu_torch.parallel.training`; with
+        ``sparse=True`` the lazy engine, P1 on each rank's rows).  The
+        metrics
         score each rank's block of the catalogue
         (:mod:`spotlight_tpu_torch.parallel.evaluation`); ``predict``
         returns the whole, replicated result.
@@ -120,7 +121,8 @@ class ExplicitFactorizationModel(_FactorizationBase):
         if self._lazy:
             step = build_lazy_step(self._net, self._loss,
                                    self._learning_rate, self._l2, 0,
-                                   explicit=True)
+                                   explicit=True, mesh=self._mesh,
+                                   exchange=self._exchange)
         else:
             step = ptraining.dense_step(self, self._elems_fn())
         return lambda batch, negatives: step(self._opt_state, batch,

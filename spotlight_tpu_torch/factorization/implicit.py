@@ -11,7 +11,7 @@ tables) by default, or with ``sparse=True`` the row-sparse lazy-Adam engine
 hand-written kernel P1 on the card.  Each epoch draws its permutation and
 negatives from the estimator's CPU generator in one go and reads its loss
 back one epoch late.  On a ``mesh=`` (:mod:`spotlight_tpu_torch.parallel`)
-the dense engine trains data-parallel with row-sharded tables, and the
+either engine trains data-parallel with row-sharded tables, and the
 metrics score each rank's block of the catalogue.
 """
 
@@ -68,8 +68,9 @@ class ImplicitFactorizationModel(_FactorizationBase):
         embedding tables row-shard over the mesh's ``'model'`` axis, each
         rank holding its block of every table and of its Adam moments, and
         the batch shards over ``'data'``
-        (:mod:`spotlight_tpu_torch.parallel.training`, the dense engine;
-        ``sparse=True`` there raises ``NotImplementedError``).  The metrics
+        (:mod:`spotlight_tpu_torch.parallel.training`; with
+        ``sparse=True`` the lazy engine, P1 on each rank's rows).  The
+        metrics
         score each rank's block of the catalogue
         (:mod:`spotlight_tpu_torch.parallel.evaluation`); ``predict``
         returns the whole, replicated result.
@@ -166,7 +167,8 @@ class ImplicitFactorizationModel(_FactorizationBase):
         if self._lazy:
             step = build_lazy_step(
                 self._net, self._loss, self._learning_rate, self._l2,
-                self._num_negative_samples, self._negative_sampling)
+                self._num_negative_samples, self._negative_sampling,
+                mesh=self._mesh, exchange=self._exchange)
         else:
             step = ptraining.dense_step(self, self._elems_fn())
         return lambda batch, negatives: step(self._opt_state, batch,

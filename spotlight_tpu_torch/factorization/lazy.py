@@ -1,6 +1,6 @@
 """Row-sparse (lazy) Adam training engine for large embedding tables.
 
-Counterpart of ``spotlight_tpu/factorization/lazy.py`` on one device.  The
+Counterpart of ``spotlight_tpu/factorization/lazy.py``.  The
 dense engine computes table-sized gradients and sweeps Adam over whole
 tables every step; this engine's cost does not grow with the tables:
 
@@ -22,6 +22,19 @@ factorization estimator (the fused ``BilinearNet`` layout, no custom
 optimizer).  With ``explicit`` the step scores the positives alone
 against ``batch['ratings']`` (the explicit estimator's losses; no negative
 is drawn).
+
+On a mesh (:mod:`spotlight_tpu_torch.parallel`) the tables and their
+moments are row-sharded over ``'model'``, and the batch over the batch axes
+of the exchange (``parallel.training.batch_axes``).  Each rank looks its
+slice's rows up through the exchange, outside autograd; takes the loss of
+its slice over the global mask count, so each occurrence's gradient row is
+one device's; gathers the ids and gradient rows over the batch axes in role
+order (``parallel.training.gather_roles``), which is one device's order;
+and runs P1 on the rows of its blocks that it owns
+(``parallel.training.owned_row_update``).  With uniform negatives every
+rank's blocks are then one device's, bit for bit.  A step hands the
+``'data'`` axis only the slice's ids and its ``(D + 1)``-wide gradient
+rows, not table-sized gradients.
 """
 
 from __future__ import annotations
@@ -32,12 +45,22 @@ from spotlight_tpu_torch.ops.lazy_adam import lazy_adam_init, sparse_adam_rows
 from spotlight_tpu_torch.ops.losses import EXPLICIT_LOSSES, IMPLICIT_LOSSES
 from spotlight_tpu_torch.ops.sampling import (inbatch_pair_weights,
                                               weighted_inbatch_elems)
+from spotlight_tpu_torch.parallel import training as ptraining
+from spotlight_tpu_torch.parallel.sharding import (PartitionSpec,
+                                                   _exchange_gather)
 from spotlight_tpu_torch.utils.training import masked_mean
 
-__all__ = ['build_lazy_step', 'lazy_adam_init', 'sparse_adam_rows']
+__all__ = ['build_lazy_step', 'lazy_adam_init', 'lazy_opt_specs',
+           'sparse_adam_rows']
 
 USER_TABLE = 'user_embeddings.weight'
 ITEM_TABLE = 'item_embeddings.weight'
+
+
+def lazy_opt_specs(param_specs):
+    """The spec tree of :func:`lazy_adam_init`'s state on a mesh: the
+    moments shard as their parameters; the step count replicates."""
+    return {'mu': param_specs, 'nu': param_specs, 't': PartitionSpec()}
 
 
 def _fused_pair_scores(u_rows, i_rows_stacked, dim):
@@ -58,14 +81,21 @@ def _batch_item_ids(batch, negatives, positives_only):
 
 
 def build_lazy_step(net, loss, learning_rate, l2, num_negatives,
-                    negative_sampling='uniform', explicit=False):
+                    negative_sampling='uniform', explicit=False, mesh=None,
+                    exchange='psum'):
     """The lazy engine's step for a fused-layout ``BilinearNet``:
     ``step(opt_state, batch, negatives) -> loss`` (a device scalar), with
     ``opt_state`` from :func:`~spotlight_tpu_torch.ops.lazy_adam.
     lazy_adam_init` (updated in place, ``t`` included) and ``negatives``
     ``(n_neg, B)`` item ids (None for in-batch negatives and for
     ``explicit``, whose batch carries ``'ratings'``).  Nothing is read back
-    to the host."""
+    to the host.
+
+    On a ``mesh`` the network holds its blocks of the tables, ``batch`` and
+    ``negatives`` are the rank's slice (``parallel.training.batch_rows``),
+    the rows come through ``exchange`` and the loss returned is the sum of
+    the ranks' over the batch axes, replicated (see the module
+    docstring)."""
     dim = net.embedding_dim
     loss_func = (EXPLICIT_LOSSES if explicit else IMPLICIT_LOSSES)[loss]
     adaptive = loss == 'adaptive_hinge'
@@ -99,6 +129,10 @@ def build_lazy_step(net, loss, learning_rate, l2, num_negatives,
         negative = dots[1:] if adaptive else dots[1]
         return loss_func(positive, negative, reduce=False)
 
+    if mesh is not None:
+        return _mesh_step(net, stacked_scores, learning_rate, l2, explicit
+                          or in_batch, mesh, exchange)
+
     def step(opt_state, batch, negatives):
         users = batch['user_ids']
         opt_state['t'] += 1
@@ -124,5 +158,57 @@ def build_lazy_step(net, loss, learning_rate, l2, num_negatives,
                          opt_state['nu'][ITEM_TABLE], gi, t, learning_rate,
                          l2)
         return loss_value.detach()
+
+    return step
+
+
+def _mesh_step(net, stacked_scores, learning_rate, l2, positives_only, mesh,
+               exchange):
+    """The body of JAX's ``_build_distributed`` ``sharded_step``: the step
+    of :func:`build_lazy_step` on a mesh."""
+    dim = net.embedding_dim
+    axes = ptraining.batch_axes(exchange)
+
+    def lookup(table, ids):
+        # Outside autograd; at full capacity, the capacity-factored
+        # exchange drops nothing.
+        with torch.no_grad():
+            return _exchange_gather(mesh, table, ids, 'model',
+                                    exchange).float().requires_grad_()
+
+    def step(opt_state, batch, negatives):
+        users = batch['user_ids']
+        opt_state['t'] += 1
+        t = opt_state['t']
+        u_table = net.user_embeddings.weight.data
+        i_table = net.item_embeddings.weight.data
+        roles = (batch['item_ids'][None] if positives_only else
+                 torch.cat([batch['item_ids'][None], negatives], dim=0))
+
+        u_rows = lookup(u_table, users)
+        i_rows = lookup(i_table, roles.reshape(-1))
+        with torch.enable_grad():
+            elems = stacked_scores(u_rows, i_rows, batch)
+            mask = batch['mask'].to(elems.dtype)
+            count = mesh.all_reduce(mask.sum(), axes)
+            local_loss = (elems * mask).sum() / torch.clamp(count, min=1.0)
+            gu, gi = torch.autograd.grad(local_loss, (u_rows, i_rows))
+
+        # The global occurrence stream in one device's order, in two
+        # gathers (ids, gradient rows): users, then the item positives and
+        # each negative column.
+        ids = ptraining.gather_roles(
+            mesh, torch.cat([users[None], roles]), axes)
+        grads = ptraining.gather_roles(mesh, torch.cat(
+            [gu[None], gi.reshape(roles.shape + (dim + 1,))]), axes)
+        ptraining.owned_row_update(
+            ids[0], u_table, opt_state['mu'][USER_TABLE],
+            opt_state['nu'][USER_TABLE], grads[0], t, learning_rate, l2,
+            mesh)
+        ptraining.owned_row_update(
+            ids[1:].reshape(-1), i_table, opt_state['mu'][ITEM_TABLE],
+            opt_state['nu'][ITEM_TABLE], grads[1:].reshape(-1, dim + 1), t,
+            learning_rate, l2, mesh)
+        return mesh.all_reduce(local_loss.detach(), axes)
 
     return step

@@ -158,12 +158,17 @@ def row_adam(param, mu, nu, grads, sorted_ids, order, scalars):
     return param, mu, nu
 
 
-def segment_sums_plain(grads, segments, num_segments):
+def segment_sums_plain(grads, segments, num_segments, num_rows=None):
     """(num_segments, W) float32: each segment's occurrence gradients summed
     from +0.0 in ascending order, a rank at a time (every segment's first
-    occurrence, then every second, ...)."""
+    occurrence, then every second, ...).  With ``num_rows``, a segment whose
+    row is outside ``[0, num_rows)`` sums nothing (the kernel skips it):
+    the foreign ids of a mesh rank's stream, one long run, add no ranks."""
     starts = segments.offsets[:num_segments].long()
     lengths = segments.offsets[1:num_segments + 1].long() - starts
+    if num_rows is not None:
+        rows = segments.rows[:num_segments]
+        lengths = torch.where((rows >= 0) & (rows < num_rows), lengths, 0)
     last = segments.order.numel() - 1
     order = segments.order.long()
     summed = torch.zeros(num_segments, grads.shape[1], dtype=torch.float32,
@@ -185,7 +190,8 @@ def row_adam_plain(param, mu, nu, grads, sorted_ids, order, scalars):
     num_segments = int(segments.count)
     if num_segments == 0:
         return param, mu, nu
-    summed = segment_sums_plain(grads, segments, num_segments)
+    summed = segment_sums_plain(grads, segments, num_segments,
+                                param.shape[0])
     rows = segments.rows[:num_segments].long()
     keep = torch.nonzero((rows >= 0) & (rows < param.shape[0])).reshape(-1)
     rows, g = rows[keep], summed[keep]

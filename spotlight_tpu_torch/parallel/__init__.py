@@ -9,15 +9,17 @@ cards, gloo for CPU process groups), every rank making the same calls:
   over the model axis, the row-sharded embedding layers
   (:class:`ShardedEmbedding`, :class:`ShardedBloomEmbedding`) and their
   three exchanges;
-- :mod:`~spotlight_tpu_torch.parallel.training`: data-parallel training of
-  the dense engine over the data axis, each rank holding its blocks of the
-  tables and of their Adam moments;
+- :mod:`~spotlight_tpu_torch.parallel.training`: data-parallel training
+  over the data axis, each rank holding its blocks of the tables and of
+  their Adam moments: the dense engine's step, and the two helpers of the
+  row-sparse (lazy) engines' steps (the role-ordered gather, the update of
+  a rank's own rows);
 - :mod:`~spotlight_tpu_torch.parallel.evaluation`: full-catalogue
   evaluation over a row-sharded catalogue, through the same kernels as one
   device.
 
-The lazy engines on a mesh, checkpoints and the multi-host helpers are not
-ported yet (ROADMAP.md, Queue 1).
+Checkpoints and the multi-host helpers are not ported yet (ROADMAP.md,
+Queue 1).
 """
 
 from spotlight_tpu_torch.parallel.evaluation import (  # noqa: F401

@@ -17,6 +17,11 @@ process, and every rank runs the same steps (SPMD):
 - gradients are then reduced by JAX's three calculi (:func:`build_step`),
   and the port's ``Adam`` updates each rank's blocks in place.
 
+The row-sparse (lazy) engines share two helpers here: the role-ordered
+gather of a step's ids and gradient rows over the batch axes
+(:func:`gather_roles`), and the update of the rows a rank owns
+(:func:`owned_row_update`), P1 on its blocks.
+
 JAX runs the steps of an epoch in one ``lax.scan``
 (``epoch_scan_distributed``); the port runs them from
 ``utils.training.run_epoch``, one step a batch.
@@ -26,6 +31,7 @@ from __future__ import annotations
 
 import torch
 
+from spotlight_tpu_torch.ops.lazy_adam import sparse_adam_rows
 from spotlight_tpu_torch.parallel.mesh import BOTH
 from spotlight_tpu_torch.parallel.sharding import (PartitionSpec,
                                                    network_specs,
@@ -68,6 +74,37 @@ def batch_rows(mesh, batch_size, exchange):
     rows = batch_size // mesh.size(axes)
     start = mesh.index(axes) * rows
     return slice(start, start + rows)
+
+
+def gather_roles(mesh, tensor, axes):
+    """``tensor`` ``(S, B_local, ...)`` of every rank of ``axes``,
+    concatenated along its batch dimension (1): ``(S, B, ...)``, each role
+    (positives, then each negative column) in the order of the global batch
+    (JAX's ``all_gather(..., axis=1, tiled=True)``).  ``Mesh.all_gather``
+    concatenates along dimension 0, so the ranks' parts are put back in
+    role order after it."""
+    parts = mesh.all_gather(tensor, axes)
+    ranks = mesh.size(axes)
+    shape = tuple(tensor.shape)
+    return parts.reshape((ranks,) + shape).transpose(0, 1).reshape(
+        (shape[0], ranks * shape[1]) + shape[2:])
+
+
+def owned_row_update(ids, table, mu, nu, grad_rows, t, learning_rate, l2,
+                     mesh):
+    """:func:`~spotlight_tpu_torch.ops.lazy_adam.sparse_adam_rows` on the
+    rows of this rank's block ``table`` (and its moments) that it owns:
+    every global id outside ``[start, start + local_rows)`` goes to the
+    sentinel ``local_rows``, which P1 skips (JAX's
+    ``_owned_row_update``).  The foreign ids are one run at the end of the
+    sort."""
+    local_rows = table.shape[0]
+    start = mesh.index('model') * local_rows
+    local = ids - start
+    local = torch.where((local >= 0) & (local < local_rows), local,
+                        local_rows)
+    return sparse_adam_rows(local, table, mu, nu, grad_rows, t,
+                            learning_rate, l2)
 
 
 def dense_step(model, elems_fn):

@@ -18,9 +18,9 @@ epoch draws its permutation and negatives from the estimator's CPU
 generator in one go and reads its loss back one epoch late.  On a ``mesh=``
 (:mod:`spotlight_tpu_torch.parallel`) the item tables are row-sharded over
 the model axis and the batch over the data axis
-(:mod:`spotlight_tpu_torch.parallel.training`, the dense engine; the lazy
-one raises there), and the metrics score each rank's block of the
-catalogue.
+(:mod:`spotlight_tpu_torch.parallel.training`; the lazy engine there under
+the ``'psum'`` and ``'alltoall'`` exchanges), and the metrics score each
+rank's block of the catalogue.
 """
 
 from __future__ import annotations
@@ -32,7 +32,6 @@ import torch
 
 from spotlight_tpu_torch.data.interactions import PADDING_IDX
 from spotlight_tpu_torch.factorization._base import (check_mesh_settings,
-                                                     refuse_lazy_on_mesh,
                                                      refuse_unsharded_on_mesh,
                                                      resolve_device)
 from spotlight_tpu_torch.ops.losses import IMPLICIT_LOSSES
@@ -42,7 +41,8 @@ from spotlight_tpu_torch.ops.sampling import (inbatch_importance_weight_table,
 from spotlight_tpu_torch.parallel import training as ptraining
 from spotlight_tpu_torch.parallel.sharding import held_part
 from spotlight_tpu_torch.sequence.lazy import (build_lazy_step,
-                                               lazy_seq_adam_init)
+                                               lazy_seq_adam_init,
+                                               lazy_seq_opt_specs)
 from spotlight_tpu_torch.sequence.representations import (CNNNet, LSTMNet,
                                                           MixtureLSTMNet,
                                                           PoolNet)
@@ -88,8 +88,10 @@ class ImplicitSequenceModel(SerializableEstimatorMixin):
         item tables row-shard over the mesh's ``'model'`` axis, each rank
         holding its block of every table and of its Adam moments (the tower
         replicated), and the batch shards over ``'data'``
-        (:mod:`spotlight_tpu_torch.parallel.training`, the dense engine;
-        ``sparse=True`` there raises ``NotImplementedError``).  The metrics
+        (:mod:`spotlight_tpu_torch.parallel.training`; with
+        ``sparse=True`` the lazy engine, P1 on each rank's rows, under
+        ``'psum'`` and ``'alltoall'``, and the dense one with a
+        RuntimeWarning under ``'alltoall_cf'``, as in JAX).  The metrics
         score each rank's block of the catalogue
         (:mod:`spotlight_tpu_torch.parallel.evaluation`); ``predict``
         returns the whole, replicated result.
@@ -188,6 +190,12 @@ class ImplicitSequenceModel(SerializableEstimatorMixin):
         if self._optimizer_func is not None:
             return ('a custom optimizer_func is set (row-sparse lazy Adam '
                     'IS the item-table optimizer)')
+        if self._mesh is not None and self._exchange == 'alltoall_cf':
+            return ("mesh training uses exchange='alltoall_cf', which "
+                    'shards the batch over the model axis — the sequence '
+                    "tower would need model-axis replication (the 'psum' "
+                    "and 'alltoall' exchanges compose with the lazy "
+                    'engine)')
         return None
 
     def _use_lazy_engine(self):
@@ -219,14 +227,18 @@ class ImplicitSequenceModel(SerializableEstimatorMixin):
         else:
             self._net = self._representation.to(build_device)
         self._lazy = self._use_lazy_engine()
-        refuse_lazy_on_mesh(mesh, self._lazy)
         if mesh is not None:
             self._net, self._param_specs = ptraining.shard_network(
                 self._net, mesh, self._exchange, self._device)
         self._optimizer = training.make_optimizer(
             self._learning_rate, self._l2, self._optimizer_func)
         if self._lazy:
+            # On a mesh, the moments of the rank's block of the table.
             self._opt_state = lazy_seq_adam_init(self._net, self._optimizer)
+            if mesh is not None:
+                self._opt_specs = lazy_seq_opt_specs(
+                    self._opt_state, dict(self._net.named_parameters()),
+                    self._param_specs)
         else:
             params = dict(self._net.named_parameters())
             self._opt_state = self._optimizer.init(params)
@@ -317,7 +329,8 @@ class ImplicitSequenceModel(SerializableEstimatorMixin):
             step = build_lazy_step(
                 self._net, self._loss, self._learning_rate, self._l2,
                 self._num_negative_samples, self._optimizer,
-                self._negative_sampling)
+                self._negative_sampling, mesh=self._mesh,
+                exchange=self._exchange)
         else:
             step = ptraining.dense_step(self, self._elems_fn())
         return lambda batch, negatives: step(self._opt_state, batch,

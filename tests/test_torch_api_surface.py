@@ -23,7 +23,6 @@ PARALLEL = 'the distributed layer is not ported yet (ROADMAP.md Queue 1, item 4)
 #: JAX plumbing with no counterpart in eager PyTorch.
 SCAN = ('the JAX epoch is one compiled lax.scan; the port runs a Python '
         'loop of steps (utils.training.run_epoch, build_lazy_step)')
-SPECS = 'sharding specs of optimizer state for the mesh (distributed layer)'
 JNP = ('the jnp twin of a numpy or torch function the port has '
        '(ops.hashing.murmurhash3_32_torch, bloom_hash)')
 TPU_TILES = ('a Pallas tiling constant or backend probe of the TPU; the CUDA '
@@ -41,9 +40,7 @@ EXEMPT = {
         'the kernels do not take is routed before any launch and counted '
         'in MATERIALIZE_ROUTES (ROADMAP.md, deliberate differences)'),
     ('factorization/lazy.py', 'build_lazy_epoch_fn'): SCAN,
-    ('factorization/lazy.py', 'lazy_opt_specs'): SPECS,
     ('sequence/lazy.py', 'build_lazy_epoch_fn'): SCAN,
-    ('sequence/lazy.py', 'lazy_seq_opt_specs'): SPECS,
     ('utils/training.py', 'build_epoch_fn'): SCAN,
     ('utils/training.py', 'epoch_scan'): SCAN,
     ('utils/training.py', 'valid_mask'): (

@@ -428,9 +428,10 @@ def test_one_rank_mesh_model_evaluates_fits_and_pickles(one_rank_group,
                                                         tmp_path):
     """On a mesh with one model rank the metrics take the single-device
     path (as JAX decides); ``fit`` trains on the mesh to the bits of one
-    device (a one-rank group's collectives change no value), and
-    ``sparse=True`` there refuses, naming the lazy engines' roadmap item;
-    a saved model comes back with ``_mesh`` None, as JAX's does."""
+    device (a one-rank group's collectives change no value), and so does
+    ``sparse=True`` there, which takes the lazy engines (factorization and
+    LSTM) on the mesh; a saved model comes back with ``_mesh`` None, as
+    JAX's does."""
     mf, seq, _, _ = model_cases()
     mesh = make_mesh(devices=['cpu'])
     model = worker.factorization_model(mf, mesh)
@@ -446,12 +447,19 @@ def test_one_rank_mesh_model_evaluates_fits_and_pickles(one_rank_group,
     assert model._last_epoch_loss == one._last_epoch_loss
     for name, value in one._net.state_dict().items():
         assert torch.equal(model._net.state_dict()[name], value), name
-    with pytest.raises(NotImplementedError, match='Queue 1 item 3'):
-        ImplicitFactorizationModel(sparse=True, mesh=mesh).fit(train)
-    with pytest.raises(NotImplementedError, match='Queue 1 item 3'):
-        ImplicitSequenceModel(representation='lstm', sparse=True,
-                              mesh=mesh).fit(SequenceInteractions(
-                                  seq['sequences'], num_items=NUM_ITEMS))
+    sequences = SequenceInteractions(seq['sequences'], num_items=NUM_ITEMS)
+    for fit in (lambda mesh, device: ImplicitFactorizationModel(
+                    sparse=True, mesh=mesh, n_iter=1, device=device,
+                    random_state=np.random.RandomState(0)).fit(train),
+                lambda mesh, device: ImplicitSequenceModel(
+                    representation='lstm', sparse=True, mesh=mesh, n_iter=1,
+                    device=device, random_state=np.random.RandomState(0)
+                ).fit(sequences)):
+        lazy, lazy_one = fit(mesh, None), fit(None, 'cpu')
+        assert lazy._lazy and lazy._opt_specs is not None
+        assert lazy._last_epoch_loss == lazy_one._last_epoch_loss
+        for name, value in lazy_one._net.state_dict().items():
+            assert torch.equal(lazy._net.state_dict()[name], value), name
     serialization.save(model, str(tmp_path / 'model.pkl'))
     loaded = serialization.load(str(tmp_path / 'model.pkl'))
     assert loaded._mesh is None and loaded._shard_catalog_cache is None

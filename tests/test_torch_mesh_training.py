@@ -32,8 +32,8 @@ Adam moments.  Held here:
   than 'alltoall' (``tests/test_collective_volume.py`` pins JAX's), and an
   axis of one rank sends nothing.
 
-``sparse=True`` on a mesh raises in ``tests/test_torch_training.py`` and
-``tests/test_torch_mesh.py``.
+The lazy engines on a mesh (``sparse=True``) are held in
+``tests/test_torch_mesh_lazy.py``.
 """
 
 import functools

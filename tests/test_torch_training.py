@@ -29,7 +29,6 @@ gates instead.
 
 import functools
 import warnings
-from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -50,6 +49,8 @@ from spotlight_tpu_torch.data.synthetic import generate_factorization
 from spotlight_tpu_torch.evaluation import mrr_score
 from spotlight_tpu_torch.factorization import (BilinearNet,
                                                ImplicitFactorizationModel)
+from spotlight_tpu_torch.factorization.lazy import lazy_opt_specs
+from spotlight_tpu_torch.parallel.mesh import Mesh
 from spotlight_tpu_torch.utils import training
 from spotlight_tpu_torch.utils.convert import (opt_state_from_jax,
                                                params_from_jax)
@@ -386,15 +387,38 @@ def test_bfloat16_tables_train_in_their_dtype(sparse):
 
 
 def test_mesh_raises_naming_the_roadmap():
-    """A model trains on a mesh on the dense engine; ``sparse=True`` there,
-    where JAX takes its distributed lazy engine, raises before any table
-    is sharded, naming the roadmap item of the lazy engines."""
-    mesh = SimpleNamespace(shape={'data': 1, 'model': 2}, device='cpu')
-    model = ImplicitFactorizationModel(mesh=mesh, sparse=True, device='cpu')
-    assert model._mesh is mesh
+    """``sparse=True`` on a mesh takes the distributed lazy engine, as in
+    JAX: on a mesh of one rank (every collective the identity, no process
+    group) the lazy model trains to one device's bits, its moments
+    specified as its tables.  What still raises, naming its roadmap item,
+    is a lazy model initialized without its mesh and fitted on one."""
+    users, items = dataset(300)
+    data = Interactions(users, items, num_users=NUM_USERS,
+                        num_items=NUM_ITEMS)
+    mesh = Mesh(1, 1, 0, torch.device('cpu'), groups={})
+
+    def lazy(mesh):
+        return ImplicitFactorizationModel(
+            loss='bpr', embedding_dim=DIM, n_iter=2, batch_size=BATCH,
+            l2=1e-6, sparse=True, mesh=mesh,
+            random_state=np.random.RandomState(42),
+            device=None if mesh is not None else 'cpu')
+
+    got, want = lazy(mesh).fit(data), lazy(None).fit(data)
+    assert got._lazy and got._mesh is mesh
+    assert got._opt_specs == lazy_opt_specs(got._param_specs)
+    assert got._opt_state['t'] == want._opt_state['t'] == 10
+    for name, value in want._net.state_dict().items():
+        assert torch.equal(got._net.state_dict()[name], value), name
+        for moment in ('mu', 'nu'):
+            assert torch.equal(got._opt_state[moment][name],
+                               want._opt_state[moment][name])
+    late = lazy(None)
+    late._initialize(data)
+    late._mesh = mesh
     with pytest.raises(NotImplementedError, match='ROADMAP.md, Queue 1 '
-                       'item 3'):
-        model.fit(Interactions(np.arange(4), np.arange(4)))
+                       'item 4'):
+        late.fit(data)
 
 
 def test_same_seed_same_training_stream():

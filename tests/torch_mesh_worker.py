@@ -17,7 +17,10 @@ The cases are a dict of numpy arrays (see ``tests/test_torch_mesh.py``):
 - ``tables``: tables, ids and cotangents of the sharded embedding layers
   and of the raw exchanges (``tests/test_torch_sharded_tables.py``);
 - ``training``: states, batches and datasets of mesh steps, fits and
-  gates (``tests/test_torch_mesh_training.py``).
+  gates (``tests/test_torch_mesh_training.py``);
+- ``lazy``: datasets, a step's state and draws, and the settings of the
+  row-sparse (lazy) engines' fits on the mesh
+  (``tests/test_torch_mesh_lazy.py``).
 """
 
 from __future__ import annotations
@@ -124,6 +127,8 @@ def run_cases(mesh, cases):
         out.update(run_tables(mesh, cases['tables']))
     if 'training' in cases:
         out.update(run_training(mesh, cases['training']))
+    if 'lazy' in cases:
+        out.update(run_lazy(mesh, cases['lazy']))
     return out
 
 
@@ -432,9 +437,9 @@ def assert_step_close(got, want, layout, rank, param_atol=PARAM_ATOL):
 
 
 def implicit_model(case, mesh, exchange='psum', negative_sampling='uniform',
-                   device='cpu'):
+                   device='cpu', sparse=False):
     """The step case's implicit model on ``mesh`` (or on ``device``), its
-    parameters the case's."""
+    parameters the case's; ``sparse`` selects the lazy engine."""
     from spotlight_tpu_torch.data import Interactions
     from spotlight_tpu_torch.factorization import ImplicitFactorizationModel
 
@@ -442,7 +447,7 @@ def implicit_model(case, mesh, exchange='psum', negative_sampling='uniform',
         loss=case['loss'], embedding_dim=case['dim'],
         batch_size=case['batch'], learning_rate=case['lr'], l2=case['l2'],
         mesh=mesh, exchange=exchange, negative_sampling=negative_sampling,
-        random_state=np.random.RandomState(0),
+        sparse=sparse, random_state=np.random.RandomState(0),
         device=None if mesh is not None else device)
     model._initialize(Interactions(
         *case['pairs'], num_users=case['num_users'],
@@ -640,4 +645,166 @@ def run_gates(mesh, gates):
         out['family', representation] = (
             model._last_epoch_loss,
             model.predict(families['sequences'][0]))
+    return out
+
+
+# -- the lazy engines on a mesh ---------------------------------------------------
+
+
+def lazy_state(model):
+    """(last epoch loss, parameters, moments, step count, whether the lazy
+    engine trained) of a fitted model, blocks on a mesh, a bfloat16 table
+    as its int16 bits; the sequence engine's moments are those of its item
+    table, under its name."""
+    state = model._opt_state
+    moments = state.get('table', state)
+    if 'table' in state:
+        moments = {key: {'item_embeddings.weight': moments[key]}
+                   for key in ('mu', 'nu')}
+    def array(tensor):
+        # A bfloat16 table as its bits.
+        tensor = tensor.detach().cpu()
+        if tensor.dtype == torch.bfloat16:
+            tensor = tensor.view(torch.int16)
+        return tensor.numpy().copy()
+
+    return (model._last_epoch_loss,
+            {name: array(p) for name, p in model._net.named_parameters()},
+            {key: {name: m.cpu().numpy().copy()
+                   for name, m in moments[key].items()}
+             for key in ('mu', 'nu')},
+            state['t'], model._lazy)
+
+
+def lazy_factorization(case, kind, mesh=None, exchange='psum', **kwargs):
+    """The case's lazy implicit (``kind`` 'implicit') or explicit model, on
+    ``mesh`` or on the CPU."""
+    from spotlight_tpu_torch.factorization import (
+        ExplicitFactorizationModel, ImplicitFactorizationModel)
+
+    cls = (ImplicitFactorizationModel if kind == 'implicit'
+           else ExplicitFactorizationModel)
+    config = dict(case['fit'], **kwargs)
+    if kind == 'explicit':
+        config['loss'] = 'regression'
+    return cls(sparse=True, mesh=mesh, exchange=exchange,
+               random_state=np.random.RandomState(42),
+               device=None if mesh is not None else 'cpu', **config)
+
+
+def lazy_bf16_in_batch(case, mesh=None):
+    """The case's lazy implicit model with bfloat16 tables and in-batch
+    negatives, under 'psum'."""
+    from spotlight_tpu_torch.factorization.representations import (
+        BilinearNet)
+
+    net = BilinearNet(case['num_users'], case['num_items'],
+                      case['fit']['embedding_dim'],
+                      table_dtype=torch.bfloat16,
+                      generator=torch.Generator().manual_seed(0))
+    return lazy_factorization(case, 'implicit', mesh,
+                              negative_sampling='in_batch',
+                              representation=net)
+
+
+def lazy_sequence(case, mesh=None, exchange='psum'):
+    """The case's lazy LSTM, on ``mesh`` or on the CPU."""
+    from spotlight_tpu_torch.sequence import ImplicitSequenceModel
+
+    return ImplicitSequenceModel(
+        sparse=True, mesh=mesh, exchange=exchange,
+        random_state=np.random.RandomState(0),
+        device=None if mesh is not None else 'cpu', **case['sequence_fit'])
+
+
+def lazy_data(case, kind):
+    """The case's implicit or explicit interactions, or its sequences."""
+    from spotlight_tpu_torch.data import Interactions, SequenceInteractions
+
+    if kind == 'sequence':
+        return SequenceInteractions(case['sequences'],
+                                    num_items=case['sequence_items'])
+    return Interactions(*case[kind], num_users=case['num_users'],
+                        num_items=case['num_items'])
+
+
+def lazy_metrics(model, case, kind):
+    """The streaming metrics of a lazy model, and the same with
+    ``streaming=False``: MRR with train and P@5 of a factorization model,
+    ``sequence_mrr_score`` of a sequence model."""
+    from spotlight_tpu_torch import evaluation
+
+    data = lazy_data(case, kind)
+    out = {}
+    for streaming in (True, False):
+        if kind == 'sequence':
+            out['sequence_mrr', streaming] = evaluation.sequence_mrr_score(
+                model, data, streaming=streaming)
+        else:
+            out['mrr', streaming] = evaluation.mrr_score(
+                model, data, train=data, streaming=streaming)
+            out['pr', streaming] = evaluation.precision_recall_score(
+                model, data, k=5, streaming=streaming)
+    return out
+
+
+def run_lazy(mesh, case):
+    """The lazy engines on this layout: the implicit and explicit fits and
+    one step of the step case under each exchange (with the collective
+    bytes of the step), the LSTM fits under 'psum' and 'alltoall'; at
+    1 x 4 an in-batch fit of bfloat16 tables, at 2 x 2 an in-batch step, the fallback of
+    'alltoall_cf' with in-batch negatives, the streaming metrics and the
+    saved models."""
+    import warnings
+
+    from spotlight_tpu_torch import evaluation
+    from spotlight_tpu_torch.parallel import mesh as pmesh
+    from spotlight_tpu_torch.utils import serialization
+
+    layout = (mesh.shape['data'], mesh.shape['model'])
+    out = {}
+    models = {}
+    for exchange in EXCHANGES:
+        for kind in ('implicit', 'explicit'):
+            model = lazy_factorization(case, kind, mesh, exchange)
+            model.fit(lazy_data(case, kind))
+            out[kind, exchange] = lazy_state(model)
+            models[kind, exchange] = model
+        step = case['step']
+        model = implicit_model(step, mesh, exchange, sparse=True)
+        pmesh.COLLECTIVE_BYTES = {}
+        out['step', exchange] = one_step(model, step, mesh, exchange)
+        out['bytes', exchange] = dict(pmesh.COLLECTIVE_BYTES)
+    for exchange in ('psum', 'alltoall'):
+        model = lazy_sequence(case, mesh, exchange)
+        model.fit(lazy_data(case, 'sequence'))
+        out['sequence', exchange] = lazy_state(model)
+        models['sequence', exchange] = model
+    if layout == (1, 4):
+        model = lazy_bf16_in_batch(case, mesh)
+        model.fit(lazy_data(case, 'implicit'))
+        out['implicit', 'in_batch'] = lazy_state(model)
+    if layout == (2, 2):
+        step = case['step']
+        model = implicit_model(step, mesh, 'psum', 'in_batch', sparse=True)
+        out['step', 'in_batch'] = one_step(model, step, mesh, 'psum',
+                                           in_batch=True)
+        model = lazy_factorization(case, 'implicit', mesh, 'alltoall_cf',
+                                   negative_sampling='in_batch', n_iter=1)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            model.fit(lazy_data(case, 'implicit'))
+        out['cf in-batch'] = (model._lazy, np.isfinite(
+            model._last_epoch_loss), [
+            str(w.message) for w in caught
+            if issubclass(w.category, RuntimeWarning)])
+        evaluation.MATERIALIZE_ROUTES = 0
+        out['metrics'] = {
+            kind: lazy_metrics(models[kind, 'psum'], case, kind)
+            for kind in ('implicit', 'sequence')}
+        out['materialize_routes'] = evaluation.MATERIALIZE_ROUTES
+        for kind in ('implicit', 'sequence'):
+            serialization.save(models[kind, 'psum'], os.path.join(
+                case['workdir'], 'lazy_{}.rank{}.pkl'.format(kind,
+                                                             mesh.rank)))
     return out
