@@ -163,7 +163,8 @@ each of which exits non-zero when it fails:
    ``sequence_precision_recall_score(k=10)`` on test (warm calls timed),
    each fit's row saved to a port ``Results`` log; an epoch of 8 of each
    one's batches under ``utils.profiling.trace`` for device calls a step
-   and the idle share; one timed LSTM epoch and one of its steps traced.
+   and the idle share; SWEEP_LSTM_STEPS timed LSTM steps (a quarter of an
+   epoch) and one of its steps traced.
    The launch counters of K1, K1c and K2 are zeroed just before and read
    just after; then K1, K1c and K2 bit for bit against their plain
    versions on the last CNN's operands, and the gates: the mean test MRR
@@ -224,9 +225,9 @@ each of which exits non-zero when it fails:
 17. lazy mesh training (the row-sparse engines on a mesh, P1 on each
    rank's rows): (a) four gloo ranks on the one card at 1 x 4 and 2 x 2:
    phase 9's lazy MF (2e6 users x 5e5 items, D=64, BPR, batch 8,192) takes
-   8 steps under each exchange, its bfloat16 tables with in-batch
+   4 steps under each exchange, its bfloat16 tables with in-batch
    negatives under 'psum' at 1 x 4; the lazy explicit MF at phase 11's
-   width 8 steps under 'psum' and 'alltoall_cf' at 2 x 2; the lazy LSTM
+   width 4 steps under 'psum' and 'alltoall_cf' at 2 x 2; the lazy LSTM
    at 1e6 items (batch 256, T=50) 2 steps under 'psum' (and 'alltoall'
    at 2 x 2).  Each run is held as phase 16's are (blocks of tables and
    moments, metrics on the gathered tables, routes, bytes, first and warm
@@ -236,6 +237,28 @@ each of which exits non-zero when it fails:
    of the 2 x 2 'psum' run (the step's global item stream, the ids it does
    not own at the sentinel), bit for bit against its plain version and
    timed: ``row_adam (P1, mesh)`` in the ``kernels`` line.
+18. sharded checkpoints (``spotlight_tpu_torch.parallel.checkpoint``), in
+   phase 17's ranks on its trained 2 x 2 'psum' lazy MF (2e6 x 5e5): its
+   metrics at the save, ``save_state`` (seconds, the bytes on disk: one
+   copy, 1.95 GB; ``parallel.mesh.COLLECTIVE_BYTES`` the same before and
+   after), one more fit, then fresh models restored and fitted as far: at
+   2 x 2 bit for bit the continuation, at 1 x 4 every quarter of every
+   table and moment with the continuation's md5; in this process, on the
+   card with no mesh, the state restored, ``t`` as saved and the metrics
+   on 2,048 users bit for bit the mesh model's, no materialize route, K1,
+   K1c and K2 launched.  The lazy LSTM's hybrid state (1e6 items) saved
+   at 2 x 2 and resumed at 1 x 4 within ``MESH_TRAIN_RTOL``.  Phase 15's
+   N=1,001 dense MF fitted at 2 x 2 (1,002 rows), restored at 1 x 4
+   (1,004: the padding rows zero) and on one device (1,001), metrics bit
+   for bit.  The checkpoints are deleted.
+19. multihost and the dry run: four ranks joined through
+   ``parallel.multihost.initialize`` (TCP, gloo, on the one card) check
+   ``is_primary`` (rank 0 alone) and ``global_batch_array`` (the
+   concatenation of their slices), then run ``entry.dryrun_multichip(4)``
+   (every distributed fit at 2 x 2, the streaming metrics, no
+   materialize route); one NCCL rank runs ``dryrun_multichip(1)``.  The
+   launches of phases 18 and 19 (K1, K1c, K2, P1 on a mesh) count in the
+   ``kernels`` line.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -351,6 +374,10 @@ SWEEP_GATES = {'cnn': 0.9, 'pooling': 0.8}
 #: a step and the idle share; the trace of a whole CNN epoch (81 steps,
 #: 88 MB) took 30 s to write and read on an H100 machine.
 SWEEP_PROFILED_STEPS = {'cnn': 8, 'pooling': 8, 'lstm': 1}
+#: Timed steps of the LSTM's fit: a quarter of its 161-step epoch (host
+#: bound at ~9,100 device calls a step), cut from the whole epoch to make
+#: room for phases 18 and 19 in the run's time.
+SWEEP_LSTM_STEPS = 40
 #: Largest gap between the materialize path's scores and the plain
 #: catalogue pass's, relative to the row's largest score: float32
 #: rounding of other summation orders, far above it a wrong score.
@@ -3538,17 +3565,22 @@ def run_ml1m_sweep(torch, card):
             sequences_per_s=meter.examples_per_second(),
             measured_fits=meter.measured_steps, card=card)
 
-    # The LSTM at the sweep's best configuration: one timed epoch, and one
-    # of its steps traced.
+    # The LSTM at the sweep's best configuration: SWEEP_LSTM_STEPS timed
+    # steps, and one of its steps traced.
+    from spotlight_tpu_torch.data import SequenceInteractions
+
     h, _ = configurations['lstm']
     model = sweep_model(torch, 'lstm', h, train.num_items, SWEEP_SEEDS[0])
-    steps = -(-len(train.sequences) // h['batch_size'])
-    epoch_s = timed_fit(torch, model, train, 1)
+    steps = SWEEP_LSTM_STEPS
+    rows = train.sequences[:steps * h['batch_size']]
+    fit_s = timed_fit(torch, model, SequenceInteractions(
+        rows, num_items=train.num_items), 1)
     summary = traced_fit(torch, card, 'lstm', model, train,
                          os.path.join(work.name, 'lstm'))
-    log(sweep_lstm_epoch_s=epoch_s, steps=steps,
-        ms_per_step=epoch_s * 1e3 / steps,
-        sequences_per_s=len(train.sequences) / epoch_s,
+    log(sweep_lstm_fit_s=fit_s, steps=steps,
+        epoch_steps=-(-len(train.sequences) // h['batch_size']),
+        ms_per_step=fit_s * 1e3 / steps,
+        sequences_per_s=len(rows) / fit_s,
         device_calls_per_step=summary['device_calls_per_step'],
         device_idle_share=summary['device_idle_share'],
         last_epoch_loss=model._last_epoch_loss, card=card)
@@ -4557,7 +4589,7 @@ def run_mesh_training_phase(torch, card):
 #: explicit width at 2 x 2; phase 13's lazy LSTM at LAZY_SEQ_ITEMS[0]
 #: (batch 256, T=50) for MESH_LAZY_SEQ_STEPS steps.  The MF metrics score
 #: MESH_LAZY_EVAL users, the LSTM's MESH_LAZY_SEQ_EVAL sequences.
-MESH_LAZY_STEPS = 8
+MESH_LAZY_STEPS = 4
 MESH_LAZY_SEQ_STEPS = 2
 MESH_LAZY_EVAL = 2_048
 MESH_LAZY_SEQ_EVAL = 512
@@ -4705,7 +4737,9 @@ def mesh_lazy_rank(rank, world, store, out_dir):
     after; then its blocks against the one-device run, its metrics against
     one device's on the tables gathered from the ranks, and a second (warm)
     fit of the same steps.  Rank 0 saves P1's operands of the item table at
-    step MESH_CAPTURE_STEP of 'MF psum' at 2 x 2."""
+    step MESH_CAPTURE_STEP of 'MF psum' at 2 x 2.  Phase 18 runs here on the
+    2 x 2 models of CHECKPOINT_RUNS (``checkpoint_run``) and on the N=1,001
+    model (``checkpoint_edge``), its results in ``checkpoint<rank>.pkl``."""
     import datetime
     import pickle
 
@@ -4725,9 +4759,11 @@ def mesh_lazy_rank(rank, world, store, out_dir):
         timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
     reference = torch.load(os.path.join(out_dir, 'one_device.pt'),
                            mmap=True)
-    out = {}
+    out, checkpoints = {}, {}
+    meshes = {layout: make_mesh(*layout, devices=['cuda:0'] * world)
+              for layout in MESH_LAYOUTS}
     for layout in MESH_LAYOUTS:
-        mesh = make_mesh(*layout, devices=['cuda:0'] * world)
+        mesh = meshes[layout]
         for name, ref_name, build, metrics in mesh_lazy_runs(layout):
             model, data = build(mesh)
             # The tables drawn whole on the CPU and cut into blocks, before
@@ -4777,11 +4813,20 @@ def mesh_lazy_rank(rank, world, store, out_dir):
                 device=str(model._device), loss=model._last_epoch_loss,
                 equal={key: same_arrays(results[key], one[key])
                        for key in results})
+            if layout == (2, 2) and name in CHECKPOINT_RUNS:
+                # Phase 18 on this trained model.
+                checkpoints[name] = checkpoint_run(
+                    torch, name, model, data, metrics, build, meshes,
+                    out_dir)
             del model
             torch.cuda.empty_cache()
+    checkpoints['edge'] = checkpoint_edge(torch, meshes, out_dir)
     dist.destroy_process_group()
     with open(os.path.join(out_dir, 'rank{}.pkl'.format(rank)), 'wb') as fh:
         pickle.dump(out, fh)
+    with open(os.path.join(out_dir, 'checkpoint{}.pkl'.format(rank)),
+              'wb') as fh:
+        pickle.dump(checkpoints, fh)
 
 
 def run_mesh_lazy_ranks(torch, card):
@@ -4892,11 +4937,12 @@ def run_mesh_lazy_ranks(torch, card):
     return launches, out_dir
 
 
-def mesh_p1_device_work(path):
-    """Run in a fresh process (a long run's profiler record can drop
-    events): the device ms and activities of one ``sparse_adam_rows``
-    call on the captured mesh operands at ``path`` (its sort and P1), and
-    of P1 alone on their sort, over DEVICE_REPS calls each."""
+def mesh_p1_device_work(path, kernel_only):
+    """Run in a fresh process, one profiler session a process (a session
+    after another in one process can drop events): the device ms and
+    activities of one ``sparse_adam_rows`` call on the captured mesh
+    operands at ``path`` (its sort and P1), or with ``kernel_only`` of P1
+    alone on their sort, over DEVICE_REPS calls."""
     import torch
 
     sys.path.insert(0, ROOT)
@@ -4908,13 +4954,13 @@ def mesh_p1_device_work(path):
     grads = operands['grads'].to(DEVICE).reshape(ids.numel(), -1)
     tables = [operands[name].to(DEVICE) for name in ('param', 'mu', 'nu')]
     t, lr, l2 = operands['t'], operands['lr'], operands['l2']
+    if not kernel_only:
+        return device_work(torch, lambda: sparse_adam_rows(
+            ids, *tables, grads, t, lr, l2))
     pair = row_update.sort_occurrences(ids)
     scalars = row_update.adam_scalars(t, lr, l2)
-    call = device_work(torch, lambda: sparse_adam_rows(ids, *tables, grads,
-                                                       t, lr, l2))
-    alone = device_work(torch, lambda: row_update.row_adam(
+    return device_work(torch, lambda: row_update.row_adam(
         *tables, grads, *pair, scalars))
-    return call, alone
 
 
 def check_mesh_p1(torch, card, out_dir):
@@ -4955,8 +5001,10 @@ def check_mesh_p1(torch, card, out_dir):
         row_update_ops(distinct, n_owned, width),
         distinct * width * 2 * (param.element_size() + 8)
         + 4 * n_owned * width + ids.numel() * ids.element_size())
-    with multiprocessing.get_context('spawn').Pool(1) as pool:
-        call, alone = pool.apply(mesh_p1_device_work, (path,))
+    with multiprocessing.get_context('spawn').Pool(
+            1, maxtasksperchild=1) as pool:
+        call, alone = (pool.apply(mesh_p1_device_work, (path, kernel_only))
+                       for kernel_only in (False, True))
     entry = dict(entry, bound_ms=bound_ms, bound_by=bound_by,
                  owned_occurrences=n_owned, distinct_rows=distinct,
                  device_ms=call[0], device_activities=call[1],
@@ -5039,6 +5087,485 @@ def run_mesh_lazy_phase(torch, card):
     entry = check_mesh_p1(torch, card, out_dir)
     torch.cuda.empty_cache()
     return launches, entry
+
+
+# -- phase 18: sharded checkpoints across layouts ------------------------------
+
+#: The runs of phase 17 at 2 x 2 whose trained models phase 18 saves.
+CHECKPOINT_RUNS = ('MF psum', 'LSTM psum')
+
+
+def checkpoint_dir():
+    return os.path.join(ROOT, 'build', 'mesh_lazy_smoke', 'checkpoint')
+
+
+def reset_checkpoint_counters():
+    from spotlight_tpu_torch.ops.kernels import row_update
+
+    reset_mesh_counters()
+    row_update.ROW_ADAM_LAUNCHES = 0
+
+
+def checkpoint_counters():
+    """Phase 18's launches: the metric kernels and P1 (on a mesh, and on
+    one device in this process)."""
+    from spotlight_tpu_torch.ops.kernels import row_update
+
+    return dict(mesh_counters(),
+                **{'row_adam (P1, mesh)': row_update.ROW_ADAM_LAUNCHES})
+
+
+def same_state(torch, a, b):
+    """Whether two models' parameters and moments (blocks) are equal bit
+    for bit, and their step counts equal."""
+    got, want = training_state(a), training_state(b)
+    return a._opt_state['t'] == b._opt_state['t'] and all(
+        torch.equal(bits(torch, got[kind][name]), bits(torch, value))
+        for kind in want for name, value in want[kind].items())
+
+
+def quarter_digests(model):
+    """md5 of each quarter of the rows of every row-sharded table and
+    moment that this rank holds (the quarters of the whole padded table:
+    a rank's block at 1 x 4, two of them at 2 x 2), by (kind, name,
+    quarter)."""
+    import hashlib
+
+    mesh = model._mesh
+    per_block = 4 // mesh.shape['model']
+    digests = {}
+    for kind, tensors in training_state(model).items():
+        for name, block in tensors.items():
+            if 'model' not in model._param_specs[name]:
+                continue
+            rows = block.shape[0] // per_block
+            for j in range(per_block):
+                part = block[j * rows:(j + 1) * rows].contiguous()
+                digests[kind, name, mesh.model_index * per_block + j] = (
+                    hashlib.md5(part.numpy().tobytes()).hexdigest())
+    return digests
+
+
+def whole_state(model):
+    """The model's parameters and moments, each table gathered whole over
+    the model axis (every rank calls alike), on the CPU."""
+    from spotlight_tpu_torch.parallel.sharding import gather_params
+
+    return {kind: gather_params(tensors, model._param_specs, model._mesh)
+            for kind, tensors in training_state(model).items()}
+
+
+def state_gaps(torch, got, want):
+    """(the least share of values equal bit for bit, the largest gap over
+    each leaf's largest magnitude) of two whole states."""
+    share, gap = 1.0, 0.0
+    for kind in want:
+        for name, value in want[kind].items():
+            other = got[kind][name]
+            share = min(share, float((bits(torch, other) == bits(
+                torch, value)).float().mean()))
+            scale = float(value.abs().max()) or 1.0
+            gap = max(gap, float((other.float() - value.float()).abs()
+                                 .max()) / scale)
+    return share, gap
+
+
+def timed_restore(torch, path, model):
+    from spotlight_tpu_torch.parallel import checkpoint
+
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    checkpoint.restore_state(path, model)
+    torch.cuda.synchronize()
+    return time.perf_counter() - start
+
+
+def checkpoint_run(torch, name, model, data, metrics, build, meshes,
+                   out_dir):
+    """Phase 18 in a rank of phase 17, on a model trained at 2 x 2 (the
+    lazy MF, or the lazy LSTM's hybrid state): its metrics at the save (MF),
+    ``save_state`` (seconds, the mesh's collective bytes before and after),
+    one more fit (the continuation), then fresh models restored and fitted
+    as far: at 2 x 2 (MF: tables, moments and ``t`` bit for bit the
+    continuation's) and at 1 x 4 (MF: the md5 of every quarter of every
+    table and moment, against the continuation's; the LSTM: the whole
+    tables' gap over their scale).  The launch counters are zeroed at the
+    start and read at the end."""
+    from spotlight_tpu_torch.parallel import checkpoint
+    from spotlight_tpu_torch.parallel import mesh as pmesh
+
+    began = time.perf_counter()
+    path = os.path.join(checkpoint_dir(), name.replace(' ', '_'))
+    lstm = name.startswith('LSTM')
+    torch.cuda.synchronize()
+    reset_checkpoint_counters()
+    out = {'t': model._opt_state['t'], 'steps': train_steps(model, data)}
+    if not lstm:
+        out['metrics'] = metrics(model)
+    torch.cuda.synchronize()
+    before = dict(pmesh.COLLECTIVE_BYTES)
+    start = time.perf_counter()
+    checkpoint.save_state(path, model)
+    out['save_s'] = time.perf_counter() - start
+    out['collective_bytes'] = (before, dict(pmesh.COLLECTIVE_BYTES))
+    model.fit(data)
+    layouts = ((1, 4),) if lstm else ((2, 2), (1, 4))
+    for layout in layouts:
+        fresh, _ = build(meshes[layout])
+        fresh._initialize(data)
+        restore_s = timed_restore(torch, path, fresh)
+        fresh.fit(data)
+        torch.cuda.synchronize()
+        result = {'restore_s': restore_s, 't': fresh._opt_state['t'],
+                  'lazy': fresh._lazy}
+        if layout == (2, 2):
+            result['equal'] = same_state(torch, fresh, model)
+        elif lstm:
+            result['gaps'] = state_gaps(torch, whole_state(fresh),
+                                        whole_state(model))
+        else:
+            result['digests'] = quarter_digests(fresh)
+            out['digests'] = quarter_digests(model)
+        out[layout] = result
+        del fresh
+        torch.cuda.empty_cache()
+    out['launches'] = checkpoint_counters()
+    out['seconds'] = time.perf_counter() - began
+    return out
+
+
+def edge_inputs():
+    """Phase 15's N=1,001 catalogue: (train, test, metrics(model))."""
+    from spotlight_tpu_torch.evaluation import (mrr_score,
+                                                precision_recall_score)
+
+    _, train, test, _ = slice_data(EDGE_USERS, EDGE_ITEMS, EDGE_EVAL_USERS,
+                                   EDGE_TRAIN_PAIRS, seed=8)
+
+    def metrics(model):
+        return {'mrr_score (train)': mrr_score(model, test, train=train),
+                'precision_recall_score k=10': precision_recall_score(
+                    model, test, k=10)}
+
+    return train, test, metrics
+
+
+def checkpoint_edge(torch, meshes, out_dir):
+    """Phase 18's cross-layout padding in a rank: phase 15's N=1,001 dense
+    MF fitted one epoch at 2 x 2 (1,002 item rows) and saved, restored at
+    1 x 4 (1,004 rows: the restored padding rows must be zero, tables and
+    moments) and saved there; the metrics of both."""
+    from spotlight_tpu_torch.parallel import checkpoint
+
+    began = time.perf_counter()
+    train, _, metrics = edge_inputs()
+    reset_checkpoint_counters()
+    model, _ = slice_model(train, meshes[(2, 2)], seed=1)
+    model._n_iter = 1
+    model.fit(train)
+    out = {'2x2': metrics(model)}
+    checkpoint.save_state(os.path.join(checkpoint_dir(), 'edge_2x2'), model)
+    wide, _ = slice_model(train, meshes[(1, 4)], seed=2)
+    checkpoint.restore_state(os.path.join(checkpoint_dir(), 'edge_2x2'),
+                             wide)
+    out['1x4'] = metrics(wide)
+    state = training_state(wide)
+    rows = wide._net.item_embeddings.weight.shape[0]
+    pad = max(0, (wide._mesh.model_index + 1) * rows - EDGE_ITEMS)
+    out['padding_rows'] = pad
+    out['padding_zero'] = all(
+        not state[kind]['item_embeddings.weight'][rows - pad:].any()
+        for kind in state)
+    checkpoint.save_state(os.path.join(checkpoint_dir(), 'edge_1x4'), wide)
+    out['launches'] = checkpoint_counters()
+    out['seconds'] = time.perf_counter() - began
+    return out
+
+
+def directory_bytes(path):
+    return sum(os.path.getsize(os.path.join(path, name))
+               for name in os.listdir(path))
+
+
+def run_checkpoint_phase(torch, card):
+    """Phase 18, after phase 17's ranks: each rank's saves and restores
+    held, then in this process, on the card with no mesh, the 2 x 2 lazy
+    MF state and the 1 x 4 N=1,001 state restored and scored: metrics bit
+    for bit the mesh models', no materialize route, K1, K1c and K2
+    launched.  Deletes the checkpoints.  Returns the phase's launch
+    counts."""
+    import pickle
+    import shutil
+
+    from spotlight_tpu_torch import evaluation
+
+    out_dir = os.path.join(ROOT, 'build', 'mesh_lazy_smoke')
+    ranks = []
+    for rank in range(MESH_RANKS):
+        with open(os.path.join(out_dir, 'checkpoint{}.pkl'.format(rank)),
+                  'rb') as fh:
+            ranks.append(pickle.load(fh))
+    launches = {}
+    for out in ranks:
+        for part in out.values():
+            for name, count in part['launches'].items():
+                launches[name] = launches.get(name, 0) + count
+
+    # The lazy MF: saved at 2 x 2, restored at 2 x 2 and 1 x 4 and fitted.
+    mf = [out['MF psum'] for out in ranks]
+    steps = mf[0]['steps']
+    for rank, got in enumerate(mf):
+        before, after = got['collective_bytes']
+        if before != after:
+            raise AssertionError('save_state on rank {} sent {} through the '
+                                 'mesh\'s collectives'.format(
+                                     rank, (before, after)))
+        if not got[2, 2]['equal'] or got[2, 2]['t'] != got['t'] + steps:
+            raise AssertionError('the 2 x 2 restore of rank {} did not '
+                                 'resume to the continuation\'s bits'
+                                 .format(rank))
+        if got['launches']['row_adam (P1, mesh)'] != 2 * steps * 3:
+            raise AssertionError('rank {}: P1 launched {} times in the '
+                                 'three fits'.format(
+                                     rank, got['launches']))
+    continued = {}
+    for got in mf:
+        for key, digest in got['digests'].items():
+            if continued.setdefault(key, digest) != digest:
+                raise AssertionError('data replicas differ at {}'.format(
+                    key))
+    resumed = {key: digest for got in mf
+               for key, digest in got[1, 4]['digests'].items()}
+    if resumed != continued or len(resumed) != 3 * 2 * 4:
+        raise AssertionError('the 1 x 4 restore did not resume to the '
+                             '2 x 2 continuation\'s bits: {} of {} quarters '
+                             'equal'.format(
+                                 sum(resumed.get(k) == v
+                                     for k, v in continued.items()),
+                                 len(continued)))
+    saved_bytes = directory_bytes(os.path.join(checkpoint_dir(), 'MF_psum'))
+
+    # On one device, in this process.
+    _, _, build, metrics = mesh_lazy_runs(None)[0]
+    one, data = build(None)
+    one._initialize(data)
+    restore_s = timed_restore(torch, os.path.join(checkpoint_dir(),
+                                                  'MF_psum'), one)
+    torch.cuda.synchronize()
+    reset_checkpoint_counters()
+    start = time.perf_counter()
+    results = metrics(one)
+    torch.cuda.synchronize()
+    metrics_s = time.perf_counter() - start
+    one_launches = checkpoint_counters()
+    routes = evaluation.MATERIALIZE_ROUTES
+    for name, count in one_launches.items():
+        launches[name] = launches.get(name, 0) + count
+    equal = {key: all(same_arrays(got['metrics'][key], value)
+                      for got in mf)
+             for key, value in results.items()}
+    log(checkpoint='lazy MF (2e6 x 5e5, D=64) saved at 2 x 2',
+        save_s_by_rank=[got['save_s'] for got in mf],
+        bytes_on_disk=saved_bytes,
+        state_bytes=(LAZY_USERS + LAZY_ITEMS) * (TRAIN_DIM + 1) * 4 * 3,
+        collective_bytes_during_save=0,
+        restore_2x2_s_by_rank=[got[2, 2]['restore_s'] for got in mf],
+        resumed_2x2_bit_equal=True,
+        restore_1x4_s_by_rank=[got[1, 4]['restore_s'] for got in mf],
+        resumed_1x4_quarters_md5_equal=len(resumed),
+        one_device_restore_s=restore_s, one_device_t=one._opt_state['t'],
+        saved_t=mf[0]['t'], one_device_metrics_s=metrics_s,
+        one_device_metrics_bit_equal=equal, routes=routes,
+        one_device_launches=one_launches, card=card)
+    if one._opt_state['t'] != mf[0]['t'] or not all(equal.values()):
+        raise AssertionError('the one-device restore differs from the mesh '
+                             'model: t {} against {}, metrics {}'.format(
+                                 one._opt_state['t'], mf[0]['t'], equal))
+    if routes:
+        raise AssertionError('{} metric calls of the restored model took '
+                             'the materialize route'.format(routes))
+    for name in ('rank_weights', 'matched_target_scores', 'streaming_topk'):
+        if one_launches[name] <= 0:
+            raise AssertionError('{} never launched on the restored model'
+                                 .format(name))
+    del one
+    torch.cuda.empty_cache()
+
+    # The lazy LSTM's hybrid state, 2 x 2 -> 1 x 4.
+    lstm = [out['LSTM psum'] for out in ranks]
+    share, gap = lstm[0][1, 4]['gaps']
+    log(checkpoint='lazy LSTM (1e6 items) hybrid state, 2 x 2 -> 1 x 4',
+        save_s_by_rank=[got['save_s'] for got in lstm],
+        bytes_on_disk=directory_bytes(os.path.join(checkpoint_dir(),
+                                                   'LSTM_psum')),
+        restore_1x4_s_by_rank=[got[1, 4]['restore_s'] for got in lstm],
+        largest_gap_over_table_scale=gap, least_bit_equal_share=share,
+        bound=MESH_TRAIN_RTOL, card=card)
+    if gap > MESH_TRAIN_RTOL or any(
+            got[1, 4]['t'] != got['t'] + got['steps'] for got in lstm):
+        raise AssertionError('the LSTM resumed at 1 x 4 is {} of its '
+                             'scale from the 2 x 2 continuation'.format(gap))
+
+    # Cross-layout padding: N=1,001 at 2 x 2 (1,002 rows) -> 1 x 4 (1,004)
+    # -> one device (1,001).
+    edge = [out['edge'] for out in ranks]
+    train, _, edge_metrics = edge_inputs()
+    one, _ = slice_model(train, seed=3)
+    restore_s = timed_restore(torch, os.path.join(checkpoint_dir(),
+                                                  'edge_1x4'), one)
+    reset_checkpoint_counters()
+    results = edge_metrics(one)
+    edge_launches = checkpoint_counters()
+    for name, count in edge_launches.items():
+        launches[name] = launches.get(name, 0) + count
+    equal = all(same_arrays(got[layout][key], value)
+                for got in edge for layout in ('2x2', '1x4')
+                for key, value in results.items())
+    padding = [got['padding_rows'] for got in edge]
+    log(checkpoint='N=1,001 dense MF, 2 x 2 -> 1 x 4 -> one device',
+        padding_rows_by_rank_at_1x4=padding,
+        padding_rows_zero=all(got['padding_zero'] for got in edge),
+        one_device_rows=one._net.item_embeddings.weight.shape[0],
+        one_device_restore_s=restore_s, metrics_bit_equal=equal,
+        routes=evaluation.MATERIALIZE_ROUTES, card=card)
+    if (not equal or padding != [0, 0, 0, 3]
+            or not all(got['padding_zero'] for got in edge)
+            or evaluation.MATERIALIZE_ROUTES):
+        raise AssertionError('the N=1,001 state across layouts: metrics '
+                             'equal {}, padding rows {}'.format(
+                                 equal, padding))
+    del one
+    shutil.rmtree(checkpoint_dir())
+    log(checkpoint_launches=launches,
+        rank_seconds=[sum(part['seconds'] for part in out.values())
+                      for out in ranks])
+    return launches
+
+
+# -- phase 19: the multi-host helpers and the multi-device dry run -------------
+
+#: The batch whose data slices phase 19's ranks assemble.
+MULTIHOST_BATCH = np.arange(32, dtype=np.float32).reshape(16, 2)
+
+
+def free_address():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(('localhost', 0))
+        return 'tcp://localhost:{}'.format(sock.getsockname()[1])
+
+
+def multihost_rank(rank, world, address, out_dir):
+    """One rank of phase 19 (started by ``torch.multiprocessing.spawn``):
+    joins through ``multihost.initialize`` (TCP, gloo, on the one card),
+    ``is_primary``, ``global_batch_array`` of its data slice at 2 x 2, then
+    ``dryrun_multichip`` with the launch counters zeroed just before and
+    read just after."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from spotlight_tpu_torch import evaluation
+    from spotlight_tpu_torch.entry import dryrun_multichip
+    from spotlight_tpu_torch.parallel import make_mesh, multihost
+
+    torch.cuda.set_device(0)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    out = {'primary before': multihost.is_primary()}
+    multihost.initialize(address, world, rank, backend='gloo')
+    out['primary'] = multihost.is_primary()
+    mesh = make_mesh(2, 2, devices=['cuda:0'] * world)
+    rows = len(MULTIHOST_BATCH) // mesh.shape['data']
+    local = MULTIHOST_BATCH[mesh.data_index * rows:
+                            (mesh.data_index + 1) * rows]
+    out['global batch'] = multihost.global_batch_array(
+        mesh, local).cpu().numpy()
+    torch.cuda.synchronize()
+    reset_checkpoint_counters()
+    start = time.perf_counter()
+    dryrun_multichip(world, 'cuda:0')
+    torch.cuda.synchronize()
+    out['seconds'] = time.perf_counter() - start
+    out['launches'] = checkpoint_counters()
+    out['routes'] = evaluation.MATERIALIZE_ROUTES
+    dist.destroy_process_group()
+    with open(os.path.join(out_dir, 'rank{}.pkl'.format(rank)), 'wb') as fh:
+        pickle.dump(out, fh)
+
+
+def run_multihost_phase(torch, card):
+    """Phase 19: (a) MULTIHOST ranks through ``multihost.initialize`` run
+    ``dryrun_multichip(4)``; ``is_primary`` true on rank 0 alone;
+    ``global_batch_array`` the concatenation of the ranks' slices.  (b) A
+    one-rank NCCL group, joined through ``multihost.initialize`` in this
+    process, runs ``dryrun_multichip(1)``.  Returns the launch counts."""
+    import pickle
+    import shutil
+
+    import torch.distributed as dist
+
+    from spotlight_tpu_torch.entry import dryrun_multichip
+    from spotlight_tpu_torch.parallel import multihost
+
+    out_dir = os.path.join(ROOT, 'build', 'multihost_smoke')
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    start = time.perf_counter()
+    torch.multiprocessing.spawn(
+        multihost_rank, args=(MESH_RANKS, free_address(), out_dir),
+        nprocs=MESH_RANKS, join=True)
+    spawn_s = time.perf_counter() - start
+    ranks = []
+    for rank in range(MESH_RANKS):
+        with open(os.path.join(out_dir, 'rank{}.pkl'.format(rank)),
+                  'rb') as fh:
+            ranks.append(pickle.load(fh))
+    launches = {}
+    for out in ranks:
+        for name, count in out['launches'].items():
+            launches[name] = launches.get(name, 0) + count
+    primary = [out['primary'] for out in ranks]
+    batch_equal = all(np.array_equal(out['global batch'], MULTIHOST_BATCH)
+                      for out in ranks)
+    log(multihost='four gloo ranks on the card, tcp', is_primary=primary,
+        is_primary_without_group=[out['primary before'] for out in ranks],
+        global_batch_equal=batch_equal,
+        dryrun_s_by_rank=[out['seconds'] for out in ranks], spawn_s=spawn_s,
+        routes=[out['routes'] for out in ranks], launches=launches,
+        card=card)
+    if (primary != [True, False, False, False] or not batch_equal
+            or any(out['routes'] for out in ranks)
+            or not all(out['primary before'] for out in ranks)):
+        raise AssertionError('multihost ranks: primary {}, global batch '
+                             'equal {}'.format(primary, batch_equal))
+
+    multihost.initialize(free_address(), 1, 0, backend='nccl')
+    try:
+        primary = multihost.is_primary()
+        torch.cuda.synchronize()
+        reset_checkpoint_counters()
+        start = time.perf_counter()
+        dryrun_multichip(1)
+        torch.cuda.synchronize()
+        nccl_s = time.perf_counter() - start
+        nccl_launches = checkpoint_counters()
+    finally:
+        dist.destroy_process_group()
+    for name, count in nccl_launches.items():
+        launches[name] = launches.get(name, 0) + count
+    log(multihost='one NCCL rank', is_primary=primary, dryrun_s=nccl_s,
+        launches=nccl_launches, card=card)
+    if not primary:
+        raise AssertionError('the one NCCL rank is not primary')
+    for name in ('rank_weights', 'matched_target_scores', 'streaming_topk',
+                 'row_adam (P1, mesh)'):
+        if launches.get(name, 0) <= 0:
+            raise AssertionError('{} never launched in the dry runs'.format(
+                name))
+    shutil.rmtree(out_dir)
+    return launches
 
 
 def main():
@@ -5184,6 +5711,18 @@ def main():
     for name, count in mesh_launches.items():
         launches[name] = launches.get(name, 0) + count
     log(phase='lazy mesh training', seconds=time.perf_counter() - start)
+
+    start = time.perf_counter()
+    for name, count in run_checkpoint_phase(torch, card).items():
+        launches[name] = launches.get(name, 0) + count
+    log(phase='checkpoints', seconds=time.perf_counter() - start,
+        note='after the ranks of phase 17, which ran its saves and '
+             'restores (checkpoint_launches line: rank_seconds)')
+
+    start = time.perf_counter()
+    for name, count in run_multihost_phase(torch, card).items():
+        launches[name] = launches.get(name, 0) + count
+    log(phase='multihost and dry run', seconds=time.perf_counter() - start)
 
     kernels = []
     for name in ('rank_weights', 'matched_target_scores', 'streaming_topk',

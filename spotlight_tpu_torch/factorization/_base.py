@@ -19,7 +19,7 @@ from spotlight_tpu_torch.factorization.lazy import lazy_opt_specs
 from spotlight_tpu_torch.factorization.representations import BilinearNet
 from spotlight_tpu_torch.ops.lazy_adam import lazy_adam_init
 from spotlight_tpu_torch.parallel import training as ptraining
-from spotlight_tpu_torch.parallel.sharding import held_part
+from spotlight_tpu_torch.parallel.sharding import held_part, replicated_like
 from spotlight_tpu_torch.utils import training
 from spotlight_tpu_torch.utils.serialization import SerializableEstimatorMixin
 
@@ -58,17 +58,20 @@ def check_mesh_settings(mesh, exchange, batch_size):
                 'count ({})'.format(batch_size, shards))
 
 
-def refuse_unsharded_on_mesh(model):
-    """A model initialized without a mesh (or loaded from a file) holds
-    whole tables and an optimizer state of their shape; ``fit`` on a mesh
-    set afterwards would need them resharded, which is not ported
-    (ROADMAP.md, Queue 1 item 4: checkpoint restore across layouts)."""
-    if (model._mesh is not None
-            and getattr(model, '_param_specs', None) is None):
-        raise NotImplementedError(
-            'this model was initialized without its mesh; fit on a mesh '
-            'needs a model initialized on it (restoring a state onto '
-            'another layout: ROADMAP.md, Queue 1 item 4)')
+def replicate_on_mesh(model):
+    """Replicated training for a model on a mesh that holds whole tables
+    (initialized without the mesh, or loaded from a file), as the JAX
+    package trains it: every parameter and optimizer leaf replicated
+    (``PartitionSpec()``), the batch sharded over the batch axes of its
+    exchange, gradients summed over them (``parallel.training.build_step``;
+    on the lazy engines every rank owns every row).  The batch size is
+    checked against the mesh as the constructor checks it."""
+    if model._mesh is None or model._param_specs is not None:
+        return
+    check_mesh_settings(model._mesh, model._exchange, model._batch_size)
+    model._param_specs = replicated_like(dict(model._net.named_parameters()))
+    model._opt_specs = replicated_like(model._opt_state)
+    model._epoch_fn_cache = {}
 
 
 def _repr_model(model):
@@ -245,7 +248,7 @@ class _FactorizationBase(SerializableEstimatorMixin):
         """
         if not self._initialized:
             self._initialize(interactions)
-        refuse_unsharded_on_mesh(self)
+        replicate_on_mesh(self)
         data, n, num_batches = self._epoch_data(interactions)
         epoch_fn = self._epoch_fn(num_batches)
         self._params_version += 1

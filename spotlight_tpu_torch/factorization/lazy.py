@@ -47,7 +47,8 @@ from spotlight_tpu_torch.ops.sampling import (inbatch_pair_weights,
                                               weighted_inbatch_elems)
 from spotlight_tpu_torch.parallel import training as ptraining
 from spotlight_tpu_torch.parallel.sharding import (PartitionSpec,
-                                                   _exchange_gather)
+                                                   _exchange_gather,
+                                                   holds_blocks)
 from spotlight_tpu_torch.utils.training import masked_mean
 
 __all__ = ['build_lazy_step', 'lazy_adam_init', 'lazy_opt_specs',
@@ -168,13 +169,17 @@ def _mesh_step(net, stacked_scores, learning_rate, l2, positives_only, mesh,
     of :func:`build_lazy_step` on a mesh."""
     dim = net.embedding_dim
     axes = ptraining.batch_axes(exchange)
+    # Whole tables (a model trained replicated): a plain gather, and every
+    # rank owns every row.
+    replicated = not holds_blocks(net)
 
     def lookup(table, ids):
         # Outside autograd; at full capacity, the capacity-factored
         # exchange drops nothing.
         with torch.no_grad():
-            return _exchange_gather(mesh, table, ids, 'model',
-                                    exchange).float().requires_grad_()
+            rows = (table[ids] if replicated else
+                    _exchange_gather(mesh, table, ids, 'model', exchange))
+            return rows.float().requires_grad_()
 
     def step(opt_state, batch, negatives):
         users = batch['user_ids']
@@ -204,11 +209,11 @@ def _mesh_step(net, stacked_scores, learning_rate, l2, positives_only, mesh,
         ptraining.owned_row_update(
             ids[0], u_table, opt_state['mu'][USER_TABLE],
             opt_state['nu'][USER_TABLE], grads[0], t, learning_rate, l2,
-            mesh)
+            mesh, replicated)
         ptraining.owned_row_update(
             ids[1:].reshape(-1), i_table, opt_state['mu'][ITEM_TABLE],
             opt_state['nu'][ITEM_TABLE], grads[1:].reshape(-1, dim + 1), t,
-            learning_rate, l2, mesh)
+            learning_rate, l2, mesh, replicated)
         return mesh.all_reduce(local_loss.detach(), axes)
 
     return step

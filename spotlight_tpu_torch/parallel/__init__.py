@@ -16,12 +16,16 @@ cards, gloo for CPU process groups), every rank making the same calls:
   a rank's own rows);
 - :mod:`~spotlight_tpu_torch.parallel.evaluation`: full-catalogue
   evaluation over a row-sharded catalogue, through the same kernels as one
-  device.
-
-Checkpoints and the multi-host helpers are not ported yet (ROADMAP.md,
-Queue 1).
+  device;
+- :mod:`~spotlight_tpu_torch.parallel.checkpoint`: sharded checkpoints
+  (``torch.distributed.checkpoint``), each rank writing its blocks,
+  restored onto any layout;
+- :mod:`~spotlight_tpu_torch.parallel.multihost`: joining the process
+  group (``initialize``), ``is_primary`` and the global batch of the ranks'
+  slices.
 """
 
+from spotlight_tpu_torch.parallel import checkpoint, multihost  # noqa: F401
 from spotlight_tpu_torch.parallel.evaluation import (  # noqa: F401
     sharded_candidate_scores,
     sharded_rank_counts,

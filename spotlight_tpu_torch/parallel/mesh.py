@@ -80,10 +80,25 @@ class Mesh:
         self.data_index, self.model_index = divmod(rank, model)
         self.device = device
         self.groups = groups
+        self._device_mesh = None
 
     def __repr__(self):
         return 'Mesh(data={data}, model={model}, rank={rank}, {device})'.format(
             rank=self.rank, device=self.device, **self.shape)
+
+    def device_mesh(self):
+        """The grid as a ``torch.distributed`` ``DeviceMesh`` of dims
+        ``('data', 'model')``, for ``DTensor``s of the ranks' blocks (the
+        sharded checkpoints).  Made at the first call, which every rank
+        makes alike (it makes the groups of both dims), and kept."""
+        if self._device_mesh is None:
+            from torch.distributed.device_mesh import DeviceMesh
+
+            grid = np.arange(self.size(BOTH)).reshape(self.shape['data'],
+                                                      self.shape['model'])
+            self._device_mesh = DeviceMesh(self.device.type, grid,
+                                           mesh_dim_names=BOTH)
+        return self._device_mesh
 
     def index(self, axis):
         """This rank's coordinate along ``axis``; along ``('data',

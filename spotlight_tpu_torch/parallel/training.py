@@ -91,13 +91,17 @@ def gather_roles(mesh, tensor, axes):
 
 
 def owned_row_update(ids, table, mu, nu, grad_rows, t, learning_rate, l2,
-                     mesh):
+                     mesh, replicated=False):
     """:func:`~spotlight_tpu_torch.ops.lazy_adam.sparse_adam_rows` on the
     rows of this rank's block ``table`` (and its moments) that it owns:
     every global id outside ``[start, start + local_rows)`` goes to the
     sentinel ``local_rows``, which P1 skips (JAX's
     ``_owned_row_update``).  The foreign ids are one run at the end of the
-    sort."""
+    sort.  A ``replicated`` table is whole on every rank, which owns every
+    row of it."""
+    if replicated:
+        return sparse_adam_rows(ids, table, mu, nu, grad_rows, t,
+                                learning_rate, l2)
     local_rows = table.shape[0]
     start = mesh.index('model') * local_rows
     local = ids - start

@@ -32,7 +32,7 @@ import torch
 
 from spotlight_tpu_torch.data.interactions import PADDING_IDX
 from spotlight_tpu_torch.factorization._base import (check_mesh_settings,
-                                                     refuse_unsharded_on_mesh,
+                                                     replicate_on_mesh,
                                                      resolve_device)
 from spotlight_tpu_torch.ops.losses import IMPLICIT_LOSSES
 from spotlight_tpu_torch.ops.sampling import (inbatch_importance_weight_table,
@@ -403,7 +403,7 @@ class ImplicitSequenceModel(SerializableEstimatorMixin):
         """
         if not self._initialized:
             self._initialize(interactions)
-        refuse_unsharded_on_mesh(self)
+        replicate_on_mesh(self)
         data, n, num_batches = self._epoch_data(interactions)
         epoch_fn = self._epoch_fn(num_batches, data['sequences'].shape[1])
         self._params_version += 1

@@ -42,7 +42,8 @@ from spotlight_tpu_torch.ops.sampling import (inbatch_pair_weights,
                                               weighted_inbatch_elems)
 from spotlight_tpu_torch.parallel import training as ptraining
 from spotlight_tpu_torch.parallel.sharding import (PartitionSpec,
-                                                   _exchange_gather)
+                                                   _exchange_gather,
+                                                   holds_blocks)
 from spotlight_tpu_torch.utils.training import masked_mean
 
 ITEM_TABLE = 'item_embeddings.weight'
@@ -193,12 +194,16 @@ def _mesh_step(net, step_elems, tower, learning_rate, l2, n_neg, in_batch,
     """The body of JAX's ``_build_distributed`` ``sharded_step``: the step
     of :func:`build_lazy_step` on a mesh."""
     dim = net.embedding_dim
+    # A whole table (a model trained replicated): a plain gather, and every
+    # rank owns every row.
+    replicated = not holds_blocks(net.item_embeddings)
 
     def lookup(table, ids):
         # Outside autograd; the padding id's rows are zeroed after the
         # exchange.
         with torch.no_grad():
-            rows = _exchange_gather(mesh, table, ids, 'model', exchange)
+            rows = (table[ids] if replicated else
+                    _exchange_gather(mesh, table, ids, 'model', exchange))
             rows = torch.where((ids == PADDING_IDX)[..., None],
                                torch.zeros((), dtype=rows.dtype,
                                            device=rows.device), rows)
@@ -235,11 +240,11 @@ def _mesh_step(net, step_elems, tower, learning_rate, l2, n_neg, in_batch,
         row_grads = ptraining.gather_roles(mesh, row_grads,
                                            'data').reshape(-1, dim + 1)
         local_rows = table.shape[0]
-        start = mesh.index('model') * local_rows
+        start = 0 if replicated else mesh.index('model') * local_rows
         ids = torch.where(ids == PADDING_IDX, start + local_rows, ids)
         ptraining.owned_row_update(
             ids, table, opt_state['table']['mu'], opt_state['table']['nu'],
-            row_grads, opt_state['t'], learning_rate, l2, mesh)
+            row_grads, opt_state['t'], learning_rate, l2, mesh, replicated)
 
         tower_grads = {name: torch.zeros_like(p) if g is None else g
                        for (name, p), g in zip(tower.items(),

@@ -42,8 +42,9 @@ from spotlight_tpu_torch.utils import training
 #: Runtime artefacts that are rebuilt rather than pickled.  The mesh holds
 #: this process's ``torch.distributed`` groups: a loaded model has none
 #: (as in the JAX package), nor the specs of its state on it; set ``_mesh``
-#: again to evaluate on a new one (training there waits for resharding:
-#: ROADMAP.md, Queue 1 item 4).
+#: again to evaluate on a new one, or to train there with its whole tables
+#: replicated (``factorization._base.replicate_on_mesh``).
+#: ``parallel.checkpoint`` restores a state onto another layout.
 _DROPPED_FIELDS = ('_optimizer', '_epoch_fn_cache', '_item_factor_cache',
                    '_shard_catalog_cache', '_mesh', '_param_specs',
                    '_opt_specs')

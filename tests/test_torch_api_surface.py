@@ -18,8 +18,6 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 JAX_ROOT = REPO / 'spotlight_tpu'
 PORT_ROOT = REPO / 'spotlight_tpu_torch'
 
-#: The distributed layer, module by module: ROADMAP.md Queue 1 items 3-5.
-PARALLEL = 'the distributed layer is not ported yet (ROADMAP.md Queue 1, item 4)'
 #: JAX plumbing with no counterpart in eager PyTorch.
 SCAN = ('the JAX epoch is one compiled lax.scan; the port runs a Python '
         'loop of steps (utils.training.run_epoch, build_lazy_step)')
@@ -30,10 +28,6 @@ TPU_TILES = ('a Pallas tiling constant or backend probe of the TPU; the CUDA '
              're-derived for Hopper)')
 
 EXEMPT = {
-    'parallel/checkpoint.py': PARALLEL,
-    'parallel/multihost.py': PARALLEL,
-    ('parallel/__init__.py', 'checkpoint'): PARALLEL,
-    ('parallel/__init__.py', 'multihost'): PARALLEL,
     ('parallel/training.py', 'epoch_scan_distributed'): SCAN,
     ('evaluation.py', 'FALLBACK_COUNTS'): (
         'deliberate: the port has no fallback from a failed kernel; a call '
@@ -130,10 +124,6 @@ def test_the_walk_finds_every_module():
 
 @pytest.mark.parametrize('module', _modules())
 def test_port_module_exposes_the_public_names(module):
-    if module in EXEMPT:
-        assert not (PORT_ROOT / module).exists(), (
-            '{} is ported: take it out of EXEMPT'.format(module))
-        return
     port_path = PORT_ROOT / module
     assert port_path.exists(), '{} has no counterpart'.format(module)
     want = public_names(_parse(JAX_ROOT / module))
@@ -148,9 +138,6 @@ def test_every_exemption_is_still_needed():
     exposes, leaves the table."""
     for key, reason in EXEMPT.items():
         assert reason
-        if isinstance(key, str):
-            assert key.startswith('parallel/'), key
-            continue
         module, name = key
         assert name in public_names(_parse(JAX_ROOT / module)), key
         assert name not in bound_names(_parse(PORT_ROOT / module)), key

@@ -1,9 +1,11 @@
-"""The port's single-device entry point against ``__graft_entry__.entry()``.
+"""The port's entry points against ``__graft_entry__.py``'s.
 
-The JAX forward runs jitted on the CPU; its parameters go through
-``params_from_jax`` into the port's ``LSTMNet``, and both forwards must
-agree on the same sequences to the sequence slice's tolerance: rtol 1e-5,
-atol 1e-6 (float32 sums in another order).
+``entry()``: the JAX forward runs jitted on the CPU; its parameters go
+through ``params_from_jax`` into the port's ``LSTMNet``, and both forwards
+must agree on the same sequences to the sequence slice's tolerance: rtol
+1e-5, atol 1e-6 (float32 sums in another order).  ``dryrun_multichip``:
+the command line's dry run on four gloo CPU ranks prints
+``dryrun_multichip OK``.
 """
 
 import jax
@@ -49,3 +51,28 @@ def test_entry_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='no CUDA device'):
         entry()
+
+
+def test_dryrun_multichip_on_four_cpu_ranks():
+    """``python -m spotlight_tpu_torch.entry 4 --cpu``: four gloo ranks
+    joined through ``multihost.initialize`` run every distributed path of
+    ``__graft_entry__.dryrun_multichip`` at 2 x 2."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get('PYTHONPATH', ''))
+    done = subprocess.run(
+        [sys.executable, '-m', 'spotlight_tpu_torch.entry', '4', '--cpu'],
+        cwd=root, env=env, capture_output=True, text=True, timeout=300)
+    assert done.returncode == 0, done.stderr[-3000:]
+    assert done.stdout.splitlines()[-1] == 'dryrun_multichip OK'
+
+
+def test_dryrun_multichip_needs_its_process_group():
+    from spotlight_tpu_torch.entry import dryrun_multichip
+
+    with pytest.raises(RuntimeError, match='process group of 4 ranks'):
+        dryrun_multichip(4, device='cpu')

@@ -23,7 +23,12 @@ Adam moments.  Held here:
   mixture models that take a step and predict;
 - a mesh-trained model saved by every rank loads on one device and scores
   and predicts as it did; given the mesh again it scores over the padded
-  whole tables as it did, and ``fit`` there raises naming Queue 1 item 4;
+  whole tables as it did, and ``fit`` there trains them replicated, within
+  ``MESH_TRAIN_BOUND`` of one device's epoch;
+- models fitted on one device and then given the mesh (MF and LSTM, dense
+  and lazy) train replicated, every rank's whole tables one device's:
+  bit for bit at 1 x 4 and for the lazy MF at 2 x 2, within
+  ``MESH_TRAIN_BOUND`` elsewhere;
 - a network whose item layer stays replicated (a plain
   ``torch.nn.Embedding``) while its user table shards scores the whole
   catalogue on the mesh, as one device does;
@@ -57,11 +62,13 @@ from spotlight_tpu.parallel import sharding as jax_sharding
 from spotlight_tpu.parallel import training as jax_ptraining
 from spotlight_tpu.utils import training as jax_training
 from spotlight_tpu_torch import evaluation
-from spotlight_tpu_torch.data import Interactions
-from spotlight_tpu_torch.factorization import ExplicitFactorizationModel
+from spotlight_tpu_torch.data import Interactions, SequenceInteractions
+from spotlight_tpu_torch.factorization import (ExplicitFactorizationModel,
+                                               ImplicitFactorizationModel)
 from spotlight_tpu_torch.factorization.representations import BilinearNet
 from spotlight_tpu_torch.parallel import mesh as pmesh
 from spotlight_tpu_torch.parallel.mesh import Mesh
+from spotlight_tpu_torch.sequence import ImplicitSequenceModel
 from spotlight_tpu_torch.utils import serialization
 from spotlight_tpu_torch.utils.convert import (_find_adam_state,
                                                 params_from_jax)
@@ -79,6 +86,10 @@ from tests.torch_mesh_worker import EXCHANGES, assert_step_close, held
 #: first step, lr g / (|g| + eps) with eps 1e-8, magnifies that into a
 #: parameter gap of 1.13e-6; the moments stay within MOMENT_SCALE.
 INBATCH_PARAM_ATOL = 2e-6
+#: The bound on a mesh-trained leaf against one device's where the sum
+#: order differs, as a share of the leaf's largest magnitude (the smoke's
+#: ``MESH_TRAIN_RTOL``).
+MESH_TRAIN_BOUND = 1e-4
 USERS, ITEMS, DIM, BATCH = 40, 103, 8, 32
 WIDTH = DIM + 1
 EXPLICIT = dict(loss='regression', embedding_dim=16, n_iter=3,
@@ -173,7 +184,8 @@ def workdir(tmp_path_factory):
 def ranks(workdir):
     gates = dict(gate_cases(), workdir=str(workdir))
     cases = {'layouts': LAYOUTS,
-             'training': {'step': step_case()[0], 'gates': gates}}
+             'training': {'step': step_case()[0], 'gates': gates},
+             'replicated': replicated_case()}
     return worker.run_ranks(cases, workdir)
 
 
@@ -334,11 +346,23 @@ def test_saved_mesh_model_loads_on_one_device(ranks, workdir):
                                       catalogue)
 
 
-def test_loaded_model_given_a_mesh_again(ranks):
+def test_loaded_model_given_a_mesh_again(ranks, workdir):
     """A saved mesh model, loaded and given the 2 x 2 mesh again, holds the
     whole padded tables on every rank: its metrics run over views of the
-    padded catalogue and equal the mesh-trained model's; ``fit`` there
-    waits for resharding (ROADMAP.md, Queue 1 item 4)."""
+    padded catalogue and equal the mesh-trained model's.  Its ``fit``
+    there trains replicated, as JAX's does: one epoch leaves every rank's
+    whole tables and moments within ``MESH_TRAIN_BOUND`` of each table's
+    scale of one device's epoch from the loaded file (the gradients of
+    the two data ranks' halves are summed, in another order than one
+    device's sum), the same on every rank."""
+    case = gate_cases()['implicit']
+    train = Interactions(*case['train'], num_users=case['num_users'],
+                         num_items=case['num_items'])
+    one = serialization.load(os.path.join(str(workdir),
+                                          'mesh_model.rank0.pkl'))
+    one._n_iter = 1
+    one.fit(train)
+    want = worker.state_arrays(one)
     for rank, out in enumerate(ranks):
         got = out[(2, 2)]
         holds, mrr, precision, block = got['loaded on the mesh']
@@ -347,7 +371,87 @@ def test_loaded_model_given_a_mesh_again(ranks):
         assert block == (200, 200 * (rank % 2))
         assert mrr == got['saved metrics'][0]
         assert precision == got['saved metrics'][1]
-        assert 'Queue 1 item 4' in got['loaded on the mesh', 'fit']
+        loss, holds, state = got['loaded on the mesh', 'fit']
+        assert not holds
+        np.testing.assert_allclose(loss, one._last_epoch_loss, rtol=1e-5)
+        assert_within_scale(state, want)
+        worker.assert_same(state, ranks[0][(2, 2)]['loaded on the mesh',
+                                                   'fit'][2])
+
+
+def assert_within_scale(got, want, bound=None):
+    """Whole states (``worker.state_arrays``) leaf by leaf: host numbers
+    equal, arrays within ``bound`` (``MESH_TRAIN_BOUND``) of each leaf's
+    largest magnitude."""
+    bound = MESH_TRAIN_BOUND if bound is None else bound
+    assert got.keys() == want.keys()
+    for key, value in want.items():
+        if isinstance(value, np.ndarray):
+            np.testing.assert_allclose(
+                got[key], value, rtol=0,
+                atol=bound * np.abs(value).max(), err_msg=key)
+        else:
+            assert got[key] == value, key
+
+
+@functools.lru_cache(maxsize=None)
+def replicated_case():
+    """A small MF set (40 users, 103 items, 640 pairs: 10 batches of 64)
+    and LSTM set (64 sequences of 6 over 50 items: 2 batches of 32)."""
+    rs = np.random.RandomState(17)
+    return {'num_users': USERS, 'num_items': ITEMS,
+            'pairs': (rs.randint(0, USERS, 640), rs.randint(0, ITEMS, 640)),
+            'sequences': rs.randint(1, 50, size=(64, 6)),
+            'sequence_items': 50,
+            'mf': dict(loss='bpr', embedding_dim=DIM, n_iter=1,
+                       batch_size=64, l2=1e-6),
+            'lstm': dict(loss='bpr', representation='lstm',
+                         embedding_dim=DIM, n_iter=1, batch_size=32)}
+
+
+def one_device_continued(name, sparse):
+    """One device's two epochs of the replicated case's model."""
+    case = replicated_case()
+    if name == 'MF':
+        model = ImplicitFactorizationModel(
+            sparse=sparse, random_state=np.random.RandomState(42),
+            device='cpu', **case['mf'])
+        data = Interactions(*case['pairs'], num_users=USERS,
+                            num_items=ITEMS)
+    else:
+        model = ImplicitSequenceModel(
+            sparse=sparse, random_state=np.random.RandomState(42),
+            device='cpu', **case['lstm'])
+        data = SequenceInteractions(case['sequences'], num_items=50)
+    model.fit(data)
+    model.fit(data)
+    return model
+
+
+@pytest.mark.parametrize('layout', LAYOUTS)
+@pytest.mark.parametrize('name, sparse', [('MF', False), ('MF', True),
+                                          ('LSTM', False), ('LSTM', True)])
+def test_whole_tables_train_replicated_on_the_mesh(ranks, layout, name,
+                                                   sparse):
+    """A model fitted one epoch on one device, then given the mesh and
+    fitted one epoch more: every rank holds whole tables (the specs all
+    ``PartitionSpec()``), the same on every rank, equal to one device's
+    second epoch.  Bit for bit at 1 x 4 (a data axis of one rank sends
+    nothing) and for the lazy MF at 2 x 2 (the step's stream is gathered
+    in one device's order); at 2 x 2 the dense engines' gradients and the
+    LSTM tower's are summed over the two data ranks in another order than
+    one device's sum, within ``MESH_TRAIN_BOUND`` of each table's scale."""
+    want = one_device_continued(name, sparse)
+    for out in ranks:
+        lazy, loss, state = out[layout]['replicated', name, sparse]
+        assert lazy == want._lazy == sparse
+        np.testing.assert_allclose(loss, want._last_epoch_loss, rtol=1e-5)
+        if layout == (1, 4) or (name, sparse) == ('MF', True):
+            worker.assert_same(state, worker.state_arrays(want))
+        else:
+            assert_within_scale(state, worker.state_arrays(want))
+        worker.assert_same(state, ranks[0][layout]['replicated', name,
+                                                   sparse][2])
 
 
 def test_replicated_item_layer_scores_the_whole_catalogue(ranks, workdir):

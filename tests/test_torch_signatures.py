@@ -41,6 +41,10 @@ MESH = ('JAX names the mesh axis and shard_map supplies its collectives; '
 STREAMING = ('deliberate: the metrics default to streaming=True, where '
              'JAX\'s None means "on a TPU" (ROADMAP.md, deliberate '
              'differences)')
+#: The process group's backend.
+BACKEND = ('the port adds a trailing backend= (nccl, one card a rank; gloo '
+           'for CPU ranks or ranks sharing a card, which NCCL refuses); '
+           'jax.distributed picks its own transport')
 
 EXEMPT = {
     ('evaluation.py', 'mrr_score'): STREAMING,
@@ -84,6 +88,7 @@ EXEMPT = {
     ('factorization/representations.py', 'BilinearNet.sharded'): MESH,
     ('ops/sampling.py', 'sample_items_device'): PRNG,
     ('utils/training.py', 'shuffle_and_batch'): PRNG,
+    ('parallel/multihost.py', 'initialize'): BACKEND,
     ('utils/training.py', 'place_data'): (
         'JAX places arrays on a mesh (mesh=); the port places them on a '
         'device'),
@@ -199,9 +204,10 @@ def _ported_modules():
 
 def test_the_walk_compares_the_ported_modules():
     modules = _ported_modules()
-    assert len(modules) == 53
+    assert len(modules) == 55
     assert {'parallel/mesh.py', 'parallel/evaluation.py',
             'parallel/sharding.py', 'parallel/training.py',
+            'parallel/checkpoint.py', 'parallel/multihost.py',
             'factorization/implicit.py'} <= set(modules)
     assert sum(len(compared(module)) for module in modules) >= 100
 
@@ -217,6 +223,27 @@ def test_public_signatures_match_jax(module):
             continue
         assert got == want, '{} {}:\n JAX  {}\n port {}'.format(
             module, name, want, got)
+
+
+def test_initialize_adds_only_the_backend():
+    """``multihost.initialize`` is JAX's with one trailing ``backend``."""
+    want, got = compared('parallel/multihost.py')['initialize']
+    assert got[:-1] == want and got[-1][1] == 'backend'
+
+
+def test_entry_points_match_the_graft_entry():
+    """``entry.py``'s ``entry`` and ``dryrun_multichip`` take
+    ``__graft_entry__.py``'s parameters and a trailing ``device``
+    (``DEVICE``)."""
+    repo = JAX_ROOT.parent
+    names = {'entry', 'dryrun_multichip'}
+    theirs = callables(_parse(repo / '__graft_entry__.py'), names)
+    ours = callables(_parse(PORT_ROOT / 'entry.py'), names)
+    assert sorted(theirs) == sorted(ours) == sorted(names)
+    for name in names:
+        got = signature(ours[name], {})
+        assert got[-1][1] == 'device', name
+        assert got[:-1] == signature(theirs[name], {}), name
 
 
 def test_every_signature_exemption_is_still_needed():

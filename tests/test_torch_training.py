@@ -49,8 +49,10 @@ from spotlight_tpu_torch.data.synthetic import generate_factorization
 from spotlight_tpu_torch.evaluation import mrr_score
 from spotlight_tpu_torch.factorization import (BilinearNet,
                                                ImplicitFactorizationModel)
+from spotlight_tpu_torch.factorization._base import replicate_on_mesh
 from spotlight_tpu_torch.factorization.lazy import lazy_opt_specs
 from spotlight_tpu_torch.parallel.mesh import Mesh
+from spotlight_tpu_torch.parallel.sharding import PartitionSpec
 from spotlight_tpu_torch.utils import training
 from spotlight_tpu_torch.utils.convert import (opt_state_from_jax,
                                                params_from_jax)
@@ -390,8 +392,10 @@ def test_mesh_raises_naming_the_roadmap():
     """``sparse=True`` on a mesh takes the distributed lazy engine, as in
     JAX: on a mesh of one rank (every collective the identity, no process
     group) the lazy model trains to one device's bits, its moments
-    specified as its tables.  What still raises, naming its roadmap item,
-    is a lazy model initialized without its mesh and fitted on one."""
+    specified as its tables.  A lazy model initialized without its mesh
+    and fitted on one no longer raises for a roadmap item: it trains
+    replicated, as JAX's does, every leaf's spec ``PartitionSpec()``, to
+    the bits of one device continuing the same fit."""
     users, items = dataset(300)
     data = Interactions(users, items, num_users=NUM_USERS,
                         num_items=NUM_ITEMS)
@@ -413,12 +417,69 @@ def test_mesh_raises_naming_the_roadmap():
         for moment in ('mu', 'nu'):
             assert torch.equal(got._opt_state[moment][name],
                                want._opt_state[moment][name])
-    late = lazy(None)
-    late._initialize(data)
+    late = lazy(None).fit(data)
     late._mesh = mesh
-    with pytest.raises(NotImplementedError, match='ROADMAP.md, Queue 1 '
-                       'item 4'):
-        late.fit(data)
+    late.fit(data)
+    want.fit(data)
+    assert late._param_specs == {name: PartitionSpec()
+                                 for name in want._net.state_dict()}
+    assert late._opt_specs['t'] == PartitionSpec()
+    assert late._opt_state['t'] == want._opt_state['t'] == 20
+    for name, value in want._net.state_dict().items():
+        assert torch.equal(late._net.state_dict()[name], value), name
+        for moment in ('mu', 'nu'):
+            assert torch.equal(late._opt_state[moment][name],
+                               want._opt_state[moment][name])
+
+
+def jax_replicated_epoch(loss, sparse):
+    """A JAX model warmed one epoch without a mesh, given the 2 x 4 mesh of
+    the 8 virtual devices and fitted one epoch more there (its tables
+    replicated, ``PartitionSpec()``), and the port's model of the warm
+    state given a mesh of one rank, whose next epoch takes JAX's draws:
+    (jax_model, port, port epoch loss)."""
+    from spotlight_tpu.data import Interactions as JaxInteractions
+    from spotlight_tpu.parallel import make_mesh as jax_make_mesh
+
+    users, items = dataset(BATCH - 5)
+    jax_data = JaxInteractions(users, items, num_users=NUM_USERS,
+                               num_items=NUM_ITEMS)
+    jax_model, port = models(loss, 'uniform', sparse)
+    jax_model.fit(jax_data)
+    port_data = to_port(jax_data)
+    port._initialize(port_data)
+    port._load_params(params_from_jax(port._net, tree(jax_model._params)))
+    port._opt_state = opt_state_from_jax(port._net,
+                                         tree(jax_model._opt_state))
+
+    key = jax_model._key
+    jax_model._mesh = jax_make_mesh(data=2, model=4)
+    jax_model.fit(jax_data)
+    sharding = jax_model._params['user_embeddings']['weight'].sharding
+    assert sharding.spec == jax.sharding.PartitionSpec()
+    port._mesh = Mesh(1, 1, 0, torch.device('cpu'), groups={})
+    replicate_on_mesh(port)
+    data, n_valid, num_batches = port._epoch_data(port_data)
+    perm, negatives = jax_draws(key, jax_model, num_batches)
+    epoch_loss = training.run_epoch(port._step_fn(), data, n_valid,
+                                    num_batches, BATCH, perm, negatives)
+    return jax_model, port, float(epoch_loss)
+
+
+@pytest.mark.parametrize('sparse', [True, False], ids=['lazy', 'dense'])
+@pytest.mark.parametrize('loss', ['bpr', 'adaptive_hinge'])
+def test_replicated_mesh_step_matches_jax(loss, sparse):
+    """A model that holds whole tables, given a mesh after its first fit:
+    one step of its replicated mesh engine (``replicate_on_mesh``: every
+    spec ``PartitionSpec()``, the mesh step of its engine) against JAX's
+    next epoch on the mesh, from the same converted state and JAX's
+    draws, at ``test_one_step_matches_jax``'s tolerances."""
+    jax_model, port, epoch_loss = jax_replicated_epoch(loss, sparse)
+    assert port._param_specs == {name: PartitionSpec()
+                                 for name in port._net.state_dict()}
+    assert_state_close(jax_model, port, PARAM_ATOL)
+    np.testing.assert_allclose(epoch_loss, jax_model._last_epoch_loss,
+                               rtol=LOSS_RTOL)
 
 
 def test_same_seed_same_training_stream():

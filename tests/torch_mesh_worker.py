@@ -20,7 +20,13 @@ The cases are a dict of numpy arrays (see ``tests/test_torch_mesh.py``):
   gates (``tests/test_torch_mesh_training.py``);
 - ``lazy``: datasets, a step's state and draws, and the settings of the
   row-sparse (lazy) engines' fits on the mesh
-  (``tests/test_torch_mesh_lazy.py``).
+  (``tests/test_torch_mesh_lazy.py``);
+- ``replicated``: datasets and settings of models fitted on one device
+  and then on the mesh, their whole tables replicated
+  (``tests/test_torch_mesh_training.py``);
+- ``checkpoint``: a dataset, settings and checkpoint paths of the sharded
+  checkpoints saved and restored across layouts
+  (``tests/test_torch_checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -41,13 +47,15 @@ COLLECTIVE_TIMEOUT = 120
 
 
 def run_ranks(cases, workdir, world=4, backend='gloo', devices=None,
-              timeout=300):
+              timeout=300, target=None):
     """Run the cases on ``world`` ranks and return each rank's results.
 
     Raises if a rank fails or if the ranks have not all ended within
     ``timeout`` seconds (the ranks still alive are killed first): room for
     four ranks to start beside a busy test run on two cores, while a
-    collective that waits gives up after COLLECTIVE_TIMEOUT."""
+    collective that waits gives up after COLLECTIVE_TIMEOUT.  ``target``
+    is each rank's main, :func:`rank_main` by default, called with the
+    same arguments."""
     workdir = str(workdir)
     cases_path = os.path.join(workdir, 'cases.pkl')
     with open(cases_path, 'wb') as fh:
@@ -55,7 +63,7 @@ def run_ranks(cases, workdir, world=4, backend='gloo', devices=None,
     store = os.path.join(workdir, 'store')
     devices = devices or ['cpu'] * world
     context = mp.get_context('spawn')
-    procs = [context.Process(target=rank_main, args=(
+    procs = [context.Process(target=target or rank_main, args=(
         rank, world, backend, store, devices, cases_path, workdir))
         for rank in range(world)]
     for proc in procs:
@@ -129,6 +137,10 @@ def run_cases(mesh, cases):
         out.update(run_training(mesh, cases['training']))
     if 'lazy' in cases:
         out.update(run_lazy(mesh, cases['lazy']))
+    if 'replicated' in cases:
+        out.update(run_replicated(mesh, cases['replicated']))
+    if 'checkpoint' in cases:
+        out.update(run_checkpoint(mesh, cases['checkpoint']))
     return out
 
 
@@ -519,8 +531,8 @@ def run_training(mesh, case):
 
 def run_loaded_on_mesh(mesh, path, train, test):
     """The saved mesh model loaded (whole padded tables) and given the mesh
-    again: its metrics over the padded catalogue's blocks, and the message
-    of ``fit``, which waits for resharding."""
+    again: its metrics over the padded catalogue's blocks, then one epoch
+    of ``fit`` there, replicated (its loss, whole tables and moments)."""
     from spotlight_tpu_torch import evaluation
     from spotlight_tpu_torch.utils import serialization
 
@@ -531,10 +543,11 @@ def run_loaded_on_mesh(mesh, path, train, test):
         evaluation.mrr_score(model, test).mean(),
         evaluation.precision_recall_score(model, test, k=5)[0].mean(),
         catalog_block(model))}
-    try:
-        model.fit(train)
-    except NotImplementedError as error:
-        out['loaded on the mesh', 'fit'] = str(error)
+    model._n_iter = 1
+    model.fit(train)
+    out['loaded on the mesh', 'fit'] = (
+        model._last_epoch_loss, model._net._holds_blocks(),
+        state_arrays(model))
     return out
 
 
@@ -808,3 +821,224 @@ def run_lazy(mesh, case):
                 case['workdir'], 'lazy_{}.rank{}.pkl'.format(kind,
                                                              mesh.rank)))
     return out
+
+
+# -- replicated training of whole tables ------------------------------------------
+
+
+def run_replicated(mesh, case):
+    """The repair of a model that holds whole tables given a mesh: the
+    case's implicit MF (dense, then lazy) and dense LSTM fitted one epoch
+    on one device, given the mesh and fitted one epoch more there, every
+    rank's whole tables and step count."""
+    from spotlight_tpu_torch.data import Interactions, SequenceInteractions
+    from spotlight_tpu_torch.factorization import ImplicitFactorizationModel
+    from spotlight_tpu_torch.sequence import ImplicitSequenceModel
+
+    data = Interactions(*case['pairs'], num_users=case['num_users'],
+                        num_items=case['num_items'])
+    sequences = SequenceInteractions(case['sequences'],
+                                     num_items=case['sequence_items'])
+    out = {}
+    for name, build, fit_data in (
+            ('MF', lambda sparse: ImplicitFactorizationModel(
+                sparse=sparse, random_state=np.random.RandomState(42),
+                device=str(mesh.device), **case['mf']), data),
+            ('LSTM', lambda sparse: ImplicitSequenceModel(
+                sparse=sparse, random_state=np.random.RandomState(42),
+                device=str(mesh.device), **case['lstm']), sequences)):
+        for sparse in (False, True):
+            model = build(sparse).fit(fit_data)
+            model._mesh = mesh
+            model.fit(fit_data)
+            out['replicated', name, sparse] = (
+                model._lazy, model._last_epoch_loss,
+                state_arrays(model))
+    return out
+
+
+def state_arrays(model):
+    """The model's parameters and flat optimizer state as numpy (blocks on
+    a mesh; a bfloat16 table as its int16 bits), host numbers as they
+    are."""
+    def array(tensor):
+        tensor = tensor.detach().cpu()
+        if tensor.dtype == torch.bfloat16:
+            tensor = tensor.view(torch.int16)
+        return tensor.numpy().copy()
+
+    def flat(tree, prefix, out):
+        if isinstance(tree, dict):
+            for key, value in tree.items():
+                flat(value, prefix + (key,), out)
+        else:
+            out['/'.join(prefix)] = (array(tree) if torch.is_tensor(tree)
+                                     else tree)
+        return out
+
+    return flat({'params': dict(model._net.named_parameters()),
+                 'opt_state': model._opt_state}, (), {})
+
+
+# -- sharded checkpoints ------------------------------------------------------------
+
+
+def checkpoint_model(case, mesh, kind='mf', seed=7, sparse=False):
+    """The checkpoint case's implicit MF (``kind`` 'mf') or LSTM, on
+    ``mesh`` (None: one device on the CPU), initialized on its data."""
+    from spotlight_tpu_torch.data import Interactions, SequenceInteractions
+    from spotlight_tpu_torch.factorization import ImplicitFactorizationModel
+    from spotlight_tpu_torch.sequence import ImplicitSequenceModel
+
+    device = None if mesh is not None else 'cpu'
+    if kind == 'mf':
+        model = ImplicitFactorizationModel(
+            sparse=sparse, mesh=mesh, random_state=np.random.RandomState(
+                seed), device=device, **case['mf'])
+        data = Interactions(*case['pairs'], num_users=case['num_users'],
+                            num_items=case['num_items'])
+    else:
+        model = ImplicitSequenceModel(
+            sparse=sparse, mesh=mesh, random_state=np.random.RandomState(
+                seed), device=device, **case['lstm'])
+        data = SequenceInteractions(case['sequences'],
+                                    num_items=case['sequence_items'])
+    model._initialize(data)
+    return model, data
+
+
+def run_checkpoint(mesh, case):
+    """Save and restore across layouts, on the case's 2 x 2 mesh and a
+    1 x 4 mesh of the same ranks: the one-device dense MF checkpoint
+    restored at 1 x 4 (150 users padded to 152) and saved there, that one
+    restored at 2 x 2 (150) and saved there, each save's collective bytes
+    (and ``serialization.save``'s, which gathers, for contrast); JAX's
+    state restored at 1 x 4; the lazy MF and the lazy LSTM fitted at 2 x 2,
+    saved, fitted on (the continuation), and restored onto fresh models of
+    other seeds at 2 x 2 and 1 x 4 and fitted as far."""
+    from spotlight_tpu_torch.parallel import checkpoint, make_mesh
+    from spotlight_tpu_torch.parallel import mesh as pmesh
+    from spotlight_tpu_torch.utils import serialization
+
+    workdir = case['workdir']
+    wide = make_mesh(1, 4, devices=[str(mesh.device)] * mesh.size(
+        ('data', 'model')))
+    out = {}
+
+    def saved(model, name):
+        pmesh.COLLECTIVE_BYTES = {}
+        checkpoint.save_state(os.path.join(workdir, name), model)
+        out['save bytes', name] = dict(pmesh.COLLECTIVE_BYTES)
+
+    model, _ = checkpoint_model(case, wide)
+    checkpoint.restore_state(case['one_device'], model)
+    out['dense 1x4'] = state_arrays(model)
+    saved(model, 'dense_1x4')
+    model, _ = checkpoint_model(case, mesh)
+    checkpoint.restore_state(os.path.join(workdir, 'dense_1x4'), model)
+    out['dense 2x2'] = state_arrays(model)
+    saved(model, 'dense_2x2')
+    pmesh.COLLECTIVE_BYTES = {}
+    serialization.save(model, os.path.join(
+        workdir, 'gathered.rank{}.pkl'.format(mesh.rank)))
+    out['pickle bytes'] = dict(pmesh.COLLECTIVE_BYTES)
+
+    # Bytes on disk: a state of 2,000 x 1,000 rows of D=32, whose
+    # per-tensor overhead in the files is small beside it.
+    from spotlight_tpu_torch.data import Interactions
+    from spotlight_tpu_torch.factorization import ImplicitFactorizationModel
+
+    model = ImplicitFactorizationModel(embedding_dim=32, mesh=mesh)
+    model._initialize(Interactions(np.arange(4), np.arange(4),
+                                   num_users=2_000, num_items=1_000))
+    saved(model, 'bytes_2x2')
+
+    model, _ = checkpoint_model(case, wide)
+    checkpoint.restore_state(case['jax'], model)
+    out['jax 1x4'] = state_arrays(model)
+
+    for kind in ('mf', 'lstm'):
+        model, data = checkpoint_model(case, mesh, kind, seed=42,
+                                       sparse=True)
+        model.fit(data)
+        saved(model, 'lazy_{}_2x2'.format(kind))
+        out['saved t', kind] = model._opt_state['t']
+        model.fit(data)
+        out['continued', kind] = state_arrays(model)
+        for name, layout in (('2x2', mesh), ('1x4', wide)):
+            model, data = checkpoint_model(case, layout, kind, sparse=True)
+            checkpoint.restore_state(os.path.join(
+                workdir, 'lazy_{}_2x2'.format(kind)), model)
+            model.fit(data)
+            out['resumed', kind, name] = state_arrays(model)
+    return out
+
+
+# -- multi-process helpers ----------------------------------------------------------
+
+
+def multihost_training(mesh, case):
+    """``tests/test_multihost.py``'s training run on the mesh: the MF (2
+    epochs of batch 64, 37 users x 53 items, D=16), the LSTM and the lazy
+    MF; each one's last loss and state (blocks)."""
+    from spotlight_tpu_torch.data import Interactions, SequenceInteractions
+    from spotlight_tpu_torch.factorization import ImplicitFactorizationModel
+    from spotlight_tpu_torch.sequence import ImplicitSequenceModel
+
+    interactions = Interactions(*case['pairs'], num_users=37, num_items=53)
+    sequences = SequenceInteractions(case['sequences'], num_items=53)
+    config = dict(loss='bpr', embedding_dim=16, n_iter=2, batch_size=64,
+                  mesh=mesh, random_state=np.random.RandomState(42))
+    out = {}
+    for name, model, data in (
+            ('MF', ImplicitFactorizationModel(**config), interactions),
+            ('LSTM', ImplicitSequenceModel(representation='lstm', **config),
+             sequences),
+            ('lazy MF', ImplicitFactorizationModel(sparse=True, **config),
+             interactions)):
+        model.fit(data)
+        out[name] = (model._lazy, model._last_epoch_loss,
+                     state_arrays(model))
+    return out
+
+
+def multihost_rank_main(rank, world, backend, store, devices, cases_path,
+                        workdir):
+    """One rank started through ``parallel.multihost.initialize`` (over
+    TCP at the cases' ``address``): ``is_primary``, ``global_batch_array``
+    of its data slice at 2 x 2, and :func:`multihost_training`; then the
+    same training once more in a group joined through the file store, as
+    :func:`rank_main` joins it."""
+    try:
+        torch.set_num_threads(1)
+        with open(cases_path, 'rb') as fh:
+            cases = pickle.load(fh)
+        case = cases['multihost']
+        from spotlight_tpu_torch.parallel import make_mesh, multihost
+
+        out = {'primary before': multihost.is_primary()}
+        multihost.initialize(case['address'], world, rank, backend=backend)
+        out['primary'] = multihost.is_primary()
+        mesh = make_mesh(2, 2, devices=devices)
+        rows = len(case['batch']) // mesh.shape['data']
+        local = case['batch'][mesh.data_index * rows:
+                              (mesh.data_index + 1) * rows]
+        out['global batch'] = multihost.global_batch_array(
+            mesh, local).cpu().numpy()
+        out['tcp'] = multihost_training(mesh, case)
+        dist.destroy_process_group()
+        dist.init_process_group(
+            backend, init_method='file://' + store, world_size=world,
+            rank=rank,
+            timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT))
+        out['file'] = multihost_training(make_mesh(2, 2, devices=devices),
+                                         case)
+        dist.destroy_process_group()
+        with open(os.path.join(workdir, 'rank{}.pkl'.format(rank)),
+                  'wb') as fh:
+            pickle.dump(out, fh)
+    except BaseException:
+        with open(os.path.join(workdir, 'rank{}.err'.format(rank)),
+                  'w') as fh:
+            fh.write(traceback.format_exc())
+        raise
