@@ -264,6 +264,7 @@ The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
 """
 
+import collections
 import contextlib
 import json
 import os
@@ -3691,18 +3692,19 @@ def profile_call(torch, card, name, call):
 
 def profile_summary(card, name, prof, wall_ms):
     """The logged summary of a profile: device ms by kernel, busy ms, the
-    idle share of ``wall_ms`` and the device kernel calls."""
-    by_kernel = {}
+    idle share of ``wall_ms`` and the device kernel calls.  Only the
+    device's own activities count: a host row of ``key_averages()`` (an
+    operator, or a ``profiling.span`` open across a launch) repeats the
+    device time of what it launched."""
+    import torch
+
+    by_kernel = collections.Counter()
     device_calls = 0
-    for event in prof.key_averages():
-        device_us = getattr(event, 'self_device_time_total', None)
-        if device_us is None:
-            device_us = getattr(event, 'self_cuda_time_total', 0)
-        # An aten:: operator row repeats the device time of the kernels it
-        # launched, which have rows of their own.
-        if device_us > 0 and not event.key.startswith('aten::'):
-            by_kernel[event.key[:80]] = device_us / 1e3
-            device_calls += event.count
+    for event in prof.events():
+        if event.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[event.name[:80]] += (event.time_range.end
+                                           - event.time_range.start) / 1e3
+            device_calls += 1
     busy_ms = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     summary = dict(profile=name, wall_ms=wall_ms, device_busy_ms=busy_ms,

@@ -38,6 +38,12 @@ front, not the JAX package's fallback: nothing here catches a kernel
 failure to recompute on the materialize path, and a kernel that fails to
 build or launch raises.  Each metric reads its result back to the host
 once, after the last batch.
+
+Each metric call is one span (``utils.profiling.span``) named after it,
+``spotlight.<metric>``, holding ``spotlight.eval.rows`` (the host's rows:
+``_eval_rows``, or the sequences' prefixes and excluded rows), one
+``spotlight.eval.upload`` a batch (its rows trimmed and placed on the
+device) and one ``spotlight.eval.factors`` a batch (``_rank_factors``).
 """
 
 from __future__ import annotations
@@ -54,6 +60,7 @@ from spotlight_tpu_torch.ops.kernels.ranking import (
 from spotlight_tpu_torch.ops.kernels.topk import streaming_topk
 from spotlight_tpu_torch.parallel.evaluation import (
     _block, candidate_scores_of_block, rank_weights_of_block, topk_of_block)
+from spotlight_tpu_torch.utils.profiling import span
 
 FLOAT_MAX = np.finfo(np.float32).max
 
@@ -311,7 +318,10 @@ def _rank_factors(model, kind, inputs):
     None when the model exposes no factors.  ``mixture`` is None for dot
     scoring."""
     factors_fn = getattr(model, '_rank_factors_' + kind, None)
-    return None if factors_fn is None else factors_fn(inputs)
+    if factors_fn is None:
+        return None
+    with span('spotlight.eval.factors'):
+        return factors_fn(inputs)
 
 
 def _streaming_ranks(model, kind, inputs, targets, target_mask,
@@ -489,11 +499,12 @@ def _model_device(model):
 
 def _eval_rows(test, train):
     """Users with test items, their padded test rows and train rows."""
-    test_csr = test.tocsr()
-    users = np.where(np.diff(test_csr.indptr) > 0)[0]
-    targets = _padded_rows(test_csr, users)
-    train_rows = (_padded_rows(train.tocsr(), users)
-                  if train is not None else None)
+    with span('spotlight.eval.rows'):
+        test_csr = test.tocsr()
+        users = np.where(np.diff(test_csr.indptr) > 0)[0]
+        targets = _padded_rows(test_csr, users)
+        train_rows = (_padded_rows(train.tocsr(), users)
+                      if train is not None else None)
     return users, targets, train_rows
 
 
@@ -505,9 +516,10 @@ def _batches(users, targets, train_rows, batch_size, device):
                      else (None for _ in range(0, len(users), batch_size)))
     for u, t, tr in zip(_batched(users, batch_size),
                         _batched(targets, batch_size), train_batches):
-        t = torch.as_tensor(_trim_batch_rows(t), device=device)
-        if tr is not None:
-            tr = torch.as_tensor(_trim_batch_rows(tr), device=device)
+        with span('spotlight.eval.upload'):
+            t = torch.as_tensor(_trim_batch_rows(t), device=device)
+            if tr is not None:
+                tr = torch.as_tensor(_trim_batch_rows(tr), device=device)
         yield u, t, tr
 
 
@@ -534,27 +546,28 @@ def mrr_score(model, test, train=None, batch_size=None, streaming=True):
     -------
     np.ndarray of shape (num_users_with_test_items,)
     """
-    users, targets, train_rows = _eval_rows(test, train)
-    device = _model_device(model)
-    streaming = _route(model, 'users', streaming, device, users[:1])
-    batch_size = _resolve_batch_size(batch_size, streaming)
+    with span('spotlight.mrr_score'):
+        users, targets, train_rows = _eval_rows(test, train)
+        device = _model_device(model)
+        streaming = _route(model, 'users', streaming, device, users[:1])
+        batch_size = _resolve_batch_size(batch_size, streaming)
 
-    mrrs = []
-    for u, t, tr in _batches(users, targets, train_rows, batch_size,
-                             device):
-        if streaming:
-            rr = _streaming_ranks(model, 'users', u, t, t >= 0,
-                                  train_rows=tr)
-            if rr is not None:
-                mrrs.append(rr)
-                continue
-            streaming = False  # the model exposes no factors
-        scores = _score_user_batch(model, u, device)
-        if tr is not None:
-            scores = _mask_scores(scores, tr)
-        mrrs.append(_reciprocal_ranks(scores, t, t >= 0))
+        mrrs = []
+        for u, t, tr in _batches(users, targets, train_rows, batch_size,
+                                 device):
+            if streaming:
+                rr = _streaming_ranks(model, 'users', u, t, t >= 0,
+                                      train_rows=tr)
+                if rr is not None:
+                    mrrs.append(rr)
+                    continue
+                streaming = False  # the model exposes no factors
+            scores = _score_user_batch(model, u, device)
+            if tr is not None:
+                scores = _mask_scores(scores, tr)
+            mrrs.append(_reciprocal_ranks(scores, t, t >= 0))
 
-    return torch.cat(mrrs).cpu().numpy() if mrrs else np.array([])
+        return torch.cat(mrrs).cpu().numpy() if mrrs else np.array([])
 
 
 @torch.no_grad()
@@ -581,49 +594,53 @@ def precision_recall_score(model, test, train=None, k=10, batch_size=None,
     (precision, recall) : np.ndarrays of shape (num_users,) for scalar k,
         (num_users, len(k)) for array k.
     """
-    scalar_k = np.isscalar(k)
-    k_values = tuple(np.atleast_1d(k).astype(int).tolist())
-    if max(k_values) > test.num_items:
-        raise ValueError('k ({}) exceeds the catalog size ({})'
-                         .format(max(k_values), test.num_items))
+    with span('spotlight.precision_recall_score'):
+        scalar_k = np.isscalar(k)
+        k_values = tuple(np.atleast_1d(k).astype(int).tolist())
+        if max(k_values) > test.num_items:
+            raise ValueError('k ({}) exceeds the catalog size ({})'
+                             .format(max(k_values), test.num_items))
 
-    users, targets, train_rows = _eval_rows(test, train)
-    device = _model_device(model)
-    # The call's widest fetch, k plus its widest train row (a batch's fetch
-    # is at most this, and at most the catalogue).
-    fetch = max(k_values) + (0 if train_rows is None else train_rows.shape[1])
-    streaming = _route(model, 'users', streaming, device, users[:1], fetch)
-    batch_size = _resolve_batch_size(batch_size, streaming)
+        users, targets, train_rows = _eval_rows(test, train)
+        device = _model_device(model)
+        # The call's widest fetch, k plus its widest train row (a batch's
+        # fetch is at most this, and at most the catalogue).
+        fetch = max(k_values) + (0 if train_rows is None
+                                 else train_rows.shape[1])
+        streaming = _route(model, 'users', streaming, device, users[:1],
+                           fetch)
+        batch_size = _resolve_batch_size(batch_size, streaming)
 
-    precisions, recalls = [], []
-    for u, t, tr in _batches(users, targets, train_rows, batch_size,
-                             device):
-        if streaming:
-            top_ids = _streaming_topk_hits(model, 'users', u, max(k_values),
-                                           train_rows=tr)
-            if top_ids is not None:
-                p, r = _precision_recall_from_topk(top_ids, t, t >= 0,
-                                                   k_values)
-                precisions.append(p)
-                recalls.append(r)
-                continue
-            streaming = False  # the model exposes no factors
-        scores = _score_user_batch(model, u, device)
-        if tr is not None:
-            scores = _mask_scores(scores, tr)
-        p, r = _precision_recall_from_scores(scores, t, t >= 0, k_values)
-        precisions.append(p)
-        recalls.append(r)
+        precisions, recalls = [], []
+        for u, t, tr in _batches(users, targets, train_rows, batch_size,
+                                 device):
+            if streaming:
+                top_ids = _streaming_topk_hits(model, 'users', u,
+                                               max(k_values), train_rows=tr)
+                if top_ids is not None:
+                    p, r = _precision_recall_from_topk(top_ids, t, t >= 0,
+                                                       k_values)
+                    precisions.append(p)
+                    recalls.append(r)
+                    continue
+                streaming = False  # the model exposes no factors
+            scores = _score_user_batch(model, u, device)
+            if tr is not None:
+                scores = _mask_scores(scores, tr)
+            p, r = _precision_recall_from_scores(scores, t, t >= 0,
+                                                 k_values)
+            precisions.append(p)
+            recalls.append(r)
 
-    if precisions:
-        precision, recall = torch.stack(
-            [torch.cat(precisions), torch.cat(recalls)]).cpu().numpy()
-    else:
-        # One column whatever k, as the JAX package returns.
-        precision = recall = np.empty((0, 1))
-    if scalar_k:
-        return precision[:, 0], recall[:, 0]
-    return precision, recall
+        if precisions:
+            precision, recall = torch.stack(
+                [torch.cat(precisions), torch.cat(recalls)]).cpu().numpy()
+        else:
+            # One column whatever k, as the JAX package returns.
+            precision = recall = np.empty((0, 1))
+        if scalar_k:
+            return precision[:, 0], recall[:, 0]
+        return precision, recall
 
 
 def _dedup_rows(matrix, pad_value=-1):
@@ -677,10 +694,12 @@ def _sequence_batches(prefixes, targets, excluded, batch_size, device):
     for prefix, t, masked in zip(_batched(prefixes, batch_size),
                                  _batched(targets, batch_size),
                                  excluded_batches):
-        if masked is not None:
-            masked = torch.as_tensor(_trim_batch_rows(masked), device=device)
-        yield prefix, torch.as_tensor(t.astype(np.int64),
-                                      device=device), masked
+        with span('spotlight.eval.upload'):
+            if masked is not None:
+                masked = torch.as_tensor(_trim_batch_rows(masked),
+                                         device=device)
+            t = torch.as_tensor(t.astype(np.int64), device=device)
+        yield prefix, t, masked
 
 
 @torch.no_grad()
@@ -706,29 +725,32 @@ def sequence_mrr_score(model, test, exclude_preceding=False, batch_size=None,
     -------
     np.ndarray of shape (num_sequences,)
     """
-    prefixes = test.sequences[:, :-1]
-    device = _model_device(model)
-    streaming = _route(model, 'sequences', streaming, device, prefixes[:1])
-    batch_size = _resolve_batch_size(batch_size, streaming)
+    with span('spotlight.sequence_mrr_score'):
+        with span('spotlight.eval.rows'):
+            prefixes = test.sequences[:, :-1]
+            excluded = _excluded_rows(prefixes, exclude_preceding)
+        device = _model_device(model)
+        streaming = _route(model, 'sequences', streaming, device,
+                           prefixes[:1])
+        batch_size = _resolve_batch_size(batch_size, streaming)
 
-    mrrs = []
-    for prefix, t, masked in _sequence_batches(
-            prefixes, test.sequences[:, -1:],
-            _excluded_rows(prefixes, exclude_preceding), batch_size,
-            device):
-        target_mask = torch.ones_like(t, dtype=torch.bool)
-        if streaming:
-            rr = _streaming_ranks(model, 'sequences', prefix, t, target_mask,
-                                  train_rows=masked)
-            if rr is not None:
-                mrrs.append(rr)
-                continue
-            streaming = False  # the model exposes no factors
-        scores = _sequence_final_scores(model, prefix, exclude_preceding,
-                                        device)
-        mrrs.append(_reciprocal_ranks(scores, t, target_mask))
+        mrrs = []
+        for prefix, t, masked in _sequence_batches(
+                prefixes, test.sequences[:, -1:], excluded, batch_size,
+                device):
+            target_mask = torch.ones_like(t, dtype=torch.bool)
+            if streaming:
+                rr = _streaming_ranks(model, 'sequences', prefix, t,
+                                      target_mask, train_rows=masked)
+                if rr is not None:
+                    mrrs.append(rr)
+                    continue
+                streaming = False  # the model exposes no factors
+            scores = _sequence_final_scores(model, prefix, exclude_preceding,
+                                            device)
+            mrrs.append(_reciprocal_ranks(scores, t, target_mask))
 
-    return torch.cat(mrrs).cpu().numpy() if mrrs else np.array([])
+        return torch.cat(mrrs).cpu().numpy() if mrrs else np.array([])
 
 
 @torch.no_grad()
@@ -753,41 +775,43 @@ def sequence_precision_recall_score(model, test, k=10,
     -------
     (precision, recall) : np.ndarrays of shape (num_sequences,)
     """
-    prefixes = test.sequences[:, :-k]
-    excluded = _excluded_rows(prefixes, exclude_preceding)
-    device = _model_device(model)
-    # The call's widest fetch, k plus its widest excluded row.
-    fetch = k + (0 if excluded is None else excluded.shape[1])
-    streaming = _route(model, 'sequences', streaming, device, prefixes[:1],
-                       fetch)
-    batch_size = _resolve_batch_size(batch_size, streaming)
+    with span('spotlight.sequence_precision_recall_score'):
+        with span('spotlight.eval.rows'):
+            prefixes = test.sequences[:, :-k]
+            excluded = _excluded_rows(prefixes, exclude_preceding)
+        device = _model_device(model)
+        # The call's widest fetch, k plus its widest excluded row.
+        fetch = k + (0 if excluded is None else excluded.shape[1])
+        streaming = _route(model, 'sequences', streaming, device,
+                           prefixes[:1], fetch)
+        batch_size = _resolve_batch_size(batch_size, streaming)
 
-    precisions, recalls = [], []
-    for prefix, t, masked in _sequence_batches(
-            prefixes, test.sequences[:, -k:], excluded, batch_size,
-            device):
-        target_mask = torch.ones_like(t, dtype=torch.bool)
-        if streaming:
-            top_ids = _streaming_topk_hits(model, 'sequences', prefix, k,
-                                           train_rows=masked)
-            if top_ids is not None:
-                p, r = _precision_recall_from_topk(top_ids, t, target_mask,
-                                                   (k,))
-                precisions.append(p[:, 0])
-                recalls.append(r[:, 0])
-                continue
-            streaming = False  # the model exposes no factors
-        scores = _sequence_final_scores(model, prefix, exclude_preceding,
-                                        device)
-        p, r = _precision_recall_from_scores(scores, t, target_mask, (k,))
-        precisions.append(p[:, 0])
-        recalls.append(r[:, 0])
+        precisions, recalls = [], []
+        for prefix, t, masked in _sequence_batches(
+                prefixes, test.sequences[:, -k:], excluded, batch_size,
+                device):
+            target_mask = torch.ones_like(t, dtype=torch.bool)
+            if streaming:
+                top_ids = _streaming_topk_hits(model, 'sequences', prefix, k,
+                                               train_rows=masked)
+                if top_ids is not None:
+                    p, r = _precision_recall_from_topk(
+                        top_ids, t, target_mask, (k,))
+                    precisions.append(p[:, 0])
+                    recalls.append(r[:, 0])
+                    continue
+                streaming = False  # the model exposes no factors
+            scores = _sequence_final_scores(model, prefix, exclude_preceding,
+                                            device)
+            p, r = _precision_recall_from_scores(scores, t, target_mask, (k,))
+            precisions.append(p[:, 0])
+            recalls.append(r[:, 0])
 
-    if not precisions:
-        return np.array([]), np.array([])
-    precision, recall = torch.stack(
-        [torch.cat(precisions), torch.cat(recalls)]).cpu().numpy()
-    return precision, recall
+        if not precisions:
+            return np.array([]), np.array([])
+        precision, recall = torch.stack(
+            [torch.cat(precisions), torch.cat(recalls)]).cpu().numpy()
+        return precision, recall
 
 
 def rmse_score(model, test):

@@ -21,6 +21,7 @@ from spotlight_tpu_torch.ops.lazy_adam import lazy_adam_init
 from spotlight_tpu_torch.parallel import training as ptraining
 from spotlight_tpu_torch.parallel.sharding import held_part, replicated_like
 from spotlight_tpu_torch.utils import training
+from spotlight_tpu_torch.utils.profiling import span
 from spotlight_tpu_torch.utils.serialization import SerializableEstimatorMixin
 
 
@@ -246,15 +247,17 @@ class _FactorizationBase(SerializableEstimatorMixin):
         -------
         self
         """
-        if not self._initialized:
-            self._initialize(interactions)
-        replicate_on_mesh(self)
-        data, n, num_batches = self._epoch_data(interactions)
-        epoch_fn = self._epoch_fn(num_batches)
-        self._params_version += 1
-        # The last epoch's loss, on the host (the verbose print's value).
-        self._last_epoch_loss = training.fit_epochs(epoch_fn, data, n,
-                                                    self._n_iter, verbose)
+        with span('spotlight.fit'):
+            if not self._initialized:
+                self._initialize(interactions)
+            replicate_on_mesh(self)
+            with span('spotlight.fit.epoch_data'):
+                data, n, num_batches = self._epoch_data(interactions)
+            epoch_fn = self._epoch_fn(num_batches)
+            self._params_version += 1
+            # The last epoch's loss, on the host (the verbose print's value).
+            self._last_epoch_loss = training.fit_epochs(
+                epoch_fn, data, n, self._n_iter, verbose)
         return self
 
     def _check_input(self, user_ids, item_ids, allow_items_none=False):

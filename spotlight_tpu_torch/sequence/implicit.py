@@ -47,6 +47,7 @@ from spotlight_tpu_torch.sequence.representations import (CNNNet, LSTMNet,
                                                           MixtureLSTMNet,
                                                           PoolNet)
 from spotlight_tpu_torch.utils import training
+from spotlight_tpu_torch.utils.profiling import span
 from spotlight_tpu_torch.utils.serialization import SerializableEstimatorMixin
 
 _LOSSES = tuple(IMPLICIT_LOSSES)
@@ -401,15 +402,17 @@ class ImplicitSequenceModel(SerializableEstimatorMixin):
         -------
         self
         """
-        if not self._initialized:
-            self._initialize(interactions)
-        replicate_on_mesh(self)
-        data, n, num_batches = self._epoch_data(interactions)
-        epoch_fn = self._epoch_fn(num_batches, data['sequences'].shape[1])
-        self._params_version += 1
-        # The last epoch's loss, on the host (the verbose print's value).
-        self._last_epoch_loss = training.fit_epochs(epoch_fn, data, n,
-                                                    self._n_iter, verbose)
+        with span('spotlight.fit'):
+            if not self._initialized:
+                self._initialize(interactions)
+            replicate_on_mesh(self)
+            with span('spotlight.fit.epoch_data'):
+                data, n, num_batches = self._epoch_data(interactions)
+            epoch_fn = self._epoch_fn(num_batches, data['sequences'].shape[1])
+            self._params_version += 1
+            # The last epoch's loss, on the host (the verbose print's value).
+            self._last_epoch_loss = training.fit_epochs(
+                epoch_fn, data, n, self._n_iter, verbose)
         return self
 
     def _sequences(self, sequences):

@@ -8,7 +8,13 @@ Counterpart of ``spotlight_tpu/utils/profiling.py``:
   directory, as the JAX package's yields its own;
 - :class:`ThroughputMeter`: examples/s with warm-up steps excluded.  On the
   card it synchronises before each reading of the clock, so a step's time
-  includes its device work.
+  includes its device work;
+- :class:`span`: a named interval of the host's time at a layer boundary
+  of the port (the metrics, ``fit``, the host's preparation, the factors,
+  the steps).  Off, it costs one check.  Under a ``torch.profiler`` run it
+  is a host operation of the trace, beside the card's activities on one
+  clock, and under a profiler or :func:`recording` it is also kept in a
+  bounded log in memory (:func:`spans`, :func:`self_time`).
 
 ``torch.profiler`` loses device events after several profiling sessions in
 one process: profile the card in a fresh process where every event counts.
@@ -16,8 +22,11 @@ one process: profile the card in a fresh process where every event counts.
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
 import os
+import threading
 import time
 
 import torch
@@ -113,3 +122,137 @@ class ThroughputMeter:
     @property
     def measured_steps(self):
         return max(0, self._steps - self._warmup_steps)
+
+
+#: Records the span log holds; a span that ends once it is full is counted
+#: in :data:`SPANS_DROPPED` instead.
+SPAN_LOG_LIMIT = 2 ** 18
+#: Spans left out of the full log since the last :func:`clear_spans`.
+SPANS_DROPPED = 0
+
+#: One span of the log: its ``name``; ``start`` and ``end`` on
+#: ``time.perf_counter``; its ``id``; the ``id`` of the span open around it
+#: on its thread (``parent``, None for an outermost span); and ``request``,
+#: the ``id`` of the outermost span (the entry point) it lies in.
+SpanRecord = collections.namedtuple(
+    'SpanRecord', 'name start end id parent request')
+
+_log = []
+_log_lock = threading.Lock()
+_ids = itertools.count(1)
+_open = threading.local()
+_recording = 0
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_marker = torch._C._profiler._RecordFunctionFast
+
+
+def _append(record):
+    global SPANS_DROPPED
+    with _log_lock:
+        if len(_log) < SPAN_LOG_LIMIT:
+            _log.append(record)
+        else:
+            SPANS_DROPPED += 1
+
+
+class span:
+    """``with span(name):`` names the host's time in the block.
+
+    Off (no ``torch.profiler`` run recording and no :func:`recording`
+    block open) it reads two flags and does nothing else.  On, it
+
+    - opens ``torch._C._profiler._RecordFunctionFast(name)``, while a
+      profiler records: the span is then a host operation of the trace on
+      the caller's thread (not a user annotation), on the clock of the
+      card's activities, so a gap in the card's work is labelled with the
+      span open across it;
+    - appends a :class:`SpanRecord` to the log when the block ends (also
+      when it raises): its parent is the span open around it on the same
+      thread, its request the outermost one.
+
+    The port opens spans at its layer boundaries, none inside a kernel's
+    wrapper.
+    """
+
+    __slots__ = ('name', '_stack', '_mark', '_start', '_id', '_parent',
+                 '_request')
+
+    def __init__(self, name):
+        self.name = name
+        self._stack = None
+
+    def __enter__(self):
+        profiling = _profiler_enabled()
+        if not (profiling or _recording):
+            return self
+        stack = getattr(_open, 'stack', None)
+        if stack is None:
+            stack = _open.stack = []
+        self._id = next(_ids)
+        if stack:
+            self._parent, self._request = stack[-1]._id, stack[-1]._request
+        else:
+            self._parent, self._request = None, self._id
+        self._mark = None
+        if profiling:
+            self._mark = _marker(self.name)
+            self._mark.__enter__()
+        stack.append(self)
+        self._stack = stack
+        self._start = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc_info):
+        stack = self._stack
+        if stack is None:
+            return False
+        end = time.perf_counter()
+        self._stack = None
+        stack.pop()
+        if self._mark is not None:
+            self._mark.__exit__(*exc_info)
+        _append(SpanRecord(self.name, self._start, end, self._id,
+                           self._parent, self._request))
+        return False
+
+
+@contextlib.contextmanager
+def recording():
+    """Keep the port's spans in the log within the block, without a
+    profiler (and without the profiler's cost).  Blocks nest."""
+    global _recording
+    with _log_lock:
+        _recording += 1
+    try:
+        yield
+    finally:
+        with _log_lock:
+            _recording -= 1
+
+
+def spans():
+    """A copy of the span log, in the order the spans ended."""
+    with _log_lock:
+        return list(_log)
+
+
+def clear_spans():
+    """Empty the span log and zero :data:`SPANS_DROPPED`."""
+    global SPANS_DROPPED
+    with _log_lock:
+        _log.clear()
+        SPANS_DROPPED = 0
+
+
+def self_time(record, records=None):
+    """Seconds of ``record`` that none of its children (the spans of
+    ``records``, default the log, whose parent it is) covers."""
+    records = spans() if records is None else records
+    covered, reach = 0.0, record.start
+    for child in sorted((r for r in records if r.parent == record.id),
+                        key=lambda r: r.start):
+        start, end = max(child.start, reach), min(child.end, record.end)
+        if end > start:
+            covered += end - start
+            reach = end
+    return (record.end - record.start) - covered

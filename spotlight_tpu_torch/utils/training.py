@@ -16,7 +16,11 @@ without ``jit``:
   epoch loss is read one epoch late (:class:`EpochLossDrain`);
 - on a mesh every rank draws the whole epoch alike and steps on its slice
   of each batch (:func:`make_epoch_fn`'s ``shard``; the step is
-  ``parallel.training.build_step``).
+  ``parallel.training.build_step``);
+- the host's time is named by spans (``utils.profiling.span``):
+  ``spotlight.fit.epoch_draws`` for :func:`epoch_draws` and one
+  ``spotlight.fit.step`` a step of :func:`run_epoch`, within the
+  estimators' ``spotlight.fit``.
 
 The default optimizer (:class:`Adam`) is optax's
 ``chain(add_decayed_weights(l2), adam(lr))``, the reference's coupled weight
@@ -29,6 +33,7 @@ import numpy as np
 import torch
 
 from spotlight_tpu_torch.ops.sampling import sample_items_device
+from spotlight_tpu_torch.utils.profiling import span
 
 #: Adam's defaults, optax's and the JAX package's (both engines).
 B1, B2, EPS = 0.9, 0.999, 1e-8
@@ -157,13 +162,15 @@ def epoch_draws(generator, padded_length, negatives_shape=None,
     ``device`` in one copy: the permutation of the padded rows and, with
     ``negatives_shape`` (``(num_batches, n_neg, batch_size)``), uniform item
     ids in ``[0, num_items)``.  Returns ``(perm, negatives or None)``."""
-    perm = torch.randperm(padded_length, generator=generator)
-    if not negatives_shape:
-        return perm.to(device), None
-    negatives = sample_items_device(generator, num_items, negatives_shape)
-    both = torch.cat([perm, negatives.reshape(-1)]).to(device)
-    return both[:padded_length], both[padded_length:].reshape(
-        negatives_shape)
+    with span('spotlight.fit.epoch_draws'):
+        perm = torch.randperm(padded_length, generator=generator)
+        if not negatives_shape:
+            return perm.to(device), None
+        negatives = sample_items_device(generator, num_items,
+                                        negatives_shape)
+        both = torch.cat([perm, negatives.reshape(-1)]).to(device)
+        return both[:padded_length], both[padded_length:].reshape(
+            negatives_shape)
 
 
 def shuffle_and_batch(perm, data, n_valid, num_batches, batch_size):
@@ -186,9 +193,10 @@ def run_epoch(step, data, n_valid, num_batches, batch_size, perm,
     batched = shuffle_and_batch(perm, data, n_valid, num_batches, batch_size)
     losses = []
     for b in range(num_batches):
-        batch = {name: value[b] for name, value in batched.items()}
-        losses.append(step(batch, None if negatives is None
-                           else negatives[b]))
+        with span('spotlight.fit.step'):
+            batch = {name: value[b] for name, value in batched.items()}
+            losses.append(step(batch, None if negatives is None
+                               else negatives[b]))
     return torch.stack(losses).mean()
 
 
