@@ -18,7 +18,15 @@ each of which exits non-zero when it fails:
    and ids exactly, K2's and K4's scores bit for bit); the median time of
    each but K1c and K4 (timed in phase 7, on the main paths' operands),
    the plain version's, one PyTorch call's where one computes the same
-   function, and the card's bound for the work.
+   function, and the card's bound for the work.  Then K1 on the rows of
+   the benchmark's ``mf-msd.mrr`` calls (``benchmark/data.py``: that
+   cell's configuration, split and draw; B=2,048 over its 384,546 items,
+   D=64, each row's test count of targets and NaN after them, as
+   ``mrr_score`` hands them over): ``ragged_rank_weights`` (the ragged
+   launch plan) bit for bit against ``rank_weights`` (every row on every
+   target chunk) on every call and against the plain version on the
+   first, 0 on every pad; its launches and row passes, and both timed in
+   turns beside the rank pass's bound.
 4. slice: the implicit-MF serving path at full width: 50,000 users x
    200,000 items, D=64, ``predict``, ``mrr_score`` over 20,000 test users
    with a train mask and ``precision_recall_score`` at k=10 with a train
@@ -315,6 +323,12 @@ SEQ_K = 10
 #: Users of a plain mixture pass: it holds several (N, B) float32
 #: temporaries, 205 MB each at B=256, so larger batches run in slices.
 MIX_BATCH = 256
+#: K1's ragged case: calls of the benchmark's mf-msd.mrr cell.
+RAGGED_CONFIG = os.path.join('benchmark', 'configs', 'mf_bpr_msd.json')
+RAGGED_BATCH = 2_048
+RAGGED_CALLS = 4
+RAGGED_SEED = 2_147_483_659
+RAGGED_REPS = 5
 #: The bloom slice: examples/bloom_embeddings/performance.py's model,
 #: LSTMNet with a BloomEmbedding item layer (ratio 0.2, 4 hashes), at the
 #: third of its catalogue sizes.
@@ -566,6 +580,98 @@ def check_rank_kernels(torch, card, generator):
         del users, items, bias, ts, weights, plain
         torch.cuda.empty_cache()
     return entries
+
+
+def ragged_calls():
+    """``(num_items, widths)``: the catalogue and each row's count of test
+    items in ``RAGGED_CALLS`` calls of ``mf-msd.mrr`` at ``RAGGED_SEED``
+    (the cell's own split and stratified draw)."""
+    from benchmark import data
+
+    with open(os.path.join(ROOT, RAGGED_CONFIG)) as f:
+        cfg = json.load(f)
+    split = data.interactions(cfg, RAGGED_SEED, DEVICE)
+    indptr, _, population = data.test_rows(
+        split.test_users, split.test_items, cfg['num_users'])
+    del split
+    counts = np.diff(indptr)
+    pool = data.call_rows(population, counts[population], RAGGED_BATCH,
+                          RAGGED_CALLS, RAGGED_SEED)
+    return cfg['num_items'], [counts[rows] for rows in pool]
+
+
+def check_ragged_rank_pass(torch, card, generator):
+    """K1 on rows of ragged target counts, the ``mf-msd.mrr`` cell's calls
+    (phase 3): each call's kernel-table line."""
+    from benchmark import peaks
+    from spotlight_tpu_torch.ops.kernels import _build, ranking
+
+    num_items, calls = ragged_calls()
+    torch.cuda.empty_cache()
+    chunk = _build.load('ranking').spotlight_rank_max_targets(D, 0)
+    users = torch.randn(RAGGED_BATCH, D, generator=generator,
+                        device=DEVICE) / D ** .5
+    items = torch.randn(num_items, D, generator=generator,
+                        device=DEVICE) / D ** .5
+    bias = 0.1 * torch.randn(num_items, generator=generator, device=DEVICE)
+    for call, widths in enumerate(calls):
+        num_targets = int(widths.max())
+        shape = 'B={} N={} D={} T={} (mf-msd.mrr call {})'.format(
+            RAGGED_BATCH, num_items, D, num_targets, call)
+        ids = torch.randint(0, num_items, (RAGGED_BATCH, num_targets),
+                            generator=generator, device=DEVICE)
+        pads = (torch.arange(num_targets, device=DEVICE)[None, :]
+                >= torch.as_tensor(widths, device=DEVICE)[:, None])
+        ts = ranking.matched_target_scores(users, items, bias, ids
+                                           ).masked_fill(pads, float('nan'))
+
+        def ragged():
+            return ranking.ragged_rank_weights(users, items, bias, ts,
+                                               widths)
+
+        def chunk_loop():
+            return ranking.rank_weights(users, items, bias, ts)
+
+        before = (ranking.RANK_WEIGHTS_LAUNCHES,
+                  ranking.RANK_WEIGHTS_ROW_PASSES)
+        weights = ragged()
+        launches = ranking.RANK_WEIGHTS_LAUNCHES - before[0]
+        row_passes = ranking.RANK_WEIGHTS_ROW_PASSES - before[1]
+        wants = [('rank_weights', chunk_loop())]
+        if call == 0:
+            wants.append(('rank_weights_plain', ranking.rank_weights_plain(
+                users, items, bias, ts)))
+        for name, want in wants:
+            if not torch.equal(weights, want):
+                raise AssertionError(
+                    'ragged_rank_weights differs from {} at {}: {} of {} '
+                    'weights'.format(name, shape,
+                                     int((weights != want).sum()),
+                                     weights.numel()))
+        del wants, want
+        if not (bool((weights[pads] == 0).all())
+                and bool((weights[~pads] >= 0.5).all())):
+            raise AssertionError('a pad counted, or a target lost its '
+                                 'self-tie, at ' + shape)
+        times = interleaved_ms(torch, {'ragged': ragged,
+                                       'chunk_loop': chunk_loop},
+                               RAGGED_REPS)
+        device_ms, activities = device_work(torch, ragged, RAGGED_REPS)
+        case = kernel_entry(
+            'rank_weights (ragged)', 'ranking.cu',
+            'spotlight_tpu/ops/kernels/ranking.py:107', shape,
+            times['ragged'], None,
+            *peaks.rank_pass(RAGGED_BATCH, num_items, D, num_targets), 0.0,
+            chunk_loop_ms=times['chunk_loop'], device_ms=device_ms,
+            device_activities=activities, launches=launches,
+            row_passes=row_passes,
+            chunk_loop_row_passes=RAGGED_BATCH * -(-num_targets // chunk),
+            rows_past_chunk=int((widths > chunk).sum()),
+            rows_at_most_4=int((widths <= 4).sum()))
+        log(kernel_case=case, card=card)
+        del ids, pads, ts, weights
+    del users, items, bias
+    torch.cuda.empty_cache()
 
 
 def check_topk_kernel(torch, card, generator):
@@ -5600,6 +5706,7 @@ def main():
     generator = torch.Generator(device='cuda')
     generator.manual_seed(0)
     entries = check_rank_kernels(torch, card, generator)
+    check_ragged_rank_pass(torch, card, generator)
     entries['streaming_topk'] = check_topk_kernel(torch, card, generator)
     check_mixture_kernels(torch, card, generator)
 

@@ -56,7 +56,7 @@ import torch
 from spotlight_tpu_torch.factorization._base import resolve_device
 from spotlight_tpu_torch.ops.kernels import ranking, topk
 from spotlight_tpu_torch.ops.kernels.ranking import (
-    matched_candidate_scores, matched_target_scores, rank_weights)
+    matched_candidate_scores, matched_target_scores, ragged_rank_weights)
 from spotlight_tpu_torch.ops.kernels.topk import streaming_topk
 from spotlight_tpu_torch.parallel.evaluation import (
     _block, candidate_scores_of_block, rank_weights_of_block, topk_of_block)
@@ -181,18 +181,23 @@ def _matched_scores(reprs, item_matrix, item_bias, ids, mixture):
 
 
 def _streaming_ranks_device(reprs, item_matrix, item_bias, targets,
-                            target_mask, train_rows, mixture=None):
+                            target_mask, train_rows, mixture=None,
+                            widths=None):
     """Per-batch streaming MRR: matched target scores, the rank kernel,
     then the train correction, all on the batch's device.  ``mixture`` is
-    the number of mixture components (None: dot scoring)."""
+    the number of mixture components (None: dot scoring); ``widths`` the
+    rows' target counts on the host, where they are known."""
     num_items = item_matrix.shape[0]
     safe_targets = targets.clamp(0, num_items - 1)
     # The target scores bit-match the kernel's tile scores, so each
     # target's comparison with itself is an exact tie (weight 0.5).
     target_scores = _matched_scores(reprs, item_matrix, item_bias,
                                     safe_targets, mixture)
-    weights = rank_weights(reprs, item_matrix, item_bias, target_scores,
-                           mixture)
+    # A pad's score is NaN, which counts nothing: given the rows' widths,
+    # the rank kernel scores each row only against the chunks it holds.
+    pads_nan = target_scores.masked_fill(~target_mask, float('nan'))
+    weights = ragged_rank_weights(reprs, item_matrix, item_bias, pads_nan,
+                                  widths, mixture)
 
     if train_rows is not None:
         valid_train = train_rows >= 0
@@ -325,9 +330,10 @@ def _rank_factors(model, kind, inputs):
 
 
 def _streaming_ranks(model, kind, inputs, targets, target_mask,
-                     train_rows=None):
+                     train_rows=None, widths=None):
     """Per-row mean reciprocal ranks through the rank kernel, or None when
-    the model exposes no factors."""
+    the model exposes no factors.  ``widths``: each row's count of
+    targets, which come first in it, where the host knows them."""
     factors = _rank_factors(model, kind, inputs)
     if factors is None:
         return None
@@ -338,7 +344,7 @@ def _streaming_ranks(model, kind, inputs, targets, target_mask,
             mesh, reprs, _shard_catalog(model, mesh, item_matrix, item_bias),
             targets, target_mask, train_rows, mixture, model._num_items)
     return _streaming_ranks_device(reprs, item_matrix, item_bias, targets,
-                                   target_mask, train_rows, mixture)
+                                   target_mask, train_rows, mixture, widths)
 
 
 def _mask_scores(scores, mask_indices):
@@ -498,14 +504,16 @@ def _model_device(model):
 
 
 def _eval_rows(test, train):
-    """Users with test items, their padded test rows and train rows."""
+    """Users with test items, their padded test rows and train rows, and
+    their counts of test items."""
     with span('spotlight.eval.rows'):
         test_csr = test.tocsr()
-        users = np.where(np.diff(test_csr.indptr) > 0)[0]
+        counts = np.diff(test_csr.indptr)
+        users = np.where(counts > 0)[0]
         targets = _padded_rows(test_csr, users)
         train_rows = (_padded_rows(train.tocsr(), users)
                       if train is not None else None)
-    return users, targets, train_rows
+    return users, targets, train_rows, counts[users]
 
 
 def _batches(users, targets, train_rows, batch_size, device):
@@ -547,17 +555,18 @@ def mrr_score(model, test, train=None, batch_size=None, streaming=True):
     np.ndarray of shape (num_users_with_test_items,)
     """
     with span('spotlight.mrr_score'):
-        users, targets, train_rows = _eval_rows(test, train)
+        users, targets, train_rows, widths = _eval_rows(test, train)
         device = _model_device(model)
         streaming = _route(model, 'users', streaming, device, users[:1])
         batch_size = _resolve_batch_size(batch_size, streaming)
 
         mrrs = []
-        for u, t, tr in _batches(users, targets, train_rows, batch_size,
-                                 device):
+        for (u, t, tr), w in zip(_batches(users, targets, train_rows,
+                                          batch_size, device),
+                                 _batched(widths, batch_size)):
             if streaming:
                 rr = _streaming_ranks(model, 'users', u, t, t >= 0,
-                                      train_rows=tr)
+                                      train_rows=tr, widths=w)
                 if rr is not None:
                     mrrs.append(rr)
                     continue
@@ -601,7 +610,7 @@ def precision_recall_score(model, test, train=None, k=10, batch_size=None,
             raise ValueError('k ({}) exceeds the catalog size ({})'
                              .format(max(k_values), test.num_items))
 
-        users, targets, train_rows = _eval_rows(test, train)
+        users, targets, train_rows, _ = _eval_rows(test, train)
         device = _model_device(model)
         # The call's widest fetch, k plus its widest train row (a batch's
         # fetch is at most this, and at most the catalogue).

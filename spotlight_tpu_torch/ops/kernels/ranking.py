@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from spotlight_tpu_torch.ops.kernels import _build
@@ -42,6 +43,11 @@ RANK_COUNTS_LAUNCHES = 0
 MIXTURE_RANK_COUNTS_LAUNCHES = 0
 MATCHED_SCORES_LAUNCHES = 0
 CANDIDATE_SCORES_LAUNCHES = 0
+#: Rows handed to the rank kernel by :func:`rank_weights`' and
+#: :func:`ragged_rank_weights`' launches (dot and mixture scoring), summed
+#: over a call's launches: ``B * ceil(T / chunk)`` a call of every row on
+#: every target chunk, fewer where :func:`rank_launches` skips pads.
+RANK_WEIGHTS_ROW_PASSES = 0
 
 #: Most mixture components the kernels take (``kMaxMixtures``, common.cuh).
 MAX_MIXTURES = 8
@@ -220,7 +226,8 @@ def rank_weights(user_reprs, item_matrix, item_bias, target_scores,
     is ``weights + 0.5``.  ``target_scores`` must come from
     :func:`matched_target_scores` (dot scoring) or
     :func:`matched_candidate_scores` (mixtures), so that the target's
-    comparison with itself is an exact tie.
+    comparison with itself is an exact tie.  A NaN target counts nothing
+    (weight 0).
 
     Parameters
     ----------
@@ -235,15 +242,38 @@ def rank_weights(user_reprs, item_matrix, item_bias, target_scores,
     -------
     (B, T) float32 weights.
     """
+    return ragged_rank_weights(user_reprs, item_matrix, item_bias,
+                               target_scores, None, num_mixtures)
+
+
+def ragged_rank_weights(user_reprs, item_matrix, item_bias, target_scores,
+                        widths, num_mixtures=None):
+    """:func:`rank_weights` of rows that hold their real targets first:
+    row ``b``'s are its first ``widths[b]`` columns and the rest are NaN
+    (the streaming MRR's pads, whose widths the host knows).  On the card
+    the kernel then runs only on the (rows, target chunk) pairs that hold
+    a real target (:func:`rank_launches`); ``widths`` None runs every row
+    on every chunk.  The weights are :func:`rank_weights`' either way.
+
+    Parameters
+    ----------
+    widths : (B,) host ints in ``[0, T]``, or None
+    """
     check_factors(user_reprs, item_matrix, item_bias, num_mixtures)
     if (target_scores.dim() != 2 or target_scores.dtype != torch.float32
             or target_scores.shape[0] != user_reprs.shape[0]):
         raise ValueError('target_scores must be (B, T) float32')
+    if widths is not None:
+        widths = np.asarray(widths, dtype=np.int64)
+        if widths.shape != target_scores.shape[:1] or (
+                len(widths) and not 0 <= widths.min() <= widths.max()
+                <= target_scores.shape[1]):
+            raise ValueError('widths must be (B,) ints in [0, T]')
     if not on_cuda(user_reprs, item_matrix, item_bias, target_scores):
         return rank_weights_plain(user_reprs, item_matrix, item_bias,
                                    target_scores, num_mixtures)
     return _rank_weights_cuda(user_reprs, item_matrix, item_bias,
-                              target_scores, num_mixtures)
+                              target_scores, num_mixtures, widths)
 
 
 def rank_weights_plain(user_reprs, item_matrix, item_bias, target_scores,
@@ -261,35 +291,137 @@ def rank_weights_plain(user_reprs, item_matrix, item_bias, target_scores,
     return half_units.float() * 0.5
 
 
+def range_widths(chunk, mixtures):
+    """Widest in-chunk target count of each width range of
+    :func:`rank_launches`, narrowest first: the rank kernel's
+    instantiations (``dispatch_rank`` in csrc/ranking.cu: the targets a
+    narrow launch holds in registers, 4, or 1 with mixtures of more than 4
+    tastes; then 8 to 64 sorted targets with dot scoring), up to the
+    chunk.  The narrow ones (1, 2 and 4 targets) share a range: they cost
+    about the same a row, and a range more costs a launch more."""
+    narrow = 1 if mixtures > 4 else 4
+    widths = (narrow,) + (() if mixtures else (8, 16, 32, 64))
+    return tuple(w for w in widths if w < chunk) + (chunk,)
+
+
+def _chunk_loop(batch, num_targets, chunk):
+    return [(0, batch, start, min(chunk, num_targets - start))
+            for start in range(0, num_targets, chunk)]
+
+
+def rank_launches(widths, num_targets, chunk, ranges, block_users):
+    """The rank kernel's launches for rows of ragged target widths.
+
+    Each launch is ``(first_row, end_row, first_col, num_cols)`` over the
+    rows sorted by width, descending: rows ``[first_row, end_row)`` against
+    target columns ``[first_col, first_col + num_cols)``.  Chunk ``c``
+    (``chunk`` columns from ``c * chunk``) takes only the rows that hold a
+    target there, the prefix of rows wider than ``c * chunk``, split at
+    the ``ranges`` (:func:`range_widths`) of their widths within the chunk,
+    each split rounded up to whole blocks of ``block_users`` (a launch's
+    last block is paid for whole, so narrower rows fill it).  A launch
+    takes as many columns as its widest row has in the chunk: the kernel
+    runs the narrowest instantiation that holds them.  Where every row is
+    ``num_targets`` wide, or ``num_targets`` fits the narrowest range,
+    this is one launch of every row a chunk.
+
+    Parameters
+    ----------
+    widths : (B,) ints, descending: each row's last real target column + 1
+    num_targets : int, T
+    chunk : int, the widest target block of one launch
+    ranges : tuple of ints, :func:`range_widths`
+    block_users : int, users a block of the rank kernel
+    """
+    batch = len(widths)
+    if num_targets <= ranges[0] or (batch and widths[-1] >= num_targets):
+        return _chunk_loop(batch, num_targets, chunk)
+    descending = -np.asarray(widths, dtype=np.int64)
+
+    def rows_past(width):
+        return int(np.searchsorted(descending, -width, side='left'))
+
+    launches = []
+    for start in range(0, num_targets, chunk):
+        rows = rows_past(start)
+        first = 0
+        for width in ranges[-2::-1] + (0,):
+            end = min(rows, -(-rows_past(start + width) // block_users)
+                      * block_users)
+            if end > first:
+                launches.append((first, end, start,
+                                 min(int(widths[first]) - start, chunk)))
+                first = end
+    return launches
+
+
+def _launch_plan(widths, batch, num_targets, chunk, ranges, block_users):
+    """``(order, launches)`` of :func:`rank_launches` for a call's host
+    ``widths`` (None: every row on every chunk), ``order`` the rows sorted
+    by width, descending, or None where the launches are one of every row a
+    chunk, which run on the rows as they are."""
+    loop = _chunk_loop(batch, num_targets, chunk)
+    if widths is None:
+        return None, loop
+    order = np.argsort(-widths, kind='stable')
+    launches = rank_launches(widths[order], num_targets, chunk, ranges,
+                             block_users)
+    return (None, loop) if launches == loop else (order, launches)
+
+
+def _upload(array, device):
+    """A host array on ``device``, copied from pinned memory without
+    waiting for the work queued on the card."""
+    tensor = torch.from_numpy(array)
+    if device.type != 'cuda':
+        return tensor.to(device)
+    return tensor.pin_memory().to(device, non_blocking=True)
+
+
 def _rank_weights_cuda(user_reprs, item_matrix, item_bias, target_scores,
-                       num_mixtures=None):
+                       num_mixtures=None, widths=None):
     global RANK_WEIGHTS_LAUNCHES, MIXTURE_RANK_WEIGHTS_LAUNCHES
+    global RANK_WEIGHTS_ROW_PASSES
     require_contiguous(user_reprs, item_matrix, item_bias)
     lib = _build.load('ranking')
-    batch = user_reprs.shape[0]
+    batch, num_targets = target_scores.shape
     num_items, dim = item_matrix.shape
     mixtures = num_mixtures or 0
     _check_width(lib, dim, mixtures)
     device = user_reprs.device
-    splits = _rank_splits(lib, batch, device, mixtures)
     chunk = lib.spotlight_rank_max_targets(dim, mixtures)
+    order, launches = _launch_plan(
+        widths, batch, num_targets, chunk, range_widths(chunk, mixtures),
+        lib.spotlight_rank_block_users(mixtures))
+    if order is not None:
+        order = _upload(order, device)
+        user_reprs = user_reprs.index_select(0, order)
+        target_scores = target_scores.index_select(0, order)
+    half_units = torch.zeros(batch, num_targets, dtype=torch.int32,
+                             device=device)
     stream = stream_handle(device)
-    parts = []
-    for start in range(0, target_scores.shape[1], chunk):
-        ts = target_scores[:, start:start + chunk].contiguous()
-        half_units = torch.zeros(ts.shape, dtype=torch.int32, device=device)
+    for first, end, start, cols in launches:
+        whole = start == 0 and cols == num_targets
+        ts = target_scores[first:end, start:start + cols].contiguous()
+        out = (half_units[first:end] if whole
+               else torch.zeros(ts.shape, dtype=torch.int32, device=device))
         status = lib.spotlight_rank_weights(
-            user_reprs.data_ptr(), item_matrix.data_ptr(),
+            user_reprs[first:end].data_ptr(), item_matrix.data_ptr(),
             int(item_matrix.dtype == torch.bfloat16), item_bias.data_ptr(),
-            ts.data_ptr(), half_units.data_ptr(), batch, num_items, dim,
-            ts.shape[1], mixtures, splits, stream)
+            ts.data_ptr(), out.data_ptr(), end - first, num_items, dim, cols,
+            mixtures, _rank_splits(lib, end - first, device, mixtures),
+            stream)
         _build.check(status, 'rank_weights kernel')
         if mixtures:
             MIXTURE_RANK_WEIGHTS_LAUNCHES += 1
         else:
             RANK_WEIGHTS_LAUNCHES += 1
-        parts.append(half_units)
-    half_units = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+        RANK_WEIGHTS_ROW_PASSES += end - first
+        if not whole:
+            half_units[first:end, start:start + cols] = out
+    if order is not None:
+        half_units = torch.empty_like(half_units).index_copy_(0, order,
+                                                              half_units)
     return half_units.float() * 0.5
 
 

@@ -27,8 +27,9 @@ import torch
 from spotlight_tpu_torch import evaluation
 from spotlight_tpu_torch.data import Interactions, SequenceInteractions
 from spotlight_tpu_torch.factorization import ImplicitFactorizationModel
-from spotlight_tpu_torch.ops.kernels import (bloom, gather_sum, multihot,
-                                             ranking, row_update, topk)
+from spotlight_tpu_torch.ops.kernels import (_build, bloom, gather_sum,
+                                             multihot, ranking, row_update,
+                                             topk)
 from spotlight_tpu_torch.ops.lazy_adam import sparse_adam_rows
 from spotlight_tpu_torch.sequence import ImplicitSequenceModel, MixtureLSTMNet
 from spotlight_tpu_torch.utils.convert import params_from_jax
@@ -260,6 +261,62 @@ def test_each_launch_counts_once(cuda):
     topk.streaming_topk(mix_users, items, bias, 20, 2)
     after = [getattr(module, name) for module, name in counters]
     assert [a - b for a, b in zip(after, before)] == [1, 1, 3, 1, 1, 1]
+
+
+@pytest.mark.parametrize('mixtures', [None, 4])
+def test_ragged_rank_weights_equal_plain_versions(cuda, mixtures):
+    """Rows of Zipf-like target counts, most at 4 or fewer and a few past
+    128 and 256, NaN after each row's real targets: given the counts, the
+    kernel runs only on the (rows, chunk) pairs that hold a target
+    (``rank_launches``), and the weights equal the plain version's bit for
+    bit, ``rank_weights``' on the same rows (every chunk) and the chunk
+    loop's over the same rows without pads, with 0 on every pad."""
+    batch, num_items, dim, widest = 300, 20_000, 64, 300
+    users, items, bias = _operands(17, batch, num_items, dim,
+                                   mixtures=mixtures)
+    if mixtures:
+        users = users / dim ** .5
+    rs = np.random.RandomState(5)
+    widths = np.minimum(widest, 1 + np.floor(rs.pareto(1.1, batch)))
+    widths = widths.astype(np.int64)
+    widths[:3] = (widest, 257, 129)
+    rs.shuffle(widths)
+    ids = torch.from_numpy(rs.randint(0, num_items, (batch, widest))).to(cuda)
+    pads = (torch.arange(widest, device=cuda)[None, :]
+            >= torch.as_tensor(widths, device=cuda)[:, None])
+    if mixtures:
+        full = ranking.matched_candidate_scores(users, items, bias, ids,
+                                                mixtures)
+    else:
+        full = ranking.matched_target_scores(users, items, bias, ids)
+    ts = full.masked_fill(pads, float('nan'))
+
+    names = ('RANK_WEIGHTS_ROW_PASSES',
+             'MIXTURE_RANK_WEIGHTS_LAUNCHES' if mixtures
+             else 'RANK_WEIGHTS_LAUNCHES')
+    before = [getattr(ranking, name) for name in names]
+    weights = ranking.ragged_rank_weights(users, items, bias, ts, widths,
+                                          mixtures)
+    moved = [getattr(ranking, name) - b for name, b in zip(names, before)]
+    assert torch.equal(weights, ranking.rank_weights_plain(
+        users, items, bias, ts, mixtures))
+    assert torch.equal(weights, ranking.rank_weights(users, items, bias, ts,
+                                                     mixtures))
+    assert bool((weights[pads] == 0).all())
+    unpadded = ranking.rank_weights(users, items, bias, full, mixtures)
+    assert torch.equal(weights[~pads], unpadded[~pads])
+    assert bool((weights[~pads] >= 0.5).all())   # every target tied itself
+
+    lib = _build.load('ranking')
+    chunk = lib.spotlight_rank_max_targets(dim, mixtures or 0)
+    assert chunk == (32 if mixtures else 128)
+    plan = ranking.rank_launches(
+        np.sort(widths)[::-1].copy(), widest, chunk,
+        ranking.range_widths(chunk, mixtures or 0),
+        lib.spotlight_rank_block_users(mixtures or 0))
+    row_passes = sum(end - first for first, end, _, _ in plan)
+    assert moved == [row_passes, len(plan)]
+    assert row_passes < 0.5 * batch * -(-widest // chunk)
 
 
 @pytest.mark.parametrize('batch,num_items,dim,mixtures,width,dtype', [

@@ -119,6 +119,48 @@ def test_streaming_equals_materialize_in_ragged_batches(batch_size):
             np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize('masked', [False, True])
+def test_mrr_of_heavy_and_light_users_in_one_batch(monkeypatch, masked):
+    """Two users with 80 and 40 test items beside users with one to four:
+    the pads reach the rank pass as NaN target scores, which count nothing,
+    with each row's count of targets from the host, and the MRR equals
+    JAX's and the materialize path's."""
+    jax_model, port, train, test, ptrain, _ = _setup()
+    rs = np.random.RandomState(5)
+    users = [np.full(80, 3), np.full(40, 7)]
+    items = [rs.choice(train.num_items, 80, replace=False),
+             rs.choice(train.num_items, 40, replace=False)]
+    for user in range(10, 60):
+        count = 1 + user % 4
+        users.append(np.full(count, user))
+        items.append(rs.choice(train.num_items, count, replace=False))
+    users, items = np.concatenate(users), np.concatenate(items)
+    from spotlight_tpu.data.interactions import Interactions as JaxInter
+    jax_heavy = JaxInter(users, items, num_users=train.num_users,
+                         num_items=train.num_items)
+    heavy = to_port(jax_heavy)
+    seen = []
+    original = evaluation.ragged_rank_weights
+
+    def spy(users, items, bias, target_scores, widths, mixture):
+        seen.append((torch.isnan(target_scores).sum(dim=1), widths))
+        return original(users, items, bias, target_scores, widths, mixture)
+
+    monkeypatch.setattr(evaluation, 'ragged_rank_weights', spy)
+    kwargs = {'train': ptrain} if masked else {}
+    got = evaluation.mrr_score(port, heavy, **kwargs)
+    want = jax_eval.mrr_score(jax_model, jax_heavy,
+                              train=train if masked else None)
+    np.testing.assert_allclose(got, want, rtol=MRR_RTOL, atol=0)
+    np.testing.assert_allclose(
+        got, evaluation.mrr_score(port, heavy, streaming=False, **kwargs),
+        rtol=MRR_RTOL, atol=0)
+    counts = np.bincount(users)[np.unique(users)]
+    assert len(seen) == 1
+    assert seen[0][0].tolist() == (80 - counts).tolist()
+    assert seen[0][1].tolist() == counts.tolist()
+
+
 class _PredictOnly:
     """A model that only predicts: the metrics score it user by user.  It
     asks for the CPU through ``_device``, as any model must that wants the
@@ -180,7 +222,7 @@ def test_kernel_failure_is_not_rerouted(monkeypatch):
     def broken(*args):
         raise RuntimeError('kernel launch failed')
 
-    monkeypatch.setattr(evaluation, 'rank_weights', broken)
+    monkeypatch.setattr(evaluation, 'ragged_rank_weights', broken)
     monkeypatch.setattr(evaluation, 'streaming_topk', broken)
     with pytest.raises(RuntimeError, match='kernel launch failed'):
         evaluation.mrr_score(port, ptest)

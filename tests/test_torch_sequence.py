@@ -449,13 +449,13 @@ def test_lstm_streams_through_the_dot_kernels(monkeypatch):
 
     monkeypatch.setattr(evaluation, 'matched_candidate_scores', refuse)
     calls = []
-    original = evaluation.rank_weights
+    original = evaluation.ragged_rank_weights
 
     def spy(*args):
-        calls.append(args[4])
+        calls.append(args[5])
         return original(*args)
 
-    monkeypatch.setattr(evaluation, 'rank_weights', spy)
+    monkeypatch.setattr(evaluation, 'ragged_rank_weights', spy)
     evaluation.sequence_mrr_score(port, test, exclude_preceding=True)
     evaluation.sequence_precision_recall_score(port, test, k=3)
     assert calls == [None]
