@@ -9,4 +9,5 @@ from spotlight_tpu_torch.sequence.representations import (  # noqa: F401
     LSTMNet,
     MixtureLSTMNet,
     PoolNet,
+    SelfAttentionNet,
 )

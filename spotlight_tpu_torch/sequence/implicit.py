@@ -45,7 +45,8 @@ from spotlight_tpu_torch.sequence.lazy import (build_lazy_step,
                                                lazy_seq_opt_specs)
 from spotlight_tpu_torch.sequence.representations import (CNNNet, LSTMNet,
                                                           MixtureLSTMNet,
-                                                          PoolNet)
+                                                          PoolNet,
+                                                          SelfAttentionNet)
 from spotlight_tpu_torch.utils import training
 from spotlight_tpu_torch.utils.profiling import span
 from spotlight_tpu_torch.utils.serialization import SerializableEstimatorMixin
@@ -55,6 +56,8 @@ _LOSSES = tuple(IMPLICIT_LOSSES)
 #: 3, one layer, tanh, residual connections).
 _REPRESENTATIONS = {'pooling': PoolNet, 'cnn': CNNNet, 'lstm': LSTMNet,
                     'mixture': MixtureLSTMNet}
+#: The representations whose factors the streaming kernels take.
+_STREAMED = (PoolNet, LSTMNet, CNNNet, SelfAttentionNet)
 
 
 class ImplicitSequenceModel(SerializableEstimatorMixin):
@@ -66,7 +69,11 @@ class ImplicitSequenceModel(SerializableEstimatorMixin):
     representation : str or nn.Module
         'pooling', 'cnn', 'lstm' or 'mixture', or any module with the
         sequence-representation protocol (``user_representation``,
-        ``score``, ``score_catalog``).
+        ``score``, ``score_catalog``), such as a
+        :class:`~spotlight_tpu_torch.sequence.representations.SelfAttentionNet`.
+        ``fit`` puts the module in training mode and the scoring paths
+        (``predict``, the metrics) in evaluation mode, which turns dropout
+        on and off.
     embedding_dim : int, optional
     n_iter, batch_size, l2, learning_rate : optional
         Training settings; ``l2`` is Adam's coupled weight decay.
@@ -79,8 +86,9 @@ class ImplicitSequenceModel(SerializableEstimatorMixin):
         Select the row-sparse sequence engine
         (:mod:`spotlight_tpu_torch.sequence.lazy`): lazy Adam on the item
         table, through P1, and dense Adam on the rest.  Needs a built-in
-        representation in the fused layout and no custom optimizer;
-        elsewhere it trains dense with the JAX package's RuntimeWarning.
+        representation in the fused layout, other than
+        ``SelfAttentionNet``, and no custom optimizer; elsewhere it trains
+        dense with the JAX package's RuntimeWarning.
     random_state : np.random.RandomState, optional
     num_negative_samples : int, optional
         Negatives per position for ``adaptive_hinge``.
@@ -95,7 +103,9 @@ class ImplicitSequenceModel(SerializableEstimatorMixin):
         RuntimeWarning under ``'alltoall_cf'``, as in JAX).  The metrics
         score each rank's block of the catalogue
         (:mod:`spotlight_tpu_torch.parallel.evaluation`); ``predict``
-        returns the whole, replicated result.
+        returns the whole, replicated result.  A ``SelfAttentionNet`` runs
+        on one device only: with a mesh, ``fit`` and the scoring paths
+        raise.
     exchange : str, 'psum' (default), 'alltoall' or 'alltoall_cf'
         The collective of sharded table lookups
         (:mod:`spotlight_tpu_torch.parallel.sharding`); checked as the JAX
@@ -184,6 +194,10 @@ class ImplicitSequenceModel(SerializableEstimatorMixin):
         """Why ``sparse=True`` cannot take the row-sparse engine here, or
         None (the JAX package's conditions)."""
         net = self._net
+        if isinstance(net, SelfAttentionNet):
+            return ('SelfAttentionNet masks padding keys by item id, and '
+                    'the row-sparse engine hands a tower only the gathered '
+                    'rows')
         if not (hasattr(net, '_user_repr_from_emb')
                 and getattr(net, 'fused', False)):
             return ('it requires a built-in representation with the fused '
@@ -214,6 +228,17 @@ class ImplicitSequenceModel(SerializableEstimatorMixin):
                 RuntimeWarning, stacklevel=3)
             return False
         return True
+
+    def _check_one_device(self):
+        """A ``SelfAttentionNet`` is held against one device only; on a
+        mesh it raises."""
+        if self._mesh is not None and isinstance(
+                self._net if self._initialized else self._representation,
+                SelfAttentionNet):
+            raise ValueError(
+                'SelfAttentionNet trains and scores on one device: its '
+                'mesh path is not held against one device\'s; build the '
+                'model without mesh=')
 
     def _initialize(self, interactions):
         self._num_items = interactions.num_items
@@ -403,9 +428,11 @@ class ImplicitSequenceModel(SerializableEstimatorMixin):
         self
         """
         with span('spotlight.fit'):
+            self._check_one_device()
             if not self._initialized:
                 self._initialize(interactions)
             replicate_on_mesh(self)
+            self._net.train()
             with span('spotlight.fit.epoch_data'):
                 data, n, num_batches = self._epoch_data(interactions)
             epoch_fn = self._epoch_fn(num_batches, data['sequences'].shape[1])
@@ -416,8 +443,12 @@ class ImplicitSequenceModel(SerializableEstimatorMixin):
         return self
 
     def _sequences(self, sequences):
+        # numpy lays the rows out contiguously (a metric hands prefixes, a
+        # strided view); torch's own copy of a strided view runs on its
+        # intra-op threads, which on a shared host take milliseconds, and
+        # unevenly, for a batch of 2,048 x 199 ids.
         return torch.as_tensor(
-            np.atleast_2d(np.asarray(sequences, dtype=np.int64)),
+            np.ascontiguousarray(np.atleast_2d(sequences), dtype=np.int64),
             device=self._device)
 
     @torch.no_grad()
@@ -434,8 +465,10 @@ class ImplicitSequenceModel(SerializableEstimatorMixin):
         sequences' rows come through the exchange: every rank calls
         alike."""
         net = self._net
-        if not isinstance(net, (PoolNet, LSTMNet, CNNNet)):
+        if not isinstance(net, _STREAMED):
             return None
+        self._check_one_device()
+        net.eval()
         cache = self._item_factor_cache
         if cache is None or cache[0] != self._params_version:
             cache = (self._params_version, *net._catalog_matrix())
@@ -450,6 +483,8 @@ class ImplicitSequenceModel(SerializableEstimatorMixin):
     def _score_catalog_sequences(self, sequences):
         """(B, num_items) float32 next-item scores for a batch of
         sequences: the materialize evaluation path."""
+        self._check_one_device()
+        self._net.eval()
         _, final = self._net.user_representation(self._sequences(sequences))
         return self._net.score_catalog(final)
 

@@ -3,7 +3,9 @@
 Counterpart of ``spotlight_tpu/sequence/representations.py``:
 :class:`PoolNet` (the causal running mean of the item embeddings),
 :class:`LSTMNet`, :class:`CNNNet` (stacked causal, optionally dilated,
-convolutions) and :class:`MixtureLSTMNet`.
+convolutions) and :class:`MixtureLSTMNet`.  :class:`SelfAttentionNet`
+(SASRec's causal self-attention blocks) is the port's own and has no
+counterpart in the JAX package.
 
 Shared contract: ``user_representation(sequences)`` returns
 ``(per_step, final)`` where ``per_step[:, t]`` encodes the items *before*
@@ -33,6 +35,11 @@ the CPU from the caller's ``torch.Generator`` (torch's initialisation: the
 LSTM's U(-1/sqrt(D), 1/sqrt(D)), a convolution's U(-1/sqrt(fan_in),
 1/sqrt(fan_in)) with fan_in = D x kernel width) and then moved to
 ``device``.
+
+:class:`SelfAttentionNet` counts its attention's query rows in
+:data:`ATTENTION_ROWS` and those at real (non-padding) steps in
+:data:`ATTENTION_REAL_ROWS`, and names each block's host time with the
+span ``spotlight.seq.block`` (``utils.profiling.span``).
 """
 
 from __future__ import annotations
@@ -51,6 +58,14 @@ from spotlight_tpu_torch.parallel.sharding import (ShardedBloomEmbedding,
                                                    ShardedEmbedding,
                                                    holds_blocks,
                                                    network_specs)
+from spotlight_tpu_torch.utils.profiling import span
+
+#: Query rows that :class:`SelfAttentionNet`'s attention computed, summed
+#: over its blocks and forward passes.
+ATTENTION_ROWS = 0
+#: Of :data:`ATTENTION_ROWS`, those at a real step (an item id other than
+#: the padding id).
+ATTENTION_REAL_ROWS = 0
 
 
 def _uniform(shape, bound, generator):
@@ -475,3 +490,152 @@ class MixtureLSTMNet(LSTMNet):
         weights = torch.softmax(attention, dim=1)
         return self._gathered_scores(
             (weights * taste_scores).sum(dim=1) + bias[None, :])
+
+
+class SelfAttentionNet(_ItemRepresentationBase):
+    """Self-attentive sequential recommendation (SASRec: Kang and McAuley,
+    "Self-Attentive Sequential Recommendation", ICDM 2018,
+    arXiv:1808.09781): causal self-attention blocks over the item
+    embeddings and learned positions.  The port's own; the JAX package has
+    no counterpart.
+
+    On the causally shifted sequence of ids (one padding step in front,
+    :meth:`_causal_shift`; 0 is the padding id), left-padded to its
+    window::
+
+        E = Dropout(M[id] + P[pos]), zero at padding steps
+        for each of num_blocks blocks:
+            A = LN_a(F)
+            S = F + Dropout(softmax(mask(A W_Q (A W_K)^T / sqrt(d))) A W_V)
+            F = S + Dropout(ReLU(LN_f(S) W_1 + b_1) W_2 + b_2)
+            F = F, zero at padding steps
+        out = LN_out(F)
+
+    ``pos`` is the step's place in a window of ``max_sequence_length``
+    (n) steps, the newest step taking row n - 1 of P, as in the authors'
+    code; a sequence has at most n items, and the one shifted-in step,
+    padding, needs no row.  The mask is causal (a step attends to itself
+    and the steps before it) and hides padding keys; a query row with no
+    key left reads a zero attention output.  One head; products keep the
+    port's ``x @ W`` layout with ``W`` of shape ``(D, D)``; dropout is
+    active only in training mode (``fit`` sets it, the scoring paths set
+    evaluation mode) and draws from torch's generator on the network's
+    device.  ``per_step[:, t]`` is ``out`` at the step that holds the
+    item before t, and ``final`` ``out`` at the newest step; items score by
+    their dot with it plus their bias (:meth:`score`,
+    :meth:`_catalog_matrix`), the item embeddings shared between input and
+    prediction.
+
+    Departures from the paper: Spotlight's item bias column is added to
+    the scores; the final LayerNorm and LayerNorm's eps of 1e-8 come from
+    the authors' code (the paper gives neither); training takes the
+    estimator's per-step Spotlight losses, not SASRec's binary
+    cross-entropy.
+
+    Initialisation (drawn on the CPU from ``generator``, then moved): the
+    item table as the other representations' (N(0, 1) / D), P N(0, 1) / D,
+    the LayerNorms' gains 1 and offsets 0, the products and the
+    feed-forward biases U(-1/sqrt(D), 1/sqrt(D)).
+
+    Parameters
+    ----------
+    num_items : int
+    embedding_dim : int, optional
+    num_blocks : int, optional
+    max_sequence_length : int, optional
+        n, the positions P holds: the longest sequence taken.
+    dropout : float, optional
+    fused, table_dtype, generator, device : as :class:`LSTMNet` takes them.
+    """
+
+    #: LayerNorm's epsilon, the authors' code's.
+    EPS = 1e-8
+
+    def __init__(self, num_items, embedding_dim=50, num_blocks=2,
+                 max_sequence_length=200, dropout=0.2, fused=None,
+                 table_dtype=torch.float32, generator=None, device='cpu'):
+        super().__init__(num_items, embedding_dim, None, None, fused,
+                         generator, device, table_dtype=table_dtype)
+        dim = embedding_dim
+        self.num_blocks = num_blocks
+        self.max_sequence_length = max_sequence_length
+        self.dropout = dropout
+        self.position_embeddings = nn.Parameter(
+            (torch.randn(max_sequence_length, dim, generator=generator)
+             / dim).to(device))
+
+        def gains():
+            return nn.Parameter(torch.ones(dim, device=device))
+
+        def offsets():
+            return nn.Parameter(torch.zeros(dim, device=device))
+
+        blocks = []
+        for _ in range(num_blocks):
+            block = self._parameters_from(
+                {'w_q': (dim, dim), 'w_k': (dim, dim), 'w_v': (dim, dim),
+                 'w_1': (dim, dim), 'b_1': (dim,), 'w_2': (dim, dim),
+                 'b_2': (dim,)}, generator, device)
+            block.update({'norm_a_weight': gains(), 'norm_a_bias': offsets(),
+                          'norm_f_weight': gains(), 'norm_f_bias': offsets()})
+            blocks.append(block)
+        self.blocks = nn.ModuleList(blocks)
+        self.output_norm = nn.ParameterDict({'weight': gains(),
+                                             'bias': offsets()})
+
+    def _layer_norm(self, x, weight, bias):
+        return F.layer_norm(x, (self.embedding_dim,), weight, bias, self.EPS)
+
+    def user_representation(self, sequences):
+        """(per_step, final) representations of item ids ``sequences``
+        (B, L), L at most ``max_sequence_length``; see the class
+        docstring."""
+        global ATTENTION_ROWS, ATTENTION_REAL_ROWS
+        length = sequences.shape[1]
+        if length > self.max_sequence_length:
+            raise ValueError(
+                'SelfAttentionNet holds {} positions; got sequences of {} '
+                'items'.format(self.max_sequence_length, length))
+        real = self._causal_shift(sequences != PADDING_IDX)   # (B, L+1)
+        # One read-back a forward pass, before the blocks are issued.
+        ATTENTION_ROWS += self.num_blocks * real.numel()
+        ATTENTION_REAL_ROWS += self.num_blocks * int(real.sum())
+        # Row -1 (the zero row in front) is the shifted-in step's when the
+        # sequence fills the window.
+        positions = F.pad(self.position_embeddings, (0, 0, 1, 0))[
+            self.max_sequence_length - length:]
+        x = self._causal_shift(self._embed(sequences)) + positions
+        keep = real[..., None].to(x.dtype)
+        x = F.dropout(x, self.dropout, self.training) * keep
+        steps = x.shape[1]
+        causal = torch.ones(steps, steps, dtype=torch.bool,
+                            device=x.device).tril()
+        allowed = causal & real[:, None, :]                   # (B, q, k)
+        has_key = allowed.any(dim=-1, keepdim=True)
+        # A query with no key attends to every step, then reads zero.
+        hidden = ~(allowed | ~has_key)
+        has_key = has_key.to(x.dtype)
+        for block in self.blocks:
+            with span('spotlight.seq.block'):
+                x = self._block(x, block, hidden, has_key) * keep
+        out = self._layer_norm(x, self.output_norm['weight'],
+                               self.output_norm['bias'])
+        return out[:, :-1], out[:, -1]
+
+    def _block(self, x, block, hidden, has_key):
+        """One block on (B, T, D) with the mask's hidden pairs (B, T, T)
+        and each query's ``has_key`` (B, T, 1)."""
+        attend = self._layer_norm(x, block['norm_a_weight'],
+                                  block['norm_a_bias'])
+        scores = torch.matmul(attend @ block['w_q'],
+                              (attend @ block['w_k']).transpose(1, 2))
+        scores = (scores / math.sqrt(self.embedding_dim)).masked_fill(
+            hidden, float('-inf'))
+        weights = torch.softmax(scores, dim=-1) * has_key
+        attended = torch.matmul(weights, attend @ block['w_v'])
+        x = x + F.dropout(attended, self.dropout, self.training)
+        inner = torch.relu(self._layer_norm(x, block['norm_f_weight'],
+                                            block['norm_f_bias'])
+                           @ block['w_1'] + block['b_1'])
+        return x + F.dropout(inner @ block['w_2'] + block['b_2'],
+                             self.dropout, self.training)

@@ -2157,3 +2157,128 @@ def test_mesh_training_step_on_a_one_rank_nccl_group(cuda, tmp_path):
         assert loss == want[0]
         torch_mesh_worker.assert_same(params, want[1])
         torch_mesh_worker.assert_same(moments, want[2])
+
+
+#: SASRec at its published ML-1M widths (``benchmark/configs/sasrec_ml1m.json``).
+SASREC_ITEMS, SASREC_DIM, SASREC_BLOCKS, SASREC_WINDOW = 3417, 50, 2, 200
+#: The port against the plain reference on the card, both float32 with TF32
+#: off: the same sums in other orders (cuBLAS's blocking against the
+#: reference's products, fused LayerNorm and softmax against their
+#: written-out forms), a few float32 roundings through two blocks on
+#: representations of order 1.  The reference's TF32 control lies past 10x
+#: this (asserted below), so the tolerance tells the precisions apart.
+SASREC_REPR_ATOL = 2e-5
+#: A training step's gradients against the reference's autograd, by
+#: parameter, as a share of the reference gradient's largest element
+#: (float64) or of its norm (float32).  In float64 both sides follow the
+#: same function, the port's gathered rows rounded to float32 as they are
+#: stored, so the gradients agree to that rounding.  In float32 a ReLU
+#: input within a rounding of 0 takes either side in two computations
+#: (the card runs showed one such unit in 256 x 200 x 50 x 2), and a
+#: flipped unit moves every gradient upstream of it by its whole
+#: contribution: a few parts in a thousand of a gradient's norm on
+#: 256 histories, which 2e-2 holds with room.
+SASREC_GRAD_TOL = {torch.float64: 1e-6, torch.float32: 2e-2}
+
+
+def _sasrec_case(device, histories=256, dtype=torch.float32):
+    """A seeded ``SelfAttentionNet`` at the published widths (every
+    parameter moved off its initialisation) in ``dtype``, dropout 0, and
+    ``histories`` ragged left-padded histories of 200 items (lengths 1 to
+    200, two of padding only)."""
+    from spotlight_tpu_torch.sequence import SelfAttentionNet
+
+    generator = torch.Generator().manual_seed(24)
+    net = SelfAttentionNet(SASREC_ITEMS, SASREC_DIM,
+                           num_blocks=SASREC_BLOCKS,
+                           max_sequence_length=SASREC_WINDOW, dropout=0.0,
+                           generator=generator)
+    with torch.no_grad():
+        for p in net.parameters():
+            p.add_(0.1 * torch.randn(p.shape, generator=generator))
+        net.item_embeddings.weight[0] = 0.0
+    rs = np.random.RandomState(24)
+    rows = rs.randint(1, SASREC_ITEMS, (histories, SASREC_WINDOW))
+    lengths = rs.randint(1, SASREC_WINDOW + 1, histories)
+    lengths[:2] = 0
+    rows[np.arange(SASREC_WINDOW)[None, :]
+         < (SASREC_WINDOW - lengths)[:, None]] = 0
+    return (net.to(device=device, dtype=dtype),
+            torch.as_tensor(rows, device=device))
+
+
+def test_sasrec_forward_on_the_card_matches_the_reference(cuda):
+    """The published widths, 256 histories: ``per_step``, ``final`` and the
+    catalogue scores on the card against ``benchmark/reference/sasrec.py``
+    on the card, both with TF32 off; the reference's TF32 control is
+    further off than 10x the tolerance."""
+    from benchmark.reference import sasrec
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    net, rows = _sasrec_case(cuda)
+    prefixes = rows[:, :-1]
+    weights = {n: p.detach() for n, p in net.named_parameters()}
+    with torch.no_grad():
+        per_step, final = net.eval().user_representation(prefixes)
+        scores = net.score_catalog(final)
+    want = sasrec.representations(weights, prefixes, SASREC_BLOCKS)
+    control = sasrec.representations(weights, prefixes, SASREC_BLOCKS,
+                                     'tf32')
+    gaps = [float((per_step - want[:, :-1]).abs().max()),
+            float((final - want[:, -1]).abs().max()),
+            float((control - want).abs().max())]
+    print('sasrec forward gaps (per_step, final, tf32 control):', gaps)
+    assert max(gaps[:2]) <= SASREC_REPR_ATOL, gaps
+    assert gaps[2] > 10 * SASREC_REPR_ATOL, gaps
+    want_scores = sasrec.catalogue_scores(weights, want[:, -1])
+    torch.testing.assert_close(scores, want_scores, rtol=0,
+                               atol=SASREC_REPR_ATOL * 10)
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32],
+                         ids=['float64', 'float32'])
+def test_sasrec_step_on_the_card_matches_the_reference(cuda, dtype):
+    """One dense training step of the estimator on the card, 256 histories
+    in one batch: its loss and every gradient against the reference's
+    autograd on the card, from the same draws and weights, in ``dtype``
+    (``SASREC_GRAD_TOL``)."""
+    from benchmark.reference import sasrec
+    from spotlight_tpu_torch.utils.training import epoch_draws
+    from tests.test_torch_self_attention import Recorder
+
+    net, rows = _sasrec_case(cuda, dtype=dtype)
+    weights = {n: p.detach().clone().requires_grad_()
+               for n, p in net.named_parameters()}
+    recorder = Recorder()
+    model = ImplicitSequenceModel(
+        loss='bpr', representation=net, n_iter=1, batch_size=len(rows),
+        optimizer_func=lambda: recorder, device=cuda,
+        random_state=np.random.RandomState(5))
+    generator = torch.Generator()
+    generator.set_state(model._generator.get_state())
+    perm, negatives = epoch_draws(generator, len(rows),
+                                  (1, len(rows), SASREC_WINDOW),
+                                  SASREC_ITEMS, cuda)
+    model.fit(SequenceInteractions(rows.cpu().numpy(),
+                                   num_items=SASREC_ITEMS))
+    loss = sasrec.bpr_loss(weights, rows[perm], negatives[0],
+                           torch.ones(len(rows), dtype=torch.bool,
+                                      device=cuda), SASREC_BLOCKS)
+    np.testing.assert_allclose(model._last_epoch_loss, loss.item(),
+                               rtol=1e-5)
+    names = list(weights)
+    want = dict(zip(names, torch.autograd.grad(loss, list(weights.values()),
+                                               allow_unused=True)))
+    got, = recorder.grads
+    gaps = {}
+    for name in names:
+        if want[name] is None:
+            assert not got[name].any(), name
+            continue
+        diff = got[name] - want[name]
+        gaps[name] = (float(diff.abs().max() / want[name].abs().max())
+                      if dtype == torch.float64
+                      else float(diff.norm() / want[name].norm()))
+    print('sasrec step gradient gaps ({}):'.format(dtype),
+          max(gaps.values()), max(gaps, key=gaps.get))
+    assert max(gaps.values()) <= SASREC_GRAD_TOL[dtype], gaps
