@@ -3755,13 +3755,13 @@ def check_sweep_kernels(torch, card, model, test):
 def profile_metrics(torch, card, model, test, train, heavy):
     """Per metric: one warm call timed on the host clock (the item factors
     are cached by now), then one call under the profiler for the device
-    time by kernel.  Also the host's share: the CSR conversion and row
-    padding that precede the first batch."""
+    time by kernel.  Also the host's share: the CSR conversion and the
+    compact rows that precede the first batch."""
     from spotlight_tpu_torch import evaluation
 
     start = time.perf_counter()
     evaluation._eval_rows(test, heavy)
-    log(host='_eval_rows (test + train CSR, padded rows)',
+    log(host='_eval_rows (test + train CSR, compact rows)',
         ms=(time.perf_counter() - start) * 1e3, card=card)
 
     calls = (('mrr_score',
@@ -3880,7 +3880,7 @@ def check_routes(torch, card, test, train):
     sub = restrict(test, CHECK_USERS)
     # The call's widest top-10 fetch holds lists of at most 64 keys, where
     # stage 1 takes D <= 261.
-    fetch = 10 + evaluation._eval_rows(sub, train)[2].shape[1]
+    fetch = 10 + evaluation._eval_rows(sub, train)[2].width
     if fetch > 64:
         raise AssertionError('the route check\'s fetch is {}'.format(fetch))
     check('mrr_score D={}'.format(ROUTE_DIM), 0,

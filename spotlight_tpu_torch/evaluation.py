@@ -42,13 +42,22 @@ once, after the last batch.
 Each metric call is one span (``utils.profiling.span``) named after it,
 ``spotlight.<metric>``, holding ``spotlight.eval.rows`` (the host's rows:
 ``_eval_rows``, or the sequences' prefixes and excluded rows), one
-``spotlight.eval.upload`` a batch (its rows trimmed and placed on the
-device) and one ``spotlight.eval.factors`` a batch (``_rank_factors``).
+``spotlight.eval.upload`` a batch (its rows padded to the batch's widest
+and placed on the device) and one ``spotlight.eval.factors`` a batch
+(``_rank_factors``).
+
+The user metrics keep their rows compact on the host: each user's count
+and the ids of all users concatenated (``_Rows``), O(entries + users).  Each
+batch's padded rows are built on the model's device, from the batch's
+real ids and their flat positions sent up in one pinned copy
+(counted in :data:`ROWS_BUILT_ON_DEVICE` and :data:`ROW_UPLOAD_BYTES`).  A
+model on the CPU takes the same path, its copy a plain one.
 """
 
 from __future__ import annotations
 
 import itertools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -81,31 +90,95 @@ MATERIALIZE_BATCH = 256
 #: Metric calls that the route query sent to the materialize path because
 #: the streaming kernels do not take the model's factors (one per call).
 MATERIALIZE_ROUTES = 0
+#: Rows of padded (batch, width) id matrices that ``_batches`` built on the
+#: card from the real ids: one a user for the targets, and one more for the
+#: train rows where a train set is given.  Rows built for a model on the
+#: CPU count nothing.
+ROWS_BUILT_ON_DEVICE = 0
+#: Bytes of row data that ``_batches`` sent to the card: each real id and
+#: its flat position, 4 bytes each (8 for a matrix past 2**31 entries).
+#: Nothing is counted for a model on the CPU.
+ROW_UPLOAD_BYTES = 0
 
 
-def _padded_rows(csr_matrix, users, pad_value=-1):
-    """Each user's column indices as a dense matrix padded with
-    ``pad_value``, sized to the widest user."""
-    users = np.asarray(users)
+class _Rows(NamedTuple):
+    """Rows of item ids in compact form: each row's count of ids, and the
+    ids of all rows concatenated in row order."""
+
+    counts: np.ndarray
+    ids: np.ndarray
+
+    @property
+    def width(self):
+        """The widest row's count, at least 1: the padded matrix's width."""
+        return max(int(self.counts.max()) if len(self.counts) else 0, 1)
+
+    def batches(self, batch_size):
+        """The ``_Rows`` of each ``batch_size`` rows in turn."""
+        offsets = np.concatenate([[0], np.cumsum(self.counts)])
+        for start in range(0, len(self.counts), batch_size):
+            stop = min(start + batch_size, len(self.counts))
+            yield _Rows(self.counts[start:stop],
+                        self.ids[offsets[start]:offsets[stop]])
+
+
+def _csr_rows(csr_matrix, users):
+    """``_Rows`` of ``users`` in a CSR matrix: their column indices in the
+    matrix's order, in O(their entries + users)."""
     indptr = csr_matrix.indptr
     starts = indptr[users]
     counts = indptr[users + 1] - starts
-    width = max(int(counts.max()) if len(counts) else 0, 1)
-    if csr_matrix.nnz == 0:
-        return np.full((len(users), width), pad_value, dtype=np.int64)
-    cols = np.arange(width)[None, :]
-    valid = cols < counts[:, None]
-    src = np.where(valid, starts[:, None] + cols, 0)
-    return np.where(valid, csr_matrix.indices[src],
-                    pad_value).astype(np.int64)
+    offsets = np.repeat(starts - (np.cumsum(counts) - counts), counts)
+    return _Rows(counts,
+                 csr_matrix.indices[offsets + np.arange(len(offsets))])
+
+
+def _row_positions(counts, width):
+    """The flat position ``row * width + column`` of each id of rows of
+    ``counts`` ids, left-aligned in a (len(counts), width) matrix."""
+    starts = np.cumsum(counts) - counts
+    return np.arange(int(counts.sum())) + np.repeat(
+        np.arange(len(counts)) * width - starts, counts)
+
+
+def _rows_on(parts, device):
+    """Each ``_Rows`` of ``parts`` as its padded matrix on ``device``: the
+    real ids and their positions go up in one copy (pinned and
+    asynchronous to a card), as int32 where every position fits, and the
+    device widens them, fills and scatters."""
+    global ROWS_BUILT_ON_DEVICE, ROW_UPLOAD_BYTES
+    widths = [rows.width for rows in parts]
+    largest = max(len(rows.counts) * width
+                  for rows, width in zip(parts, widths))
+    packed = np.concatenate(
+        [array for rows, width in zip(parts, widths)
+         for array in (rows.ids, _row_positions(rows.counts, width))],
+        dtype=np.int32 if largest <= 2 ** 31 else np.int64)
+    flat = ranking._upload(packed, device).long()
+    on_card = device.type == 'cuda'
+    if on_card:
+        ROW_UPLOAD_BYTES += packed.nbytes
+    out, offset = [], 0
+    for rows, width in zip(parts, widths):
+        n = len(rows.ids)
+        out.append(torch.full((len(rows.counts) * width,), -1,
+                              dtype=torch.int64, device=flat.device)
+                   .scatter_(0, flat[offset + n:offset + 2 * n],
+                             flat[offset:offset + n])
+                   .view(-1, width))
+        if on_card:
+            ROWS_BUILT_ON_DEVICE += len(rows.counts)
+        offset += 2 * n
+    return out
 
 
 def _trim_batch_rows(rows, pad_value=-1):
     """Trim trailing all-pad columns to this batch's own widest row.
 
-    ``_padded_rows`` sizes its output to the global widest user; without
-    the trim every batch would pay the heaviest user's width in the rank
-    kernel's target loop, the train correction and the top-k over-fetch.
+    The sequence metrics' excluded rows (``_dedup_rows``) are sized to the
+    call's prefix with the most distinct items; without the trim every
+    batch would pay that width in the train correction and the top-k
+    over-fetch.
     Valid entries are left-aligned, so trimming is a column slice.  (The
     JAX package rounds the width up to a power of two to bound its
     compiled shapes; eager PyTorch needs no such bucket, and the results
@@ -504,31 +577,31 @@ def _model_device(model):
 
 
 def _eval_rows(test, train):
-    """Users with test items, their padded test rows and train rows, and
-    their counts of test items."""
+    """Users with test items, and their test rows and train rows (None
+    without ``train``) as ``_Rows``, the ids in each CSR's order."""
     with span('spotlight.eval.rows'):
         test_csr = test.tocsr()
-        counts = np.diff(test_csr.indptr)
-        users = np.where(counts > 0)[0]
-        targets = _padded_rows(test_csr, users)
-        train_rows = (_padded_rows(train.tocsr(), users)
+        # The CSR's rows that hold an entry: it keeps every pair, summing
+        # duplicates, explicit zeros included.
+        users = np.unique(test.user_ids).astype(np.int64)
+        targets = _csr_rows(test_csr, users)
+        train_rows = (_csr_rows(train.tocsr(), users)
                       if train is not None else None)
-    return users, targets, train_rows, counts[users]
+    return users, targets, train_rows
 
 
 def _batches(users, targets, train_rows, batch_size, device):
-    """(user ids, targets, train rows) per batch; rows trimmed to the
-    batch's own width and placed on ``device``."""
-    train_batches = (_batched(train_rows, batch_size)
-                     if train_rows is not None
-                     else (None for _ in range(0, len(users), batch_size)))
+    """(user ids, targets, train rows, target counts) per batch: the
+    ``_Rows`` padded with -1 to the batch's own widest row, built on
+    ``device`` from the real ids."""
+    device = torch.device(device)
+    train_batches = (train_rows.batches(batch_size)
+                     if train_rows is not None else itertools.repeat(None))
     for u, t, tr in zip(_batched(users, batch_size),
-                        _batched(targets, batch_size), train_batches):
+                        targets.batches(batch_size), train_batches):
         with span('spotlight.eval.upload'):
-            t = torch.as_tensor(_trim_batch_rows(t), device=device)
-            if tr is not None:
-                tr = torch.as_tensor(_trim_batch_rows(tr), device=device)
-        yield u, t, tr
+            placed = _rows_on([t] if tr is None else [t, tr], device)
+        yield u, placed[0], placed[1] if tr is not None else None, t.counts
 
 
 @torch.no_grad()
@@ -555,15 +628,14 @@ def mrr_score(model, test, train=None, batch_size=None, streaming=True):
     np.ndarray of shape (num_users_with_test_items,)
     """
     with span('spotlight.mrr_score'):
-        users, targets, train_rows, widths = _eval_rows(test, train)
+        users, targets, train_rows = _eval_rows(test, train)
         device = _model_device(model)
         streaming = _route(model, 'users', streaming, device, users[:1])
         batch_size = _resolve_batch_size(batch_size, streaming)
 
         mrrs = []
-        for (u, t, tr), w in zip(_batches(users, targets, train_rows,
-                                          batch_size, device),
-                                 _batched(widths, batch_size)):
+        for u, t, tr, w in _batches(users, targets, train_rows, batch_size,
+                                    device):
             if streaming:
                 rr = _streaming_ranks(model, 'users', u, t, t >= 0,
                                       train_rows=tr, widths=w)
@@ -610,19 +682,19 @@ def precision_recall_score(model, test, train=None, k=10, batch_size=None,
             raise ValueError('k ({}) exceeds the catalog size ({})'
                              .format(max(k_values), test.num_items))
 
-        users, targets, train_rows, _ = _eval_rows(test, train)
+        users, targets, train_rows = _eval_rows(test, train)
         device = _model_device(model)
         # The call's widest fetch, k plus its widest train row (a batch's
         # fetch is at most this, and at most the catalogue).
         fetch = max(k_values) + (0 if train_rows is None
-                                 else train_rows.shape[1])
+                                 else train_rows.width)
         streaming = _route(model, 'users', streaming, device, users[:1],
                            fetch)
         batch_size = _resolve_batch_size(batch_size, streaming)
 
         precisions, recalls = [], []
-        for u, t, tr in _batches(users, targets, train_rows, batch_size,
-                                 device):
+        for u, t, tr, _ in _batches(users, targets, train_rows,
+                                    batch_size, device):
             if streaming:
                 top_ids = _streaming_topk_hits(model, 'users', u,
                                                max(k_values), train_rows=tr)

@@ -611,6 +611,78 @@ def test_metrics_on_the_card_equal_the_cpu(cuda):
                                rtol=1e-6, atol=1e-7)
 
 
+def test_eval_rows_are_built_on_the_card(cuda):
+    """A call of the MF ranking cell's profile, small: 2,048 users drawn as
+    ``benchmark.data.call_rows`` draws them from the cell's activity profile
+    (at least 10 items a user, at most 5,000, 47.5 on average), cut to
+    100,000 users and 20,000 items, with a 20% test split.  In one batch, as
+    the cell's, and in three of different widths, the padded rows that
+    ``_batches`` builds on the card from the real ids equal the CSR's rows,
+    padded with -1 to the batch's widest, bit for bit, and building them
+    waits on nothing (``set_sync_debug_mode('error')``).  The whole call's
+    batch is sent up in under 2% of its padded matrices' bytes."""
+    from benchmark.data import activity_counts, call_rows
+
+    num_users, num_items = 100000, 20000
+    activity = activity_counts(num_users, 4750000, 10, 5000, 1.0)
+    rs = np.random.RandomState(0)
+    held_out = rs.binomial(activity, 0.2)
+    population = np.flatnonzero(held_out)
+    users = call_rows(population, held_out[population], 2048, 1, 3)[0]
+
+    def pairs(counts):
+        # Repeated draws of a user's item are pairs the CSR merges.
+        return Interactions(np.repeat(users, counts),
+                            rs.randint(0, num_items, int(counts.sum())),
+                            num_users=num_users, num_items=num_items)
+
+    def padded(csr, part):
+        width = max(int(np.diff(csr.indptr)[part].max()), 1)
+        out = np.full((len(part), width), -1, np.int64)
+        for row, user in enumerate(part):
+            ids = csr.indices[csr.indptr[user]:csr.indptr[user + 1]]
+            out[row, :len(ids)] = ids
+        return torch.from_numpy(out)
+
+    test = pairs(held_out[users])
+    train = pairs(activity[users] - held_out[users])
+    for given in (None, train):
+        rows = evaluation._eval_rows(test, given)
+        test_csr = test.tocsr()
+        for batch_size, batches in ((2048, 1), (700, 3)):
+            host = []
+            for start in range(0, len(rows[0]), batch_size):
+                part = rows[0][start:start + batch_size]
+                host.append((part, padded(test_csr, part),
+                             None if given is None
+                             else padded(given.tocsr(), part),
+                             np.diff(test_csr.indptr)[part]))
+            list(evaluation._batches(*rows, batch_size, cuda))   # warm
+            torch.cuda.synchronize()
+            sent = evaluation.ROW_UPLOAD_BYTES
+            torch.cuda.set_sync_debug_mode('error')
+            try:
+                on_card = list(evaluation._batches(*rows, batch_size, cuda))
+            finally:
+                torch.cuda.set_sync_debug_mode('default')
+            sent = evaluation.ROW_UPLOAD_BYTES - sent
+            assert len(on_card) == len(host) == batches
+            padded_bytes = 0
+            for got, want in zip(on_card, host):
+                np.testing.assert_array_equal(got[0], want[0])
+                np.testing.assert_array_equal(got[3], want[3])
+                for got_rows, want_rows in zip(got[1:3], want[1:3]):
+                    if want_rows is None:
+                        assert got_rows is None
+                        continue
+                    assert got_rows.device.type == 'cuda'
+                    assert got_rows.dtype == want_rows.dtype == torch.int64
+                    assert torch.equal(got_rows.cpu(), want_rows)
+                    padded_bytes += want_rows.numel() * 8
+            if batches == 1:
+                assert 0 < sent < 0.02 * padded_bytes, (sent, padded_bytes)
+
+
 def _routed(metric, model, test, **kwargs):
     """(streamed result, its route count, streaming=False's result)."""
     before = evaluation.MATERIALIZE_ROUTES

@@ -290,9 +290,11 @@ def test_refused_route_runs_the_materialize_path(monkeypatch):
 def test_padded_and_trimmed_rows_match_jax():
     _, _, train, _, ptrain, _ = _setup()
     users = np.array([0, 3, 5, 9, 40])
-    got = evaluation._padded_rows(ptrain.tocsr(), users)
+    got, = evaluation._rows_on(
+        [evaluation._csr_rows(ptrain.tocsr(), users)], torch.device('cpu'))
     want = jax_eval._padded_rows(train.tocsr(), users)
-    np.testing.assert_array_equal(got, want)
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), want)
     rows = np.full((3, 40), -1)
     rows[0, :11] = 1
     rows[2, :3] = 2
@@ -302,6 +304,186 @@ def test_padded_and_trimmed_rows_match_jax():
     assert evaluation._trim_batch_rows(None) is None
     assert [len(b) for b in evaluation._batched(np.arange(10), 4)] == [4, 4,
                                                                       2]
+
+
+def _row_case(case):
+    """(test, train or None, batch size) of a named case of rows."""
+    num_users, num_items = 30, 50
+    rs = np.random.RandomState(len(case))
+
+    def pairs(users, counts):
+        items = [rs.choice(num_items, c, replace=False) for c in counts]
+        return Interactions(np.repeat(np.asarray(users, np.int64), counts),
+                            np.concatenate(items + [np.array([], int)]),
+                            num_users=num_users, num_items=num_items)
+
+    if case == 'empty':
+        return pairs([], []), pairs([1, 2], [3, 1]), 4
+    if case == 'one_user':
+        return pairs([7], [5]), None, 4
+    if case == 'batches_of_different_widths':
+        users = np.arange(2, 25)
+        return pairs(users, 1 + (users * 7) % 11), None, 5
+    if case == 'train_rows_where_some_users_have_none':
+        users = np.arange(0, 20, 2)
+        return (pairs(users, 1 + users % 3),
+                pairs(users[::3], 2 + users[::3] % 9), 3)
+    # Duplicate pairs, in the test set and the train set: the CSR keeps
+    # each pair once.
+    test = pairs([4, 9, 12], [6, 2, 4])
+    train = pairs([9, 12, 20], [3, 8, 2])
+    double = lambda x: Interactions(  # noqa: E731
+        np.concatenate([x.user_ids, x.user_ids[::2]]),
+        np.concatenate([x.item_ids, x.item_ids[::2]]),
+        num_users=num_users, num_items=num_items)
+    return double(test), double(train), 2
+
+
+ROW_CASES = ['empty', 'one_user', 'batches_of_different_widths',
+             'train_rows_where_some_users_have_none', 'duplicate_pairs']
+
+
+def _trimmed(rows):
+    """Padded rows cut to their widest row: a column slice, as the JAX
+    package's trim without its power-of-two width."""
+    return rows[:, :max(int((rows >= 0).sum(axis=1).max(initial=0)), 1)]
+
+
+def _host_padded_batches(test, train, batch_size):
+    """The JAX package's form of each batch: its ``_padded_rows`` over the
+    users with test items, trimmed to the batch's widest."""
+    csr = test.tocsr()
+    counts = np.diff(csr.indptr)
+    users = np.where(counts > 0)[0]
+    targets = jax_eval._padded_rows(csr, users)
+    train_rows = (jax_eval._padded_rows(train.tocsr(), users)
+                  if train is not None else None)
+    out = []
+    for start in range(0, len(users), batch_size):
+        part = slice(start, start + batch_size)
+        out.append((users[part], _trimmed(targets[part]),
+                    _trimmed(train_rows[part]) if train is not None
+                    else None,
+                    counts[users][part]))
+    return users, targets, train_rows, out
+
+
+def _on_card_as_cpu(monkeypatch):
+    """Make the card's upload a CPU tensor, so that ``_batches`` given a
+    ``cuda`` device builds its rows as on a card, on CPU tensors."""
+    monkeypatch.setattr(ranking, '_upload',
+                        lambda array, device: torch.from_numpy(array))
+
+
+@pytest.mark.parametrize('case', ROW_CASES)
+@pytest.mark.parametrize('device', ['cpu', 'card'])
+def test_compact_rows_build_the_padded_rows(monkeypatch, case, device):
+    """Each batch's rows from the compact form, built for a CPU model or
+    as for a card (on CPU tensors), equal the JAX package's
+    ``_padded_rows`` trimmed to the batch exactly: ids, dtype, shape and
+    the batch's counts."""
+    test, train, batch_size = _row_case(case)
+    users_want, targets, train_rows, want = _host_padded_batches(
+        test, train, batch_size)
+    users, got_targets, got_train = evaluation._eval_rows(test, train)
+    np.testing.assert_array_equal(users, users_want)
+    assert users.dtype == users_want.dtype
+    if device == 'card':
+        _on_card_as_cpu(monkeypatch)
+    got = list(evaluation._batches(users, got_targets, got_train,
+                                   batch_size,
+                                   'cuda' if device == 'card' else 'cpu'))
+    assert len(got) == len(want)
+    for got_batch, want_batch in zip(got, want):
+        np.testing.assert_array_equal(got_batch[0], want_batch[0])
+        np.testing.assert_array_equal(got_batch[3], want_batch[3])
+        for got_rows, want_rows in zip(got_batch[1:3], want_batch[1:3]):
+            if want_rows is None:
+                assert got_rows is None
+                continue
+            assert got_rows.dtype == torch.int64
+            assert got_rows.device.type == 'cpu'
+            np.testing.assert_array_equal(got_rows.numpy(), want_rows)
+    # A call of no users gives the padded form's (0, 1) matrix.
+    for rows, padded in ((got_targets, targets), (got_train, train_rows)):
+        if rows is None:
+            continue
+        assert rows.width == padded.shape[1] == _trimmed(padded).shape[1]
+        empty = evaluation._Rows(rows.counts[:0], rows.ids[:0])
+        built, = evaluation._rows_on([empty], torch.device('cpu'))
+        assert built.shape == jax_eval._padded_rows(
+            test.tocsr(), np.array([], np.int64)).shape == (0, 1)
+
+
+def test_row_counters_move_as_documented(monkeypatch):
+    """ROWS_BUILT_ON_DEVICE counts the rows built for a card (the targets'
+    and the train rows', one a user each) and ROW_UPLOAD_BYTES 8 bytes a
+    real id (its id and position as int32); rows built for a CPU model
+    count nothing."""
+    test, train, batch_size = _row_case(
+        'train_rows_where_some_users_have_none')
+    users, targets, train_rows = evaluation._eval_rows(test, train)
+    _, port, _, _, _, _ = _setup()
+
+    def moved(fn):
+        before = (evaluation.ROWS_BUILT_ON_DEVICE,
+                  evaluation.ROW_UPLOAD_BYTES)
+        fn()
+        return (evaluation.ROWS_BUILT_ON_DEVICE - before[0],
+                evaluation.ROW_UPLOAD_BYTES - before[1])
+
+    ptest = Interactions(test.user_ids, test.item_ids,
+                         num_users=port._num_users, num_items=port._num_items)
+    assert moved(lambda: evaluation.mrr_score(port, ptest)) == (0, 0)
+    assert moved(lambda: list(evaluation._batches(
+        users, targets, None, batch_size, 'cpu'))) == (0, 0)
+    _on_card_as_cpu(monkeypatch)
+    assert moved(lambda: list(evaluation._batches(
+        users, targets, None, batch_size, 'cuda'))) == (
+            len(users), 8 * len(targets.ids))
+    assert moved(lambda: list(evaluation._batches(
+        users, targets, train_rows, batch_size, 'cuda'))) == (
+            2 * len(users), 8 * (len(targets.ids) + len(train_rows.ids)))
+    assert len(train_rows.ids) < len(targets.ids)
+
+
+@pytest.mark.parametrize('k', [None, 5, (1, 5, 10)])
+@pytest.mark.parametrize('masked', [False, True])
+def test_metrics_on_device_built_rows_match_jax(monkeypatch, k, masked):
+    """The metrics on rows built by the device builder (on CPU tensors)
+    return the host-built rows' arrays exactly, and JAX's."""
+    jax_model, port, train, test, ptrain, ptest = _setup()
+    kwargs = {'train': ptrain} if masked else {}
+    jax_kwargs = {'train': train} if masked else {}
+    if k is None:
+        metric, jax_metric = evaluation.mrr_score, jax_eval.mrr_score
+    else:
+        k_arg = list(k) if isinstance(k, tuple) else k
+        kwargs['k'] = jax_kwargs['k'] = k_arg
+        metric = evaluation.precision_recall_score
+        jax_metric = jax_eval.precision_recall_score
+    host = metric(port, ptest, batch_size=50, **kwargs)
+    original = evaluation._batches
+    monkeypatch.setattr(
+        evaluation, '_batches',
+        lambda users, targets, train_rows, batch_size, device: original(
+            users, targets, train_rows, batch_size, 'cuda'))
+    _on_card_as_cpu(monkeypatch)
+    before = evaluation.ROWS_BUILT_ON_DEVICE
+    got = metric(port, ptest, batch_size=50, **kwargs)
+    assert evaluation.ROWS_BUILT_ON_DEVICE - before == (
+        len(np.unique(ptest.user_ids)) * (2 if masked else 1))
+    want = jax_metric(jax_model, test, batch_size=50, **jax_kwargs)
+    for got_part, host_part, want_part in zip(
+            got if k is not None else (got,),
+            host if k is not None else (host,),
+            want if k is not None else (want,)):
+        np.testing.assert_array_equal(got_part, host_part)
+        if k is None:
+            np.testing.assert_allclose(got_part, want_part, rtol=MRR_RTOL,
+                                       atol=0)
+        else:
+            np.testing.assert_array_equal(got_part, want_part)
 
 
 def test_train_correction_matches_jax():
