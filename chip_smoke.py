@@ -22,9 +22,9 @@ each of which exits non-zero when it fails:
    the benchmark's ``mf-msd.mrr`` calls (``benchmark/data.py``: that
    cell's configuration, split and draw; B=2,048 over its 384,546 items,
    D=64, each row's test count of targets and NaN after them, as
-   ``mrr_score`` hands them over): ``ragged_rank_weights`` (the ragged
-   launch plan) bit for bit against ``rank_weights`` (every row on every
-   target chunk) on every call and against the plain version on the
+   ``mrr_score`` hands them over): ``rank_weights`` given the widths (the
+   ragged launch plan) bit for bit against it without them (every row on
+   every target chunk) on every call and against the plain version on the
    first, 0 on every pad; its launches and row passes, and both timed in
    turns beside the rank pass's bound.
 4. slice: the implicit-MF serving path at full width: 50,000 users x
@@ -626,8 +626,8 @@ def check_ragged_rank_pass(torch, card, generator):
                                            ).masked_fill(pads, float('nan'))
 
         def ragged():
-            return ranking.ragged_rank_weights(users, items, bias, ts,
-                                               widths)
+            return ranking.rank_weights(users, items, bias, ts,
+                                        widths=widths)
 
         def chunk_loop():
             return ranking.rank_weights(users, items, bias, ts)
@@ -644,7 +644,7 @@ def check_ragged_rank_pass(torch, card, generator):
         for name, want in wants:
             if not torch.equal(weights, want):
                 raise AssertionError(
-                    'ragged_rank_weights differs from {} at {}: {} of {} '
+                    'ragged rank_weights differs from {} at {}: {} of {} '
                     'weights'.format(name, shape,
                                      int((weights != want).sum()),
                                      weights.numel()))

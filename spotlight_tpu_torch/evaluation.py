@@ -18,46 +18,58 @@ over the model's own predictions, in float32 as the JAX package's).  Users
   catalogue with one matrix product, masks train items to -FLOAT_MAX and
   ranks by sorting, reproducing ``scipy.stats.rankdata``'s average ranks.
 
-On a model with a mesh whose model axis has more than one rank
-(:mod:`spotlight_tpu_torch.parallel`), the streaming path runs sharded:
-each rank streams its block of the catalogue (padded to a multiple of the
-axis with rows that never outrank an item) and the ranks' weights are
-summed or their top-k lists merged (``parallel.evaluation``).  A model
-trained on the mesh hands each rank its own block of the catalogue, and
-no rank builds the whole.  Every rank calls the metric alike and returns
-the same result, equal to one device's.
+Each metric builds its batches, ``(inputs, targets, target mask,
+excluded rows, widths)``, and hands them to one loop of its kind:
+:func:`_mrr_loop` for the two MRR metrics, :func:`_topk_loop` for the two
+precision/recall metrics.  A streaming call scores through one
+:class:`_Scorer`, chosen once per call (:func:`_scorer`): its matched
+scores of ids, its rank weights and its top-k are the kernels' on one
+device, or, on a model with a mesh whose model axis has more than one rank
+(:mod:`spotlight_tpu_torch.parallel`), their sharded forms: each rank
+streams its block of the catalogue (padded to a multiple of the axis with
+rows that never outrank an item) and the ranks' weights are summed or
+their top-k lists merged (``parallel.evaluation``).  A model trained on
+the mesh hands each rank its own block of the catalogue, and no rank
+builds the whole.  Every rank calls the metric alike and returns the same
+result, equal to one device's.  The matched target scores, the pads' NaN,
+the train correction and the top-k's train compaction are written once,
+for both (:func:`_streaming_ranks`, :func:`_streaming_topk_hits`).
 
-Each metric call picks its path once, before any launch: it streams when
-the caller asks for it, the model exposes its factors, and the kernels
-take them (``ranking.streams``, ``topk.streams``: mixtures of at most
+Each metric call picks its path once, before any launch (:func:`_route`):
+it streams when the caller asks for it, the model gives the kernels
+factors (its ``_rank_factor_shape`` is not None), and the kernels take
+them (``ranking.streams``, ``topk.streams``: mixtures of at most
 ``MAX_MIXTURES`` tastes and, on a card, the widths whose blocks fit in
 shared memory, the call's widest top-k fetch included).  A call that the
 kernels do not take runs whole on the materialize path, at its batch size,
-and counts once in :data:`MATERIALIZE_ROUTES`.  That is a route chosen up
-front, not the JAX package's fallback: nothing here catches a kernel
-failure to recompute on the materialize path, and a kernel that fails to
-build or launch raises.  Each metric reads its result back to the host
-once, after the last batch.
+and counts once in :data:`MATERIALIZE_ROUTES`; a model that gives no
+factors (a custom network, a model that only predicts) runs there
+uncounted.  That is a route chosen up front, not the JAX package's
+fallback: nothing here catches a kernel failure to recompute on the
+materialize path, and a kernel that fails to build or launch raises.  Each
+metric reads its result back to the host once, after the last batch.
 
 Each metric call is one span (``utils.profiling.span``) named after it,
 ``spotlight.<metric>``, holding ``spotlight.eval.rows`` (the host's rows:
 ``_eval_rows``, or the sequences' prefixes and excluded rows), one
 ``spotlight.eval.upload`` a batch (its rows padded to the batch's widest
-and placed on the device) and one ``spotlight.eval.factors`` a batch
-(``_rank_factors``).
+and placed on the device) and, when it streams, one
+``spotlight.eval.factors`` a batch (``_rank_factors``).
 
-The user metrics keep their rows compact on the host: each user's count
-and the ids of all users concatenated (``_Rows``), O(entries + users).  Each
-batch's padded rows are built on the model's device, from the batch's
-real ids and their flat positions sent up in one pinned copy
-(counted in :data:`ROWS_BUILT_ON_DEVICE` and :data:`ROW_UPLOAD_BYTES`).  A
-model on the CPU takes the same path, its copy a plain one.
+The host keeps every metric's rows compact (``_Rows``): each row's count
+and the ids of all rows concatenated, O(entries + rows): the users' test
+and train rows, and each prefix's distinct items where the sequence
+metrics exclude them.  Each batch's padded rows are built on the model's
+device, from the batch's real ids and their flat positions sent up in one
+pinned copy (``_rows_on``, counted in :data:`ROWS_BUILT_ON_DEVICE` and
+:data:`ROW_UPLOAD_BYTES`).  A model on the CPU takes the same path, its
+copy a plain one.
 """
 
 from __future__ import annotations
 
 import itertools
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -65,7 +77,7 @@ import torch
 from spotlight_tpu_torch.factorization._base import resolve_device
 from spotlight_tpu_torch.ops.kernels import ranking, topk
 from spotlight_tpu_torch.ops.kernels.ranking import (
-    matched_candidate_scores, matched_target_scores, ragged_rank_weights)
+    matched_candidate_scores, matched_target_scores, rank_weights)
 from spotlight_tpu_torch.ops.kernels.topk import streaming_topk
 from spotlight_tpu_torch.parallel.evaluation import (
     _block, candidate_scores_of_block, rank_weights_of_block, topk_of_block)
@@ -90,12 +102,13 @@ MATERIALIZE_BATCH = 256
 #: Metric calls that the route query sent to the materialize path because
 #: the streaming kernels do not take the model's factors (one per call).
 MATERIALIZE_ROUTES = 0
-#: Rows of padded (batch, width) id matrices that ``_batches`` built on the
-#: card from the real ids: one a user for the targets, and one more for the
-#: train rows where a train set is given.  Rows built for a model on the
+#: Rows of padded (batch, width) id matrices that ``_rows_on`` built on the
+#: card from the real ids: one a user for the targets, one more for the
+#: train rows where a train set is given, and one a sequence for its
+#: excluded items where they are excluded.  Rows built for a model on the
 #: CPU count nothing.
 ROWS_BUILT_ON_DEVICE = 0
-#: Bytes of row data that ``_batches`` sent to the card: each real id and
+#: Bytes of row data that ``_rows_on`` sent to the card: each real id and
 #: its flat position, 4 bytes each (8 for a matrix past 2**31 entries).
 #: Nothing is counted for a model on the CPU.
 ROW_UPLOAD_BYTES = 0
@@ -172,25 +185,6 @@ def _rows_on(parts, device):
     return out
 
 
-def _trim_batch_rows(rows, pad_value=-1):
-    """Trim trailing all-pad columns to this batch's own widest row.
-
-    The sequence metrics' excluded rows (``_dedup_rows``) are sized to the
-    call's prefix with the most distinct items; without the trim every
-    batch would pay that width in the train correction and the top-k
-    over-fetch.
-    Valid entries are left-aligned, so trimming is a column slice.  (The
-    JAX package rounds the width up to a power of two to bound its
-    compiled shapes; eager PyTorch needs no such bucket, and the results
-    do not depend on the width.)
-    """
-    if rows is None:
-        return rows
-    counts = (rows != pad_value).sum(axis=1)
-    width = max(int(counts.max()) if len(counts) else 0, 1)
-    return rows[:, :width]
-
-
 def _batched(users_or_rows, batch_size):
     n = len(users_or_rows)
     for start in range(0, n, batch_size):
@@ -244,45 +238,50 @@ def _mean_reciprocal(ranks, target_mask):
     return rr.sum(dim=1) / denom
 
 
-def _matched_scores(reprs, item_matrix, item_bias, ids, mixture):
-    """Scores of given item ids, bit-equal to the catalogue scores the
-    streaming kernels compare (dot or mixture scoring)."""
-    if mixture is None:
-        return matched_target_scores(reprs, item_matrix, item_bias, ids)
-    return matched_candidate_scores(reprs, item_matrix, item_bias, ids,
-                                    mixture)
+class _Scorer(NamedTuple):
+    """One call's three streaming operations, chosen once (:func:`_scorer`).
+    Each takes a batch's factors ``(reprs, item_matrix, item_bias,
+    mixture)`` as :func:`_rank_factors` gives them (``mixture`` None for
+    dot scoring):
+
+    - ``matched(factors, ids)``: (B, T) scores of item ids, bit-equal to
+      the catalogue scores that the other two compare;
+    - ``weights(factors, target_scores, widths)``: (B, T) rank weights
+      (``ranking.rank_weights``), ``widths`` each row's count of real
+      targets on the host, or None;
+    - ``topk(factors, fetch)``: (B, fetch) top item ids.
+
+    ``num_items`` is the real catalogue's size."""
+
+    num_items: int
+    matched: Callable
+    weights: Callable
+    topk: Callable
 
 
-def _streaming_ranks_device(reprs, item_matrix, item_bias, targets,
-                            target_mask, train_rows, mixture=None,
-                            widths=None):
-    """Per-batch streaming MRR: matched target scores, the rank kernel,
-    then the train correction, all on the batch's device.  ``mixture`` is
-    the number of mixture components (None: dot scoring); ``widths`` the
-    rows' target counts on the host, where they are known."""
-    num_items = item_matrix.shape[0]
-    safe_targets = targets.clamp(0, num_items - 1)
-    # The target scores bit-match the kernel's tile scores, so each
-    # target's comparison with itself is an exact tie (weight 0.5).
-    target_scores = _matched_scores(reprs, item_matrix, item_bias,
-                                    safe_targets, mixture)
-    # A pad's score is NaN, which counts nothing: given the rows' widths,
-    # the rank kernel scores each row only against the chunks it holds.
-    pads_nan = target_scores.masked_fill(~target_mask, float('nan'))
-    weights = ragged_rank_weights(reprs, item_matrix, item_bias, pads_nan,
-                                  widths, mixture)
+def _device_scorer(num_items):
+    """The operations on one device, over the whole catalogue of
+    ``num_items`` rows: the kernels' own entry points, dot or mixture
+    scoring."""
 
-    if train_rows is not None:
-        valid_train = train_rows >= 0
-        safe_train = train_rows.clamp(0, num_items - 1)
-        train_scores = _matched_scores(reprs, item_matrix, item_bias,
-                                       safe_train, mixture)
-        ranks = _ranks_with_train_correction(
-            weights, num_items, safe_targets, target_scores, valid_train,
-            safe_train, train_scores)
-    else:
-        ranks = weights + 0.5
-    return _mean_reciprocal(ranks, target_mask)
+    def matched(factors, ids):
+        reprs, item_matrix, item_bias, mixture = factors
+        if mixture is None:
+            return matched_target_scores(reprs, item_matrix, item_bias, ids)
+        return matched_candidate_scores(reprs, item_matrix, item_bias, ids,
+                                        mixture)
+
+    def weights(factors, target_scores, widths):
+        reprs, item_matrix, item_bias, mixture = factors
+        return rank_weights(reprs, item_matrix, item_bias, target_scores,
+                            mixture, widths)
+
+    def top_ids(factors, fetch):
+        reprs, item_matrix, item_bias, mixture = factors
+        return streaming_topk(reprs, item_matrix, item_bias, fetch,
+                              mixture)[1]
+
+    return _Scorer(num_items, matched, weights, top_ids)
 
 
 def _sharded_mesh(model):
@@ -353,71 +352,105 @@ def _repeat_first(rows, pad):
     return torch.cat([rows, rows[:1].expand(pad, *rows.shape[1:])])
 
 
-def _streaming_ranks_sharded(mesh, reprs, block, targets, target_mask,
-                             train_rows, mixture, num_items):
-    """Per-row mean reciprocal ranks over a row-sharded catalogue: matched
-    target scores on their owning ranks, each rank's rank weights summed
-    (``parallel.evaluation``), then the train correction.  ``block`` is
-    this rank's block of the catalogue padded to a multiple of the model
-    axis (:func:`_shard_catalog`); ``num_items`` is the real catalogue,
-    which the ranks' semantics use.  The user batch is padded to a multiple
-    of the data axis by repeating its first row, so that it splits over the
-    data ranks, and sliced back."""
-    safe_targets = targets.clamp(0, num_items - 1)
-    batch = reprs.shape[0]
-    pad = -batch % mesh.shape.get('data', 1)
-    if pad:
-        reprs = _repeat_first(reprs, pad)
-        safe_targets = _repeat_first(safe_targets, pad)
-        if train_rows is not None:
-            train_rows = _repeat_first(train_rows, pad)
+def _mesh_scorer(model, mesh):
+    """The operations over a row-sharded catalogue (``parallel.evaluation``):
+    each rank scores its block (:func:`_shard_catalog`), and the ranks'
+    matched scores and rank weights are summed and their top-k lists
+    merged over the model axis.  The matched scores and the rank weights
+    pad the user batch to a multiple of the data axis by repeating its
+    first row, so that it splits over the data ranks, and slice their
+    result back; the top-k takes the batch as it is.  Every row runs on
+    every target chunk: the widths are not used."""
 
-    target_scores = candidate_scores_of_block(
-        mesh, reprs, block, safe_targets, mixture=mixture)
-    weights = rank_weights_of_block(mesh, reprs, block, target_scores,
-                                    mixture=mixture)
-    if train_rows is not None:
-        valid_train = train_rows >= 0
-        safe_train = train_rows.clamp(0, num_items - 1)
-        train_scores = candidate_scores_of_block(
-            mesh, reprs, block, safe_train, mixture=mixture)
-        ranks = _ranks_with_train_correction(
-            weights, num_items, safe_targets, target_scores, valid_train,
-            safe_train, train_scores)
-    else:
-        ranks = weights + 0.5
-    return _mean_reciprocal(ranks[:batch], target_mask)
+    def block(factors):
+        return _shard_catalog(model, mesh, factors[1], factors[2])
+
+    def split(factors, rows):
+        reprs = factors[0]
+        pad = -len(rows) % mesh.shape.get('data', 1)
+        if pad:
+            reprs, rows = _repeat_first(reprs, pad), _repeat_first(rows, pad)
+        return reprs, rows
+
+    def matched(factors, ids):
+        reprs, padded = split(factors, ids)
+        return candidate_scores_of_block(
+            mesh, reprs, block(factors), padded,
+            mixture=factors[3])[:len(ids)]
+
+    def weights(factors, target_scores, widths):
+        reprs, padded = split(factors, target_scores)
+        return rank_weights_of_block(
+            mesh, reprs, block(factors), padded,
+            mixture=factors[3])[:len(target_scores)]
+
+    def top_ids(factors, fetch):
+        return topk_of_block(mesh, factors[0], block(factors), fetch,
+                             mixture=factors[3])[1]
+
+    return _Scorer(model._num_items, matched, weights, top_ids)
+
+
+def _scorer(model):
+    """The call's operations: over the model's mesh where its catalogue is
+    sharded, else on its device."""
+    mesh = _sharded_mesh(model)
+    if mesh is None:
+        return _device_scorer(model._num_items)
+    return _mesh_scorer(model, mesh)
 
 
 def _rank_factors(model, kind, inputs):
     """``(reprs, item_matrix, item_bias, mixture)`` from the model's
     ``_rank_factors_users`` (kind 'users', inputs user ids) or
-    ``_rank_factors_sequences`` (kind 'sequences', inputs prefixes), or
-    None when the model exposes no factors.  ``mixture`` is None for dot
-    scoring."""
-    factors_fn = getattr(model, '_rank_factors_' + kind, None)
-    if factors_fn is None:
-        return None
+    ``_rank_factors_sequences`` (kind 'sequences', inputs prefixes).
+    ``mixture`` is None for dot scoring."""
+    factors_fn = getattr(model, '_rank_factors_' + kind)
     with span('spotlight.eval.factors'):
         return factors_fn(inputs)
 
 
-def _streaming_ranks(model, kind, inputs, targets, target_mask,
-                     train_rows=None, widths=None):
-    """Per-row mean reciprocal ranks through the rank kernel, or None when
-    the model exposes no factors.  ``widths``: each row's count of
-    targets, which come first in it, where the host knows them."""
-    factors = _rank_factors(model, kind, inputs)
-    if factors is None:
-        return None
-    reprs, item_matrix, item_bias, mixture = factors
-    mesh = _sharded_mesh(model)
-    if mesh is not None:
-        return _streaming_ranks_sharded(
-            mesh, reprs, _shard_catalog(model, mesh, item_matrix, item_bias),
-            targets, target_mask, train_rows, mixture, model._num_items)
-    return _streaming_ranks_device(reprs, item_matrix, item_bias, targets,
-                                   target_mask, train_rows, mixture, widths)
+def _streaming_ranks(scorer, factors, targets, target_mask, excluded=None,
+                     widths=None):
+    """Per-row mean reciprocal ranks of one batch through the rank kernel:
+    matched target scores, the rank weights, then the correction for the
+    ``excluded`` rows (-1 pads; None excludes nothing).  ``widths``: each
+    row's count of targets, which come first in it, where the host knows
+    them."""
+    num_items = scorer.num_items
+    safe_targets = targets.clamp(0, num_items - 1)
+    # The target scores bit-match the kernel's tile scores, so each
+    # target's comparison with itself is an exact tie (weight 0.5).
+    target_scores = scorer.matched(factors, safe_targets)
+    # A pad's score is NaN, which counts nothing: given the rows' widths,
+    # the rank kernel scores each row only against the chunks it holds.
+    pads_nan = target_scores.masked_fill(~target_mask, float('nan'))
+    weights = scorer.weights(factors, pads_nan, widths)
+    if excluded is None:
+        ranks = weights + 0.5
+    else:
+        safe_excluded = excluded.clamp(0, num_items - 1)
+        ranks = _ranks_with_train_correction(
+            weights, num_items, safe_targets, target_scores, excluded >= 0,
+            safe_excluded, scorer.matched(factors, safe_excluded))
+    return _mean_reciprocal(ranks, target_mask)
+
+
+def _streaming_topk_hits(scorer, factors, k_max, excluded=None):
+    """(B, k_max) top ids of one batch through the top-k kernel, the ids of
+    the ``excluded`` rows (-1 pads; None excludes nothing) left out.
+
+    Exclusion over-fetches: the kernel returns the top ``k_max + excluded
+    width`` (a row has at most that width of its excluded items in any
+    window), excluded ids are compacted out and the first ``k_max``
+    survivors kept.
+    """
+    fetch = k_max if excluded is None else k_max + excluded.shape[1]
+    # A fetch of the whole catalogue already holds every unmasked item.
+    top_ids = scorer.topk(factors, min(fetch, scorer.num_items))
+    if excluded is None:
+        return top_ids
+    return _compact_train_mask(top_ids, excluded, k_max)
 
 
 def _mask_scores(scores, mask_indices):
@@ -458,60 +491,6 @@ def _precision_recall_from_topk(top_ids, targets, target_mask, k_values):
     return precision, recall
 
 
-def _precision_recall_from_scores(scores, targets, target_mask, k_values):
-    top_items = _top_items(scores, max(k_values))
-    return _precision_recall_from_topk(top_items, targets, target_mask,
-                                       k_values)
-
-
-def _streaming_topk_device(reprs, item_matrix, item_bias, train_rows, k_max,
-                           fetch, mixture=None):
-    """Per-batch top-k through the top-k kernel, then train compaction."""
-    _, top_ids = streaming_topk(reprs, item_matrix, item_bias, fetch,
-                                mixture)
-    if train_rows is None:
-        return top_ids
-    return _compact_train_mask(top_ids, train_rows, k_max)
-
-
-def _streaming_topk_hits(model, kind, inputs, k_max, train_rows=None):
-    """(B, k_max) top unmasked item ids, or None when the model exposes no
-    factors.
-
-    Train masking over-fetches: the kernel returns the top
-    ``k_max + train width`` (a user has at most ``train width`` of their
-    train items in any window), masked ids are compacted out and the first
-    ``k_max`` survivors kept.
-    """
-    factors = _rank_factors(model, kind, inputs)
-    if factors is None:
-        return None
-    reprs, item_matrix, item_bias, mixture = factors
-    mesh = _sharded_mesh(model)
-    num_items = (model._num_items if mesh is not None
-                 else item_matrix.shape[0])
-    fetch = k_max if train_rows is None else k_max + train_rows.shape[1]
-    # A fetch of the whole catalogue already holds every unmasked item.
-    fetch = min(fetch, num_items)
-    if mesh is not None:
-        return _sharded_topk_hits(
-            mesh, reprs, _shard_catalog(model, mesh, item_matrix, item_bias),
-            train_rows, k_max, fetch, mixture)
-    return _streaming_topk_device(reprs, item_matrix, item_bias, train_rows,
-                                  k_max, fetch, mixture)
-
-
-def _sharded_topk_hits(mesh, reprs, block, train_rows, k_max, fetch,
-                       mixture):
-    """The mesh form of :func:`_streaming_topk_device`: each rank's top
-    ``fetch`` of its ``block`` merged over the model axis, then the train
-    compaction."""
-    _, top_ids = topk_of_block(mesh, reprs, block, fetch, mixture=mixture)
-    if train_rows is None:
-        return top_ids
-    return _compact_train_mask(top_ids, train_rows, k_max)
-
-
 def _score_user_batch(model, user_batch, device):
     """(B, num_items) scores through the model's catalogue scorer, else
     through per-user ``predict``."""
@@ -523,33 +502,49 @@ def _score_user_batch(model, user_batch, device):
         dtype=torch.float32, device=device)
 
 
-def _factor_shape(model, kind, first_inputs):
-    """``(dim, mixtures)`` of the factors the model gives the streaming
-    kernels (``mixtures`` None for dot scoring), or None when it exposes
-    none.  Read from the model's network; from the factors of a first
-    batch only where no attribute carries them."""
-    if getattr(model, '_rank_factors_' + kind, None) is None:
-        return None
-    net = getattr(model, '_net', None)
-    dim = getattr(net, 'embedding_dim', None)
-    if dim is not None:
-        return dim, getattr(net, 'num_mixtures', None)
-    if len(first_inputs) == 0:
-        return None
-    factors = _rank_factors(model, kind, first_inputs)
-    return None if factors is None else (factors[1].shape[1], factors[3])
+def _user_scores(model, device):
+    """The materialize path's scores of a batch of users, their train rows
+    (-1 pads; None: no train set) masked to -FLOAT_MAX."""
+    def scores(users, train_rows):
+        out = _score_user_batch(model, users, device)
+        return out if train_rows is None else _mask_scores(out, train_rows)
+    return scores
 
 
-def _route(model, kind, streaming, device, first_inputs, fetch=None):
+def _sequence_final_scores(model, prefixes, exclude_preceding, device):
+    """(B, num_items) next-item scores for a batch of sequence prefixes,
+    through the model's catalogue scorer, else through per-sequence
+    ``predict``; items of the prefix masked to -FLOAT_MAX on request."""
+    fn = getattr(model, '_score_catalog_sequences', None)
+    if fn is not None:
+        scores = fn(prefixes)
+    else:
+        scores = torch.as_tensor(np.stack([model.predict(p)
+                                           for p in prefixes]),
+                                 dtype=torch.float32, device=device)
+    if exclude_preceding:
+        scores = _mask_scores(scores, torch.as_tensor(
+            prefixes.astype(np.int64), device=device))
+    return scores
+
+
+def _sequence_scores(model, exclude_preceding, device):
+    """The materialize path's scores of a batch of prefixes, which masks
+    the prefixes themselves (:func:`_sequence_final_scores`)."""
+    return lambda prefixes, excluded: _sequence_final_scores(
+        model, prefixes, exclude_preceding, device)
+
+
+def _route(model, streaming, device, fetch=None):
     """Whether one metric call streams: the caller asks for it, the model
-    exposes factors, and the kernels take them (``ranking.streams``, or
-    ``topk.streams`` for the call's widest top-``fetch``).  Decided once,
-    before any launch; a call the kernels refuse counts in
-    MATERIALIZE_ROUTES."""
+    gives the streaming kernels factors (its ``_rank_factor_shape``, the
+    factors' ``(dim, mixtures)``, is not None), and the kernels take them
+    (``ranking.streams``, or ``topk.streams`` for the call's widest
+    top-``fetch``).  Decided once, before any launch; a call the kernels
+    refuse counts in MATERIALIZE_ROUTES."""
     global MATERIALIZE_ROUTES
-    if not streaming:
-        return False
-    shape = _factor_shape(model, kind, first_inputs)
+    shape_fn = getattr(model, '_rank_factor_shape', None)
+    shape = shape_fn() if streaming and shape_fn is not None else None
     if shape is None:
         return False
     dim, mixtures = shape
@@ -576,6 +571,49 @@ def _model_device(model):
     return resolve_device(None) if device is None else device
 
 
+def _mrr_loop(model, kind, stream, batches, scores):
+    """Per-row mean reciprocal ranks of a call's ``batches`` (inputs,
+    targets, target mask, excluded rows, widths), on the host: through the
+    rank kernel when the call streams, else by sorting ``scores(inputs,
+    excluded rows)``."""
+    scorer = _scorer(model) if stream else None
+    mrrs = []
+    for inputs, targets, target_mask, excluded, widths in batches:
+        if scorer is None:
+            mrrs.append(_reciprocal_ranks(scores(inputs, excluded), targets,
+                                          target_mask))
+        else:
+            mrrs.append(_streaming_ranks(
+                scorer, _rank_factors(model, kind, inputs), targets,
+                target_mask, excluded, widths))
+    return torch.cat(mrrs).cpu().numpy() if mrrs else np.array([])
+
+
+def _topk_loop(model, kind, stream, batches, scores, k_values):
+    """(precision, recall) at each of ``k_values`` of a call's ``batches``,
+    each (rows, len(k_values)) on the host: through the top-k kernel when
+    the call streams, else by sorting ``scores(inputs, excluded rows)``."""
+    scorer = _scorer(model) if stream else None
+    k_max = max(k_values)
+    precisions, recalls = [], []
+    for inputs, targets, target_mask, excluded, _ in batches:
+        if scorer is None:
+            top_ids = _top_items(scores(inputs, excluded), k_max)
+        else:
+            top_ids = _streaming_topk_hits(
+                scorer, _rank_factors(model, kind, inputs), k_max, excluded)
+        precision, recall = _precision_recall_from_topk(
+            top_ids, targets, target_mask, k_values)
+        precisions.append(precision)
+        recalls.append(recall)
+    if not precisions:
+        # One column whatever k, as the JAX package returns.
+        return np.empty((0, 1)), np.empty((0, 1))
+    precision, recall = torch.stack(
+        [torch.cat(precisions), torch.cat(recalls)]).cpu().numpy()
+    return precision, recall
+
+
 def _eval_rows(test, train):
     """Users with test items, and their test rows and train rows (None
     without ``train``) as ``_Rows``, the ids in each CSR's order."""
@@ -591,9 +629,9 @@ def _eval_rows(test, train):
 
 
 def _batches(users, targets, train_rows, batch_size, device):
-    """(user ids, targets, train rows, target counts) per batch: the
-    ``_Rows`` padded with -1 to the batch's own widest row, built on
-    ``device`` from the real ids."""
+    """(user ids, targets, target mask, train rows, target counts) per
+    batch: the ``_Rows`` padded with -1 to the batch's own widest row,
+    built on ``device`` from the real ids."""
     device = torch.device(device)
     train_batches = (train_rows.batches(batch_size)
                      if train_rows is not None else itertools.repeat(None))
@@ -601,7 +639,8 @@ def _batches(users, targets, train_rows, batch_size, device):
                         targets.batches(batch_size), train_batches):
         with span('spotlight.eval.upload'):
             placed = _rows_on([t] if tr is None else [t, tr], device)
-        yield u, placed[0], placed[1] if tr is not None else None, t.counts
+        yield (u, placed[0], placed[0] >= 0,
+               placed[1] if tr is not None else None, t.counts)
 
 
 @torch.no_grad()
@@ -630,25 +669,11 @@ def mrr_score(model, test, train=None, batch_size=None, streaming=True):
     with span('spotlight.mrr_score'):
         users, targets, train_rows = _eval_rows(test, train)
         device = _model_device(model)
-        streaming = _route(model, 'users', streaming, device, users[:1])
-        batch_size = _resolve_batch_size(batch_size, streaming)
-
-        mrrs = []
-        for u, t, tr, w in _batches(users, targets, train_rows, batch_size,
-                                    device):
-            if streaming:
-                rr = _streaming_ranks(model, 'users', u, t, t >= 0,
-                                      train_rows=tr, widths=w)
-                if rr is not None:
-                    mrrs.append(rr)
-                    continue
-                streaming = False  # the model exposes no factors
-            scores = _score_user_batch(model, u, device)
-            if tr is not None:
-                scores = _mask_scores(scores, tr)
-            mrrs.append(_reciprocal_ranks(scores, t, t >= 0))
-
-        return torch.cat(mrrs).cpu().numpy() if mrrs else np.array([])
+        stream = _route(model, streaming, device)
+        batches = _batches(users, targets, train_rows,
+                           _resolve_batch_size(batch_size, stream), device)
+        return _mrr_loop(model, 'users', stream, batches,
+                         _user_scores(model, device))
 
 
 @torch.no_grad()
@@ -688,99 +713,45 @@ def precision_recall_score(model, test, train=None, k=10, batch_size=None,
         # fetch is at most this, and at most the catalogue).
         fetch = max(k_values) + (0 if train_rows is None
                                  else train_rows.width)
-        streaming = _route(model, 'users', streaming, device, users[:1],
-                           fetch)
-        batch_size = _resolve_batch_size(batch_size, streaming)
-
-        precisions, recalls = [], []
-        for u, t, tr, _ in _batches(users, targets, train_rows,
-                                    batch_size, device):
-            if streaming:
-                top_ids = _streaming_topk_hits(model, 'users', u,
-                                               max(k_values), train_rows=tr)
-                if top_ids is not None:
-                    p, r = _precision_recall_from_topk(top_ids, t, t >= 0,
-                                                       k_values)
-                    precisions.append(p)
-                    recalls.append(r)
-                    continue
-                streaming = False  # the model exposes no factors
-            scores = _score_user_batch(model, u, device)
-            if tr is not None:
-                scores = _mask_scores(scores, tr)
-            p, r = _precision_recall_from_scores(scores, t, t >= 0,
-                                                 k_values)
-            precisions.append(p)
-            recalls.append(r)
-
-        if precisions:
-            precision, recall = torch.stack(
-                [torch.cat(precisions), torch.cat(recalls)]).cpu().numpy()
-        else:
-            # One column whatever k, as the JAX package returns.
-            precision = recall = np.empty((0, 1))
+        stream = _route(model, streaming, device, fetch)
+        batches = _batches(users, targets, train_rows,
+                           _resolve_batch_size(batch_size, stream), device)
+        precision, recall = _topk_loop(model, 'users', stream, batches,
+                                       _user_scores(model, device),
+                                       k_values)
         if scalar_k:
             return precision[:, 0], recall[:, 0]
         return precision, recall
 
 
-def _dedup_rows(matrix, pad_value=-1):
-    """Per-row unique values (sorted ascending), right-padded with
-    ``pad_value`` to the widest row's count.  (The JAX package rounds the
-    width up to a power of two to bound its compiled shapes; the results
-    do not depend on the width.)"""
-    if matrix.shape[0] == 0:
-        return np.full((0, 1), pad_value, dtype=matrix.dtype)
-    sorted_m = np.sort(matrix, axis=1)
+def _excluded_rows(prefixes, exclude_preceding):
+    """``_Rows`` of each prefix's distinct items in ascending order, in one
+    pass over all the prefixes, when ``exclude_preceding``; else None."""
+    if not exclude_preceding:
+        return None
+    sorted_m = np.sort(prefixes.astype(np.int64), axis=1)
     first = np.ones_like(sorted_m, dtype=bool)
     first[:, 1:] = sorted_m[:, 1:] != sorted_m[:, :-1]
-    width = max(int(first.sum(axis=1).max()), 1)
-    out = np.full((matrix.shape[0], width), pad_value, dtype=matrix.dtype)
-    dest = np.cumsum(first, axis=1) - 1
-    rows = np.broadcast_to(np.arange(matrix.shape[0])[:, None], matrix.shape)
-    out[rows[first], dest[first]] = sorted_m[first]
-    return out
-
-
-def _sequence_final_scores(model, prefixes, exclude_preceding, device):
-    """(B, num_items) next-item scores for a batch of sequence prefixes,
-    through the model's catalogue scorer, else through per-sequence
-    ``predict``; items of the prefix masked to -FLOAT_MAX on request."""
-    fn = getattr(model, '_score_catalog_sequences', None)
-    if fn is not None:
-        scores = fn(prefixes)
-    else:
-        scores = torch.as_tensor(np.stack([model.predict(p)
-                                           for p in prefixes]),
-                                 dtype=torch.float32, device=device)
-    if exclude_preceding:
-        scores = _mask_scores(scores, torch.as_tensor(
-            prefixes.astype(np.int64), device=device))
-    return scores
-
-
-def _excluded_rows(prefixes, exclude_preceding):
-    """Each prefix's deduplicated items when ``exclude_preceding``, else
-    None."""
-    return (_dedup_rows(prefixes.astype(np.int64)) if exclude_preceding
-            else None)
+    return _Rows(first.sum(axis=1), sorted_m[first])
 
 
 def _sequence_batches(prefixes, targets, excluded, batch_size, device):
-    """(prefixes, targets, masked rows) per batch: targets and the batch's
-    rows of ``excluded`` (None: nothing excluded), trimmed to the batch's
-    widest, on ``device``."""
-    excluded_batches = (_batched(excluded, batch_size)
+    """(prefixes, targets, target mask, excluded rows, None) per batch:
+    the targets on ``device``, every one real, and the batch's
+    ``excluded`` ``_Rows`` (None: nothing excluded) padded with -1 to the
+    batch's widest row, built on ``device`` as ``_batches`` builds the
+    users' rows."""
+    device = torch.device(device)
+    excluded_batches = (excluded.batches(batch_size)
                         if excluded is not None else itertools.repeat(None))
     for prefix, t, masked in zip(_batched(prefixes, batch_size),
                                  _batched(targets, batch_size),
                                  excluded_batches):
         with span('spotlight.eval.upload'):
             if masked is not None:
-                masked = torch.as_tensor(_trim_batch_rows(masked),
-                                         device=device)
+                masked, = _rows_on([masked], device)
             t = torch.as_tensor(t.astype(np.int64), device=device)
-        yield prefix, t, masked
+        yield prefix, t, torch.ones_like(t, dtype=torch.bool), masked, None
 
 
 @torch.no_grad()
@@ -811,27 +782,12 @@ def sequence_mrr_score(model, test, exclude_preceding=False, batch_size=None,
             prefixes = test.sequences[:, :-1]
             excluded = _excluded_rows(prefixes, exclude_preceding)
         device = _model_device(model)
-        streaming = _route(model, 'sequences', streaming, device,
-                           prefixes[:1])
-        batch_size = _resolve_batch_size(batch_size, streaming)
-
-        mrrs = []
-        for prefix, t, masked in _sequence_batches(
-                prefixes, test.sequences[:, -1:], excluded, batch_size,
-                device):
-            target_mask = torch.ones_like(t, dtype=torch.bool)
-            if streaming:
-                rr = _streaming_ranks(model, 'sequences', prefix, t,
-                                      target_mask, train_rows=masked)
-                if rr is not None:
-                    mrrs.append(rr)
-                    continue
-                streaming = False  # the model exposes no factors
-            scores = _sequence_final_scores(model, prefix, exclude_preceding,
-                                            device)
-            mrrs.append(_reciprocal_ranks(scores, t, target_mask))
-
-        return torch.cat(mrrs).cpu().numpy() if mrrs else np.array([])
+        stream = _route(model, streaming, device)
+        batches = _sequence_batches(
+            prefixes, test.sequences[:, -1:], excluded,
+            _resolve_batch_size(batch_size, stream), device)
+        return _mrr_loop(model, 'sequences', stream, batches,
+                         _sequence_scores(model, exclude_preceding, device))
 
 
 @torch.no_grad()
@@ -862,37 +818,15 @@ def sequence_precision_recall_score(model, test, k=10,
             excluded = _excluded_rows(prefixes, exclude_preceding)
         device = _model_device(model)
         # The call's widest fetch, k plus its widest excluded row.
-        fetch = k + (0 if excluded is None else excluded.shape[1])
-        streaming = _route(model, 'sequences', streaming, device,
-                           prefixes[:1], fetch)
-        batch_size = _resolve_batch_size(batch_size, streaming)
-
-        precisions, recalls = [], []
-        for prefix, t, masked in _sequence_batches(
-                prefixes, test.sequences[:, -k:], excluded, batch_size,
-                device):
-            target_mask = torch.ones_like(t, dtype=torch.bool)
-            if streaming:
-                top_ids = _streaming_topk_hits(model, 'sequences', prefix, k,
-                                               train_rows=masked)
-                if top_ids is not None:
-                    p, r = _precision_recall_from_topk(
-                        top_ids, t, target_mask, (k,))
-                    precisions.append(p[:, 0])
-                    recalls.append(r[:, 0])
-                    continue
-                streaming = False  # the model exposes no factors
-            scores = _sequence_final_scores(model, prefix, exclude_preceding,
-                                            device)
-            p, r = _precision_recall_from_scores(scores, t, target_mask, (k,))
-            precisions.append(p[:, 0])
-            recalls.append(r[:, 0])
-
-        if not precisions:
-            return np.array([]), np.array([])
-        precision, recall = torch.stack(
-            [torch.cat(precisions), torch.cat(recalls)]).cpu().numpy()
-        return precision, recall
+        fetch = k + (0 if excluded is None else excluded.width)
+        stream = _route(model, streaming, device, fetch)
+        batches = _sequence_batches(
+            prefixes, test.sequences[:, -k:], excluded,
+            _resolve_batch_size(batch_size, stream), device)
+        precision, recall = _topk_loop(
+            model, 'sequences', stream, batches,
+            _sequence_scores(model, exclude_preceding, device), (k,))
+        return precision[:, 0], recall[:, 0]
 
 
 def rmse_score(model, test):

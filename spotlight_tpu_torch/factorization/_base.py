@@ -287,19 +287,26 @@ class _FactorizationBase(SerializableEstimatorMixin):
         return torch.as_tensor(np.asarray(ids, dtype=np.int64),
                                device=self._device)
 
+    def _rank_factor_shape(self):
+        """``(dim, None)`` of the factors that ``_rank_factors_users``
+        gives the streaming kernels (None: dot scoring, no mixture), or
+        None when the representation is not a ``BilinearNet``: the metrics
+        then score its catalogue."""
+        if isinstance(self._net, BilinearNet):
+            return self._net.embedding_dim, None
+        return None
+
     @torch.no_grad()
     def _rank_factors_users(self, user_batch):
         """(user_reprs, item_matrix, item_bias, None) for the streaming
-        kernels (None: dot scoring, no mixture), or None when the
-        representation is not a dot product.
+        kernels (None: dot scoring, no mixture), of a model whose
+        ``_rank_factor_shape`` is not None.
 
         The user bias is dropped (it cannot change a rank).  The dense item
         matrix is cached per parameter version, so a metric pays the
         catalogue gather once, not once per batch.  On a mesh-trained model
         it is this rank's block of the catalogue (``item_factors``), and
         the user rows come through the exchange: every rank calls alike."""
-        if not isinstance(self._net, BilinearNet):
-            return None
         cache = self._item_factor_cache
         if cache is None or cache[0] != self._params_version:
             matrix, bias = self._net.item_factors()

@@ -43,10 +43,10 @@ RANK_COUNTS_LAUNCHES = 0
 MIXTURE_RANK_COUNTS_LAUNCHES = 0
 MATCHED_SCORES_LAUNCHES = 0
 CANDIDATE_SCORES_LAUNCHES = 0
-#: Rows handed to the rank kernel by :func:`rank_weights`' and
-#: :func:`ragged_rank_weights`' launches (dot and mixture scoring), summed
-#: over a call's launches: ``B * ceil(T / chunk)`` a call of every row on
-#: every target chunk, fewer where :func:`rank_launches` skips pads.
+#: Rows handed to the rank kernel by :func:`rank_weights`' launches (dot
+#: and mixture scoring), summed over a call's launches: ``B * ceil(T /
+#: chunk)`` a call of every row on every target chunk, fewer where
+#: :func:`rank_launches` skips pads.
 RANK_WEIGHTS_ROW_PASSES = 0
 
 #: Most mixture components the kernels take (``kMaxMixtures``, common.cuh).
@@ -217,7 +217,7 @@ def plain_mixture_scores(user_reprs, item_matrix, item_bias, num_mixtures):
 
 
 def rank_weights(user_reprs, item_matrix, item_bias, target_scores,
-                 num_mixtures=None):
+                 num_mixtures=None, widths=None):
     """Combined streaming rank weights of target scores against the
     catalogue.
 
@@ -229,6 +229,13 @@ def rank_weights(user_reprs, item_matrix, item_bias, target_scores,
     comparison with itself is an exact tie.  A NaN target counts nothing
     (weight 0).
 
+    Given ``widths``, row ``b``'s real targets are its first ``widths[b]``
+    columns and the rest are NaN (the streaming MRR's pads, whose widths
+    the host knows): on the card the kernel then runs only on the (rows,
+    target chunk) pairs that hold a real target (:func:`rank_launches`).
+    ``widths`` None runs every row on every chunk.  The weights are the
+    same either way.
+
     Parameters
     ----------
     user_reprs : (B, D) float32, or (B, 2 * M * D) for mixtures
@@ -237,27 +244,11 @@ def rank_weights(user_reprs, item_matrix, item_bias, target_scores,
     target_scores : (B, T) float32
     num_mixtures : int, optional
         M for mixture-of-tastes scoring; None scores dot products.
+    widths : (B,) host ints in ``[0, T]``, optional
 
     Returns
     -------
     (B, T) float32 weights.
-    """
-    return ragged_rank_weights(user_reprs, item_matrix, item_bias,
-                               target_scores, None, num_mixtures)
-
-
-def ragged_rank_weights(user_reprs, item_matrix, item_bias, target_scores,
-                        widths, num_mixtures=None):
-    """:func:`rank_weights` of rows that hold their real targets first:
-    row ``b``'s are its first ``widths[b]`` columns and the rest are NaN
-    (the streaming MRR's pads, whose widths the host knows).  On the card
-    the kernel then runs only on the (rows, target chunk) pairs that hold
-    a real target (:func:`rank_launches`); ``widths`` None runs every row
-    on every chunk.  The weights are :func:`rank_weights`' either way.
-
-    Parameters
-    ----------
-    widths : (B,) host ints in ``[0, T]``, or None
     """
     check_factors(user_reprs, item_matrix, item_bias, num_mixtures)
     if (target_scores.dim() != 2 or target_scores.dtype != torch.float32
@@ -271,7 +262,7 @@ def ragged_rank_weights(user_reprs, item_matrix, item_bias, target_scores,
             raise ValueError('widths must be (B,) ints in [0, T]')
     if not on_cuda(user_reprs, item_matrix, item_bias, target_scores):
         return rank_weights_plain(user_reprs, item_matrix, item_bias,
-                                   target_scores, num_mixtures)
+                                  target_scores, num_mixtures)
     return _rank_weights_cuda(user_reprs, item_matrix, item_bias,
                               target_scores, num_mixtures, widths)
 

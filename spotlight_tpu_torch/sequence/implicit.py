@@ -451,11 +451,24 @@ class ImplicitSequenceModel(SerializableEstimatorMixin):
             np.ascontiguousarray(np.atleast_2d(sequences), dtype=np.int64),
             device=self._device)
 
+    def _rank_factor_shape(self):
+        """``(dim, num_mixtures)`` of the factors that
+        ``_rank_factors_sequences`` gives the streaming kernels
+        (``num_mixtures`` None for dot scoring), or None for a
+        representation they do not take (a custom one): the metrics then
+        score its catalogue."""
+        net = self._net
+        if not isinstance(net, _STREAMED):
+            return None
+        return net.embedding_dim, (net.num_mixtures
+                                   if isinstance(net, MixtureLSTMNet)
+                                   else None)
+
     @torch.no_grad()
     def _rank_factors_sequences(self, prefix_batch):
         """(final_reprs, item_matrix, item_bias, num_mixtures) for the
-        streaming kernels, or None for a custom representation.
-        ``num_mixtures`` is None for dot scoring.
+        streaming kernels, of a model whose ``_rank_factor_shape`` is not
+        None.  ``num_mixtures`` is None for dot scoring.
 
         A mixture's final representation (B, 2M, D) is flattened to
         (B, 2M * D), tastes first, then attentions.  The item matrix is
@@ -465,8 +478,6 @@ class ImplicitSequenceModel(SerializableEstimatorMixin):
         sequences' rows come through the exchange: every rank calls
         alike."""
         net = self._net
-        if not isinstance(net, _STREAMED):
-            return None
         self._check_one_device()
         net.eval()
         cache = self._item_factor_cache
@@ -475,9 +486,7 @@ class ImplicitSequenceModel(SerializableEstimatorMixin):
             self._item_factor_cache = cache
         _, final = net.user_representation(self._sequences(prefix_batch))
         final = final.reshape(final.shape[0], -1).contiguous()
-        mixtures = (net.num_mixtures if isinstance(net, MixtureLSTMNet)
-                    else None)
-        return final, cache[1], cache[2], mixtures
+        return final, cache[1], cache[2], self._rank_factor_shape()[1]
 
     @torch.no_grad()
     def _score_catalog_sequences(self, sequences):

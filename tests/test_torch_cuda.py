@@ -269,8 +269,9 @@ def test_ragged_rank_weights_equal_plain_versions(cuda, mixtures):
     128 and 256, NaN after each row's real targets: given the counts, the
     kernel runs only on the (rows, chunk) pairs that hold a target
     (``rank_launches``), and the weights equal the plain version's bit for
-    bit, ``rank_weights``' on the same rows (every chunk) and the chunk
-    loop's over the same rows without pads, with 0 on every pad."""
+    bit, ``rank_weights``' without widths on the same rows (every chunk)
+    and the chunk loop's over the same rows without pads, with 0 on every
+    pad."""
     batch, num_items, dim, widest = 300, 20_000, 64, 300
     users, items, bias = _operands(17, batch, num_items, dim,
                                    mixtures=mixtures)
@@ -295,8 +296,8 @@ def test_ragged_rank_weights_equal_plain_versions(cuda, mixtures):
              'MIXTURE_RANK_WEIGHTS_LAUNCHES' if mixtures
              else 'RANK_WEIGHTS_LAUNCHES')
     before = [getattr(ranking, name) for name in names]
-    weights = ranking.ragged_rank_weights(users, items, bias, ts, widths,
-                                          mixtures)
+    weights = ranking.rank_weights(users, items, bias, ts, mixtures,
+                                   widths)
     moved = [getattr(ranking, name) - b for name, b in zip(names, before)]
     assert torch.equal(weights, ranking.rank_weights_plain(
         users, items, bias, ts, mixtures))
@@ -670,8 +671,8 @@ def test_eval_rows_are_built_on_the_card(cuda):
             padded_bytes = 0
             for got, want in zip(on_card, host):
                 np.testing.assert_array_equal(got[0], want[0])
-                np.testing.assert_array_equal(got[3], want[3])
-                for got_rows, want_rows in zip(got[1:3], want[1:3]):
+                np.testing.assert_array_equal(got[4], want[3])
+                for got_rows, want_rows in zip(got[1:4:2], want[1:3]):
                     if want_rows is None:
                         assert got_rows is None
                         continue
@@ -850,8 +851,9 @@ def test_reciprocal_ranks_streaming_equals_the_rank_weight_path(cuda):
     mask[::3, 2] = False
     got = ranking.reciprocal_ranks_streaming(users, items, bias, targets,
                                              mask)
-    want = evaluation._streaming_ranks_device(users, items, bias, targets,
-                                              mask, None)
+    want = evaluation._streaming_ranks(evaluation._device_scorer(4000),
+                                       (users, items, bias, None), targets,
+                                       mask)
     assert torch.equal(got, want)
 
 

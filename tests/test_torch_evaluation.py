@@ -21,7 +21,9 @@ import torch
 from spotlight_tpu import evaluation as jax_eval
 from spotlight_tpu_torch import evaluation
 from spotlight_tpu_torch.data import Interactions
+from spotlight_tpu_torch.factorization import ImplicitFactorizationModel
 from spotlight_tpu_torch.ops.kernels import ranking, topk
+from spotlight_tpu_torch.sequence import ImplicitSequenceModel
 
 from tests.test_torch_factorization import fitted_pair, to_port
 from tests.test_torch_sequence import _tests as sequence_tests
@@ -140,13 +142,13 @@ def test_mrr_of_heavy_and_light_users_in_one_batch(monkeypatch, masked):
                          num_items=train.num_items)
     heavy = to_port(jax_heavy)
     seen = []
-    original = evaluation.ragged_rank_weights
+    original = evaluation.rank_weights
 
-    def spy(users, items, bias, target_scores, widths, mixture):
+    def spy(users, items, bias, target_scores, mixture, widths):
         seen.append((torch.isnan(target_scores).sum(dim=1), widths))
-        return original(users, items, bias, target_scores, widths, mixture)
+        return original(users, items, bias, target_scores, mixture, widths)
 
-    monkeypatch.setattr(evaluation, 'ragged_rank_weights', spy)
+    monkeypatch.setattr(evaluation, 'rank_weights', spy)
     kwargs = {'train': ptrain} if masked else {}
     got = evaluation.mrr_score(port, heavy, **kwargs)
     want = jax_eval.mrr_score(jax_model, jax_heavy,
@@ -222,7 +224,7 @@ def test_kernel_failure_is_not_rerouted(monkeypatch):
     def broken(*args):
         raise RuntimeError('kernel launch failed')
 
-    monkeypatch.setattr(evaluation, 'ragged_rank_weights', broken)
+    monkeypatch.setattr(evaluation, 'rank_weights', broken)
     monkeypatch.setattr(evaluation, 'streaming_topk', broken)
     with pytest.raises(RuntimeError, match='kernel launch failed'):
         evaluation.mrr_score(port, ptest)
@@ -287,7 +289,70 @@ def test_refused_route_runs_the_materialize_path(monkeypatch):
             np.testing.assert_allclose(got, want, rtol=MRR_RTOL, atol=0)
 
 
+class _CustomNet(torch.nn.Module):
+    """A custom representation: it scores as the network it wraps and
+    carries its ``embedding_dim``, but it is none of the networks whose
+    factors the streaming kernels take."""
+
+    def __init__(self, inner):
+        super().__init__()
+        self.inner = inner
+        self.embedding_dim = inner.embedding_dim
+
+    def score_catalog(self, *args):
+        return self.inner.score_catalog(*args)
+
+    def user_representation(self, *args):
+        return self.inner.user_representation(*args)
+
+
+@pytest.mark.parametrize('metric,kwargs', [
+    ('mrr_score', {}),
+    ('precision_recall_score', {'k': [1, 5]}),
+    ('sequence_mrr_score', {'exclude_preceding': True}),
+    ('sequence_precision_recall_score', {'k': 3})])
+def test_network_the_kernels_do_not_take_is_materialized(monkeypatch,
+                                                         metric, kwargs):
+    """A model whose network has an ``embedding_dim`` but is not one the
+    kernels stream runs on the materialize path from its first batch: no
+    factors are asked for, MATERIALIZE_ROUTES stays where it was, and the
+    result equals streaming=False's, and the wrapped network's, exactly."""
+    if metric.startswith('sequence'):
+        _, inner, sequences = sequence_pair('lstm', None)
+        _, data = sequence_tests(sequences)
+        model = ImplicitSequenceModel(
+            loss='bpr', representation=_CustomNet(inner._net),
+            embedding_dim=inner._embedding_dim, device='cpu')
+        model._initialize(data)
+    else:
+        _, inner, _, _, ptrain, data = _setup()
+        kwargs = dict(kwargs, train=ptrain)
+        model = ImplicitFactorizationModel(
+            loss='bpr', representation=_CustomNet(inner._net), device='cpu')
+        model._initialize(ptrain)
+    assert model._rank_factor_shape() is None
+    assert inner._rank_factor_shape() is not None
+    metric = getattr(evaluation, metric)
+    want = metric(inner, data, streaming=False, **kwargs)
+
+    def refuse(*args):
+        raise AssertionError('factors asked of a model that gives none')
+
+    monkeypatch.setattr(evaluation, '_rank_factors', refuse)
+    before = evaluation.MATERIALIZE_ROUTES
+    got = metric(model, data, **kwargs)
+    assert evaluation.MATERIALIZE_ROUTES == before
+    parts = lambda out: out if isinstance(out, tuple) else (out,)  # noqa
+    for other in (metric(model, data, streaming=False, **kwargs), want):
+        for got_part, other_part in zip(parts(got), parts(other)):
+            np.testing.assert_array_equal(got_part, other_part)
+
+
 def test_padded_and_trimmed_rows_match_jax():
+    """The users' rows and the sequences' excluded rows, built through
+    ``_rows_on``, equal the JAX package's padded rows, each batch cut to
+    its own widest row (JAX's ``_trim_batch_rows`` of its ``_dedup_rows``
+    for the excluded rows, without its power-of-two width)."""
     _, _, train, _, ptrain, _ = _setup()
     users = np.array([0, 3, 5, 9, 40])
     got, = evaluation._rows_on(
@@ -295,13 +360,20 @@ def test_padded_and_trimmed_rows_match_jax():
     want = jax_eval._padded_rows(train.tocsr(), users)
     assert got.dtype == torch.int64
     np.testing.assert_array_equal(got.numpy(), want)
-    rows = np.full((3, 40), -1)
-    rows[0, :11] = 1
-    rows[2, :3] = 2
-    assert evaluation._trim_batch_rows(rows).shape == (3, 11)
-    np.testing.assert_array_equal(evaluation._trim_batch_rows(rows),
-                                  jax_eval._trim_batch_rows(rows)[:, :11])
-    assert evaluation._trim_batch_rows(None) is None
+    rs = np.random.RandomState(4)
+    prefixes = rs.randint(0, 40, (9, 20)).astype(np.int32)
+    prefixes[3] = 7                  # one distinct item
+    prefixes[5, :12] = 0             # left padding
+    excluded = evaluation._excluded_rows(prefixes, True)
+    batches = list(excluded.batches(4))
+    assert len(batches) == 3
+    for start, rows in zip(range(0, 9, 4), batches):
+        got, = evaluation._rows_on([rows], torch.device('cpu'))
+        want = jax_eval._trim_batch_rows(
+            jax_eval._dedup_rows(prefixes.astype(np.int64))[start:start + 4])
+        assert got.dtype == torch.int64
+        np.testing.assert_array_equal(got.numpy(), _trimmed(want))
+    assert evaluation._excluded_rows(prefixes, False) is None
     assert [len(b) for b in evaluation._batched(np.arange(10), 4)] == [4, 4,
                                                                       2]
 
@@ -396,8 +468,9 @@ def test_compact_rows_build_the_padded_rows(monkeypatch, case, device):
     assert len(got) == len(want)
     for got_batch, want_batch in zip(got, want):
         np.testing.assert_array_equal(got_batch[0], want_batch[0])
-        np.testing.assert_array_equal(got_batch[3], want_batch[3])
-        for got_rows, want_rows in zip(got_batch[1:3], want_batch[1:3]):
+        np.testing.assert_array_equal(got_batch[4], want_batch[3])
+        assert torch.equal(got_batch[2], got_batch[1] >= 0)
+        for got_rows, want_rows in zip(got_batch[1:4:2], want_batch[1:3]):
             if want_rows is None:
                 assert got_rows is None
                 continue
@@ -521,8 +594,8 @@ def test_score_helpers_match_jax():
         np.asarray(jax_eval._reciprocal_ranks(
             jax_masked, jnp.asarray(targets), jnp.asarray(targets >= 0))))
     for got, want in zip(
-            evaluation._precision_recall_from_scores(
-                masked, torch.from_numpy(targets),
+            evaluation._precision_recall_from_topk(
+                evaluation._top_items(masked, 10), torch.from_numpy(targets),
                 torch.from_numpy(targets >= 0), (1, 3, 10)),
             jax_eval._precision_recall_from_scores(
                 jax_masked, jnp.asarray(targets), jnp.asarray(targets >= 0),

@@ -209,5 +209,6 @@ def test_reciprocal_ranks_streaming_equals_the_rank_weight_path():
     mask = torch.from_numpy(rs.rand(16, 3) < 0.8)
     assert torch.equal(
         ranking.reciprocal_ranks_streaming(users, items, bias, targets, mask),
-        evaluation._streaming_ranks_device(users, items, bias, targets, mask,
-                                           None))
+        evaluation._streaming_ranks(evaluation._device_scorer(400),
+                                    (users, items, bias, None), targets,
+                                    mask))

@@ -278,5 +278,5 @@ def test_wrapper_without_pads_runs_the_chunk_loop(monkeypatch):
 def test_widths_outside_the_rows_raise(widths):
     users, items = torch.zeros(3, 4), torch.zeros(10, 4)
     with pytest.raises(ValueError, match='widths must be'):
-        ranking.ragged_rank_weights(users, items, torch.zeros(10),
-                                    torch.zeros(3, 5), widths)
+        ranking.rank_weights(users, items, torch.zeros(10),
+                             torch.zeros(3, 5), widths=widths)

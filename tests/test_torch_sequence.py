@@ -449,13 +449,13 @@ def test_lstm_streams_through_the_dot_kernels(monkeypatch):
 
     monkeypatch.setattr(evaluation, 'matched_candidate_scores', refuse)
     calls = []
-    original = evaluation.ragged_rank_weights
+    original = evaluation.rank_weights
 
     def spy(*args):
-        calls.append(args[5])
+        calls.append(args[4])
         return original(*args)
 
-    monkeypatch.setattr(evaluation, 'ragged_rank_weights', spy)
+    monkeypatch.setattr(evaluation, 'rank_weights', spy)
     evaluation.sequence_mrr_score(port, test, exclude_preceding=True)
     evaluation.sequence_precision_recall_score(port, test, k=3)
     assert calls == [None]
@@ -463,15 +463,23 @@ def test_lstm_streams_through_the_dot_kernels(monkeypatch):
 
 
 def test_dedup_rows_match_jax():
+    """Each prefix's distinct items (``_excluded_rows``), padded on the
+    device, equal the JAX package's ``_dedup_rows``."""
     rs = np.random.RandomState(5)
     rows = rs.randint(0, 6, (7, 9))
-    got = evaluation._dedup_rows(rows)
+
+    def padded(prefixes):
+        got, = evaluation._rows_on(
+            [evaluation._excluded_rows(prefixes, True)], torch.device('cpu'))
+        return got.numpy()
+
+    got = padded(rows)
     want = jax_eval._dedup_rows(rows)
     # The JAX package pads to a power-of-two width; the values agree.
     assert got.shape[1] <= want.shape[1]
     np.testing.assert_array_equal(got, want[:, :got.shape[1]])
     assert np.all(want[:, got.shape[1]:] == -1)
-    assert evaluation._dedup_rows(rows[:0]).shape == (0, 1)
+    assert padded(rows[:0]).shape == (0, 1)
 
 
 def test_empty_sequence_test_set_matches_jax():
