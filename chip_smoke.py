@@ -26,7 +26,13 @@ each of which exits non-zero when it fails:
    ragged launch plan) bit for bit against it without them (every row on
    every target chunk) on every call and against the plain version on the
    first, 0 on every pad; its launches and row passes, and both timed in
-   turns beside the rank pass's bound.
+   turns beside the rank pass's bound.  Then the LayerNorm kernel
+   (``ops/kernels/layer_norm.py``, port-only: SASRec's blocks) at the
+   ``sasrec-ml1m.mrr`` cell's call, (2,048, 200, 50) with its left padding
+   as zero rows, against its plain version and ``F.layer_norm`` (within
+   ``LAYER_NORM_ATOL``; the padding rows give the offset exactly), timed in
+   turns with both, and with the mean and rstd written as autograd wants
+   them, beside its bound in bytes.
 4. slice: the implicit-MF serving path at full width: 50,000 users x
    200,000 items, D=64, ``predict``, ``mrr_score`` over 20,000 test users
    with a train mask and ``precision_recall_score`` at k=10 with a train
@@ -51,7 +57,16 @@ each of which exits non-zero when it fails:
    path, each rank that differs printed and held to the exact rank of the
    plain catalogue pass; then a duplicated-row tie check (every rank
    k + 0.5), and where the device time of one more ``sequence_mrr_score``
-   goes.
+   goes.  Then SASRec's serving path at the ``sasrec-ml1m.mrr`` cell's
+   widths (``SelfAttentionNet``: D=50, 2 blocks, 200 steps, 3,417 items)
+   in ``ImplicitSequenceModel``: 4 ``sequence_mrr_score`` calls of 2,048
+   left-padded histories with the launch counters zeroed just before and
+   read just after (5 LayerNorm launches a forward pass, no
+   ``F.layer_norm`` call, K1 and K1c launched, no materialize route), a
+   profiled call holding ``layer_norm_warp`` and no torch LayerNorm
+   kernel, and the final representations against the same network with
+   ``F.layer_norm``.  Its launches are the kernel line's ``layer_norm``
+   count.
 7. bloom sequences: the serving path of
    ``examples/bloom_embeddings/performance.py``'s model at 1e6 items: an
    untrained ``LSTMNet`` (D=64) with a ``BloomEmbedding`` item layer
@@ -329,6 +344,25 @@ RAGGED_BATCH = 2_048
 RAGGED_CALLS = 4
 RAGGED_SEED = 2_147_483_659
 RAGGED_REPS = 5
+#: The LayerNorm case: the sasrec-ml1m.mrr cell's call (2,048 histories x
+#: 200 steps, D=50, eps 1e-8), each history's first 93 steps padding (zero
+#: rows; 46.4% of the steps on the cell's profile).
+LAYER_NORM_SHAPE = (2_048, 200, 50)
+LAYER_NORM_PADDING = 93
+LAYER_NORM_EPS = 1e-8
+#: Kernel against plain version and F.layer_norm: the row's two sums in
+#: other orders on outputs of order 1 (tests/test_torch_cuda.py).
+LAYER_NORM_ATOL = 2e-5
+#: The SASRec slice: the sasrec-ml1m.mrr cell's model at its published
+#: ML-1M widths (benchmark/configs/sasrec_ml1m.json), served in calls of
+#: 2,048 histories of 200 items, left-padded.
+SASREC_ITEMS, SASREC_DIM, SASREC_BLOCKS, SASREC_WINDOW = 3_417, 50, 2, 200
+SASREC_BATCH = 2_048
+SASREC_CALLS = 4
+#: Final representations of the main path against the same network with
+#: F.layer_norm: the rows' sums in other orders through two blocks
+#: (tests/test_torch_cuda.py's SASREC_REPR_ATOL).
+SASREC_REPR_ATOL = 2e-5
 #: The bloom slice: examples/bloom_embeddings/performance.py's model,
 #: LSTMNet with a BloomEmbedding item layer (ratio 0.2, 4 hashes), at the
 #: third of its catalogue sizes.
@@ -672,6 +706,62 @@ def check_ragged_rank_pass(torch, card, generator):
         del ids, pads, ts, weights
     del users, items, bias
     torch.cuda.empty_cache()
+
+
+def check_layer_norm(torch, card, generator):
+    """The LayerNorm kernel at SASRec's call (phase 3): against its plain
+    version and ``F.layer_norm``, the padding rows to the offset, timed in
+    turns with both.  Returns its kernel-table entry."""
+    import torch.nn.functional as F
+    from spotlight_tpu_torch.ops.kernels import layer_norm
+
+    dim = LAYER_NORM_SHAPE[-1]
+    x = torch.randn(LAYER_NORM_SHAPE, generator=generator, device=DEVICE)
+    x[:, :LAYER_NORM_PADDING] = 0.0
+    weight = 1 + 0.1 * (2 * torch.rand(dim, generator=generator,
+                                       device=DEVICE) - 1)
+    bias = 0.1 * (2 * torch.rand(dim, generator=generator,
+                                 device=DEVICE) - 1)
+    fns = {
+        'kernel': lambda: layer_norm.layer_norm(x, weight, bias,
+                                                LAYER_NORM_EPS),
+        'plain': lambda: layer_norm.layer_norm_plain(x, weight, bias,
+                                                     LAYER_NORM_EPS)[0],
+        'library': lambda: F.layer_norm(x, (dim,), weight, bias,
+                                        LAYER_NORM_EPS),
+        # As autograd calls it: mean and rstd written besides y.
+        'statistics': lambda: layer_norm._forward(
+            x, weight, bias, LAYER_NORM_EPS, stats=True)[0]}
+    with torch.no_grad():
+        before = layer_norm.LAYER_NORM_LAUNCHES
+        y = fns['kernel']()
+        launches = layer_norm.LAYER_NORM_LAUNCHES - before
+        err = max(float((y - fns[name]()).abs().max())
+                  for name in ('plain', 'library'))
+        if launches != 1 or err > LAYER_NORM_ATOL:
+            raise AssertionError(
+                'layer_norm: {} launches, {} from its plain version or '
+                'F.layer_norm (tolerance {})'.format(launches, err,
+                                                     LAYER_NORM_ATOL))
+        if not torch.equal(y[:, :LAYER_NORM_PADDING],
+                           bias.expand_as(y[:, :LAYER_NORM_PADDING])):
+            raise AssertionError('layer_norm: a padding row is not the '
+                                 'offset')
+        times = interleaved_ms(torch, fns, KERNEL_REPS)
+        device_ms, activities = device_work(torch, fns['kernel'])
+    entry = kernel_entry(
+        'layer_norm', 'layer_norm.cu', 'none (port-only SASRec)',
+        'rows={} D={} ({} x {} steps; first {} steps zero)'.format(
+            x.numel() // dim, dim, *LAYER_NORM_SHAPE[:2],
+            LAYER_NORM_PADDING),
+        times['kernel'], times['plain'], 8 * x.numel(),
+        2 * x.numel() * 4 + 2 * dim * 4, err, library_ms=times['library'],
+        device_ms=device_ms, device_activities=activities,
+        launches=launches, statistics_ms=times['statistics'])
+    log(kernel_case=entry, card=card)
+    del x, y
+    torch.cuda.empty_cache()
+    return entry
 
 
 def check_topk_kernel(torch, card, generator):
@@ -1359,6 +1449,125 @@ def check_duplicated_row_tie(torch, card, model, test):
         ranks_k_plus_half=int(np.sum(want % 1 == 0.5)),
         extra_exact_ties=[(int(b), int(equal[b]), float(want[b]))
                           for b in extra], card=card)
+
+
+def sasrec_histories(calls):
+    """``calls`` x 2,048 seeded histories of 200 items over SASREC_ITEMS,
+    each left-padded to its length, drawn uniform in [20, 200]."""
+    rs = np.random.RandomState(27)
+    rows = rs.randint(1, SASREC_ITEMS, (calls * SASREC_BATCH, SASREC_WINDOW))
+    lengths = rs.randint(20, SASREC_WINDOW + 1, len(rows))
+    rows[np.arange(SASREC_WINDOW)[None, :]
+         < (SASREC_WINDOW - lengths)[:, None]] = 0
+    return rows.reshape(calls, SASREC_BATCH, SASREC_WINDOW)
+
+
+def run_sasrec_slice(torch, card):
+    """SASRec's serving path (phase 6): ``sequence_mrr_score`` over
+    SASREC_CALLS calls of 2,048 histories, with the launch counters zeroed
+    just before and read just after: 2 x blocks + 1 LayerNorm launches a
+    forward pass, no ``F.layer_norm`` call, K1 and K1c launched, no
+    materialize route; a profiled call with ``layer_norm_warp`` and no
+    torch LayerNorm kernel; the final representations against the same
+    network with ``F.layer_norm``.  Returns the launch counts."""
+    from torch.nn import functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from spotlight_tpu_torch.data import SequenceInteractions
+    from spotlight_tpu_torch.evaluation import sequence_mrr_score
+    from spotlight_tpu_torch.ops.kernels import layer_norm
+    from spotlight_tpu_torch.sequence import (ImplicitSequenceModel,
+                                              SelfAttentionNet)
+
+    generator = torch.Generator().manual_seed(27)
+    net = SelfAttentionNet(SASREC_ITEMS, SASREC_DIM, num_blocks=SASREC_BLOCKS,
+                           max_sequence_length=SASREC_WINDOW,
+                           generator=generator)
+    with torch.no_grad():
+        for p in net.parameters():
+            p.add_(0.1 * torch.randn(p.shape, generator=generator))
+        net.item_embeddings.weight[0] = 0.0
+    histories = sasrec_histories(SASREC_CALLS)
+    tests = [SequenceInteractions(rows, num_items=SASREC_ITEMS)
+             for rows in histories]
+    model = ImplicitSequenceModel(loss='bpr', representation=net,
+                                  embedding_dim=SASREC_DIM, device=DEVICE)
+    model._initialize(tests[0])
+    sequence_mrr_score(model, tests[0])  # warm
+
+    forward, library_norm, passes = net.user_representation, F.layer_norm, []
+
+    def counted(sequences):
+        passes.append(len(sequences))
+        return forward(sequences)
+
+    def library_spy(*args, **kwargs):
+        raise AssertionError('the SASRec path called F.layer_norm')
+
+    # The main path, with the launch counters zeroed just before it.
+    net.user_representation, F.layer_norm = counted, library_spy
+    try:
+        torch.cuda.synchronize()
+        reset_counters()
+        layer_norm.LAYER_NORM_LAUNCHES = 0
+        call_ms = []
+        for test in tests:
+            start = time.perf_counter()
+            mrr = sequence_mrr_score(model, test)
+            call_ms.append((time.perf_counter() - start) * 1e3)
+            if mrr.shape != (SASREC_BATCH,) or not (np.all(mrr > 0)
+                                                    and np.all(mrr <= 1)):
+                raise AssertionError('sasrec: bad sequence_mrr_score')
+        counts = dict(counters(), layer_norm=layer_norm.LAYER_NORM_LAUNCHES)
+    finally:
+        F.layer_norm = library_norm
+        del net.user_representation
+    del counts['streaming_topk']
+    log(sasrec_path_launches=counts, forward_passes=len(passes),
+        histories=sum(passes))
+    check_streamed('sasrec path')
+    if (counts['layer_norm'] != (2 * SASREC_BLOCKS + 1) * len(passes)
+            or sum(passes) != SASREC_CALLS * SASREC_BATCH
+            or min(counts.values()) <= 0):
+        raise AssertionError('sasrec path: {} over {} forward passes of {} '
+                             'histories'.format(counts, len(passes),
+                                                sum(passes)))
+    log(sasrec_slice='sequence_mrr_score', histories=SASREC_BATCH,
+        call_ms=call_ms, users_per_s=SASREC_BATCH * 1e3
+        / statistics.median(call_ms), card=card)
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        sequence_mrr_score(model, tests[0])
+        wall_ms = (time.perf_counter() - start) * 1e3
+    profile_summary(card, 'sasrec sequence_mrr_score', prof, wall_ms)
+    names = {event.name for event in prof.events()
+             if event.device_type == torch.autograd.DeviceType.CUDA}
+    torch_norms = sorted(name for name in names if 'LayerNorm' in name
+                         or 'RowwiseMoments' in name)
+    if torch_norms or not any('layer_norm_warp' in name for name in names):
+        raise AssertionError('sasrec profile: torch LayerNorm kernels {}, '
+                             'layer_norm_warp {}'.format(
+                                 torch_norms, any('layer_norm_warp' in name
+                                                  for name in names)))
+
+    prefixes = torch.as_tensor(histories[0][:, :-1], device=DEVICE)
+    with torch.no_grad():
+        final = forward(prefixes)[1]
+        net._layer_norm = lambda x, weight, bias: F.layer_norm(
+            x, (SASREC_DIM,), weight, bias, net.EPS)
+        want = forward(prefixes)[1]
+        del net._layer_norm
+    gap = float((final - want).abs().max())
+    log(sasrec_final_gap=gap, tolerance=SASREC_REPR_ATOL)
+    if gap > SASREC_REPR_ATOL:
+        raise AssertionError('sasrec: final representations {} from '
+                             'F.layer_norm\'s'.format(gap))
+    del model, net, final, want
+    torch.cuda.empty_cache()
+    return counts
 
 
 # -- phase 7: the bloom sequence slice at full width -------------------------
@@ -5709,6 +5918,7 @@ def main():
     check_ragged_rank_pass(torch, card, generator)
     entries['streaming_topk'] = check_topk_kernel(torch, card, generator)
     check_mixture_kernels(torch, card, generator)
+    entries['layer_norm'] = check_layer_norm(torch, card, generator)
 
     captured = {}
     launches, model, test, train, heavy = run_slice(torch, card, captured)
@@ -5728,6 +5938,8 @@ def main():
     profile_call(torch, card, 'sequence_mrr_score',
                  lambda: sequence_mrr_score(seq_model, seq_test))
     torch.cuda.empty_cache()
+    for name, count in run_sasrec_slice(torch, card).items():
+        launches[name] = launches.get(name, 0) + count
 
     bloom_launches, bloom_model_, bloom_test, bloom_mrr = run_bloom_slice(
         torch, card, captured)
@@ -5841,7 +6053,7 @@ def main():
                  'bloom_gather_sum backward', 'multihot_gather_sum',
                  'multihot_gather_sum backward', 'row_adam (P1)',
                  'row_adam (P1, explicit)', 'row_adam (P1, sequence)',
-                 'row_adam (P1, mesh)'):
+                 'row_adam (P1, mesh)', 'layer_norm'):
         entry = dict(entries[name])
         entry['launches'] = launches[name]
         kernels.append(entry)

@@ -20,6 +20,9 @@
   rows named by occurrence ids, in place (the lazy training engine's row
   update, through :func:`~spotlight_tpu_torch.ops.lazy_adam.
   sparse_adam_rows`).
+- :func:`~spotlight_tpu_torch.ops.kernels.layer_norm.layer_norm`: LayerNorm
+  over the last dimension, one warp a row (SASRec's blocks; no TPU
+  counterpart).
 """
 
 from spotlight_tpu_torch.ops.kernels.bloom import bloom_gather_sum  # noqa: F401

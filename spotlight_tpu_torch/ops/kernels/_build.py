@@ -26,7 +26,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[3] / 'build' / 'kernels'
-SOURCES = ('ranking', 'topk', 'gather_sum', 'row_update')
+SOURCES = ('ranking', 'topk', 'gather_sum', 'row_update', 'layer_norm')
 FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-O3', '-std=c++17',
          '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -62,6 +62,10 @@ _SIGNATURES = {
     'row_update': {
         'spotlight_row_adam': (_I, [_P, _I, _P, _P, _P, _P, _I, _P, _I, _I,
                                     _I] + [_F] * 9 + [_P]),
+    },
+    'layer_norm': {
+        'spotlight_layer_norm': (_I, [_P, _P, _P, _P, _P, _P, _L, _I,
+                                      ctypes.c_double, _I, _I, _P]),
     },
 }
 

@@ -54,6 +54,7 @@ from torch import nn
 from spotlight_tpu_torch.ops.embeddings import (PADDING_IDX, BloomEmbedding,
                                                 FusedBiasEmbedding,
                                                 ScaledEmbedding, ZeroEmbedding)
+from spotlight_tpu_torch.ops.kernels.layer_norm import layer_norm
 from spotlight_tpu_torch.parallel.sharding import (ShardedBloomEmbedding,
                                                    ShardedEmbedding,
                                                    holds_blocks,
@@ -520,11 +521,13 @@ class SelfAttentionNet(_ItemRepresentationBase):
     port's ``x @ W`` layout with ``W`` of shape ``(D, D)``; dropout is
     active only in training mode (``fit`` sets it, the scoring paths set
     evaluation mode) and draws from torch's generator on the network's
-    device.  ``per_step[:, t]`` is ``out`` at the step that holds the
-    item before t, and ``final`` ``out`` at the newest step; items score by
-    their dot with it plus their bias (:meth:`score`,
-    :meth:`_catalog_matrix`), the item embeddings shared between input and
-    prediction.
+    device.  The LayerNorms run
+    :func:`~spotlight_tpu_torch.ops.kernels.layer_norm.layer_norm`: on the
+    card a hand-written kernel, one warp a row.  ``per_step[:, t]`` is
+    ``out`` at the step that holds the item before t, and ``final`` ``out``
+    at the newest step; items score by their dot with it plus their bias
+    (:meth:`score`, :meth:`_catalog_matrix`), the item embeddings shared
+    between input and prediction.
 
     Departures from the paper: Spotlight's item bias column is added to
     the scores; the final LayerNorm and LayerNorm's eps of 1e-8 come from
@@ -584,7 +587,7 @@ class SelfAttentionNet(_ItemRepresentationBase):
                                              'bias': offsets()})
 
     def _layer_norm(self, x, weight, bias):
-        return F.layer_norm(x, (self.embedding_dim,), weight, bias, self.EPS)
+        return layer_norm(x, weight, bias, self.EPS)
 
     def user_representation(self, sequences):
         """(per_step, final) representations of item ids ``sequences``

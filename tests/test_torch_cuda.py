@@ -17,19 +17,23 @@ backward to the same bits in two launches.  So is P1, the row-Adam update
 (``ops/kernels/row_update.py``): its sums, products, quotients and square
 roots are IEEE-rounded one by one in kernel and plain version alike.  A lazy
 training step on the card is held to the same step on the CPU: torch sums
-the gradients in another order there, so to rtol 1e-5.
+the gradients in another order there, so to rtol 1e-5.  The LayerNorm
+kernel (``ops/kernels/layer_norm.py``) sums a row as a warp's butterfly,
+another order than its plain version's and ``F.layer_norm``'s, so it is held
+to both within a stated tolerance.
 """
 
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from spotlight_tpu_torch import evaluation
 from spotlight_tpu_torch.data import Interactions, SequenceInteractions
 from spotlight_tpu_torch.factorization import ImplicitFactorizationModel
 from spotlight_tpu_torch.ops.kernels import (_build, bloom, gather_sum,
-                                             multihot, ranking, row_update,
-                                             topk)
+                                             layer_norm, multihot, ranking,
+                                             row_update, topk)
 from spotlight_tpu_torch.ops.lazy_adam import sparse_adam_rows
 from spotlight_tpu_torch.sequence import ImplicitSequenceModel, MixtureLSTMNet
 from spotlight_tpu_torch.utils.convert import params_from_jax
@@ -2356,3 +2360,112 @@ def test_sasrec_step_on_the_card_matches_the_reference(cuda, dtype):
     print('sasrec step gradient gaps ({}):'.format(dtype),
           max(gaps.values()), max(gaps, key=gaps.get))
     assert max(gaps.values()) <= SASREC_GRAD_TOL[dtype], gaps
+
+
+#: The LayerNorm kernel against its plain version and ``F.layer_norm`` on
+#: the card, float32: the same function with the row's two sums in other
+#: orders (a warp's butterfly against torch's reductions), on outputs of
+#: order 1 (standard-normal rows, a gain near 1): a few float32 roundings,
+#: about 1e-6; a wrong mean, variance, gain or offset is off by 1e-2 or
+#: more.  The blocks' own tolerance against the reference is the same
+#: 2e-05 (``SASREC_REPR_ATOL``).
+LAYER_NORM_ATOL = 2e-5
+
+
+def _layer_norm_operands(shape, dtype=torch.float32, seed=27):
+    """Standard-normal rows of ``shape`` on the card, every fifth leading
+    row zero (a padding step) and every seventh a dyadic constant (0.75:
+    its sum and mean are exact, so ``x - mean`` is 0), a gain near 1 and an
+    offset near 0.  Returns ``(x, weight, bias, constant)``, the last the
+    mask of zero and constant rows."""
+    generator = torch.Generator(device='cuda').manual_seed(seed)
+    dim = shape[-1]
+    x = torch.randn(shape, generator=generator, device='cuda', dtype=dtype)
+    rows = x.view(-1, dim)
+    rows[::5] = 0.0
+    rows[3::7] = 0.75
+    constant = torch.zeros(rows.shape[0], dtype=torch.bool, device='cuda')
+    constant[::5] = True
+    constant[3::7] = True
+    weight = 1 + 0.1 * torch.randn(dim, generator=generator, device='cuda',
+                                   dtype=dtype)
+    bias = 0.1 * torch.randn(dim, generator=generator, device='cuda',
+                             dtype=dtype)
+    return x, weight, bias, constant.view(shape[:-1])
+
+
+@pytest.mark.parametrize('eps', [1e-8, 1e-5])
+@pytest.mark.parametrize('shape', [(2048, 200, 50), (4096, 1), (4096, 7),
+                                   (4096, 32), (4096, 50), (4096, 64),
+                                   (4096, 100), (3000, 1024)],
+                         ids=lambda shape: 'x'.join(map(str, shape)))
+def test_layer_norm_kernel_matches_plain_and_functional(cuda, shape, eps):
+    """One launch under ``no_grad`` (``y`` alone) and one through autograd
+    (``y``, the mean and rstd): against the plain version and
+    ``F.layer_norm`` within ``LAYER_NORM_ATOL``; zero and dyadic constant
+    rows give the offset exactly, in the kernel and the plain version (its
+    quotients by D exact, as the kernel's; at D=7 a product with 1/7 would
+    miss a row of 0.75's mean, and rsqrt(eps) scales that to 7e-04)."""
+    x, weight, bias, constant = _layer_norm_operands(shape)
+    dim = shape[-1]
+    before = layer_norm.LAYER_NORM_LAUNCHES
+    with torch.no_grad():
+        y = layer_norm.layer_norm(x, weight, bias, eps)
+    assert layer_norm.LAYER_NORM_LAUNCHES == before + 1
+    plain, mean, rstd = layer_norm.layer_norm_plain(x, weight, bias, eps)
+    library = F.layer_norm(x, (dim,), weight, bias, eps)
+    for want in (plain, library):
+        torch.testing.assert_close(y, want, rtol=0, atol=LAYER_NORM_ATOL)
+    for got in (y, plain):
+        assert torch.equal(got[constant], bias.expand_as(got[constant]))
+    y_grad, mean_k, rstd_k = layer_norm._forward(x, weight, bias, eps,
+                                                 stats=True)
+    assert torch.equal(y_grad, y)
+    torch.testing.assert_close(mean_k, mean, rtol=0, atol=1e-6)
+    torch.testing.assert_close(rstd_k, rstd, rtol=1e-5, atol=0)
+
+
+def test_layer_norm_kernel_float64_and_gradients(cuda):
+    """float64 through the kernel against ``F.layer_norm`` to float64
+    rounding; float32 gradients of the input, gain and offset through the
+    kernel's forward and the plain backward against ``F.layer_norm``'s
+    autograd, as a share of each gradient's largest element."""
+    x, weight, bias, _ = _layer_norm_operands((64, 200, 50), torch.float64)
+    with torch.no_grad():
+        y = layer_norm.layer_norm(x, weight, bias, 1e-8)
+    torch.testing.assert_close(y, F.layer_norm(x, (50,), weight, bias, 1e-8),
+                               rtol=0, atol=1e-12)
+    x, weight, bias, _ = _layer_norm_operands((256, 200, 50))
+    for t in (x, weight, bias):
+        t.requires_grad_()
+    before = layer_norm.LAYER_NORM_LAUNCHES
+    y = layer_norm.layer_norm(x, weight, bias, 1e-8)
+    assert layer_norm.LAYER_NORM_LAUNCHES == before + 1
+    want_y = F.layer_norm(x, (50,), weight, bias, 1e-8)
+    torch.testing.assert_close(y, want_y, rtol=0, atol=LAYER_NORM_ATOL)
+    cotangent = torch.randn_like(y)
+    got = torch.autograd.grad(y, (x, weight, bias), cotangent)
+    want = torch.autograd.grad(want_y, (x, weight, bias), cotangent)
+    for name, g, w in zip(('x', 'weight', 'bias'), got, want):
+        gap = float((g - w).abs().max() / w.abs().max())
+        assert gap <= LAYER_NORM_ATOL, (name, gap)
+
+
+def test_layer_norm_kernel_refuses_wide_rows_and_other_dtypes(cuda):
+    x, weight, bias, _ = _layer_norm_operands((8, 1025))
+    with pytest.raises(ValueError, match='at most 1024'):
+        layer_norm.layer_norm(x, weight, bias, 1e-8)
+    x, weight, bias, _ = _layer_norm_operands((8, 50))
+    with pytest.raises(ValueError, match='float32 or float64'):
+        layer_norm.layer_norm(
+            *(t.to(torch.bfloat16) for t in (x, weight, bias)), 1e-8)
+
+
+def test_sasrec_forward_launches_five_layer_norms(cuda):
+    """Two blocks: two LayerNorms each and the final one, all through the
+    kernel."""
+    net, rows = _sasrec_case(cuda, histories=16)
+    before = layer_norm.LAYER_NORM_LAUNCHES
+    with torch.no_grad():
+        net.eval().user_representation(rows[:, :-1])
+    assert layer_norm.LAYER_NORM_LAUNCHES == before + 2 * SASREC_BLOCKS + 1
